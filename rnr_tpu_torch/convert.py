@@ -1,0 +1,93 @@
+"""Load the JAX model's variables into the port.
+
+Input: rnr_tpu's variable collections as nested dicts of numpy arrays
+(`{"params": ..., "spectral": ..., "constants": ...}`, what
+`jax.device_get(model.init(...))` gives).  The port's modules carry the
+flax names, so a torch parameter `a.b.Conv_1.weight` reads flax
+`params/a/b/Conv_1/kernel`, with the layout change of its module:
+
+- 3x3 stride-1 `Conv.kernel`: [kh, kw, I, O] as is (K3 reads HWIO);
+- other `Conv.weight`: [kh, kw, I, O] -> OIHW for F.conv2d;
+- `ConvTranspose.weight`: flip(k, (0, 1)).permute(2, 3, 0, 1) [I, O, 4, 4];
+- `nn.Linear.weight` (flax Dense): [in, out] transposed;
+- `SNDense.u`: from the `spectral` collection;
+- everything else (BatchActNorm scale/bias, textures, coeff, SNDense
+  kernel/bias, biases) as is.
+`constants` holds the lighting's basis caches, which serving does not
+read.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from rnr_tpu_torch.models.gcn import SNDense
+from rnr_tpu_torch.models.unet import Conv, ConvTranspose
+
+
+def _lookup(tree: dict, path: list[str]):
+    node = tree
+    for p in path:
+        if not isinstance(node, Mapping) or p not in node:
+            raise KeyError("/".join(path))
+        node = node[p]
+    return np.asarray(node)
+
+
+def _leaf_paths(tree: dict, prefix=()) -> set[tuple]:
+    out = set()
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out |= _leaf_paths(v, prefix + (k,))
+        else:
+            out.add(prefix + (k,))
+    return out
+
+
+def _convert(mod: nn.Module, leaf: str, variables: dict, path: list[str]):
+    """(flax collection, flax path, array in the torch layout)."""
+    params = variables["params"]
+    if isinstance(mod, SNDense) and leaf == "u":
+        return "spectral", path + ["u"], _lookup(variables["spectral"],
+                                                 path + ["u"])
+    if isinstance(mod, Conv) and leaf == "weight":
+        k = _lookup(params, path + ["kernel"])
+        return "params", path + ["kernel"], np.transpose(k, (3, 2, 0, 1))
+    if isinstance(mod, ConvTranspose) and leaf == "weight":
+        k = _lookup(params, path + ["kernel"])
+        return "params", path + ["kernel"], np.transpose(
+            k[::-1, ::-1], (2, 3, 0, 1))
+    if isinstance(mod, nn.Linear) and leaf == "weight":
+        return "params", path + ["kernel"], _lookup(
+            params, path + ["kernel"]).T
+    return "params", path + [leaf], _lookup(params, path + [leaf])
+
+
+@torch.no_grad()
+def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
+    """Copy every parameter (and SNDense `u`) of `model` from the JAX
+    variables; raises if one is missing, has another shape, or if a JAX
+    parameter is left unused."""
+    modules = dict(model.named_modules())
+    used: dict[str, set] = {"params": set(), "spectral": set()}
+    targets = list(model.named_parameters()) + [
+        (n, b) for n, b in model.named_buffers() if n.endswith(".u")]
+    for name, tensor in targets:
+        *mod_path, leaf = name.split(".")
+        mod = modules[".".join(mod_path)]
+        coll, fpath, arr = _convert(mod, leaf, variables, mod_path)
+        if tuple(arr.shape) != tuple(tensor.shape):
+            raise ValueError(f"{name}: JAX {'/'.join(fpath)} has shape "
+                             f"{arr.shape}, torch {tuple(tensor.shape)}")
+        tensor.copy_(torch.from_numpy(np.array(arr)))   # a fresh C-order copy
+        used[coll].add(tuple(fpath))
+    for coll in ("params", "spectral"):
+        left = _leaf_paths(variables.get(coll, {})) - used[coll]
+        if left:
+            raise ValueError(f"JAX {coll} not loaded: "
+                             f"{sorted('/'.join(p) for p in left)}")
+    return model

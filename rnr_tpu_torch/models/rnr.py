@@ -1,0 +1,140 @@
+"""The relightable neural renderer, serving path (port of rnr_tpu/models/rnr.py).
+
+Data flow of one frame:
+  v_feature  = gcn(mesh_pos)                 # once per sequence, cached
+  neural_img = texture(uv_map, sh_basis_map)  # K2
+  net_rays   = fan channels of 13 + 13 rays
+  rays_lt    = unet([net_rays || normal || view || neural_img], v_feature)
+  image      = SH-direct fan-fused shading of rays_lt  # K1
+Ported: the SH-direct path with the fan-fused shading (the shipped
+configuration).  The light-probe path, the unfused shading and the
+einsum fan construction raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from rnr_tpu.config import RNRConfig
+from rnr_tpu_torch.models.gcn import DenseDeepGCN, GCNConfig
+from rnr_tpu_torch.models.lighting import LightingSH
+from rnr_tpu_torch.models.rays import (RaySampler, build_fan_channels,
+                                       ray_render_sh)
+from rnr_tpu_torch.models.texture import TextureMapper
+from rnr_tpu_torch.models.unet import RenderingNet
+
+
+class RNRModel(nn.Module):
+    """cfg: rnr_tpu's RNRConfig.  num_v: the GCN mesh's vertex count (the
+    first spectral-norm layer spans the vertex axis; flax infers it from
+    the input, torch needs it up front)."""
+
+    def __init__(self, cfg: RNRConfig, num_v: int):
+        super().__init__()
+        c = cfg
+        if not c.rays.direct_sh_shading or not c.rays.sh_fan_fuse \
+                or c.rays.fan_impl != "elementwise":
+            raise NotImplementedError(
+                "the port serves the SH-direct, fan-fused path "
+                "(direct_sh_shading, sh_fan_fuse, fan_impl='elementwise')")
+        if c.render_net.remat not in (False, "none"):
+            raise NotImplementedError("remat is a training option")
+        self.cfg = cfg
+        self.rays_dtype = getattr(torch, c.rays.rays_dtype)
+        self.texture_mapper = TextureMapper(
+            c.texture.texture_size, c.texture.texture_num_ch,
+            c.texture.mipmap_level, c.texture.apply_sh)
+        self.render_net = RenderingNet(
+            nf0=c.render_net.nf0, in_channels=c.render_net_in_channels,
+            out_channels=c.render_net_out_channels,
+            num_down_unet=c.render_net.num_down_unet,
+            out_channels_gcn=c.gcn.out_channels, use_gcn=c.use_gcn,
+            norm=c.render_net.norm, compute_dtype=c.render_net.compute_dtype,
+            fuse_mode=c.render_net.fuse_mode, pad_mode=c.render_net.pad_mode)
+        if c.use_gcn:
+            g = c.gcn
+            self.gcn = DenseDeepGCN(GCNConfig(
+                in_channels=g.in_channels, n_filters=g.n_filters,
+                kernel_size=g.kernel_size, n_blocks=g.n_blocks,
+                conv_type=g.conv_type, block_type=g.block_type,
+                act_type=g.act_type, norm_type=g.norm_type,
+                use_bias=g.use_bias, num_v=num_v,
+                out_channels=g.out_channels, knn_approx=g.knn_approx,
+                compute_dtype=g.compute_dtype,
+                graph_refresh_every=g.graph_refresh_every,
+                strat_min_dilation=g.strat_min_dilation,
+                stratum_width=g.stratum_width))
+        self.lighting = LightingSH(c.lighting.sh_lmax,
+                                   c.lighting.num_lighting, 3)
+        spec = RaySampler(c.rays.num_azi, c.rays.num_polar,
+                          c.rays.interval_polar_specular, "reflect")
+        diff = RaySampler(c.rays.num_azi, c.rays.num_polar,
+                          c.rays.interval_polar_diffuse, "diffuse")
+        self.num_ray_specular = spec.num_ray
+        self.num_ray_diffuse = diff.num_ray
+        self.register_buffer("fan_pivots", torch.from_numpy(np.concatenate(
+            [spec.pivots_dir.T, diff.pivots_dir.T], axis=0).astype(np.float32)))
+
+    def compute_v_feature(self, gcn_pos: torch.Tensor) -> torch.Tensor:
+        """Run just the GCN ([1, out]); cached across the frames of a
+        sequence, since it does not depend on the view."""
+        if not self.cfg.use_gcn:
+            raise ValueError("use_gcn is off")
+        return self.gcn(gcn_pos)
+
+    def forward(self, batch: dict, lighting_idx: int = 0,
+                v_feature_override: torch.Tensor | None = None,
+                sh_coeff_override: torch.Tensor | None = None) -> dict:
+        """batch: NHWC G-buffer maps uv_map, sh_basis_map, normal_map,
+        view_dir_map, view_dir_map_tangent, TBN_map, alpha_map, and
+        gcn_pos [V, 3]."""
+        c = self.cfg
+        n, h, w = batch["alpha_map"].shape[:3]
+        v_feature = None
+        if c.use_gcn:
+            v_feature = (v_feature_override if v_feature_override is not None
+                         else self.gcn(batch["gcn_pos"]))
+            v_feature = v_feature.expand(n, v_feature.shape[-1])
+
+        neural_img = self.texture_mapper(batch["uv_map"],
+                                         batch["sh_basis_map"], sh_start_ch=6)
+        albedo_diffuse = neural_img[..., 0:3]
+        albedo_specular = neural_img[..., 3:6]
+
+        rdt = self.rays_dtype
+        net_rays, rays_dir = build_fan_channels(
+            batch["TBN_map"], batch["view_dir_map_tangent"],
+            batch["alpha_map"], self.fan_pivots, self.num_ray_specular)
+        net_rays = net_rays.to(rdt)
+        rays_dir = rays_dir.to(rdt)
+        r_total = rays_dir.shape[-1]
+
+        net_in = torch.cat([net_rays, batch["normal_map"].to(rdt),
+                            batch["view_dir_map"].to(rdt),
+                            neural_img.to(rdt)], dim=-1)
+        lt = self.render_net(net_in, v_feature)
+        rays_lt = lt.reshape(n, h, w, r_total, 3)
+        rays_lt = ((rays_lt * 0.5 + 0.5) * c.rays.lt_max_val).to(rdt)
+
+        sh_coeff = (sh_coeff_override if sh_coeff_override is not None
+                    else self.lighting.get_lighting_params(lighting_idx))
+        rendered = ray_render_sh(
+            albedo_specular, batch["alpha_map"], rays_lt, sh_coeff,
+            c.lighting.sh_lmax,
+            (batch["TBN_map"], batch["view_dir_map_tangent"], self.fan_pivots),
+            num_ray_diffuse=self.num_ray_diffuse,
+            albedo_diffuse=albedo_diffuse)
+        return {
+            "img": rendered["out"],
+            "rays_lt": rays_lt,
+            "rays_dir": rays_dir,
+            "neural_img": neural_img,
+            "albedo_specular": albedo_specular,
+            "albedo_diffuse": albedo_diffuse,
+            "v_feature": v_feature,
+            "lp": rendered["lp"],
+            "ltt_specular_map": rendered["ltt_specular_map"],
+            "ltt_diffuse_map": rendered["ltt_diffuse_map"],
+        }

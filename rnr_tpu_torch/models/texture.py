@@ -1,0 +1,50 @@
+"""Laplacian-mipmap neural texture (port of rnr_tpu/models/texture.py).
+
+A sample is the sum of bilinear taps at every pyramid level (K2); 9 of the
+sampled channels may then be modulated by the per-pixel SH basis map.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from rnr_tpu_torch.ops.texture_cuda import mipmap_sample
+
+
+class TextureMapper(nn.Module):
+    """Parameters `texture_{l}` [S_l, S_l, C] (level l has side S/2^l),
+    initialised like the JAX module: ones at level 0, 0.01 above."""
+
+    def __init__(self, texture_size: int, texture_num_ch: int,
+                 mipmap_level: int = 4, apply_sh: bool = True):
+        super().__init__()
+        self.texture_size = texture_size
+        self.mipmap_level = mipmap_level
+        self.apply_sh = apply_sh
+        for level in range(mipmap_level):
+            s = self.level_size(level)
+            t = torch.ones((s, s, texture_num_ch), dtype=torch.float32)
+            if level:
+                t = t * 0.01
+            setattr(self, f"texture_{level}", nn.Parameter(t))
+
+    def level_size(self, level: int) -> int:
+        return int(np.round(self.texture_size / (2.0 ** level)))
+
+    def levels(self) -> list[torch.Tensor]:
+        return [getattr(self, f"texture_{l}") for l in range(self.mipmap_level)]
+
+    def forward(self, uv_map: torch.Tensor,
+                sh_basis_map: torch.Tensor | None = None,
+                sh_start_ch: int = 3) -> torch.Tensor:
+        """uv_map [N, H, W, 2] in [0, 1], sh_basis_map [N, H, W, 9]
+        -> [N, H, W, C]."""
+        out = mipmap_sample(self.levels(), uv_map)
+        if self.apply_sh and sh_basis_map is not None:
+            nb = sh_basis_map.shape[-1]
+            mod = out[..., sh_start_ch:sh_start_ch + nb] * sh_basis_map
+            out = torch.cat([out[..., :sh_start_ch], mod,
+                             out[..., sh_start_ch + nb:]], dim=-1)
+        return out

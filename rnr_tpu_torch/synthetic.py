@@ -1,0 +1,141 @@
+"""Synthetic inputs and seeded weights for the port, with no JAX.
+
+`build_batch` is a NumPy copy of the G-buffer half of
+`__graft_entry__._build` (which imports JAX): a sphere filling about 80%
+of the frame, with smooth uv / normal / TBN maps, and a spatially coherent
+vertex cloud for the GCN.  `build_config` mirrors that function's
+RNRConfig; `init_weights` fills a model from a NumPy seed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rnr_tpu.config import (GCNTrainConfig, LightingConfig, LossConfig,
+                            RaysConfig, RenderNetConfig, RNRConfig,
+                            TextureConfig, TrainConfig)
+
+
+def fib_sphere(n: int) -> np.ndarray:
+    """[3, n] Fibonacci-sphere directions."""
+    i = np.arange(n) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    theta = np.pi * (1 + 5 ** 0.5) * i
+    return np.stack([np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
+                     np.cos(phi)]).astype(np.float32)
+
+
+def build_config(img_size: int, tex_size: int, lmax: int, nf0: int,
+                 num_down: int, gcn_blocks: int, num_azi: int,
+                 num_polar: int, rays_dtype: str = "bfloat16") -> RNRConfig:
+    """The RNRConfig of `__graft_entry__._build` with the shipped knobs of
+    tools/out/best_config.json: the hand 3x3 conv ("pallas3"), fan-fused
+    SH shading, graph refresh 1; bf16 rays unless asked otherwise."""
+    return RNRConfig(
+        texture=TextureConfig(texture_size=tex_size, texture_num_ch=24,
+                              mipmap_level=4),
+        lighting=LightingConfig(sh_lmax=lmax, num_lighting=2),
+        rays=RaysConfig(num_azi=num_azi, num_polar=num_polar,
+                        rays_dtype=rays_dtype, sh_fan_fuse=True),
+        gcn=GCNTrainConfig(n_blocks=gcn_blocks, kernel_size=16, n_filters=64,
+                           out_channels=512, graph_refresh_every=1),
+        render_net=RenderNetConfig(nf0=nf0, num_down_unet=num_down,
+                                   conv_backend="pallas3"),
+        loss=LossConfig(),
+        train=TrainConfig(img_size=img_size),
+    )
+
+
+def build_batch(img_size: int, gcn_v: int, batch: int = 1) -> dict:
+    """NumPy G-buffer batch, identical to `__graft_entry__._build`'s."""
+    rng = np.random.default_rng(0)
+    s = img_size
+    yy, xx = np.mgrid[0:s, 0:s].astype(np.float32)
+    xx = (2 * xx + 1 - s) / s
+    yy = (2 * yy + 1 - s) / s
+    r2 = xx * xx + yy * yy
+    rad = 0.8
+    inside = r2 < rad * rad
+    zz = np.sqrt(np.maximum(rad * rad - r2, 1e-12))
+    normal = np.stack([xx, yy, zz], -1) / rad
+    normal = np.where(inside[..., None], normal, [0.0, 0.0, 1.0])
+    normal = normal.astype(np.float32)
+    u = np.arctan2(normal[..., 2], normal[..., 0]) / (2 * np.pi) + 0.5
+    v = np.arccos(np.clip(normal[..., 1], -1, 1)) / np.pi
+    uv = np.where(inside[..., None], np.stack([u, v], -1), 0.0
+                  ).astype(np.float32)
+    up = np.asarray([0.0, 1.0, 0.0], np.float32)
+    t_ = up - normal * (normal @ up)[..., None]
+    t_ /= np.maximum(np.linalg.norm(t_, axis=-1, keepdims=True), 1e-6)
+    b_ = np.cross(normal, t_)
+    tbn = np.stack([t_, b_, normal], axis=-1).astype(np.float32)
+    vdt = np.broadcast_to(np.asarray([0, 0, 1], np.float32), (s, s, 3))
+    sh_b = np.stack(
+        [np.ones_like(u)] + [normal[..., i] for i in range(3)]
+        + [normal[..., i] * normal[..., j]
+           for i, j in ((0, 1), (1, 2), (0, 2), (0, 0), (1, 1))],
+        axis=-1,
+    ).astype(np.float32)
+    img_gt = (0.5 + 0.5 * np.sin(6 * uv[..., :1]) * np.cos(4 * uv[..., 1:])
+              ) * np.ones((1, 1, 3), np.float32)
+
+    def rep(a):
+        return np.broadcast_to(a, (batch,) + a.shape).copy()
+
+    pos = fib_sphere(gcn_v).T
+    pos = pos[np.argsort(pos[:, 2], kind="stable")]
+    pos = pos + 0.01 * rng.standard_normal((gcn_v, 3)).astype(np.float32)
+    return {
+        "uv_map": rep(uv),
+        "sh_basis_map": rep(sh_b),
+        "normal_map": rep(normal),
+        "view_dir_map": rep(vdt.copy()),
+        "view_dir_map_tangent": rep(vdt.copy()),
+        "TBN_map": rep(tbn),
+        "alpha_map": rep(inside[..., None].astype(np.float32)),
+        "img_gt": rep(img_gt.astype(np.float32)),
+        "gcn_pos": pos.astype(np.float32),
+    }
+
+
+def to_torch(batch: dict, device) -> dict:
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in batch.items()}
+
+
+@torch.no_grad()
+def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Seeded NumPy weights: fan-in-scaled normal kernels, zero biases,
+    unit norm scales, textures around their JAX init, and a nonzero SH
+    lighting (rnr_tpu starts it at zero, which renders black)."""
+    rng = np.random.default_rng(seed)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        shape = tuple(p.shape)
+        if leaf.startswith("texture_"):
+            a = 0.5 + 0.5 * rng.standard_normal(shape)
+        elif leaf == "coeff":
+            a = 0.3 * rng.standard_normal(shape)
+        elif leaf in ("scale", "norm_scale"):
+            a = np.ones(shape)
+        elif leaf in ("bias", "norm_bias"):
+            a = np.zeros(shape)
+        elif leaf == "prelu_slope":
+            a = np.full(shape, 0.2)
+        else:   # conv / dense kernels: lecun-normal by fan-in
+            if leaf == "kernel":        # [..., in, out] (HWIO or dense)
+                fan_in = int(np.prod(shape[:-1]))
+            elif p.ndim == 4:           # OIHW weight or IOHW transpose
+                fan_in = int(np.prod(shape[1:]))
+                if "ConvTranspose" in name:
+                    fan_in = shape[0] * shape[2] * shape[3]
+            else:                       # nn.Linear [out, in]
+                fan_in = shape[-1]
+            a = rng.standard_normal(shape) / np.sqrt(fan_in)
+        p.copy_(torch.from_numpy(a.astype(np.float32)))
+    for name, b in model.named_buffers():
+        if name.endswith(".u"):
+            b.copy_(torch.from_numpy(
+                rng.standard_normal(tuple(b.shape)).astype(np.float32)))
+    return model

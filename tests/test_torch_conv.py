@@ -1,0 +1,122 @@
+"""Port parity: the K3 twin (3x3 conv) and the U-Net modules vs rnr_tpu.
+
+The JAX conv3x3 runs in Pallas interpret mode; the JAX U-Net runs its XLA
+convs (conv_backend="xla"), the port its K3 twin for every 3x3 conv.
+Weights come from the JAX init, perturbed with NumPy noise so that norm
+scales, biases and every kernel are exercised, then `convert`ed.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rnr_tpu.models.unet import RenderingNet as JaxRenderingNet
+from rnr_tpu.ops.conv_pallas import conv3x3 as jax_conv3x3
+from rnr_tpu_torch.convert import load_jax_variables
+from rnr_tpu_torch.models.unet import RenderingNet
+from rnr_tpu_torch.ops.conv_cuda import conv3x3, conv3x3_torch
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("pad_mode", ["same", "reflect"])
+@pytest.mark.parametrize("c", [5, 64])
+def test_conv3x3_twin_matches_jax_interpret(pad_mode, c):
+    rng = np.random.default_rng(c)
+    x = rng.standard_normal((1, 16, 24, c)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, c, 12)) / np.sqrt(9 * c)).astype(
+        np.float32)
+    b = rng.standard_normal(12).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(jax_conv3x3(xj, jnp.asarray(w), jnp.asarray(b),
+                                  pad_mode, False, 0.2, True
+                                  ).astype(jnp.float32))
+    got = conv3x3(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w),
+                  torch.from_numpy(b), pad_mode)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 16, 24, 12)
+    # both: bf16 operands, f32 sums, bf16 output; the sums' order differs,
+    # so a value may round to the neighbouring bf16 (2^-8 relative)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=1e-2)
+    assert conv3x3.launches == 0
+
+
+def test_conv3x3_twin_f32_matches_xla_conv():
+    """At f32 activations the twin is an exact-precision conv + bias."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 9, 11, 6)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 6, 4)).astype(np.float32)
+    b = rng.standard_normal(4).astype(np.float32)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)), mode="reflect")
+    want = np.asarray(jax.lax.conv_general_dilated(
+        jnp.asarray(xp), jnp.asarray(w), (1, 1), "VALID",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST)) + b
+    got = conv3x3_torch(torch.from_numpy(x), torch.from_numpy(w),
+                        torch.from_numpy(b), "reflect").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _perturb(tree, rng, scale=0.1):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: _perturb(v, rng, scale) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return (a + scale * rng.standard_normal(a.shape)).astype(a.dtype)
+
+
+def _jax_forward(jn, seed, x, v, rng):
+    """Init (jitted: op-by-op init compiles every op), perturb, apply."""
+    init = jax.jit(lambda k, x_, v_: jn.init(k, x_, v_, train=False))
+    params = _perturb(jax.device_get(init(
+        jax.random.PRNGKey(seed), jnp.asarray(x), jnp.asarray(v)))["params"],
+        rng)
+    want = jax.jit(lambda p, x_, v_: jn.apply({"params": p}, x_, v_,
+                                              train=False))(
+        params, jnp.asarray(x), jnp.asarray(v))
+    return params, np.asarray(want)
+
+
+def _render_nets(fuse_mode, pad_mode, dtype, nf0=4, gcn=16, cin=11, cout=6):
+    kw = dict(nf0=nf0, in_channels=cin, out_channels=cout, num_down_unet=3,
+              out_channels_gcn=gcn, norm="batch", compute_dtype=dtype,
+              fuse_mode=fuse_mode, pad_mode=pad_mode)
+    return JaxRenderingNet(conv_backend="xla", **kw), RenderingNet(**kw)
+
+
+@pytest.mark.parametrize("fuse_mode,pad_mode", [
+    ("dense", "reflect"), ("dense", "same"), ("concat", "reflect"),
+    ("concat", "same")])
+def test_rendering_net_matches_jax_f32(fuse_mode, pad_mode):
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((1, 32, 32, 11)).astype(np.float32)
+    v = rng.standard_normal((1, 16)).astype(np.float32)
+    jn, tn = _render_nets(fuse_mode, pad_mode, "float32")
+    params, want = _jax_forward(jn, 0, x, v, rng)
+    load_jax_variables(tn, {"params": params})
+    with torch.no_grad():
+        got = tn(torch.from_numpy(x), torch.from_numpy(v)).numpy()
+    assert got.shape == (1, 32, 32, 6) and float(np.std(want)) > 0.05
+    # f32 everywhere; conv sums and batch statistics in another order
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+def test_rendering_net_bf16_close_to_jax():
+    """The shipped bf16 U-Net: the port (K3 twin, f32 sums + f32 bias) vs
+    XLA's bf16 convs (+ bias in bf16).  bf16 keeps 8 bits, and at 32^2
+    the innermost batch statistics span 2 x 2 pixels, so one rounding flip
+    (2^-8) is amplified by the normalisation of the levels below it: the
+    tanh output (|y| <= 1) is held to 1e-1 max and 1e-2 mean absolute
+    error (measured: 0.066 and 0.0062; the f32 tests above are the tight
+    check of the same code)."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((1, 32, 32, 11)).astype(np.float32)
+    v = rng.standard_normal((1, 16)).astype(np.float32)
+    jn, tn = _render_nets("dense", "reflect", "bfloat16", nf0=8)
+    params, want = _jax_forward(jn, 1, x, v, rng)
+    load_jax_variables(tn, {"params": params})
+    with torch.no_grad():
+        got = tn(torch.from_numpy(x), torch.from_numpy(v)).numpy()
+    err = np.abs(got - want)
+    assert err.max() < 1e-1 and err.mean() < 1e-2, (err.max(), err.mean())
