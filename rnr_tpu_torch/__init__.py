@@ -8,6 +8,8 @@ twin; a tensor on a CUDA device always goes to the kernel, which raises if
 it cannot build or launch.
 
 Layout follows the JAX package: NHWC at every public boundary.  Nothing
-here imports JAX; the only `rnr_tpu` module used is the dependency-free
-`rnr_tpu.config`.
+here imports JAX or any module of `rnr_tpu`: what the port needs from it
+(the config dataclasses, the synthetic inputs) it keeps as its own copy.
+The entry points (`RNRModel`, `make_generator`) build on the current CUDA
+device unless the caller passes `device="cpu"`, and raise without a card.
 """

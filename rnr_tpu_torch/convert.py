@@ -13,8 +13,10 @@ flax names, so a torch parameter `a.b.Conv_1.weight` reads flax
 - `SNDense.u`: from the `spectral` collection;
 - everything else (BatchActNorm scale/bias, textures, coeff, SNDense
   kernel/bias, biases) as is.
-`constants` holds the lighting's basis caches, which serving does not
-read.
+`constants` holds the lighting's basis caches: the port computes its own
+`basis_val` (a buffer of `LightingSH`), and the probe grid is not ported.
+`jax_grads_to_torch` maps a JAX gradient tree (the `params` structure)
+into the port's parameter names and layouts by the same rules.
 """
 
 from __future__ import annotations
@@ -91,3 +93,19 @@ def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
             raise ValueError(f"JAX {coll} not loaded: "
                              f"{sorted('/'.join(p) for p in left)}")
     return model
+
+
+def jax_grads_to_torch(model: nn.Module, grads: dict) -> dict:
+    """{parameter name: tensor} of the JAX gradient tree `grads` (the
+    structure of `params`), each in the layout of the port's parameter."""
+    modules = dict(model.named_modules())
+    out = {}
+    for name, p in model.named_parameters():
+        *mod_path, leaf = name.split(".")
+        _, fpath, arr = _convert(modules[".".join(mod_path)], leaf,
+                                 {"params": grads}, mod_path)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: JAX grad {'/'.join(fpath)} has shape "
+                             f"{arr.shape}, torch {tuple(p.shape)}")
+        out[name] = torch.from_numpy(np.array(arr))
+    return out

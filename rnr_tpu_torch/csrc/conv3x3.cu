@@ -1,5 +1,8 @@
 // 3x3 stride-1 convolution, NHWC bf16 input, HWIO bf16 weights, f32
-// accumulation, + bias in f32, bf16 output.  Zero ("same") or reflect
+// accumulation, + bias in f32, bf16 output (rnr_conv3x3) or f32 output
+// (rnr_conv3x3_f32out, the data gradient: the same kernel run on the
+// output gradient with rotated, io-transposed weights, as
+// conv_pallas.py:409-451 runs _conv3x3_fwd_impl).  Zero ("same") or reflect
 // padding is done by index arithmetic while the input tile is staged:
 // no padded copy of the input is ever made.
 //
@@ -53,11 +56,16 @@ __device__ __forceinline__ int pad_index(int i, int n, bool reflect) {
   return i < 0 ? -i : 2 * n - 2 - i;
 }
 
-template <bool VA, bool VB>
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+
+template <bool VA, bool VB, typename OutT>
 __global__ void __launch_bounds__(256)
 conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ w,
-               const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+               const float* __restrict__ bias, OutT* __restrict__ y,
                int n, int h, int wd, int c, int o, int reflect) {
   __shared__ __align__(128) unsigned char smem[SMEM];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -151,7 +159,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  // ---- epilogue: accumulators -> shared -> + bias -> bf16, coalesced ----
+  // ---- epilogue: accumulators -> shared -> + bias -> OutT, coalesced ----
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -164,8 +172,30 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
     const long long pmo = m0 + r;
     const int oc = o0 + col;
     if (pmo < m_total && oc < o)
-      y[pmo * o + oc] = __float2bfloat16(Cs[r * LDC + col] + bias[oc]);
+      store_out(y + pmo * o + oc, Cs[r * LDC + col] + bias[oc]);
   }
+}
+
+template <typename OutT>
+int launch(const void* x, const void* w, const void* bias, void* y, int n,
+           int h, int wd, int c, int o, int reflect, cudaStream_t stream) {
+  const long long m = (long long)n * h * wd;
+  dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)((o + BN - 1) / BN));
+  auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* wp = static_cast<const __nv_bfloat16*>(w);
+  auto* bp = static_cast<const float*>(bias);
+  auto* yp = static_cast<OutT*>(y);
+  // 16-byte staging needs rows of 8-element multiples
+  const bool va = c % 8 == 0, vb = o % 8 == 0;
+  if (va && vb)
+    conv3x3_kernel<true, true, OutT><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
+  else if (va)
+    conv3x3_kernel<true, false, OutT><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
+  else if (vb)
+    conv3x3_kernel<false, true, OutT><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
+  else
+    conv3x3_kernel<false, false, OutT><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -173,21 +203,14 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
 extern "C" int rnr_conv3x3(const void* x, const void* w, const void* bias,
                            void* y, int n, int h, int wd, int c, int o,
                            int reflect, cudaStream_t stream) {
-  const long long m = (long long)n * h * wd;
-  dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)((o + BN - 1) / BN));
-  auto* xp = static_cast<const __nv_bfloat16*>(x);
-  auto* wp = static_cast<const __nv_bfloat16*>(w);
-  auto* bp = static_cast<const float*>(bias);
-  auto* yp = static_cast<__nv_bfloat16*>(y);
-  // 16-byte staging needs rows of 8-element multiples
-  const bool va = c % 8 == 0, vb = o % 8 == 0;
-  if (va && vb)
-    conv3x3_kernel<true, true><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
-  else if (va)
-    conv3x3_kernel<true, false><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
-  else if (vb)
-    conv3x3_kernel<false, true><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
-  else
-    conv3x3_kernel<false, false><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
-  return static_cast<int>(cudaGetLastError());
+  return launch<__nv_bfloat16>(x, w, bias, y, n, h, wd, c, o, reflect, stream);
+}
+
+// The same conv with an f32 output: the dgrad of conv3x3 (no rounding of
+// the data gradient to bf16 before the reflect fold).
+extern "C" int rnr_conv3x3_f32out(const void* x, const void* w,
+                                  const void* bias, void* y, int n, int h,
+                                  int wd, int c, int o, int reflect,
+                                  cudaStream_t stream) {
+  return launch<float>(x, w, bias, y, n, h, wd, c, o, reflect, stream);
 }

@@ -1,4 +1,4 @@
-"""Dense deep GCN over mesh vertices, eval path (port of rnr_tpu/models/gcn.py).
+"""Dense deep GCN over mesh vertices (port of rnr_tpu/models/gcn.py).
 
 A head EdgeConv on vertex positions, residual (or dense) dynamic EdgeConv
 blocks whose kNN graphs are rebuilt from the current features with growing
@@ -7,9 +7,11 @@ spectral-normalised MLP over the vertex axis -> one [1, out] feature.
 
 Graphs: the head and the blocks below `strat_min_dilation` rank the full
 distance matrix (`knn_graph`); the other blocks sample strata of the
-stratified candidate set (K4, ops/knn_cuda.py).  Only the deterministic
-(eval) graph sampling is ported; the stochastic training branches come
-with the training step.
+stratified candidate set (K4, ops/knn_cuda.py).  In training with
+`stochastic`, each block's pick is, with probability `epsilon`, k random
+columns instead of the strided ones (one coin and one permutation per
+block and step, drawn from the caller's torch.Generator); graphs take
+detached features, as rnr_tpu's stop_gradient does.
 """
 
 from __future__ import annotations
@@ -24,8 +26,7 @@ from rnr_tpu_torch.ops.knn_cuda import stratified_knn
 
 @dataclasses.dataclass(frozen=True)
 class GCNConfig:
-    """rnr_tpu's GCNConfig, eval fields only (the stochastic-dilation
-    knobs come with training; ApproxTopK's recall has no counterpart in an
+    """rnr_tpu's GCNConfig (ApproxTopK's recall has no counterpart in an
     exact sort); `num_v` sizes the first SNDense."""
 
     in_channels: int = 6
@@ -37,6 +38,8 @@ class GCNConfig:
     act_type: str = "relu"
     norm_type: str | None = None
     use_bias: bool = True
+    stochastic: bool = True
+    epsilon: float = 0.2
     num_v: int = 7500
     out_channels: int = 512
     knn_approx: bool = True
@@ -75,17 +78,40 @@ def knn_graph(x: torch.Tensor, k: int, approx: bool = False) -> torch.Tensor:
     return _topk_lowest_index(-pairwise_distance(x.detach(), approx), k)
 
 
-def sample_strata(strat: torch.Tensor, k: int, phase_seed: int) -> torch.Tensor:
-    """Deterministic branch: a phase-strided subset of k strata."""
+def draw_pick(n_cols: int, k: int, epsilon: float,
+              generator: torch.Generator):
+    """One block's random pick: (use_random, a bool scalar tensor that is
+    True with probability epsilon; the first k of a random permutation of
+    n_cols).  Both stay on the generator's device: no host sync."""
+    dev = generator.device
+    coin = torch.rand((), generator=generator, device=dev) < epsilon
+    perm = torch.randperm(n_cols, generator=generator, device=dev)[:k]
+    return coin, perm
+
+
+def _pick(cols: torch.Tensor, strided: torch.Tensor, pick) -> torch.Tensor:
+    if pick is None:
+        return strided
+    use_random, perm = pick
+    return torch.where(use_random, cols[:, perm.to(cols.device)], strided)
+
+
+def sample_strata(strat: torch.Tensor, k: int, phase_seed: int,
+                  pick=None) -> torch.Tensor:
+    """A phase-strided subset of k strata, or, where `pick` (from
+    draw_pick over the strata) says so, its k random strata."""
     ns = strat.shape[1]
     stride = max(ns // k, 1)
     phase = (phase_seed * 7) % stride
-    return strat[:, phase::stride][:, :k]
+    return _pick(strat, strat[:, phase::stride][:, :k], pick)
 
 
-def dilate_edges(idx: torch.Tensor, k: int, dilation: int) -> torch.Tensor:
-    """Deterministic branch: every `dilation`-th of the k*dilation nearest."""
-    return idx[:, ::dilation][:, :k]
+def dilate_edges(idx: torch.Tensor, k: int, dilation: int,
+                 pick=None) -> torch.Tensor:
+    """Every `dilation`-th of the k*dilation nearest, or, where `pick`
+    (from draw_pick over the k*dilation columns) says so, its k random
+    columns."""
+    return _pick(idx, idx[:, ::dilation][:, :k], pick)
 
 
 class _Act(nn.Module):
@@ -162,8 +188,10 @@ class EdgeConv(nn.Module):
 
 class SNDense(nn.Module):
     """Dense layer with spectral weight normalisation.  `kernel` [in, out]
-    keeps the JAX layout; `u` is the stored power-iteration vector.  Eval
-    runs one power iteration from `u` and does not update it."""
+    keeps the JAX layout; `u` is the stored power-iteration vector.  Each
+    call runs one power iteration from `u` with no gradient through u and
+    v (rnr_tpu stops it there); with train=True the new u is written
+    back, as flax's `spectral` collection is."""
 
     def __init__(self, in_features: int, features: int, power_iters: int = 1):
         super().__init__()
@@ -172,15 +200,18 @@ class SNDense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("u", torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         w = self.kernel
-        u = self.u
-        v = None
-        for _ in range(self.power_iters):
-            v = w @ u
-            v = v / torch.clamp(torch.linalg.norm(v), min=1e-12)
-            u = v @ w
-            u = u / torch.clamp(torch.linalg.norm(u), min=1e-12)
+        with torch.no_grad():
+            u = self.u
+            v = None
+            for _ in range(self.power_iters):
+                v = w @ u
+                v = v / torch.clamp(torch.linalg.norm(v), min=1e-12)
+                u = v @ w
+                u = u / torch.clamp(torch.linalg.norm(u), min=1e-12)
+            if train:
+                self.u.copy_(u)
         sigma = torch.einsum("i,ij,j->", v, w, u)
         return x @ (w / sigma) + self.bias
 
@@ -210,8 +241,13 @@ class DenseDeepGCN(nn.Module):
         self.SNDense_0 = SNDense(cfg.num_v, 2048)
         self.SNDense_1 = SNDense(2048, cfg.out_channels)
 
-    def forward(self, pos: torch.Tensor, x: torch.Tensor | None = None):
+    def forward(self, pos: torch.Tensor, x: torch.Tensor | None = None,
+                train: bool = False,
+                generator: torch.Generator | None = None):
         cfg = self.cfg
+        stochastic = train and cfg.stochastic
+        if stochastic and generator is None:
+            raise ValueError("stochastic GCN training needs a torch.Generator")
         if x is None:
             x = pos
         data = torch.cat([pos, x], dim=-1)
@@ -232,7 +268,9 @@ class DenseDeepGCN(nn.Module):
                 if strat_cache is None or i % cfg.graph_refresh_every == 0:
                     strat_cache = stratified_knn(h.to(torch.float32),
                                                  cfg.stratum_width)
-                idx = sample_strata(strat_cache, k, i)
+                pick = (draw_pick(strat_cache.shape[1], k, cfg.epsilon,
+                                  generator) if stochastic else None)
+                idx = sample_strata(strat_cache, k, i, pick)
             else:
                 if idx_cache is None or i % cfg.graph_refresh_every == 0:
                     # one window for every windowed block until the next
@@ -243,7 +281,10 @@ class DenseDeepGCN(nn.Module):
                         last = min(last, cfg.strat_min_dilation - 2)
                     idx_cache = knn_graph(h.to(torch.float32),
                                           k * (1 + last), cfg.knn_approx)
-                idx = dilate_edges(idx_cache[:, :k * dilation], k, dilation)
+                pick = (draw_pick(k * dilation, k, cfg.epsilon, generator)
+                        if stochastic and dilation > 1 else None)
+                idx = dilate_edges(idx_cache[:, :k * dilation], k, dilation,
+                                   pick)
             conv = getattr(self, f"EdgeConv_{i + 1}")
             if cfg.block_type == "res":
                 feats.append(conv(h, idx) + h)
@@ -253,4 +294,5 @@ class DenseDeepGCN(nn.Module):
         fused = torch.cat(feats, dim=-1).to(torch.float32)
         fused = self._Act_0(self.Dense_0(fused))
         per_vertex = torch.amax(fused, dim=-1)
-        return self.SNDense_1(self.SNDense_0(per_vertex[None, :]))
+        h = self.SNDense_0(per_vertex[None, :], train)
+        return self.SNDense_1(h, train)

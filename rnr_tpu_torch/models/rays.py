@@ -76,6 +76,33 @@ def build_fan_channels(tbn, vdt, alpha, pivots, r_spec: int):
     return net_rays, rays_dir
 
 
+def rays_lt_chrom_loss(rays_lt: torch.Tensor, alpha_map: torch.Tensor,
+                       img: torch.Tensor | None = None):
+    """White-light-transport chromaticity prior (rnr_tpu/models/rays.py:199).
+
+    rays_lt [N, H, W, R, C] (f32 math even when stored bf16), alpha_map
+    [N, H, W, 1], img optional [N, H, W, C] intensity weighting.  Both
+    normalisations use rsqrt(sq + 1e-20), finite with a finite gradient at
+    rays_lt = 0 (where a norm's gradient is NaN).
+    Returns (loss, chrom, chrom_mean, diff).
+    """
+    rays_lt = rays_lt.to(torch.float32)
+    sq = torch.sum(rays_lt * rays_lt, dim=-1, keepdim=True)
+    chrom = rays_lt * torch.rsqrt(sq + 1e-20)
+    chrom_mean = torch.mean(chrom, dim=-2, keepdim=True)
+    sq_m = torch.sum(chrom_mean * chrom_mean, dim=-1, keepdim=True)
+    chrom_mean = chrom_mean * torch.rsqrt(sq_m + 1e-20)
+    diff = (1.0 - torch.sum(chrom * chrom_mean, dim=-1)) * alpha_map
+    if img is not None:
+        weight = torch.clamp(torch.linalg.vector_norm(img, dim=-1,
+                                                      keepdim=True) * 20.0,
+                             max=1.0)
+        diff = diff * weight
+    loss = (torch.sum(diff) / torch.clamp(torch.sum(alpha_map), min=1.0)
+            / rays_lt.shape[-2])
+    return loss, chrom, chrom_mean, diff
+
+
 def ray_render_sh(albedo_specular, alpha_map, rays_lt, sh_coeff, sh_lmax: int,
                   fan_inputs, num_ray_diffuse: int, albedo_diffuse):
     """SH-direct composition, fan-fused branch (K1), separate albedos.

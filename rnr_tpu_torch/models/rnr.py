@@ -1,14 +1,17 @@
-"""The relightable neural renderer, serving path (port of rnr_tpu/models/rnr.py).
+"""The relightable neural renderer (port of rnr_tpu/models/rnr.py).
 
 Data flow of one frame:
-  v_feature  = gcn(mesh_pos)                 # once per sequence, cached
-  neural_img = texture(uv_map, sh_basis_map)  # K2
+  v_feature  = gcn(mesh_pos)                 # K4; cached when serving
+  neural_img = texture(uv_map, sh_basis_map)  # K2 (backward K2b)
   net_rays   = fan channels of 13 + 13 rays
   rays_lt    = unet([net_rays || normal || view || neural_img], v_feature)
-  image      = SH-direct fan-fused shading of rays_lt  # K1
+                                              # K3 (backward K3, K3b)
+  image      = SH-direct fan-fused shading of rays_lt  # K1 (backward K1b)
 Ported: the SH-direct path with the fan-fused shading (the shipped
-configuration).  The light-probe path, the unfused shading and the
-einsum fan construction raise NotImplementedError.
+configuration), for serving and for training (train=True: dropout, the
+stochastic GCN graphs and the SNDense power-iteration update).  The
+light-probe path, the unfused shading, the einsum fan construction and
+remat raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,22 +20,29 @@ import numpy as np
 import torch
 from torch import nn
 
-from rnr_tpu.config import RNRConfig
+from rnr_tpu_torch.config import RNRConfig
 from rnr_tpu_torch.models.gcn import DenseDeepGCN, GCNConfig
-from rnr_tpu_torch.models.lighting import LightingSH
+from rnr_tpu_torch.models.lighting import LightingSH, fib_sphere
 from rnr_tpu_torch.models.rays import (RaySampler, build_fan_channels,
                                        ray_render_sh)
 from rnr_tpu_torch.models.texture import TextureMapper
 from rnr_tpu_torch.models.unet import RenderingNet
+from rnr_tpu_torch.ops.backend import resolve_device
 
 
 class RNRModel(nn.Module):
-    """cfg: rnr_tpu's RNRConfig.  num_v: the GCN mesh's vertex count (the
+    """cfg: the port's RNRConfig.  num_v: the GCN mesh's vertex count (the
     first spectral-norm layer spans the vertex axis; flax infers it from
-    the input, torch needs it up front)."""
+    the input, torch needs it up front).  l_dir: [3, S] sphere sample
+    directions of the lighting (default: the Fibonacci sphere of
+    cfg.lighting.num_sample, the synthetic set).  The model is built on
+    `device`: the current CUDA device when None (raising without one),
+    "cpu" for the plain versions of the kernels."""
 
-    def __init__(self, cfg: RNRConfig, num_v: int):
+    def __init__(self, cfg: RNRConfig, num_v: int,
+                 l_dir: np.ndarray | None = None, device=None):
         super().__init__()
+        device = resolve_device(device)
         c = cfg
         if not c.rays.direct_sh_shading or not c.rays.sh_fan_fuse \
                 or c.rays.fan_impl != "elementwise":
@@ -40,12 +50,12 @@ class RNRModel(nn.Module):
                 "the port serves the SH-direct, fan-fused path "
                 "(direct_sh_shading, sh_fan_fuse, fan_impl='elementwise')")
         if c.render_net.remat not in (False, "none"):
-            raise NotImplementedError("remat is a training option")
+            raise NotImplementedError("remat is not ported")
         self.cfg = cfg
         self.rays_dtype = getattr(torch, c.rays.rays_dtype)
         self.texture_mapper = TextureMapper(
             c.texture.texture_size, c.texture.texture_num_ch,
-            c.texture.mipmap_level, c.texture.apply_sh)
+            c.texture.mipmap_level, c.texture.apply_sh, c.texture.fix_tex)
         self.render_net = RenderingNet(
             nf0=c.render_net.nf0, in_channels=c.render_net_in_channels,
             out_channels=c.render_net_out_channels,
@@ -60,14 +70,18 @@ class RNRModel(nn.Module):
                 kernel_size=g.kernel_size, n_blocks=g.n_blocks,
                 conv_type=g.conv_type, block_type=g.block_type,
                 act_type=g.act_type, norm_type=g.norm_type,
-                use_bias=g.use_bias, num_v=num_v,
+                use_bias=g.use_bias, stochastic=g.stochastic,
+                epsilon=g.epsilon, num_v=num_v,
                 out_channels=g.out_channels, knn_approx=g.knn_approx,
                 compute_dtype=g.compute_dtype,
                 graph_refresh_every=g.graph_refresh_every,
                 strat_min_dilation=g.strat_min_dilation,
                 stratum_width=g.stratum_width))
-        self.lighting = LightingSH(c.lighting.sh_lmax,
-                                   c.lighting.num_lighting, 3)
+        if l_dir is None:
+            l_dir = fib_sphere(c.lighting.num_sample)
+        self.lighting = LightingSH(l_dir, c.lighting.sh_lmax,
+                                   c.lighting.num_lighting, 3,
+                                   c.lighting.fix_lighting)
         spec = RaySampler(c.rays.num_azi, c.rays.num_polar,
                           c.rays.interval_polar_specular, "reflect")
         diff = RaySampler(c.rays.num_azi, c.rays.num_polar,
@@ -76,6 +90,7 @@ class RNRModel(nn.Module):
         self.num_ray_diffuse = diff.num_ray
         self.register_buffer("fan_pivots", torch.from_numpy(np.concatenate(
             [spec.pivots_dir.T, diff.pivots_dir.T], axis=0).astype(np.float32)))
+        self.to(device)
 
     def compute_v_feature(self, gcn_pos: torch.Tensor) -> torch.Tensor:
         """Run just the GCN ([1, out]); cached across the frames of a
@@ -86,16 +101,20 @@ class RNRModel(nn.Module):
 
     def forward(self, batch: dict, lighting_idx: int = 0,
                 v_feature_override: torch.Tensor | None = None,
-                sh_coeff_override: torch.Tensor | None = None) -> dict:
+                sh_coeff_override: torch.Tensor | None = None,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
         """batch: NHWC G-buffer maps uv_map, sh_basis_map, normal_map,
         view_dir_map, view_dir_map_tangent, TBN_map, alpha_map, and
-        gcn_pos [V, 3]."""
+        gcn_pos [V, 3].  train=True runs dropout and the stochastic GCN
+        graphs from `generator` and advances the SNDense vectors."""
         c = self.cfg
         n, h, w = batch["alpha_map"].shape[:3]
         v_feature = None
         if c.use_gcn:
             v_feature = (v_feature_override if v_feature_override is not None
-                         else self.gcn(batch["gcn_pos"]))
+                         else self.gcn(batch["gcn_pos"], train=train,
+                                       generator=generator))
             v_feature = v_feature.expand(n, v_feature.shape[-1])
 
         neural_img = self.texture_mapper(batch["uv_map"],
@@ -114,7 +133,7 @@ class RNRModel(nn.Module):
         net_in = torch.cat([net_rays, batch["normal_map"].to(rdt),
                             batch["view_dir_map"].to(rdt),
                             neural_img.to(rdt)], dim=-1)
-        lt = self.render_net(net_in, v_feature)
+        lt = self.render_net(net_in, v_feature, train, generator)
         rays_lt = lt.reshape(n, h, w, r_total, 3)
         rays_lt = ((rays_lt * 0.5 + 0.5) * c.rays.lt_max_val).to(rdt)
 
@@ -128,6 +147,7 @@ class RNRModel(nn.Module):
             albedo_diffuse=albedo_diffuse)
         return {
             "img": rendered["out"],
+            "l_samples_est": self.lighting(lighting_idx)[0],
             "rays_lt": rays_lt,
             "rays_dir": rays_dir,
             "neural_img": neural_img,

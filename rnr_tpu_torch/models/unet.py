@@ -1,23 +1,29 @@
-"""Deferred-rendering U-Net with GCN feature fusion, eval path (port of
+"""Deferred-rendering U-Net with GCN feature fusion (port of
 rnr_tpu/models/unet.py).
 
-NHWC at every module boundary.  Every 3x3 stride-1 conv runs K3
-(ops/conv_cuda.py), as rnr_tpu's conv_backend="pallas3" does; the 4x4
-stride-2 conv and the 4x4 transpose conv stay F.conv2d /
-F.conv_transpose2d, as they stay XLA convs there.  Normalisation uses
-current-batch statistics ("batch", no running state) or none; dropout is
-off (the port serves, it does not train yet).  Submodule names mirror the
-flax auto-names (Conv_0, BatchActNorm_1, DownBlock_2, ...), so that
+NHWC at every module boundary.  Every 3x3 stride-1 conv runs K3 and, in
+the backward, its data gradient (K3 again) and K3b (ops/conv_cuda.py), as
+rnr_tpu's conv_backend="pallas3" does; the 4x4 stride-2 conv and the 4x4
+transpose conv stay F.conv2d / F.conv_transpose2d, as they stay XLA convs
+there.  Normalisation uses current-batch statistics ("batch", no running
+state) or none.  With train=True, dropout (p 0.1) follows every
+activation where rnr_tpu's Unet has it, its masks drawn from the
+torch.Generator the caller passes.  Submodule names mirror the flax
+auto-names (Conv_0, BatchActNorm_1, DownBlock_2, ...), so that
 `rnr_tpu_torch.convert` can map a JAX parameter tree by path.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from rnr_tpu_torch.ops.conv_cuda import conv3x3
+
+DROPOUT_P = 0.1   # rnr_tpu's RenderingNet fixes the U-Net's dropout rate
 
 
 def _check_norm(norm: str) -> str:
@@ -122,6 +128,21 @@ def _lrelu(x):
     return F.leaky_relu(x, 0.2)
 
 
+def _identity(x):
+    return x
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax nn.Dropout in training: keep each value with probability 1 - p
+    and scale the kept ones by 1 / (1 - p).  The mask is drawn from
+    `generator` (on x's device), never from the global RNG."""
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class DownBlock(nn.Module):
     """[3x3 prep conv, norm, LeakyReLU] + [kxk stride-s conv, norm,
     LeakyReLU]."""
@@ -138,9 +159,9 @@ class DownBlock(nn.Module):
             self.BatchActNorm_0 = BatchActNorm(in_ch)
             self.BatchActNorm_1 = BatchActNorm(out_ch)
 
-    def forward(self, x):
-        x = _norm_act(self, 0, self.Conv_0(x), _lrelu)
-        return _norm_act(self, 1, self.Conv_1(x), _lrelu)
+    def forward(self, x, drop=_identity):
+        x = drop(_norm_act(self, 0, self.Conv_0(x), _lrelu))
+        return drop(_norm_act(self, 1, self.Conv_1(x), _lrelu))
 
 
 class UpBlock(nn.Module):
@@ -156,9 +177,9 @@ class UpBlock(nn.Module):
             self.BatchActNorm_0 = BatchActNorm(out_ch)
             self.BatchActNorm_1 = BatchActNorm(out_ch)
 
-    def forward(self, x):
-        x = _norm_act(self, 0, self.ConvTranspose_0(x), torch.relu)
-        return _norm_act(self, 1, self.Conv_0(x), torch.relu)
+    def forward(self, x, drop=_identity):
+        x = drop(_norm_act(self, 0, self.ConvTranspose_0(x), torch.relu))
+        return drop(_norm_act(self, 1, self.Conv_0(x), torch.relu))
 
 
 class GcnFuseBlock(nn.Module):
@@ -180,16 +201,19 @@ class GcnFuseBlock(nn.Module):
             self.BatchActNorm_0 = BatchActNorm(mid)
             self.BatchActNorm_1 = BatchActNorm(out_ch)
 
-    def forward(self, h, v):
+    def forward(self, h, v, drop=_identity):
         dt = self.dtype or v.dtype
         proj = F.linear(v.to(dt), self.Dense_0.weight.to(dt))
         x = self.Conv_0(h) + proj[:, None, None, :]
-        x = _norm_act(self, 0, x, _lrelu)
-        return _norm_act(self, 1, self.Conv_1(x), _lrelu)
+        x = drop(_norm_act(self, 0, x, _lrelu))
+        return drop(_norm_act(self, 1, self.Conv_1(x), _lrelu))
 
 
 class Unet(nn.Module):
-    """Skip-connected encoder/decoder with GCN fusion after level 0."""
+    """Skip-connected encoder/decoder with GCN fusion after level 0.
+    Dropout (p DROPOUT_P) runs in training; `use_dropout` may be switched
+    off on an instance (as rnr_tpu's Unet field), e.g. to compare two
+    devices' gradients."""
 
     def __init__(self, in_channels: int, out_channels: int, nf0: int = 64,
                  num_down: int = 5, max_channels: int = 512,
@@ -206,6 +230,7 @@ class Unet(nn.Module):
             raise ValueError(f"outermost_highway_mode {outermost_highway_mode!r}")
         nd = num_down
         self.num_down, self.use_gcn, self.fuse_mode = nd, use_gcn, fuse_mode
+        self.use_dropout = True
         self.outermost_linear = outermost_linear
         self.highway = outermost_highway_mode
         self.cdtype = cdt = getattr(torch, compute_dtype)
@@ -253,27 +278,35 @@ class Unet(nn.Module):
         if not outermost_linear and norm == "batch":
             self.BatchActNorm_1 = BatchActNorm(out_channels)
 
-    def forward(self, x: torch.Tensor, v_fea: torch.Tensor | None = None):
+    def forward(self, x: torch.Tensor, v_fea: torch.Tensor | None = None,
+                train: bool = False,
+                generator: torch.Generator | None = None):
+        drop = _identity
+        if train and self.use_dropout:
+            if generator is None:
+                raise ValueError("dropout in training needs a torch.Generator")
+            drop = functools.partial(dropout, p=DROPOUT_P,
+                                     generator=generator)
         x = x.to(self.cdtype)
         if v_fea is not None:
             v_fea = v_fea.to(self.cdtype)
-        h = _norm_act(self, 0, self.Conv_0(x), _lrelu)
+        h = drop(_norm_act(self, 0, self.Conv_0(x), _lrelu))
         skips = []
         for i, name in enumerate(self.down_names):
             skips.append(h)
-            h = getattr(self, name)(h)
+            h = getattr(self, name)(h, drop)
             if i == 0 and self.use_gcn:
                 if v_fea is None:
                     raise ValueError("use_gcn=True requires v_fea")
                 if self.fuse_mode == "dense":
-                    h = self.GcnFuseBlock_0(h, v_fea)
+                    h = self.GcnFuseBlock_0(h, v_fea, drop)
                 else:
                     tiled = v_fea[:, None, None, :].expand(
                         h.shape[0], h.shape[1], h.shape[2], v_fea.shape[-1])
                     h = getattr(self, self.fuse_name)(
-                        torch.cat([h, tiled], dim=-1))
+                        torch.cat([h, tiled], dim=-1), drop)
         for j, i in enumerate(reversed(range(self.num_down))):
-            h = getattr(self, f"UpBlock_{j}")(h)
+            h = getattr(self, f"UpBlock_{j}")(h, drop)
             mode = self.highway if i == 0 else "concat"
             if mode == "concat":
                 h = torch.cat([skips[i], h], dim=-1)
@@ -281,12 +314,13 @@ class Unet(nn.Module):
                 h = skips[i] + h
         h = self.Conv_1(h)
         if not self.outermost_linear:
-            h = _norm_act(self, 1, h, torch.relu)
+            h = drop(_norm_act(self, 1, h, torch.relu))
         return h
 
 
 class RenderingNet(nn.Module):
-    """U-Net + tanh head; `Unet_0` as in the flax tree."""
+    """U-Net + tanh head; `Unet_0` as in the flax tree, with dropout
+    (rnr_tpu's RenderingNet forces use_dropout=True)."""
 
     def __init__(self, nf0: int, in_channels: int, out_channels: int,
                  num_down_unet: int = 5, out_channels_gcn: int = 512,
@@ -302,5 +336,7 @@ class RenderingNet(nn.Module):
             compute_dtype=compute_dtype, fuse_mode=fuse_mode,
             pad_mode=pad_mode)
 
-    def forward(self, x, v_fea=None):
-        return torch.tanh(self.Unet_0(x, v_fea).to(torch.float32))
+    def forward(self, x, v_fea=None, train: bool = False,
+                generator: torch.Generator | None = None):
+        return torch.tanh(self.Unet_0(x, v_fea, train, generator).to(
+            torch.float32))

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -77,6 +78,14 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _libs[name] = lib
     return lib
+
+
+def load_all(names) -> None:
+    """Build and load several sources at once: one nvcc per source, all
+    started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        list(pool.map(load, names))
 
 
 def fn(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):

@@ -22,6 +22,18 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
                      "on one CUDA device or all on the CPU")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: the current CUDA device when
+    `device` is None (raising when there is no card: nothing falls back
+    to the CPU), else `device` as given (`"cpu"` for the plain versions)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU unless "
+                           "device='cpu' is passed")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The current stream of the tensor's device, as the int handle the C
     entry points take; the device must be the current one, since the

@@ -1,4 +1,4 @@
-"""Bilinear gather (port of rnr_tpu/ops/interpolate.py).
+"""Bilinear gather and resize (port of rnr_tpu/ops/interpolate.py).
 
 Coordinates are in texel units; samples outside [0, W-1] x [0, H-1] are
 exactly zero, corner indices are clamped, and at the right/bottom edge the
@@ -9,17 +9,14 @@ texel returns that texel.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
-def interpolate_bilinear(data: torch.Tensor, x: torch.Tensor,
-                         y: torch.Tensor) -> torch.Tensor:
-    """data [H, W, C], x/y [...] -> [..., C]."""
-    h, w = data.shape[0], data.shape[1]
-    dtype = data.dtype
-    x = x.to(dtype)
-    y = y.to(dtype)
-
-    valid = ((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)).to(dtype)
+def bilinear_taps(x: torch.Tensor, y: torch.Tensor, h: int, w: int):
+    """The four taps of `interpolate_bilinear` at x, y [...]: a list of
+    (flat texel index [...] int64, weight [...]) in the order 00, 10, 01,
+    11 (first index y, second x).  The backward scatter uses the same."""
+    valid = ((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)).to(x.dtype)
 
     # clamp before the int conversion so it is defined for any finite x
     x0 = torch.clamp(torch.floor(x.clamp(-1, w)).to(torch.int64), 0, w - 1)
@@ -27,21 +24,34 @@ def interpolate_bilinear(data: torch.Tensor, x: torch.Tensor,
     y0 = torch.clamp(torch.floor(y.clamp(-1, h)).to(torch.int64), 0, h - 1)
     y1 = torch.clamp(y0 + 1, 0, h - 1)
 
+    x0w = (x0 - (x0 == x1).to(x0.dtype)).to(x.dtype)
+    y0w = (y0 - (y0 == y1).to(y0.dtype)).to(x.dtype)
+    x1w = x1.to(x.dtype)
+    y1w = y1.to(x.dtype)
+
+    return [(y0 * w + x0, (x1w - x) * (y1w - y) * valid),
+            (y1 * w + x0, (x1w - x) * (y - y0w) * valid),
+            (y0 * w + x1, (x - x0w) * (y1w - y) * valid),
+            (y1 * w + x1, (x - x0w) * (y - y0w) * valid)]
+
+
+def interpolate_bilinear(data: torch.Tensor, x: torch.Tensor,
+                         y: torch.Tensor) -> torch.Tensor:
+    """data [H, W, C], x/y [...] -> [..., C]."""
+    h, w = data.shape[0], data.shape[1]
     flat = data.reshape(h * w, -1)
-    i00 = flat[y0 * w + x0]
-    i10 = flat[y1 * w + x0]
-    i01 = flat[y0 * w + x1]
-    i11 = flat[y1 * w + x1]
+    out = None
+    for idx, wt in bilinear_taps(x.to(data.dtype), y.to(data.dtype), h, w):
+        s = flat[idx] * wt[..., None]
+        out = s if out is None else out + s
+    return out
 
-    x0w = (x0 - (x0 == x1).to(x0.dtype)).to(dtype)
-    y0w = (y0 - (y0 == y1).to(y0.dtype)).to(dtype)
-    x1w = x1.to(dtype)
-    y1w = y1.to(dtype)
 
-    w00 = (x1w - x) * (y1w - y) * valid
-    w10 = (x1w - x) * (y - y0w) * valid
-    w01 = (x - x0w) * (y1w - y) * valid
-    w11 = (x - x0w) * (y - y0w) * valid
-
-    return (i00 * w00[..., None] + i10 * w10[..., None]
-            + i01 * w01[..., None] + i11 * w11[..., None])
+def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """img [H, W, C] -> [out_h, out_w, C], bilinear with half-pixel
+    centres and clamped edges: jax.image.resize(..., "bilinear") when
+    upsampling, the only use here (mipmap flattening).  Downsampling would
+    differ (JAX antialiases)."""
+    y = F.interpolate(img.permute(2, 0, 1)[None], size=tuple(out_hw),
+                      mode="bilinear", align_corners=False)
+    return y[0].permute(1, 2, 0)

@@ -39,7 +39,9 @@ def stratified_knn_torch(x: torch.Tensor, stratum: int = 16) -> torch.Tensor:
 
 
 def stratified_knn(x: torch.Tensor, stratum: int = 16) -> torch.Tensor:
-    """x [V, C] -> idx [V, ceil(V / stratum)] int32."""
+    """x [V, C] -> idx [V, ceil(V / stratum)] int32; integer indices, so
+    x is taken detached (rnr_tpu's stop_gradient)."""
+    x = x.detach()
     if not use_kernel(x):
         return stratified_knn_torch(x, stratum)
     v, c = x.shape

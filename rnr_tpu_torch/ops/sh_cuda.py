@@ -1,9 +1,13 @@
-"""K1: fan-fused SH shading forward (csrc/sh_fan.cu) and its twin.
+"""K1 / K1b: fan-fused SH shading forward and backward (csrc/sh_fan.cu),
+their plain versions, and the autograd.Function that binds them.
 
-Replaces rnr_tpu/ops/sh_pallas.py::sh_shade_fan (forward): the ray fan is
-built per pixel from TBN + tangent view direction + pivots in f32, each
-ray is shaded as coeff^T basis(dir) * alpha, and rays_lt * radiance is
-averaged over the specular and the diffuse fan.
+Replaces rnr_tpu/ops/sh_pallas.py::sh_shade_fan with its custom VJP: the
+ray fan is built per pixel from TBN + tangent view direction + pivots in
+f32, each ray is shaded as coeff^T basis(dir) * alpha, and rays_lt *
+radiance is averaged over the specular and the diffuse fan.  Gradients go
+to rays_lt (in its own dtype) and to coeff (f32); TBN, the view direction,
+alpha and the pivots are G-buffer data and get none (`_sh_shade_fan_bwd`
+:773-775 returns zeros for them).
 """
 
 from __future__ import annotations
@@ -17,19 +21,25 @@ from rnr_tpu_torch.ops.sh import evaluate_sh_basis, ladder_constants
 
 MAX_LMAX = 10   # csrc/sh_fan.cu instantiates lmax 1..10
 MAX_RAYS = 64
+BWD_PIXELS = 64   # csrc/sh_fan.cu BWD_THREADS: pixels per backward block
 _LADDER: dict = {}   # (lmax, device) -> the kernel's ladder constants
+
+
+def _fan_dirs(tbn, view_dir_tangent, alpha_map, pivots, r_spec):
+    from rnr_tpu_torch.models.rays import build_fan_channels
+
+    f32 = torch.float32
+    return build_fan_channels(tbn.to(f32), view_dir_tangent.to(f32),
+                              alpha_map.to(f32), pivots.to(f32),
+                              r_spec)[1]                   # [N, H, W, 3, R]
 
 
 def sh_shade_fan_torch(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
                        pivots, lmax: int, r_spec: int):
-    """Plain twin: build_fan_channels + evaluate_sh_basis + the per-ray
+    """Plain version: build_fan_channels + evaluate_sh_basis + the per-ray
     radiance and the two means (rnr_tpu/models/rays.py:353-421), in f32."""
-    from rnr_tpu_torch.models.rays import build_fan_channels
-
     f32 = torch.float32
-    _, rays_dir = build_fan_channels(
-        tbn.to(f32), view_dir_tangent.to(f32), alpha_map.to(f32),
-        pivots.to(f32), r_spec)                       # [N, H, W, 3, R]
+    rays_dir = _fan_dirs(tbn, view_dir_tangent, alpha_map, pivots, r_spec)
     r_total = rays_dir.shape[-1]
     cf = coeff.to(f32)
     alpha = alpha_map.to(f32)
@@ -48,15 +58,34 @@ def sh_shade_fan_torch(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
     return spec, diff
 
 
-def sh_shade_fan(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots,
-                 lmax: int, r_spec: int):
-    """tbn [N,H,W,3,3], view_dir_tangent [N,H,W,3], alpha_map [N,H,W,1],
-    rays_lt [N,H,W,R,C] (bf16 or f32), coeff [B,C], pivots [R,3]
-    -> (ltt_specular, ltt_diffuse) [N,H,W,C] f32."""
-    if not use_kernel(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
-                      pivots):
-        return sh_shade_fan_torch(tbn, view_dir_tangent, alpha_map, rays_lt,
-                                  coeff, pivots, lmax, r_spec)
+def sh_shade_fan_bwd_torch(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
+                           pivots, gs, gd, lmax: int, r_spec: int):
+    """Plain backward, the structure of `_bwd_kernel_fan` (:500): per ray
+    the basis again, gsel = (gs / r_spec or gd / r_diff) * alpha,
+    d rays_lt = (coeff^T basis) * gsel in rays_lt's dtype, and
+    d coeff += basis^T (rays_lt * gsel) in f32."""
+    f32 = torch.float32
+    rays_dir = _fan_dirs(tbn, view_dir_tangent, alpha_map, pivots, r_spec)
+    r_total = rays_dir.shape[-1]
+    r_diff = max(r_total - r_spec, 1)
+    cf = coeff.to(f32)
+    alpha = alpha_map.to(f32)
+    gs, gd = gs.to(f32), gd.to(f32)
+    dlt = torch.empty_like(rays_lt)
+    dcoeff = torch.zeros_like(cf)
+    for r in range(r_total):
+        basis = evaluate_sh_basis(lmax, rays_dir[..., r])   # [N, H, W, B]
+        rad = torch.einsum("nhwb,bc->nhwc", basis, cf)
+        gsel = (gs / r_spec if r < r_spec else gd / r_diff) * alpha
+        dlt[..., r, :] = (rad * gsel).to(rays_lt.dtype)
+        ltg = rays_lt[..., r, :].to(f32) * gsel
+        dcoeff += torch.einsum("nhwb,nhwc->bc", basis, ltg)
+    return dlt, dcoeff
+
+
+def _check(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots, lmax,
+           r_spec):
+    """The contiguous f32 operands and the ladder table the kernels take."""
     n, h, w, r_total, c = rays_lt.shape
     if not 1 <= lmax <= MAX_LMAX:
         raise ValueError(f"sh_shade_fan kernel: lmax {lmax} not in 1..{MAX_LMAX}")
@@ -82,7 +111,15 @@ def sh_shade_fan(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots,
     if ladder is None:
         ladder = _LADDER[key] = torch.tensor(
             ladder_constants(lmax), dtype=f32, device=lt.device)
-    spec = torch.empty((n, h, w, 3), dtype=f32, device=lt.device)
+    return tb, vd, al, lt, cf, pv, ladder
+
+
+def _launch_fwd(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots,
+                lmax, r_spec):
+    tb, vd, al, lt, cf, pv, ladder = _check(
+        tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots, lmax, r_spec)
+    n, h, w, r_total, _ = lt.shape
+    spec = torch.empty((n, h, w, 3), dtype=torch.float32, device=lt.device)
     diff = torch.empty_like(spec)
     fn = _build.fn("sh_fan", "rnr_sh_shade_fan", 9, 6)
     sh_shade_fan.launches += 1
@@ -95,4 +132,75 @@ def sh_shade_fan(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots,
     return spec, diff
 
 
+def sh_shade_fan_bwd(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
+                     pivots, gs, gd, lmax: int, r_spec: int):
+    """K1b: gs, gd [N,H,W,C] -> (d rays_lt in rays_lt's dtype, d coeff
+    [B, C] f32); the plain backward on CPU tensors."""
+    if not use_kernel(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
+                      pivots, gs, gd):
+        return sh_shade_fan_bwd_torch(tbn, view_dir_tangent, alpha_map,
+                                      rays_lt, coeff, pivots, gs, gd, lmax,
+                                      r_spec)
+    tb, vd, al, lt, cf, pv, ladder = _check(
+        tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots, lmax, r_spec)
+    n, h, w, r_total, c = lt.shape
+    gsf = gs.to(torch.float32).contiguous()
+    gdf = gd.to(torch.float32).contiguous()
+    require(gsf, "gs", torch.float32, (n, h, w, c))
+    require(gdf, "gd", torch.float32, (n, h, w, c))
+    n_pix = n * h * w
+    dlt = torch.empty_like(lt)
+    dcoeff = torch.empty_like(cf)
+    part = torch.empty((-(-n_pix // BWD_PIXELS), cf.numel()),
+                       dtype=torch.float32, device=lt.device)
+    fn = _build.fn("sh_fan", "rnr_sh_shade_fan_bwd", 12, 6)
+    sh_shade_fan_bwd.launches += 1
+    check_launch(fn(tb.data_ptr(), vd.data_ptr(), al.data_ptr(),
+                    lt.data_ptr(), cf.data_ptr(), pv.data_ptr(),
+                    ladder.data_ptr(), gsf.data_ptr(), gdf.data_ptr(),
+                    dlt.data_ptr(), part.data_ptr(), dcoeff.data_ptr(),
+                    lmax, ladder.numel(), n_pix, r_total, r_spec,
+                    int(lt.dtype == torch.bfloat16), stream_of(lt)),
+                 "sh_shade_fan_bwd")
+    return dlt, dcoeff
+
+
+class ShShadeFanFn(torch.autograd.Function):
+    """K1 forward / K1b backward on CUDA tensors, the plain versions on
+    CPU tensors.  Differentiable in rays_lt and coeff only."""
+
+    @staticmethod
+    def forward(ctx, tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
+                pivots, lmax, r_spec):
+        ctx.lmax, ctx.r_spec = lmax, r_spec
+        ctx.save_for_backward(tbn, view_dir_tangent, alpha_map, rays_lt,
+                              coeff, pivots)
+        if use_kernel(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
+                      pivots):
+            return _launch_fwd(tbn, view_dir_tangent, alpha_map, rays_lt,
+                               coeff, pivots, lmax, r_spec)
+        return sh_shade_fan_torch(tbn, view_dir_tangent, alpha_map, rays_lt,
+                                  coeff, pivots, lmax, r_spec)
+
+    @staticmethod
+    def backward(ctx, gs, gd):
+        tbn, vdt, alpha, rays_lt, coeff, pivots = ctx.saved_tensors
+        dlt, dcoeff = sh_shade_fan_bwd(tbn, vdt, alpha, rays_lt, coeff,
+                                       pivots, gs, gd, ctx.lmax, ctx.r_spec)
+        # G-buffer inputs and pivots: no gradient (zeros in rnr_tpu)
+        return (None, None, None, dlt, dcoeff.to(coeff.dtype), None, None,
+                None)
+
+
+def sh_shade_fan(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots,
+                 lmax: int, r_spec: int):
+    """tbn [N,H,W,3,3], view_dir_tangent [N,H,W,3], alpha_map [N,H,W,1],
+    rays_lt [N,H,W,R,C] (bf16 or f32), coeff [B,C], pivots [R,3]
+    -> (ltt_specular, ltt_diffuse) [N,H,W,C] f32, differentiable in
+    rays_lt and coeff."""
+    return ShShadeFanFn.apply(tbn, view_dir_tangent, alpha_map, rays_lt,
+                              coeff, pivots, lmax, r_spec)
+
+
 sh_shade_fan.launches = 0
+sh_shade_fan_bwd.launches = 0

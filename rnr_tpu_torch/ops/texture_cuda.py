@@ -1,9 +1,12 @@
-"""K2: mipmap texture gather (csrc/mipmap_gather.cu) and its twin.
+"""K2 / K2b: mipmap texture gather (csrc/mipmap_gather.cu) and its
+backward, the bilinear scatter into every level (csrc/mipmap_scatter.cu),
+with their plain versions, bound into one autograd.Function.
 
-Replaces rnr_tpu/ops/texture_pallas.py::mipmap_sample (the forward
-`gather_taps` per level, summed).  The kernel reads the texture in f32,
-matching the f32 XLA path the JAX model takes off the TPU, not the TPU
-kernel's bf16 rounding of the texture.
+Replaces rnr_tpu/ops/texture_pallas.py::mipmap_sample with its custom VJP
+(the forward `gather_taps` per level, summed; the backward `scatter_taps`
+per level).  Both kernels work in f32, matching the f32 XLA path the JAX
+model takes off the TPU, not the TPU kernels' bf16 rounding of the texture
+and of w * g.  uv is G-buffer data and gets no gradient (:589).
 """
 
 from __future__ import annotations
@@ -13,9 +16,9 @@ import torch
 from rnr_tpu_torch.ops import _build
 from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
                                        use_kernel)
-from rnr_tpu_torch.ops.interpolate import interpolate_bilinear
+from rnr_tpu_torch.ops.interpolate import bilinear_taps, interpolate_bilinear
 
-LEVELS_PER_LAUNCH = 4   # csrc/mipmap_gather.cu MAX_LEVELS
+LEVELS_PER_LAUNCH = 4   # csrc/mipmap_gather.cu / mipmap_scatter.cu MAX_LEVELS
 
 
 def level_coords(uv_map: torch.Tensor, size: int):
@@ -26,7 +29,7 @@ def level_coords(uv_map: torch.Tensor, size: int):
 
 
 def mipmap_sample_torch(textures, uv_map: torch.Tensor) -> torch.Tensor:
-    """Plain twin: interpolate_bilinear per level, summed in level order."""
+    """Plain version: interpolate_bilinear per level, summed in level order."""
     out = None
     for tex in textures:
         x, y = level_coords(uv_map, tex.shape[0])
@@ -35,11 +38,30 @@ def mipmap_sample_torch(textures, uv_map: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mipmap_sample(textures, uv_map: torch.Tensor) -> torch.Tensor:
-    """textures: sequence of [S_l, S_l, Ch] f32; uv_map [N, H, W, 2] f32
-    -> [N, H, W, Ch] f32."""
-    if not use_kernel(uv_map, *textures):
-        return mipmap_sample_torch(textures, uv_map)
+def scatter_taps_torch(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                       size: int) -> torch.Tensor:
+    """Plain version of one level's scatter (`_xla_scatter_taps`):
+    x, y [...] texel coordinates, g [..., Ch] -> [size, size, Ch] f32, the
+    four taps added in the order 00, 10, 01, 11."""
+    ch = g.shape[-1]
+    gf = g.reshape(-1, ch).to(torch.float32)
+    out = torch.zeros((size * size, ch), dtype=torch.float32, device=g.device)
+    for idx, w in bilinear_taps(x.reshape(-1).to(torch.float32),
+                                y.reshape(-1).to(torch.float32), size, size):
+        out.index_add_(0, idx, w[:, None] * gf)
+    return out.reshape(size, size, ch)
+
+
+def mipmap_scatter_torch(uv_map: torch.Tensor, g: torch.Tensor, sizes):
+    """Plain version of K2b: the gradient of every level, f32."""
+    grads = []
+    for s in sizes:
+        x, y = level_coords(uv_map, s)
+        grads.append(scatter_taps_torch(x, y, g, s))
+    return grads
+
+
+def _launch_gather(textures, uv_map):
     n, h, w, _ = uv_map.shape
     ch = textures[0].shape[-1]
     uv = uv_map.contiguous()
@@ -63,4 +85,57 @@ def mipmap_sample(textures, uv_map: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def mipmap_scatter(uv_map: torch.Tensor, g: torch.Tensor, sizes):
+    """K2b: uv_map [N, H, W, 2] f32, g [N, H, W, Ch] -> the gradient
+    [S_l, S_l, Ch] f32 of every level of side `sizes[l]`; the plain
+    version on CPU tensors.  f32 atomics: not bitwise reproducible."""
+    if not use_kernel(uv_map, g):
+        return mipmap_scatter_torch(uv_map, g, sizes)
+    n, h, w, ch = g.shape
+    uv = uv_map.contiguous()
+    gf = g.to(torch.float32).contiguous()
+    require(uv, "uv_map", torch.float32, (n, h, w, 2))
+    require(gf, "g", torch.float32, (n, h, w, ch))
+    grads = [torch.zeros((s, s, ch), dtype=torch.float32, device=uv.device)
+             for s in sizes]
+    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 7)
+    stream = stream_of(uv)
+    for k in range(0, len(grads), LEVELS_PER_LAUNCH):
+        grp = grads[k:k + LEVELS_PER_LAUNCH]
+        pad = LEVELS_PER_LAUNCH - len(grp)
+        mipmap_scatter.launches += 1
+        check_launch(f(*[t.data_ptr() for t in grp], *[0] * pad,
+                       uv.data_ptr(), gf.data_ptr(),
+                       *[t.shape[0] for t in grp], *[0] * pad, len(grp),
+                       n * h * w, ch, stream), "mipmap_scatter")
+    return grads
+
+
+class MipmapSampleFn(torch.autograd.Function):
+    """K2 forward / K2b backward on CUDA tensors, the plain versions on CPU
+    tensors.  Differentiable in the texture levels only."""
+
+    @staticmethod
+    def forward(ctx, uv_map, *textures):
+        ctx.save_for_backward(uv_map)
+        ctx.sizes = [t.shape[0] for t in textures]
+        ctx.dtypes = [t.dtype for t in textures]
+        if use_kernel(uv_map, *textures):
+            return _launch_gather(textures, uv_map)
+        return mipmap_sample_torch(textures, uv_map)
+
+    @staticmethod
+    def backward(ctx, g):
+        (uv_map,) = ctx.saved_tensors
+        grads = mipmap_scatter(uv_map, g, ctx.sizes)
+        return (None, *(d.to(dt) for d, dt in zip(grads, ctx.dtypes)))
+
+
+def mipmap_sample(textures, uv_map: torch.Tensor) -> torch.Tensor:
+    """textures: sequence of [S_l, S_l, Ch] f32; uv_map [N, H, W, 2] f32
+    -> [N, H, W, Ch] f32, differentiable in the textures."""
+    return MipmapSampleFn.apply(uv_map, *textures)
+
+
 mipmap_sample.launches = 0
+mipmap_scatter.launches = 0

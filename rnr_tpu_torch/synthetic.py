@@ -4,7 +4,8 @@
 `__graft_entry__._build` (which imports JAX): a sphere filling about 80%
 of the frame, with smooth uv / normal / TBN maps, and a spatially coherent
 vertex cloud for the GCN.  `build_config` mirrors that function's
-RNRConfig; `init_weights` fills a model from a NumPy seed.
+RNRConfig; `init_weights` fills a model from a NumPy seed;
+`build_statics` gives the training anchors `bench.py` draws.
 """
 
 from __future__ import annotations
@@ -12,30 +13,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rnr_tpu.config import (GCNTrainConfig, LightingConfig, LossConfig,
-                            RaysConfig, RenderNetConfig, RNRConfig,
-                            TextureConfig, TrainConfig)
+from rnr_tpu_torch.config import (GCNTrainConfig, LightingConfig, LossConfig,
+                                  RaysConfig, RenderNetConfig, RNRConfig,
+                                  TextureConfig, TrainConfig)
+from rnr_tpu_torch.models.lighting import fib_sphere
 
-
-def fib_sphere(n: int) -> np.ndarray:
-    """[3, n] Fibonacci-sphere directions."""
-    i = np.arange(n) + 0.5
-    phi = np.arccos(1 - 2 * i / n)
-    theta = np.pi * (1 + 5 ** 0.5) * i
-    return np.stack([np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
-                     np.cos(phi)]).astype(np.float32)
+__all__ = ["build_batch", "build_config", "build_statics", "fib_sphere",
+           "init_weights", "to_torch"]
 
 
 def build_config(img_size: int, tex_size: int, lmax: int, nf0: int,
                  num_down: int, gcn_blocks: int, num_azi: int,
-                 num_polar: int, rays_dtype: str = "bfloat16") -> RNRConfig:
+                 num_polar: int, rays_dtype: str = "bfloat16",
+                 num_sample: int = 4096) -> RNRConfig:
     """The RNRConfig of `__graft_entry__._build` with the shipped knobs of
     tools/out/best_config.json: the hand 3x3 conv ("pallas3"), fan-fused
-    SH shading, graph refresh 1; bf16 rays unless asked otherwise."""
+    SH shading, graph refresh 1; bf16 rays unless asked otherwise;
+    `num_sample` light samples."""
     return RNRConfig(
         texture=TextureConfig(texture_size=tex_size, texture_num_ch=24,
                               mipmap_level=4),
-        lighting=LightingConfig(sh_lmax=lmax, num_lighting=2),
+        lighting=LightingConfig(sh_lmax=lmax, num_sample=num_sample,
+                                num_lighting=2, lp_recon_h=64,
+                                lp_recon_w=128),
         rays=RaysConfig(num_azi=num_azi, num_polar=num_polar,
                         rays_dtype=rays_dtype, sh_fan_fuse=True),
         gcn=GCNTrainConfig(n_blocks=gcn_blocks, kernel_size=16, n_filters=64,
@@ -102,6 +102,23 @@ def build_batch(img_size: int, gcn_v: int, batch: int = 1) -> dict:
 def to_torch(batch: dict, device) -> dict:
     return {k: torch.from_numpy(np.array(v)).to(device)
             for k, v in batch.items()}
+
+
+def build_statics(model: torch.nn.Module, num_sample: int,
+                  seed: int = 1) -> dict:
+    """The training anchors of `bench.py:166-175`, on the model's device:
+    l_samples_init ~ U(0, 1) [S, 3], l_samples_mask = U > 0.3 [S] (both
+    drawn with NumPy in that order), and the model's current
+    tex_flatten_init."""
+    from rnr_tpu_torch.train.steps import rnr_texture_flatten_init
+
+    rng = np.random.default_rng(seed)
+    dev = model.lighting.coeff.device
+    init = rng.uniform(0, 1, (num_sample, 3)).astype(np.float32)
+    mask = (rng.uniform(size=num_sample) > 0.3).astype(np.float32)
+    return {"l_samples_init": torch.from_numpy(init).to(dev),
+            "l_samples_mask": torch.from_numpy(mask).to(dev),
+            "tex_flatten_init": rnr_texture_flatten_init(model)}
 
 
 @torch.no_grad()

@@ -1,0 +1,49 @@
+"""Loss terms of the RNR objective (port of rnr_tpu/train/losses.py:14-79).
+
+Mask-weighted reductions with static shapes, as in rnr_tpu.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def image_l1_loss(out_img: torch.Tensor, img_gt: torch.Tensor,
+                  alpha_map: torch.Tensor, border_crop: int = 5) -> torch.Tensor:
+    """Alpha-masked L1 with `border_crop` outer pixels excluded.
+    out_img / img_gt [N, H, W, C], alpha_map [N, H, W, 1]."""
+    b = border_crop
+    if b > 0:
+        out_img = out_img[:, b:-b, b:-b]
+        img_gt = img_gt[:, b:-b, b:-b]
+        alpha_map = alpha_map[:, b:-b, b:-b]
+    return torch.mean(torch.abs(out_img * alpha_map - img_gt * alpha_map))
+
+
+def lighting_loss(l_samples_est: torch.Tensor, l_samples_init: torch.Tensor,
+                  covered_mask: torch.Tensor, covered_weight: float = 1.0,
+                  uncovered_weight: float = 0.1) -> torch.Tensor:
+    """L1 between estimated and stitched-probe light samples [S, C];
+    directions the probe covers (covered_mask [S], 0/1) at full weight,
+    the others weakly."""
+    diff = torch.abs(l_samples_init - l_samples_est)
+    m = covered_mask[:, None]
+    n_cov = torch.clamp(torch.sum(covered_mask), min=1.0)
+    n_unc = torch.clamp(torch.sum(1.0 - covered_mask), min=1.0)
+    cov = torch.sum(diff * m) / n_cov
+    unc = torch.sum(diff * (1.0 - m)) / n_unc
+    return cov * covered_weight + unc * uncovered_weight
+
+
+def albedo_prior_loss(albedo_tex: torch.Tensor,
+                      albedo_tex_init: torch.Tensor) -> torch.Tensor:
+    """Pulls the mean of the touched albedo texels toward 0.5; a texel
+    counts as touched once any channel differs from the initialisation,
+    bit for bit.  albedo_tex / albedo_tex_init [H, W, C]."""
+    changed = torch.any(albedo_tex != albedo_tex_init, dim=-1, keepdim=True)
+    mask = changed.to(albedo_tex.dtype)
+    denom = torch.sum(mask)
+    mean_per_ch = torch.sum(albedo_tex * mask, dim=(0, 1)) / torch.clamp(
+        denom, min=1.0)
+    loss = torch.sum(torch.abs(mean_per_ch - 0.5)) / albedo_tex.shape[-1]
+    return torch.where(denom == 0, torch.zeros_like(loss), loss)

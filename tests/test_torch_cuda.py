@@ -1,11 +1,12 @@
-"""The four CUDA kernels of the port against their plain twins, on a GPU.
+"""The CUDA kernels of the port against their plain versions, on a GPU.
 
 Marked `cuda`: every test skips (and counts as no pass) where
 torch.cuda.is_available() is False, which is decided inside the fixture,
 never at import.  On the GPU machine:  python -m pytest tests/test_torch_cuda.py -q
 Small, odd shapes that the canonical frame does not reach (scalar
 staging paths, ragged tiles, more than four texture levels); the slice
-shapes are checked by chip_smoke.py.
+shapes are checked by chip_smoke.py.  The backward kernels K1b (SH fan)
+and K3b (conv weight gradient) must also be bitwise deterministic.
 """
 
 import numpy as np
@@ -13,10 +14,16 @@ import pytest
 import torch
 
 from rnr_tpu_torch.models.rays import RaySampler
-from rnr_tpu_torch.ops.conv_cuda import conv3x3, conv3x3_torch
+from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,
+                                         conv3x3_dgrad_torch, conv3x3_torch,
+                                         conv3x3_wgrad, conv3x3_wgrad_torch)
 from rnr_tpu_torch.ops.knn_cuda import stratified_knn, stratified_knn_torch
-from rnr_tpu_torch.ops.sh_cuda import sh_shade_fan, sh_shade_fan_torch
-from rnr_tpu_torch.ops.texture_cuda import mipmap_sample, mipmap_sample_torch
+from rnr_tpu_torch.ops.sh_cuda import (sh_shade_fan, sh_shade_fan_bwd,
+                                       sh_shade_fan_bwd_torch,
+                                       sh_shade_fan_torch)
+from rnr_tpu_torch.ops.texture_cuda import (mipmap_sample, mipmap_sample_torch,
+                                            mipmap_scatter,
+                                            mipmap_scatter_torch)
 from rnr_tpu_torch.synthetic import build_batch
 
 pytestmark = pytest.mark.cuda
@@ -36,10 +43,8 @@ def _t(a, dev, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
-@pytest.mark.parametrize("lmax", [2, 10])
-@pytest.mark.parametrize("lt_dtype", [torch.float32, torch.bfloat16])
-def test_sh_shade_fan_kernel(dev, lmax, lt_dtype):
-    rng = np.random.default_rng(lmax)
+def _sh_args(dev, lmax, lt_dtype, seed):
+    rng = np.random.default_rng(seed)
     b = build_batch(24, 64)
     spec, diff = RaySampler(2, 2, 5.0, "reflect"), RaySampler(2, 2, 10.0,
                                                               "diffuse")
@@ -47,11 +52,19 @@ def test_sh_shade_fan_kernel(dev, lmax, lt_dtype):
                          ).astype(np.float32)                  # R = 5 + 5
     vdt = rng.standard_normal((1, 24, 24, 3)).astype(np.float32)
     vdt /= np.linalg.norm(vdt, axis=-1, keepdims=True)
-    args = (_t(b["TBN_map"], dev), _t(vdt, dev), _t(b["alpha_map"], dev),
+    return (_t(b["TBN_map"], dev), _t(vdt, dev), _t(b["alpha_map"], dev),
             _t(rng.uniform(0, 2, (1, 24, 24, 10, 3)).astype(np.float32), dev,
                lt_dtype),
             _t((0.5 * rng.standard_normal(((lmax + 1) ** 2, 3))).astype(
-                np.float32), dev), _t(piv, dev), lmax, 5)
+                np.float32), dev), _t(piv, dev),
+            _t(rng.standard_normal((1, 24, 24, 3)).astype(np.float32), dev),
+            _t(rng.standard_normal((1, 24, 24, 3)).astype(np.float32), dev))
+
+
+@pytest.mark.parametrize("lmax", [2, 10])
+@pytest.mark.parametrize("lt_dtype", [torch.float32, torch.bfloat16])
+def test_sh_shade_fan_kernel(dev, lmax, lt_dtype):
+    args = (*_sh_args(dev, lmax, lt_dtype, lmax)[:6], lmax, 5)
     n0 = sh_shade_fan.launches
     ks, kd = sh_shade_fan(*args)
     assert sh_shade_fan.launches == n0 + 1
@@ -116,3 +129,117 @@ def test_stratified_knn_kernel(dev, v, c):
     t = stratified_knn_torch(x, 16)
     torch.cuda.synchronize()
     assert torch.equal(k, t)   # random features: no exact score ties
+
+
+@pytest.mark.parametrize("lmax", [2, 10])
+@pytest.mark.parametrize("lt_dtype", [torch.float32, torch.bfloat16])
+def test_sh_shade_fan_bwd_kernel(dev, lmax, lt_dtype):
+    args = _sh_args(dev, lmax, lt_dtype, lmax + 1)
+    n0 = sh_shade_fan_bwd.launches
+    kl, kc = sh_shade_fan_bwd(*args, lmax, 5)
+    kl2, kc2 = sh_shade_fan_bwd(*args, lmax, 5)
+    assert sh_shade_fan_bwd.launches == n0 + 2
+    tl, tc = sh_shade_fan_bwd_torch(*args, lmax, 5)
+    torch.cuda.synchronize()
+    assert kl.dtype == lt_dtype and kc.dtype == torch.float32
+    # d coeff: f32 sums over 5760 pixel-rays in another order
+    assert float((kc - tc).abs().max()) <= 1e-4 * float(tc.abs().max())
+    # d rays_lt: f32 radiance (FMA contraction), then the lt dtype
+    tol = 1e-5 if lt_dtype == torch.float32 else 2 ** -7
+    assert float((kl.float() - tl.float()).abs().max()) <= (
+        tol * float(tl.float().abs().max()))
+    # per-block partials summed in a fixed order: bitwise reproducible
+    assert torch.equal(kc, kc2) and torch.equal(kl, kl2)
+
+
+@pytest.mark.parametrize("ch,sizes", [(24, (64, 32, 16, 8)), (5, (16, 8)),
+                                      (8, (32, 16, 8, 4, 2))])
+@pytest.mark.parametrize("one_texel", [False, True])
+def test_mipmap_scatter_kernel(dev, ch, sizes, one_texel):
+    rng = np.random.default_rng(ch)
+    uv = rng.uniform(-0.05, 1.05, (2, 16, 8, 2)).astype(np.float32)
+    uv[0, 0, :4] = [[0, 0], [1, 1], [0, 1], [1, 0]]
+    if one_texel:                  # every pixel on the uv = 0 corner texel
+        uv[:] = 0.0
+    uv = _t(uv, dev)
+    g = _t(rng.standard_normal((2, 16, 8, ch)).astype(np.float32), dev)
+    n0 = mipmap_scatter.launches
+    k = mipmap_scatter(uv, g, sizes)
+    assert mipmap_scatter.launches == n0 + -(-len(sizes) // 4)
+    t = mipmap_scatter_torch(uv, g, sizes)
+    torch.cuda.synchronize()
+    for a, b in zip(k, t):
+        # f32 atomics in another order
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("c,o", [(5, 12), (64, 78), (108, 64), (24, 640)])
+@pytest.mark.parametrize("pad_mode", ["same", "reflect"])
+def test_conv3x3_dgrad_and_wgrad_kernels(dev, c, o, pad_mode):
+    rng = np.random.default_rng(c * o)
+    h, w_ = 7, 9                   # W = H + 2
+    x = _t(rng.standard_normal((2, h, w_, c)).astype(np.float32), dev,
+           torch.bfloat16)
+    g = _t(rng.standard_normal((2, h, w_, o)).astype(np.float32), dev,
+           torch.bfloat16)
+    w = _t((rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(
+        np.float32), dev)
+    n0, m0 = conv3x3.launches, conv3x3_wgrad.launches
+    kd = conv3x3_dgrad(g, w, pad_mode)
+    kw = conv3x3_wgrad(x, g, pad_mode)
+    kw2 = conv3x3_wgrad(x, g, pad_mode)
+    assert conv3x3.launches == n0 + 1 and conv3x3_wgrad.launches == m0 + 2
+    td = conv3x3_dgrad_torch(g, w, pad_mode)
+    tw = conv3x3_wgrad_torch(x, g, pad_mode)
+    torch.cuda.synchronize()
+    assert kd.dtype == torch.float32 and kw.dtype == torch.float32
+    # bf16 operands multiply exactly; f32 sums in another order
+    assert float((kd - td).abs().max()) <= 1e-4 * float(td.abs().max())
+    assert float((kw - tw).abs().max()) <= 1e-4 * float(tw.abs().max())
+    assert torch.equal(kw, kw2)    # split-K partials, fixed order
+
+
+def test_conv3x3_wgrad_kernel_deep_split(dev):
+    """A K deep enough for many split-K slices (64 x 64 at 128^2)."""
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((1, 128, 128, 64)).astype(np.float32), dev,
+           torch.bfloat16)
+    g = _t(rng.standard_normal((1, 128, 128, 64)).astype(np.float32), dev,
+           torch.bfloat16)
+    k = conv3x3_wgrad(x, g, "reflect")
+    t = conv3x3_wgrad_torch(x, g, "reflect")
+    torch.cuda.synchronize()
+    assert float((k - t).abs().max()) <= 1e-4 * float(t.abs().max())
+    assert torch.equal(k, conv3x3_wgrad(x, g, "reflect"))
+
+
+def test_autograd_functions_launch_the_backward_kernels(dev):
+    """On CUDA tensors the three autograd.Functions return gradients (no
+    silent drop) through the backward kernels."""
+    rng = np.random.default_rng(9)
+    x = _t(rng.standard_normal((1, 8, 8, 16)).astype(np.float32), dev,
+           torch.bfloat16).requires_grad_()
+    w = _t(rng.standard_normal((3, 3, 16, 8)).astype(np.float32), dev
+           ).requires_grad_()
+    b = torch.zeros(8, device=dev, requires_grad=True)
+    n0, m0 = conv3x3.launches, conv3x3_wgrad.launches
+    conv3x3(x, w, b, "reflect").float().sum().backward()
+    assert conv3x3.launches == n0 + 2 and conv3x3_wgrad.launches == m0 + 1
+    assert x.grad is not None and w.grad is not None and b.grad is not None
+
+    tb, vd, al, lt, cf, piv, _, _ = _sh_args(dev, 2, torch.bfloat16, 1)
+    lt.requires_grad_()
+    cf.requires_grad_()
+    n0 = sh_shade_fan_bwd.launches
+    s, d = sh_shade_fan(tb, vd, al, lt, cf, piv, 2, 5)
+    (s.sum() + d.sum()).backward()
+    assert sh_shade_fan_bwd.launches == n0 + 1
+    assert lt.grad.dtype == torch.bfloat16 and cf.grad is not None
+
+    texs = [torch.ones((s_, s_, 4), device=dev, requires_grad=True)
+            for s_ in (8, 4)]
+    uv = torch.rand((1, 4, 4, 2), device=dev)
+    n0 = mipmap_scatter.launches
+    mipmap_sample(texs, uv).sum().backward()
+    assert mipmap_scatter.launches == n0 + 1
+    assert all(t.grad is not None and float(t.grad.sum()) > 0 for t in texs)

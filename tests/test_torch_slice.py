@@ -22,6 +22,7 @@ import torch
 
 import __graft_entry__ as graft
 from rnr_tpu.models.rnr import RNRModel as JaxRNRModel
+from rnr_tpu_torch.config import RNRConfig
 from rnr_tpu_torch.convert import load_jax_variables
 from rnr_tpu_torch.models.rnr import RNRModel
 from rnr_tpu_torch.ops import backend
@@ -59,7 +60,9 @@ def _models(rays_dtype, unet_dtype):
         k: (0.5 + 0.5 * rng.standard_normal(v.shape)).astype(np.float32)
         for k, v in params["texture_mapper"].items()}
     variables = dict(variables, params=params)
-    tm = load_jax_variables(RNRModel(cfg, SMALL["gcn_v"]), variables)
+    tm = load_jax_variables(RNRModel(
+        RNRConfig.from_dict(dataclasses.asdict(cfg)), SMALL["gcn_v"],
+        device="cpu"), variables)
     return jm, variables, tm, batch
 
 
@@ -127,24 +130,38 @@ def test_synthetic_batch_equals_graft_build():
 
 
 def test_port_never_imports_jax():
-    """Import the port and run a CPU frame in a fresh interpreter."""
+    """Import the port and chip_smoke.py, run a CPU frame and a CPU train
+    step in a fresh interpreter: no jax, flax or rnr_tpu module is ever
+    loaded."""
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
-assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules)
+
+def foreign():
+    return sorted(m for m in sys.modules
+                  if m.split('.')[0] in ('jax', 'flax', 'rnr_tpu'))
+
+assert not foreign()
 import torch
 import rnr_tpu_torch, rnr_tpu_torch.convert
+import chip_smoke
 from rnr_tpu_torch.models.rnr import RNRModel
-from rnr_tpu_torch.synthetic import build_batch, build_config, init_weights, to_torch
-from rnr_tpu_torch.train.steps import make_rnr_eval_step
+from rnr_tpu_torch.synthetic import (build_batch, build_config, build_statics,
+                                     init_weights, to_torch)
+from rnr_tpu_torch.train.steps import (create_rnr_optimizer, make_generator,
+                                       make_rnr_eval_step, make_rnr_train_step)
+assert not foreign(), foreign()
 cfg = build_config(img_size=32, tex_size=32, lmax=2, nf0=4, num_down=2,
-                   gcn_blocks=2, num_azi=2, num_polar=1)
-m = init_weights(RNRModel(cfg, 300), 0)
+                   gcn_blocks=2, num_azi=2, num_polar=1, num_sample=64)
+m = init_weights(RNRModel(cfg, 300, device='cpu'), 0)
 b = to_torch(build_batch(32, 300), 'cpu')
 img = make_rnr_eval_step(m)(b)['img']
 assert img.shape == (1, 32, 32, 3) and bool(torch.isfinite(img).all())
-bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))
-assert not bad, bad
+assert not foreign(), foreign()
+step = make_rnr_train_step(m, create_rnr_optimizer(m, 1e-3))
+met = step(b, build_statics(m, 64), make_generator(0, 'cpu'))
+assert bool(torch.isfinite(met['loss']))
+assert not foreign(), foreign()
 print('NOJAX_OK')
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -171,7 +188,8 @@ def test_dispatch_cpu_to_twins_without_building(monkeypatch):
     cfg, _, _ = graft._build(img_size=32, tex_size=32, lmax=2, num_sample=64,
                              nf0=4, num_down=2, gcn_blocks=4, gcn_v=300,
                              num_azi=2, num_polar=1)
-    m = RNRModel(cfg, 300)
+    m = RNRModel(RNRConfig.from_dict(dataclasses.asdict(cfg)), 300,
+                 device="cpu")
     b = to_torch(build_batch(32, 300), "cpu")
     out = make_rnr_eval_step(m)(b)
     assert out["img"].shape == (1, 32, 32, 3)
