@@ -1,21 +1,27 @@
-"""Drive the PyTorch + CUDA port on one NVIDIA GPU: the serving path and
-the training step.
+"""Drive the PyTorch + CUDA port on one NVIDIA GPU: the serving path, the
+training step and inference from a mesh (G-buffer, then the frame).
 
     python3 chip_smoke.py            # every phase (one H100, a few minutes)
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,train
+    python3 chip_smoke.py --phases device,build,kernels,slice,gbuffer
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
-  build    nvcc builds the six sources of rnr_tpu_torch/csrc/ (the seven
-           kernels), one nvcc per source, all started together.
+  build    nvcc builds the seven sources of rnr_tpu_torch/csrc/ (the
+           eight kernels), one nvcc per source, all started together.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes of the canonical 512^2 step, with the stated
            tolerance; the median time of the kernel, of its plain version
            and, where one PyTorch call computes the same function, of that
            call; and the bound: the least time the card could take for the
            work.  K1b and K3b run twice and must agree bit for bit; K2b
-           (f32 atomics) reports its run-to-run difference.
+           (f32 atomics) reports its run-to-run difference.  K7 (the
+           rasterizer) must equal its plain version bit for bit on UV
+           spheres seen from the camera ring at 512^2 (the G-buffer
+           phase's mesh; 48,768 faces at 0 and, overflowing the default
+           cap, 45 degrees; 12,096 faces at N = 2) and on a 32^2 overflow
+           case, its binning on the card equal to the CPU's.
   slice    the canonical model (512^2, texture 512^2 x 24, lmax 10, 13+13
            rays, U-Net nf0 64 / 5 downs / dense fusion, GCN 20 blocks k=16
            on 7500 vertices; bf16 rays, fan-fused K1, K3 for every 3x3)
@@ -23,6 +29,14 @@ Phases (each failure raises, so the script exits non-zero):
            the image and the launch count of every kernel, then times the
            GCN and the eval frames/s; a torch.profiler pass prints device
            time by kernel.
+  gbuffer  inference from a mesh with the slice's model and v_feature:
+           the 27,360-face UV sphere seen from 20 views of a ring (30
+           degrees up, 2.5 away) -> render_gbuffer (K7) -> _to_batch ->
+           eval frame, per view.  Checks overflow 0, coverage, finite maps
+           and image, and the launches per view (K7 1, K3 14, K1 and K2 at
+           least 1); reports views/s, G-buffer and raster ms, the largest
+           tile candidate count, a profile; then the 12,096-face sphere's
+           G-buffer at 128^2 on the card against the CPU's.
   parity   the same model at 128^2 on the card (kernels) and on the CPU
            (plain versions) from the same v_feature; images compared.
   train    the canonical training step (the slice's model, dropout 0.1,
@@ -65,6 +79,9 @@ from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,  # noqa: E402
 from rnr_tpu_torch.ops.interpolate import bilinear_taps  # noqa: E402
 from rnr_tpu_torch.ops.knn_cuda import (stratified_knn,  # noqa: E402
                                         stratified_knn_torch)
+from rnr_tpu_torch.ops.rasterize_cuda import (FACE_FLOATS,  # noqa: E402
+                                              bin_faces, rasterize_tiles,
+                                              rasterize_tiles_torch)
 from rnr_tpu_torch.ops.sh_cuda import (sh_shade_fan,  # noqa: E402
                                        sh_shade_fan_bwd,
                                        sh_shade_fan_bwd_torch,
@@ -99,9 +116,13 @@ KERNELS = {
     "stratified_knn": dict(
         wrapper=stratified_knn, source="rnr_tpu_torch/csrc/stratified_knn.cu",
         replaces="rnr_tpu/ops/knn_pallas.py:81"),
+    "rasterize_tiles": dict(
+        wrapper=rasterize_tiles,
+        source="rnr_tpu_torch/csrc/rasterize_tiles.cu",
+        replaces="rnr_tpu/ops/rasterize_pallas.py:174", path="gbuffer"),
 }
 SOURCES = ("sh_fan", "mipmap_gather", "mipmap_scatter", "conv3x3",
-           "conv3x3_wgrad", "stratified_knn")
+           "conv3x3_wgrad", "stratified_knn", "rasterize_tiles")
 
 # launches of each kernel in one canonical training step
 TRAIN_LAUNCHES = {"stratified_knn": 17, "conv3x3": 28, "conv3x3_wgrad": 14,
@@ -116,10 +137,37 @@ CONV_SHAPES = [(108, 64, 512), (64, 64, 512), (128, 640, 256),
                (64, 64, 512), (128, 78, 512)]
 TEX_SIZES = (512, 256, 128, 64)
 
+# launches of each kernel per view of the G-buffer path (G-buffer + frame)
+VIEW_LAUNCHES = {"rasterize_tiles": 1, "conv3x3": 14}
+VIEW_AT_LEAST_ONE = ("sh_shade_fan", "mipmap_gather")
+N_VIEWS = 20
+# the mesh of the G-buffer path: the UV sphere of tools/tpu_smoke.py at
+# 96 x 144 (27,360 faces), the densest whose pole fans stay under the
+# rasterizer's default cap of 2048 candidates per tile on the ring
+MESH_LAT_LON = (96, 144)
+
+# The least f32 work of the rasterizer's z-buffer (csrc/rasterize_tiles.cu)
+# with rnr_tpu's rounding kept.  An edge test (yp - y0) * (x1 - x0) >=
+# (xp - x0) * (y1 - y0) has one side per (row, candidate) and one per
+# (column, candidate), each a subtraction and a product on a per-candidate
+# difference: 1 comparison per (pixel, candidate, edge), 2 operations per
+# (row or column, candidate, edge), 2 differences per (candidate, edge).
+# The weights and the depth matter only where the pixel is inside the
+# face, at least once per covered pixel: 3 clamped weights (2 products,
+# 2 sums, 2 comparisons each), their sum and its guard (3), 1/zp (3
+# quotients, 2 sums, 1 quotient, 1 guard, 1 quotient), 3 depth comparisons.
+RASTER_PIXEL_OPS = 3
+RASTER_LINE_OPS = 6
+RASTER_CAND_OPS = 6
+RASTER_COVERED_OPS = 32
+
 # Published peaks of one H100 SXM (dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+# the same pipes issuing one operation per lane and clock: the rate of the
+# adds, products and comparisons that are not fused multiply-adds
+F32_OPS = F32_FLOPS / 2
 
 DEV = torch.device("cuda", 0)
 IMG = 512       # the canonical frame's side
@@ -207,6 +255,22 @@ def conv_work(kind: str, n_pix: int, c: int, o: int):
     else:                  # x, g bf16 -> dW f32
         nbytes = n_pix * (c + o) * 2 + 9 * c * o * 4
     return bound(nbytes, flops, BF16_TENSOR_FLOPS)
+
+
+def raster_work(counts: torch.Tensor, idx: torch.Tensor, tile_h: int,
+                tile_w: int, s: int) -> dict:
+    """K7 on these tile lists: each candidate's id and 18 floats read once,
+    8 B (depth, index) written per pixel; the operations of the RASTER_*
+    counts for the candidates this run has and the pixels its faces cover
+    (idx >= 0), none of them a fused multiply-add."""
+    cand = int(counts.sum())
+    covered = int((idx >= 0).sum())
+    n = counts.shape[0]
+    nbytes = cand * (FACE_FLOATS * 4 + 4) + counts.numel() * 4 + n * s * s * 8
+    ops = (cand * (tile_h * tile_w * RASTER_PIXEL_OPS
+                   + (tile_h + tile_w) * RASTER_LINE_OPS + RASTER_CAND_OPS)
+           + covered * RASTER_COVERED_OPS)
+    return bound(nbytes, ops, F32_OPS)
 
 
 def add_bounds(parts) -> dict:
@@ -521,6 +585,94 @@ def kernels_knn(rec: dict, rng) -> None:
     torch.cuda.synchronize()
 
 
+def ring_faces(n_lat: int, n_lon: int, elevation: float, views, s: int):
+    """The UV sphere's faces [N, F, 3, 3] in NDC from views of the camera
+    ring, on the card."""
+    from rnr_tpu_torch.ops.gbuffer import make_mesh_buffers, project_faces
+    from rnr_tpu_torch.synthetic import camera_ring, sphere_mesh
+    mb = make_mesh_buffers(sphere_mesh(n_lat, n_lon))
+    ring = camera_ring(s, elevation_deg=elevation)
+
+    def host(k):
+        return torch.from_numpy(np.stack([ring[i][k] for i in views])).to(DEV)
+
+    return project_faces(mb, host("proj"), host("pose"), host("dist_coeffs"),
+                         None, None, s)[1]
+
+
+def overflow_faces() -> torch.Tensor:
+    """rnr_tpu's overflow case: 8 faces over the whole 32^2 screen at
+    depths 1..2 (tests/test_rasterize_pallas.py:52)."""
+    faces = np.zeros((1, 8, 3, 3), np.float32)
+    faces[..., :2] = np.array([[-0.9, -0.9], [0.9, -0.9], [0.0, 0.9]])
+    faces[..., 2] = np.linspace(1, 2, 8)[None, :, None]
+    return torch.from_numpy(faces).to(DEV)
+
+
+def kernels_raster(rec: dict) -> None:
+    """K7 against its plain version on the card, bit for bit (face index
+    and depth), and the card's binning against the CPU's (ids, counts,
+    overflow).  The first case is the G-buffer phase's: its times and
+    bound go into the record."""
+    lat, lon = MESH_LAT_LON
+    worst45 = ring_faces(128, 192, 45.0, range(N_VIEWS), IMG)
+    ov45 = bin_faces(worst45, IMG, 32, 128, 2048)[3]
+    v45 = int(torch.argmax(ov45))
+    del worst45
+    cases = [
+        (f"{2 * lon * (lat - 1)} faces, 30 deg (G-buffer phase)",
+         ring_faces(lat, lon, 30.0, [0], IMG), IMG, 2048, "zero"),
+        ("48768 faces, 0 deg", ring_faces(128, 192, 0.0, [0], IMG), IMG,
+         2048, None),
+        (f"48768 faces, 45 deg, view {v45}, cap 2048",
+         ring_faces(128, 192, 45.0, [v45], IMG), IMG, 2048, "positive"),
+        ("12096 faces, 30 deg, N = 2", ring_faces(64, 96, 30.0, [0, 5], IMG),
+         IMG, 2048, "zero"),
+        ("8 faces over 32^2, cap 4", overflow_faces(), 32, 4, 4),
+    ]
+    for i, (name, faces, s, cap, want_ov) in enumerate(cases):
+        th, tw = min(32, s), min(128, s)
+        binned = bin_faces(faces, s, th, tw, cap)
+        table, ids, counts, ov = binned
+        kd, ki = rasterize_tiles(table, ids, counts, s, th, tw)
+        td, ti = rasterize_tiles_torch(table, ids, counts, s, th, tw)
+        cpu = bin_faces(faces.cpu(), s, th, tw, cap)
+        torch.cuda.synchronize()
+        n_idx = int((ki != ti).sum())
+        err = float((kd - td).abs().max())
+        if n_idx or not torch.equal(kd, td):
+            raise AssertionError(f"rasterize_tiles {name}: {n_idx} face "
+                                 f"indices differ, depth max err {err}")
+        for what, a, c in zip(("table", "ids", "counts", "overflow"), binned,
+                              cpu):
+            if not torch.equal(a.cpu(), c):
+                raise AssertionError(f"bin_faces {name}: {what} differs "
+                                     "between the card and the CPU")
+        ovl = ov.tolist()
+        if ((want_ov == "zero" and any(ovl))
+                or (want_ov == "positive" and not all(ovl))
+                or (isinstance(want_ov, int) and ovl != [want_ov])):
+            raise AssertionError(f"rasterize_tiles {name}: overflow {ovl}, "
+                                 f"expected {want_ov}")
+        ms = cuda_ms(lambda: rasterize_tiles(table, ids, counts, s, th, tw))
+        plain_ms = cuda_ms(lambda: rasterize_tiles_torch(
+            table, ids, counts, s, th, tw), iters=3, warmup=1)
+        bin_ms = cuda_ms(lambda: bin_faces(faces, s, th, tw, cap), iters=5)
+        work = raster_work(counts, ki, th, tw, s)
+        log(f"[kernels] rasterize_tiles {name}: {s}^2, N {faces.shape[0]}, "
+            f"{int(counts.sum())} candidates (largest tile "
+            f"{int(counts.max())}), overflow {ovl}; bitwise equal to the "
+            f"plain version, binning equal to the CPU's; kernel {ms:.4f} ms, "
+            f"bound {work['bound_ms']:.4f} ({work['bound_by']}), plain "
+            f"{plain_ms:.3f}, binning {bin_ms:.3f} ms")
+        if i == 0:
+            rec["rasterize_tiles"] = dict(
+                max_abs_err=err, idx_mismatches=n_idx, ms=ms,
+                plain_ms=plain_ms, library_ms=None, bin_ms=bin_ms,
+                largest_tile=int(counts.max()), **work)
+    torch.cuda.synchronize()
+
+
 def phase_kernels(rec: dict) -> None:
     rng = np.random.default_rng(0)
     b = _gbuffer(IMG)
@@ -528,6 +680,7 @@ def phase_kernels(rec: dict) -> None:
     kernels_texture(rec, b, rng)
     kernels_conv(rec, rng)
     kernels_knn(rec, rng)
+    kernels_raster(rec)
     for name, r in rec.items():
         log(f"[kernels] {name}: kernel {r['ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
@@ -606,7 +759,7 @@ def phase_slice(eval_launches: dict) -> dict:
     log(f"[slice] GCN forward (v_feature, V 7500, 20 blocks): {gcn_ms:.3f} ms")
     log(f"[slice] eval frames/s at {IMG}^2 (cached v_feature): {fps:.3f}; "
         f"frame {frame_ms:.3f} ms by CUDA events")
-    return {"model": model, "v_feature": vf}
+    return {"model": model, "v_feature": vf, "gcn_pos": b["gcn_pos"]}
 
 
 def profile_window(name: str, fn, n: int, top: int = 12) -> None:
@@ -649,6 +802,159 @@ def profile_slice(state: dict) -> None:
         profile_window("gcn", lambda: model.compute_v_feature(b["gcn_pos"]),
                        1)
         profile_window("frame", lambda: step(b, v_feature=vf), 5)
+
+
+def _finite_maps(gb: dict, tag: str) -> None:
+    for k, v in gb.items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{tag}: G-buffer map {k} not finite")
+
+
+def phase_gbuffer(state: dict, view_launches: dict) -> None:
+    """Inference from a mesh: per view of the ring, the G-buffer (K7) and
+    the eval frame with the slice's model and cached v_feature."""
+    from rnr_tpu_torch.drivers import test_rnr
+    from rnr_tpu_torch.ops.gbuffer import (make_mesh_buffers, project_faces,
+                                           render_gbuffer, render_raster)
+    from rnr_tpu_torch.synthetic import camera_ring, sphere_mesh
+    from rnr_tpu_torch.train.steps import make_rnr_eval_step
+    # the G-buffer's f32 products (torch.linalg.inv, any matmul) in full
+    # f32: TF32 off, as phase_device already set
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, vf, gcn_pos = state["model"], state["v_feature"], state["gcn_pos"]
+    step = make_rnr_eval_step(model)
+    lat, lon = MESH_LAT_LON
+    mesh = sphere_mesh(lat, lon)
+    mb = make_mesh_buffers(mesh)
+    if mb.vertices.device != DEV:
+        raise AssertionError("make_mesh_buffers did not build on the card")
+    views = camera_ring(IMG, n_views=N_VIEWS)
+
+    def frame(view):
+        gb = test_rnr._gbuffer(render_gbuffer, mb, view, IMG)
+        return gb, step(test_rnr._to_batch(gb, gcn_pos), v_feature=vf)["img"]
+
+    frame(views[0])          # warm-up: allocator, first launches
+    torch.cuda.synchronize()
+    reset_launches()
+    outs, per_view = [], []
+    for v in views:
+        before = read_launches()
+        outs.append(frame(v))
+        per_view.append({k: n - before[k] for k, n in read_launches().items()})
+    torch.cuda.synchronize()
+    view_launches.update(read_launches())
+    log(f"[gbuffer] launches in {N_VIEWS} views (G-buffer + frame): "
+        f"{view_launches}")
+    for i, got in enumerate(per_view):
+        for name, want in VIEW_LAUNCHES.items():
+            if got[name] != want:
+                raise AssertionError(f"view {i}: {name} launched "
+                                     f"{got[name]} times, expected {want}")
+        for name in VIEW_AT_LEAST_ONE:
+            if got[name] < 1:
+                raise AssertionError(f"view {i}: {name} not launched")
+
+    # per view: overflow, coverage, finite maps and image, the tile lists
+    covs, stds, largest = [], [], []
+    for i, ((gb, img), view) in enumerate(zip(outs, views)):
+        tag = f"view {i}"
+        ov = int(gb["raster_overflow"][0])
+        cov = float(gb["alpha_map"].mean())
+        if ov:
+            raise AssertionError(f"{tag}: raster overflow {ov}")
+        if not 0.3 <= cov <= 0.9:
+            raise AssertionError(f"{tag}: coverage {cov:.3f}")
+        _finite_maps(gb, tag)
+        img = img.float()
+        if img.shape != (1, IMG, IMG, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{tag}: image {tuple(img.shape)} not finite")
+        inside = gb["alpha_map"][0] > 0
+        std = float(img[0][inside].std())
+        if not std > 1e-4:
+            raise AssertionError(f"{tag}: image constant over the object "
+                                 f"(std {std})")
+        faces = project_faces(mb, *(torch.from_numpy(view[k][None]).to(DEV)
+                                    for k in ("proj", "pose", "dist_coeffs")),
+                              None, None, IMG)[1]
+        largest.append(int(bin_faces(faces, IMG, min(32, IMG), min(128, IMG),
+                                     2048)[2].max()))
+        covs.append(cov)
+        stds.append(std)
+    log(f"[gbuffer] {N_VIEWS} views of the {len(mesh.f_v_idx)}-face sphere "
+        f"at {IMG}^2: overflow 0 in every view; coverage "
+        f"{min(covs):.4f}..{max(covs):.4f}; image finite, std over the "
+        f"object {min(stds):.4g}..{max(stds):.4g}; largest tile candidate "
+        f"count per view {largest} (max {max(largest)} of 2048)")
+    del outs
+
+    with torch.inference_mode():
+        for v in views[:3]:
+            frame(v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for v in views:
+            frame(v)
+        torch.cuda.synchronize()
+        vps = N_VIEWS / (time.perf_counter() - t0)
+        gb_ms = cuda_ms(lambda: test_rnr._gbuffer(render_gbuffer, mb, views[0],
+                                                IMG), iters=10)
+        raster_ms = cuda_ms(lambda: test_rnr._gbuffer(render_raster, mb,
+                                                    views[0], IMG), iters=10)
+        view_ms = cuda_ms(lambda: frame(views[0]), iters=10)
+    log(f"[gbuffer] {vps:.3f} views/s at {IMG}^2 (host clock, G-buffer + "
+        f"frame, {N_VIEWS} views); by CUDA events: G-buffer {gb_ms:.3f} ms, "
+        f"raster only (render_raster) {raster_ms:.3f} ms, view "
+        f"{view_ms:.3f} ms")
+    with torch.inference_mode():
+        profile_window("view (G-buffer + frame)", lambda: frame(views[0]), 1,
+                       top=16)
+        profile_window("G-buffer", lambda: test_rnr._gbuffer(
+            render_gbuffer, mb, views[0], IMG), 1, top=10)
+    gbuffer_card_vs_cpu(test_rnr, make_mesh_buffers, render_gbuffer,
+                        camera_ring, sphere_mesh)
+
+
+def gbuffer_card_vs_cpu(test_rnr, make_mesh_buffers, render_gbuffer,
+                        camera_ring, sphere_mesh) -> None:
+    """The 12,096-face sphere's G-buffer at 128^2, card (K7) against CPU
+    (its plain version), two views.  Both sides run the same elementwise
+    f32 arithmetic (TF32 off), so the face index maps agree but for
+    depth ties within an ulp; on agreeing pixels uv / normal / position
+    agree to 1e-5 and TBN to 1e-4.  At 128^2 a 32 x 128 tile spans the
+    width, and this mesh overflows the default cap by about a hundred
+    candidates: the same ones on both sides."""
+    mesh = sphere_mesh(64, 96)
+    mbc, mbh = make_mesh_buffers(mesh), make_mesh_buffers(mesh, "cpu")
+    torch.set_num_threads(os.cpu_count() or 1)
+    for vi in (0, 7):
+        view = camera_ring(128)[vi]
+        gc = test_rnr._gbuffer(render_gbuffer, mbc, view, 128)
+        t0 = time.perf_counter()
+        gh = test_rnr._gbuffer(render_gbuffer, mbh, view, 128)
+        cpu_s = time.perf_counter() - t0
+        fc = gc["face_index_map"].cpu()
+        agree = fc == gh["face_index_map"]
+        share = float(agree.float().mean())
+        if share < 0.9999:
+            raise AssertionError(f"card vs CPU 128^2 view {vi}: face index "
+                                 f"agrees on {share:.6f} of pixels")
+        if not torch.equal(gc["raster_overflow"].cpu(), gh["raster_overflow"]):
+            raise AssertionError(f"card vs CPU 128^2 view {vi}: overflow "
+                                 "differs")
+        errs = {}
+        for k, tol in (("uv_map", 1e-5), ("normal_map", 1e-5),
+                       ("position_map", 1e-5), ("TBN_map", 1e-4)):
+            d = (gc[k].cpu() - gh[k]).abs().reshape(agree.shape + (-1,))
+            errs[k] = float(d[agree].max())
+            check(f"card vs CPU G-buffer {k}", errs[k], tol)
+        log(f"[gbuffer] card vs CPU at 128^2, view {vi}, 12096 faces: face "
+            f"index agrees on {share:.6f} of pixels; on those, max abs err "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + f" (tol 1e-5, TBN 1e-4); overflow card "
+            f"{gc['raster_overflow'].tolist()} cpu "
+            f"{gh['raster_overflow'].tolist()}; CPU G-buffer {cpu_s:.2f} s")
 
 
 def phase_parity(state: dict) -> None:
@@ -934,14 +1240,15 @@ def phase_train_parity() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,slice,parity,"
-                                        "train,train_parity")
+    ap.add_argument("--phases", default="device,build,kernels,slice,"
+                                        "gbuffer,parity,train,train_parity")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     smi = phase_device()
     rec: dict = {}
     eval_launches: dict = {}
     train_launches: dict = {}
+    view_launches: dict = {}
 
     def done(name):
         torch.cuda.synchronize()
@@ -953,10 +1260,14 @@ def main() -> None:
     if "kernels" in phases:
         phase_kernels(rec)
         done("kernels")
-    if "slice" in phases or "parity" in phases:   # parity reuses the model
+    # gbuffer and parity reuse the slice's model and v_feature
+    if {"slice", "gbuffer", "parity"} & set(phases):
         state = phase_slice(eval_launches)
         profile_slice(state)
         done("slice")
+        if "gbuffer" in phases:
+            phase_gbuffer(state, view_launches)
+            done("gbuffer")
         if "parity" in phases:
             phase_parity(state)
             done("parity")
@@ -968,9 +1279,14 @@ def main() -> None:
     if "train_parity" in phases:
         phase_train_parity()
         done("train_parity")
+    # launches: the count on the kernel's main path, the training step
+    # (one step at b1) or, for K7, the G-buffer path (N_VIEWS views)
+    paths = {"train": train_launches, "gbuffer": view_launches}
     kernels = [dict(name=n, route="cuda", source=s["source"],
-                    replaces=s["replaces"], launches=train_launches.get(n),
-                    eval_launches=eval_launches.get(n), **rec.get(n, {}))
+                    replaces=s["replaces"],
+                    launches=paths[s.get("path", "train")].get(n),
+                    eval_launches=eval_launches.get(n),
+                    view_launches=view_launches.get(n), **rec.get(n, {}))
                for n, s in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -23,6 +23,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rnr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source: the rasterizer's inside tests and depths pick a
+# discrete winner, so its products and sums round one by one, as in its
+# plain version (no FMA contraction)
+SOURCE_FLAGS = {"rasterize_tiles": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per-library record of the last build: seconds and nvcc's -Xptxas -v
@@ -41,9 +45,13 @@ def _nvcc() -> str:
                        "are built on the machine with the GPU")
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _digest(src: Path) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(src.stem)).encode())
     h.update(src.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
@@ -62,7 +70,7 @@ def load(name: str) -> ctypes.CDLL:
     out = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
     if not out.exists():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(tmp),
                str(src)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)

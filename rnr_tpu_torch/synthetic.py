@@ -6,9 +6,13 @@ of the frame, with smooth uv / normal / TBN maps, and a spatially coherent
 vertex cloud for the GCN.  `build_config` mirrors that function's
 RNRConfig; `init_weights` fills a model from a NumPy seed;
 `build_statics` gives the training anchors `bench.py` draws.
+`make_sphere` / `sphere_mesh` and `camera_ring` give a procedural mesh
+and the views around it for the G-buffer path (mesh + camera -> frame).
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
@@ -18,8 +22,9 @@ from rnr_tpu_torch.config import (GCNTrainConfig, LightingConfig, LossConfig,
                                   TextureConfig, TrainConfig)
 from rnr_tpu_torch.models.lighting import fib_sphere
 
-__all__ = ["build_batch", "build_config", "build_statics", "fib_sphere",
-           "init_weights", "to_torch"]
+__all__ = ["build_batch", "build_config", "build_statics", "camera_ring",
+           "fib_sphere", "init_weights", "make_sphere", "sphere_mesh",
+           "to_torch"]
 
 
 def build_config(img_size: int, tex_size: int, lmax: int, nf0: int,
@@ -156,3 +161,68 @@ def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
             b.copy_(torch.from_numpy(
                 rng.standard_normal(tuple(b.shape)).astype(np.float32)))
     return model
+
+
+def make_sphere(n_lat: int = 64, n_lon: int = 96, radius: float = 0.5):
+    """A UV sphere about +y (a copy of tools/tpu_smoke.py's): vertices
+    [V, 3], uvs [V, 2], unit normals [V, 3] (one per vertex, the seam
+    column doubled) and faces [F, 3] int32, F = 2 n_lon (n_lat - 1)."""
+    vs, vts, vns, faces = [], [], [], []
+    for i in range(n_lat + 1):
+        th = np.pi * i / n_lat
+        for j in range(n_lon + 1):
+            ph = 2 * np.pi * j / n_lon
+            vs.append((radius * np.sin(th) * np.cos(ph),
+                       radius * np.cos(th),
+                       radius * np.sin(th) * np.sin(ph)))
+            vns.append((np.sin(th) * np.cos(ph), np.cos(th),
+                        np.sin(th) * np.sin(ph)))
+            vts.append((j / n_lon, 1 - i / n_lat))
+
+    def vid(i, j):
+        return i * (n_lon + 1) + j
+
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a, b = vid(i, j), vid(i, j + 1)
+            c, d = vid(i + 1, j + 1), vid(i + 1, j)
+            if i > 0:
+                faces.append((a, b, c))
+            if i < n_lat - 1:
+                faces.append((a, c, d))
+    return (np.asarray(vs, np.float32), np.asarray(vts, np.float32),
+            np.asarray(vns, np.float32), np.asarray(faces, np.int32))
+
+
+def sphere_mesh(n_lat: int, n_lon: int, radius: float = 0.5):
+    """`make_sphere` as a mesh for `ops.gbuffer.make_mesh_buffers` (uv and
+    normal triplets share the vertex indices)."""
+    v, vt, vn, f = make_sphere(n_lat, n_lon, radius)
+    return types.SimpleNamespace(
+        v=v, vt=vt, vn=vn, f_v_idx=f, f_vt_idx=f, f_vn_idx=f,
+        span_max=float((v.max(0) - v.min(0)).max()))
+
+
+def camera_ring(img_size: int, n_views: int = 20, elevation_deg: float = 30.0,
+                distance: float = 2.5, focal_512: float = 1004.0) -> list:
+    """Views on a ring around the origin, looking at it with +y up:
+    `n_views` azimuths 360 / n_views degrees apart at `elevation_deg`,
+    `distance` away; focal length `focal_512` px at 512^2 and the
+    principal point at the centre, both scaled with the side.  At the
+    defaults a sphere of radius 0.5 spans about 80% of the frame width.
+    Each view is {"proj" [3, 3], "pose" [4, 4], "dist_coeffs" [5]}, f32."""
+    from rnr_tpu_torch.ops.cameras import rt_from_pos_lookat
+
+    f = focal_512 * img_size / 512.0
+    c = img_size / 2.0
+    proj = np.array([[f, 0, c], [0, f, c], [0, 0, 1]], np.float32)
+    el = np.radians(elevation_deg)
+    views = []
+    for k in range(n_views):
+        az = 2 * np.pi * k / n_views
+        pos = distance * np.array([np.cos(el) * np.sin(az), np.sin(el),
+                                   np.cos(el) * np.cos(az)])
+        views.append({"proj": proj.copy(),
+                      "pose": rt_from_pos_lookat(pos).astype(np.float32),
+                      "dist_coeffs": np.zeros(5, np.float32)})
+    return views

@@ -6,7 +6,8 @@ never at import.  On the GPU machine:  python -m pytest tests/test_torch_cuda.py
 Small, odd shapes that the canonical frame does not reach (scalar
 staging paths, ragged tiles, more than four texture levels); the slice
 shapes are checked by chip_smoke.py.  The backward kernels K1b (SH fan)
-and K3b (conv weight gradient) must also be bitwise deterministic.
+and K3b (conv weight gradient) must also be bitwise deterministic, and the
+rasterizer K7 bitwise equal to its plain version.
 """
 
 import numpy as np
@@ -18,6 +19,9 @@ from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,
                                          conv3x3_dgrad_torch, conv3x3_torch,
                                          conv3x3_wgrad, conv3x3_wgrad_torch)
 from rnr_tpu_torch.ops.knn_cuda import stratified_knn, stratified_knn_torch
+from rnr_tpu_torch.ops.rasterize_cuda import (bin_faces, rasterize_tiled,
+                                              rasterize_tiles,
+                                              rasterize_tiles_torch)
 from rnr_tpu_torch.ops.sh_cuda import (sh_shade_fan, sh_shade_fan_bwd,
                                        sh_shade_fan_bwd_torch,
                                        sh_shade_fan_torch)
@@ -243,3 +247,57 @@ def test_autograd_functions_launch_the_backward_kernels(dev):
     mipmap_sample(texs, uv).sum().backward()
     assert mipmap_scatter.launches == n0 + 1
     assert all(t.grad is not None and float(t.grad.sum()) > 0 for t in texs)
+
+
+def _raster_faces(rng, n, f):
+    """Faces partly off screen, both windings, and degenerate ones (two
+    corners equal, or three in a line), z in [1, 3]."""
+    faces = rng.uniform(-1.2, 1.2, (n, f, 3, 3)).astype(np.float32)
+    faces[..., 2] = rng.uniform(1.0, 3.0, (n, f, 3))
+    faces[:, ::7, 2, :2] = faces[:, ::7, 1, :2]
+    faces[:, 3::11, 2, :2] = 2 * faces[:, 3::11, 1, :2] - faces[:, 3::11, 0, :2]
+    # small faces too, so that tiles hold many candidates of several sizes
+    c = rng.uniform(-1, 1, (n, f // 2, 1, 2))
+    faces[:, ::2, :, :2] = c + 0.1 * (faces[:, ::2, :, :2] - c)
+    return faces
+
+
+@pytest.mark.parametrize("s,n,f", [(96, 3, 300), (24, 1, 60), (64, 2, 700),
+                                   (128, 1, 2000)])
+def test_rasterize_tiles_kernel(dev, s, n, f):
+    """K7 against its plain version on the card, bitwise, at sides that
+    are not multiples of 128 (tiles min(32, S) x min(128, S)), N up to 3;
+    the card's binning equals the CPU's."""
+    faces = _raster_faces(np.random.default_rng(s + n), n, f)
+    th, tw = min(32, s), min(128, s)
+    table, ids, counts, overflow = bin_faces(_t(faces, dev), s, th, tw, 2048)
+    n0 = rasterize_tiles.launches
+    kd, ki = rasterize_tiles(table, ids, counts, s, th, tw, 0.0, 100.0)
+    assert rasterize_tiles.launches == n0 + 1
+    td, ti = rasterize_tiles_torch(table, ids, counts, s, th, tw, 0.0, 100.0)
+    torch.cuda.synchronize()
+    assert bool((ki >= 0).any()) and bool((ki < 0).any())
+    assert torch.equal(ki, ti) and torch.equal(kd, td)
+    cpu = bin_faces(torch.from_numpy(faces), s, th, tw, 2048)
+    for a, b in zip((table, ids, counts, overflow), cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_rasterize_tiled_kernel_overflow(dev):
+    """8 faces over the whole 32^2 screen in one 32x32 tile, cap 4: the
+    first 4 ids render, overflow 4, bitwise equal to the plain version."""
+    rng = np.random.default_rng(0)
+    faces = rng.uniform(1.0, 2.0, (1, 8, 3, 3)).astype(np.float32)
+    faces[..., :2] = np.array([[-0.9, -0.9], [0.9, -0.9], [0.0, 0.9]])
+    faces[..., 2] = np.linspace(1, 2, 8)[None, :, None]
+    n0 = rasterize_tiles.launches
+    k = rasterize_tiled(_t(faces, dev), 32, far=10.0, tile_h=32, tile_w=32,
+                        max_faces_per_tile=4)
+    assert rasterize_tiles.launches == n0 + 1
+    p = rasterize_tiled(torch.from_numpy(faces), 32, far=10.0, tile_h=32,
+                        tile_w=32, max_faces_per_tile=4)
+    assert int(k.overflow[0]) == 4 == int(p.overflow[0])
+    assert torch.equal(k.face_index_map.cpu(), p.face_index_map)
+    assert torch.equal(k.depth_map.cpu(), p.depth_map)
+    fim = k.face_index_map
+    assert set(fim[fim >= 0].unique().tolist()) == {0}

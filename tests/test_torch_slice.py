@@ -130,9 +130,9 @@ def test_synthetic_batch_equals_graft_build():
 
 
 def test_port_never_imports_jax():
-    """Import the port and chip_smoke.py, run a CPU frame and a CPU train
-    step in a fresh interpreter: no jax, flax or rnr_tpu module is ever
-    loaded."""
+    """Import the port and chip_smoke.py, run a CPU frame, a CPU train
+    step and a CPU frame from a mesh (G-buffer, then the eval step) in a
+    fresh interpreter: no jax, flax or rnr_tpu module is ever loaded."""
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -161,6 +161,15 @@ assert not foreign(), foreign()
 step = make_rnr_train_step(m, create_rnr_optimizer(m, 1e-3))
 met = step(b, build_statics(m, 64), make_generator(0, 'cpu'))
 assert bool(torch.isfinite(met['loss']))
+assert not foreign(), foreign()
+from rnr_tpu_torch.drivers.test_rnr import _gbuffer, _to_batch
+from rnr_tpu_torch.ops.gbuffer import make_mesh_buffers, render_gbuffer
+from rnr_tpu_torch.synthetic import camera_ring, sphere_mesh
+gb = _gbuffer(render_gbuffer, make_mesh_buffers(sphere_mesh(8, 12), 'cpu'),
+              camera_ring(32)[0], 32)
+assert int(gb['raster_overflow'][0]) == 0 and bool(gb['alpha_map'].any())
+img = make_rnr_eval_step(m)(_to_batch(gb, b['gcn_pos']))['img']
+assert img.shape == (1, 32, 32, 3) and bool(torch.isfinite(img).all())
 assert not foreign(), foreign()
 print('NOJAX_OK')
 """
@@ -195,5 +204,6 @@ def test_dispatch_cpu_to_twins_without_building(monkeypatch):
     assert out["img"].shape == (1, 32, 32, 3)
     src = "".join(open(os.path.join(ROOT, "rnr_tpu_torch", "ops", f)).read()
                   for f in ("backend.py", "sh_cuda.py", "texture_cuda.py",
-                            "conv_cuda.py", "knn_cuda.py"))
+                            "conv_cuda.py", "knn_cuda.py",
+                            "rasterize_cuda.py", "gbuffer.py"))
     assert "environ" not in src and "except" not in src
