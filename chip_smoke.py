@@ -1,22 +1,26 @@
 """Drive the PyTorch + CUDA port on one NVIDIA GPU: the serving path, the
-training step and inference from a mesh (G-buffer, then the frame).
+training step, inference from a mesh (G-buffer, then the frame) and
+relighting under novel light probes.
 
     python3 chip_smoke.py            # every phase (one H100, a few minutes)
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,train
     python3 chip_smoke.py --phases device,build,kernels,slice,gbuffer
+    python3 chip_smoke.py --phases device,build,kernels,slice,relight
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
-  build    nvcc builds the seven sources of rnr_tpu_torch/csrc/ (the
-           eight kernels), one nvcc per source, all started together.
+  build    nvcc builds the eight sources of rnr_tpu_torch/csrc/ (the ten
+           kernels), one nvcc per source, all started together.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes of the canonical 512^2 step, with the stated
            tolerance; the median time of the kernel, of its plain version
            and, where one PyTorch call computes the same function, of that
            call; and the bound: the least time the card could take for the
-           work.  K1b and K3b run twice and must agree bit for bit; K2b
-           (f32 atomics) reports its run-to-run difference.  K7 (the
+           work.  K1 and K1b must also give, bit for bit, what they gave
+           before their ladder moved into csrc/sh_common.cuh (digests
+           K1_DIGESTS).  K1b, K5b and K3b run twice and must agree bit for
+           bit; K2b (f32 atomics) reports its run-to-run difference.  K7 (the
            rasterizer) must equal its plain version bit for bit on UV
            spheres seen from the camera ring at 512^2 (the G-buffer
            phase's mesh; 48,768 faces at 0 and, overflowing the default
@@ -37,6 +41,18 @@ Phases (each failure raises, so the script exits non-zero):
            least 1); reports views/s, G-buffer and raster ms, the largest
            tile candidate count, a profile; then the 12,096-face sphere's
            G-buffer at 128^2 on the card against the CPU's.
+  relight  relighting from a mesh with the slice's model and v_feature:
+           two procedural 256 x 512 probes, the 20 views of the gbuffer
+           phase, and per view and probe one frame through each route of
+           rnr_tpu's test_rnr: the SH route (LightingLP.fit_sh
+           coefficients, fan-fused K1), the probe route (ray fans with
+           probe UVs, the probe gather) and the unfused SH route (K5 on the
+           materialised rays_dir) with both fan constructions, each with
+           the probe composited behind the object.  Checks finite images
+           and the launches per frame (SH: K1 once; probe: neither K1 nor
+           K5; unfused: K5 once, K1 never); reports per route the frame ms
+           (CUDA events) and frames/s (host clock), and the fit_sh ms;
+           then one 128^2 frame per route on the card against the CPU.
   parity   the same model at 128^2 on the card (kernels) and on the CPU
            (plain versions) from the same v_feature; images compared.
   train    the canonical training step (the slice's model, dropout 0.1,
@@ -44,7 +60,12 @@ Phases (each failure raises, so the script exits non-zero):
            batch 2: two warm-up steps, one step whose launch counts,
            losses, gradients, parameter moves and SNDense vectors are
            checked, then timed steps (frames/s on the host clock, step ms
-           by CUDA events, peak memory) and a torch.profiler pass.
+           by CUDA events, peak memory) and a torch.profiler pass.  Then
+           the same at batch 1 in the two relighting configurations:
+           unfused SH shading (K5 and K5b once per step) and the probe
+           path (direct_sh_shading=False: the learned lighting as a 64 x
+           128 probe, gathered per ray), whose probe gather and scatter
+           are also timed and profiled on their own.
   train_parity  one training step (loss and every gradient) of the
            canonical model at 128^2 and 1024 vertices on the card and on
            the CPU, same weights, dropout and the stochastic GCN off.
@@ -57,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -82,10 +104,11 @@ from rnr_tpu_torch.ops.knn_cuda import (stratified_knn,  # noqa: E402
 from rnr_tpu_torch.ops.rasterize_cuda import (FACE_FLOATS,  # noqa: E402
                                               bin_faces, rasterize_tiles,
                                               rasterize_tiles_torch)
-from rnr_tpu_torch.ops.sh_cuda import (sh_shade_fan,  # noqa: E402
+from rnr_tpu_torch.ops.sh_cuda import (sh_shade, sh_shade_bwd,  # noqa: E402
+                                       sh_shade_bwd_torch, sh_shade_fan,
                                        sh_shade_fan_bwd,
                                        sh_shade_fan_bwd_torch,
-                                       sh_shade_fan_torch)
+                                       sh_shade_fan_torch, sh_shade_torch)
 from rnr_tpu_torch.ops.texture_cuda import (level_coords,  # noqa: E402
                                             mipmap_sample,
                                             mipmap_sample_torch,
@@ -120,14 +143,55 @@ KERNELS = {
         wrapper=rasterize_tiles,
         source="rnr_tpu_torch/csrc/rasterize_tiles.cu",
         replaces="rnr_tpu/ops/rasterize_pallas.py:174", path="gbuffer"),
+    "sh_shade": dict(
+        wrapper=sh_shade, source="rnr_tpu_torch/csrc/sh_shade.cu",
+        replaces="rnr_tpu/ops/sh_pallas.py:234", path="relight"),
+    "sh_shade_bwd": dict(
+        wrapper=sh_shade_bwd, source="rnr_tpu_torch/csrc/sh_shade.cu",
+        replaces="rnr_tpu/ops/sh_pallas.py:276", path="train_unfused"),
 }
-SOURCES = ("sh_fan", "mipmap_gather", "mipmap_scatter", "conv3x3",
+SOURCES = ("sh_fan", "sh_shade", "mipmap_gather", "mipmap_scatter", "conv3x3",
            "conv3x3_wgrad", "stratified_knn", "rasterize_tiles")
 
-# launches of each kernel in one canonical training step
+# launches of each kernel in one canonical training step, and in one step
+# of each relighting configuration (rays overrides of the config)
 TRAIN_LAUNCHES = {"stratified_knn": 17, "conv3x3": 28, "conv3x3_wgrad": 14,
-                  "sh_shade_fan": 1, "sh_shade_fan_bwd": 1}
+                  "sh_shade_fan": 1, "sh_shade_fan_bwd": 1, "sh_shade": 0,
+                  "sh_shade_bwd": 0}
+TRAIN_VARIANTS = {
+    "unfused": (dict(sh_fan_fuse=False),
+                dict(TRAIN_LAUNCHES, sh_shade_fan=0, sh_shade_fan_bwd=0,
+                     sh_shade=1, sh_shade_bwd=1)),
+    "probe": (dict(direct_sh_shading=False),
+              dict(TRAIN_LAUNCHES, sh_shade_fan=0, sh_shade_fan_bwd=0)),
+}
+# the probe step takes seconds on the card (its backward's scatter into
+# the probe), so it is warmed by its counted step and timed over 1 step
+TIMED_STEPS = {"unfused": 5, "probe": 1}
 AT_LEAST_ONE = ("mipmap_gather", "mipmap_scatter")
+
+# K1 and K1b at the kernels phase's inputs, sha256 of their outputs' bytes
+# (spec, diff; d rays_lt, d coeff) as built from csrc/sh_fan.cu before its
+# ladder moved into csrc/sh_common.cuh (nvcc 12.9, NVIDIA H100 80GB HBM3);
+# the shared header left both unchanged, bit for bit
+K1_DIGESTS = {
+    "sh_shade_fan":
+        "d5236b3679b4494db2bc0d7f0fc7096674d26117a29a04117ac51b2468c0984a",
+    "sh_shade_fan_bwd":
+        "7911b0ac4e0da69cae5359c9c22be25429968eefed8c81de9c5ddc75ec8d779b",
+}
+
+# the relighting routes of rnr_tpu's test_rnr: (model variant, SH fit,
+# launches per frame); the variant's rays overrides of the config
+RELIGHT_ROUTES = {
+    "sh": ({}, True, {"sh_shade_fan": 1, "sh_shade": 0}),
+    "probe": ({}, False, {"sh_shade_fan": 0, "sh_shade": 0}),
+    "unfused": (dict(sh_fan_fuse=False), True,
+                {"sh_shade_fan": 0, "sh_shade": 1}),
+    "unfused_einsum": (dict(sh_fan_fuse=False, fan_impl="einsum"), True,
+                       {"sh_shade_fan": 0, "sh_shade": 1}),
+}
+N_PROBES = 2
 
 # (C, O, H) of the 14 3x3 convs of one canonical 512^2 frame, in order
 CONV_SHAPES = [(108, 64, 512), (64, 64, 512), (128, 640, 256),
@@ -221,22 +285,43 @@ def read_launches() -> dict:
 #
 # Bytes: each input read once and each output written once.  Operations of
 # the SH ladder, per ray: about 50 for the fan ray (reflection, the TBN
-# product, two normalisations), then per basis value at least 3 for the
-# recurrence and 6 for the radiance (3 FMAs); the backward recomputes both
-# and adds 6 per value for d coeff (3 FMAs).  They run on the f32 pipes.
+# product, two normalisations; K1 and K1b only, K5 reads the rays), then
+# per basis value at least 3 for the recurrence and 6 for the radiance (3
+# FMAs); the backward recomputes both and adds 6 per value for d coeff (3
+# FMAs).  They run on the f32 pipes.
 
 
-def sh_work(n_pix: int, r: int, lmax: int, lt_item: int, bwd: bool):
+def sh_work(n_pix: int, r: int, lmax: int, lt_item: int, bwd: bool,
+            fan: bool = True):
+    """K1 / K1b (fan: TBN, view dir, alpha and the pivots in) or K5 / K5b
+    (rays_dir [3, R] per pixel in rays_lt's type, and alpha)."""
     nb = (lmax + 1) ** 2
-    geo = 9 * 4 + 3 * 4 + 4                     # TBN, view dir, alpha
+    geo = (9 * 4 + 3 * 4 + 4 if fan else 3 * r * lt_item + 4)
+    piv = r * 12 if fan else 0
+    fan_ops = 50 if fan else 0
     lt = r * 3 * lt_item
     if bwd:   # + gs, gd in; d rays_lt, d coeff out
-        nbytes = n_pix * (geo + lt + 6 * 4 + lt) + 2 * nb * 3 * 4 + r * 12
-        flops = n_pix * r * (50 + 15 * nb + 12)
+        nbytes = n_pix * (geo + lt + 6 * 4 + lt) + 2 * nb * 3 * 4 + piv
+        flops = n_pix * r * (fan_ops + 15 * nb + 12)
     else:     # spec, diff out
-        nbytes = n_pix * (geo + lt + 6 * 4) + nb * 3 * 4 + r * 12
-        flops = n_pix * r * (50 + 9 * nb + 6)
+        nbytes = n_pix * (geo + lt + 6 * 4) + nb * 3 * 4 + piv
+        flops = n_pix * r * (fan_ops + 9 * nb + 6)
     return bound(nbytes, flops, F32_FLOPS)
+
+
+def digest(*ts: torch.Tensor) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_digest(name: str, got: str) -> None:
+    if got != K1_DIGESTS[name]:
+        raise AssertionError(f"{name}: output digest {got} differs from "
+                             f"{K1_DIGESTS[name]}, the kernel's before the "
+                             "ladder moved into sh_common.cuh")
 
 
 def texture_work(n_pix: int, ch: int, sizes, taps: int):
@@ -350,6 +435,9 @@ def kernels_sh(rec: dict, b: dict, rng) -> None:
         f"{err:.3g}, rel {err / scale:.3g} (max |ref| {scale:.3g}, "
         f"tol {tol:.3g})")
     check("sh_shade_fan", err, tol)
+    check_digest("sh_shade_fan", digest(ks, kd))
+    log("[kernels] sh_shade_fan: output bit-equal to the kernel's before "
+        "the shared ladder header (digest)")
     rec["sh_shade_fan"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: sh_shade_fan(*args)),
         plain_ms=cuda_ms(lambda: sh_shade_fan_torch(*args), iters=3,
@@ -369,6 +457,7 @@ def kernels_sh(rec: dict, b: dict, rng) -> None:
     torch.cuda.synchronize()
     if not (torch.equal(kc, kc2) and torch.equal(kl, kl2)):
         raise AssertionError("sh_shade_fan_bwd: two runs differ")
+    check_digest("sh_shade_fan_bwd", digest(kl, kc))
     err_c = float((kc - tc).abs().max())
     scale_c = float(tc.abs().max())
     # d coeff: f32 sums over 6.8M pixel-rays in another order
@@ -381,7 +470,8 @@ def kernels_sh(rec: dict, b: dict, rng) -> None:
     log(f"[kernels] sh_shade_fan_bwd: d coeff max abs err {err_c:.3g} "
         f"(rel {err_c / scale_c:.3g}, tol 1e-4 x max), d rays_lt max abs "
         f"err {err_l:.3g} (rel {err_l / scale_l:.3g}, tol 2^-7 x max); "
-        f"two runs bitwise equal")
+        f"two runs bitwise equal, and equal to the kernel's before the "
+        f"shared ladder header (digest)")
     rec["sh_shade_fan_bwd"] = dict(
         max_abs_err=max(err_c, err_l), dcoeff_max_abs_err=err_c,
         dlt_max_abs_err=err_l, bitwise_reproducible=True,
@@ -390,6 +480,77 @@ def kernels_sh(rec: dict, b: dict, rng) -> None:
                          warmup=1),
         library_ms=None, **sh_work(n_pix, 26, 10, 2, True))
     del kl, kc, kl2, kc2, tl, tc, lt
+    torch.cuda.synchronize()
+
+
+def kernels_shade(rec: dict, b: dict) -> None:
+    """K5 and K5b: the unfused shading at 512^2, lmax 10, 13 + 13 rays,
+    rays_dir from the fan builder of the G-buffer (zero directions at the
+    masked pixels) and rays_lt in bf16, as the unfused path stores them."""
+    from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
+    rng = np.random.default_rng(5)
+    spec, diff = RaySampler(6, 2, 5.0, "reflect"), RaySampler(6, 2, 10.0,
+                                                              "diffuse")
+    piv = torch.from_numpy(np.concatenate([spec.pivots_dir.T,
+                                           diff.pivots_dir.T]).astype(
+        np.float32)).to(DEV)
+    rd = build_fan_channels(b["TBN_map"], b["view_dir_map_tangent"],
+                            b["alpha_map"], piv, 13)[1].to(torch.bfloat16)
+    lt = torch.from_numpy(rng.uniform(0, 2, (1, IMG, IMG, 26, 3)).astype(
+        np.float32)).to(DEV, torch.bfloat16)
+    cf = torch.from_numpy((0.3 * rng.standard_normal((121, 3))).astype(
+        np.float32)).to(DEV)
+    al = b["alpha_map"]
+    args = (rd, lt, al, cf, 10, 13)
+    n_pix = IMG * IMG
+    ks, kd = sh_shade(*args)
+    ts, td = sh_shade_torch(*args)
+    torch.cuda.synchronize()
+    masked = al[..., 0] == 0
+    if not (bool((ks[masked] == 0).all()) and bool((kd[masked] == 0).all())):
+        raise AssertionError("sh_shade: masked pixels not exactly 0")
+    scale = max(float(ts.abs().max()), float(td.abs().max()))
+    err = max(float((ks - ts).abs().max()), float((kd - td).abs().max()))
+    tol = 1e-4 * scale + 1e-5   # f32 both sides; FMA and sum order differ
+    log(f"[kernels] sh_shade {IMG}^2 lmax10 R26 bf16 rays: max abs err "
+        f"{err:.3g}, rel {err / scale:.3g} (max |ref| {scale:.3g}, tol "
+        f"{tol:.3g}); {int(masked.sum())} masked pixels exactly 0")
+    check("sh_shade", err, tol)
+    rec["sh_shade"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: sh_shade(*args)),
+        plain_ms=cuda_ms(lambda: sh_shade_torch(*args), iters=3, warmup=1),
+        library_ms=None, **sh_work(n_pix, 26, 10, 2, False, fan=False))
+    del ks, kd, ts, td
+
+    gs = torch.from_numpy(rng.standard_normal((1, IMG, IMG, 3)).astype(
+        np.float32)).to(DEV)
+    gd = torch.from_numpy(rng.standard_normal((1, IMG, IMG, 3)).astype(
+        np.float32)).to(DEV)
+    bargs = (rd, lt, al, cf, gs, gd, 10, 13)
+    kl, kc = sh_shade_bwd(*bargs)
+    kl2, kc2 = sh_shade_bwd(*bargs)
+    tl, tc = sh_shade_bwd_torch(*bargs)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, kc2) and torch.equal(kl, kl2)):
+        raise AssertionError("sh_shade_bwd: two runs differ")
+    err_c = float((kc - tc).abs().max())
+    scale_c = float(tc.abs().max())
+    check("sh_shade_bwd d coeff", err_c, 1e-4 * scale_c)
+    err_l = float((kl.float() - tl.float()).abs().max())
+    scale_l = float(tl.float().abs().max())
+    check("sh_shade_bwd d rays_lt", err_l, 2 ** -7 * scale_l)
+    log(f"[kernels] sh_shade_bwd: d coeff max abs err {err_c:.3g} (rel "
+        f"{err_c / scale_c:.3g}, tol 1e-4 x max), d rays_lt max abs err "
+        f"{err_l:.3g} (rel {err_l / scale_l:.3g}, tol 2^-7 x max); two runs "
+        f"bitwise equal")
+    rec["sh_shade_bwd"] = dict(
+        max_abs_err=max(err_c, err_l), dcoeff_max_abs_err=err_c,
+        dlt_max_abs_err=err_l, bitwise_reproducible=True,
+        ms=cuda_ms(lambda: sh_shade_bwd(*bargs)),
+        plain_ms=cuda_ms(lambda: sh_shade_bwd_torch(*bargs), iters=3,
+                         warmup=1),
+        library_ms=None, **sh_work(n_pix, 26, 10, 2, True, fan=False))
+    del kl, kc, kl2, kc2, tl, tc, lt, rd
     torch.cuda.synchronize()
 
 
@@ -677,6 +838,7 @@ def phase_kernels(rec: dict) -> None:
     rng = np.random.default_rng(0)
     b = _gbuffer(IMG)
     kernels_sh(rec, b, rng)
+    kernels_shade(rec, b)
     kernels_texture(rec, b, rng)
     kernels_conv(rec, rng)
     kernels_knn(rec, rng)
@@ -689,7 +851,9 @@ def phase_kernels(rec: dict) -> None:
                else f"{r['library_ms']:.3f} ms"))
 
 
-def canonical_config(img: int = IMG, **gcn):
+def canonical_config(img: int = IMG, rays: dict | None = None, **gcn):
+    """The canonical configuration; `rays` and `gcn` override fields of
+    its rays and GCN sections."""
     from rnr_tpu_torch.synthetic import build_config
     cfg = build_config(img_size=img, tex_size=512, lmax=10, nf0=64,
                        num_down=5, gcn_blocks=20, num_azi=6, num_polar=2,
@@ -697,7 +861,23 @@ def canonical_config(img: int = IMG, **gcn):
     if gcn:
         cfg = dataclasses.replace(cfg, gcn=dataclasses.replace(cfg.gcn,
                                                                **gcn))
+    if rays:
+        cfg = dataclasses.replace(cfg, rays=dataclasses.replace(cfg.rays,
+                                                                **rays))
     return cfg
+
+
+def variant(model, rays: dict, device=None):
+    """A model of `model`'s configuration with the `rays` overrides and
+    its weights (and buffers), on `device` (the card when None)."""
+    from rnr_tpu_torch.models.rnr import RNRModel
+    device = DEV if device is None else device
+    cfg = dataclasses.replace(model.cfg, rays=dataclasses.replace(
+        model.cfg.rays, **rays))
+    out = RNRModel(cfg, GCN_V, device=device)
+    out.load_state_dict({k: v.to(device)
+                         for k, v in model.state_dict().items()})
+    return out
 
 
 def phase_slice(eval_launches: dict) -> dict:
@@ -762,14 +942,17 @@ def phase_slice(eval_launches: dict) -> dict:
     return {"model": model, "v_feature": vf, "gcn_pos": b["gcn_pos"]}
 
 
-def profile_window(name: str, fn, n: int, top: int = 12) -> None:
-    """torch.profiler over n runs of fn: device time by kernel, and the
-    share of the traced window the device was busy (sum of kernel times
-    over first kernel start to last kernel end)."""
+def profile_window(name: str, fn, n: int, top: int = 12,
+                   warm: bool = True) -> float:
+    """torch.profiler over n runs of fn (after one untraced run when
+    `warm`): device time by kernel, and the share of the traced window
+    the device was busy (sum of kernel times over first kernel start to
+    last kernel end).  Returns the kernel time per run in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         for _ in range(n):
@@ -786,6 +969,7 @@ def profile_window(name: str, fn, n: int, top: int = 12) -> None:
     for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} "
             f"ms/run  x{e.count // n:<4d} {e.key[:100]}")
+    return busy / n
 
 
 def profile_slice(state: dict) -> None:
@@ -957,6 +1141,148 @@ def gbuffer_card_vs_cpu(test_rnr, make_mesh_buffers, render_gbuffer,
             f"{gh['raster_overflow'].tolist()}; CPU G-buffer {cpu_s:.2f} s")
 
 
+def phase_relight(state: dict, relight_launches: dict) -> None:
+    """Relighting from a mesh (rnr_tpu's test_rnr per view and lighting):
+    the slice's model and v_feature, N_PROBES procedural probes, the
+    gbuffer phase's 20 views, one frame per view, probe and route."""
+    from rnr_tpu_torch.drivers import test_rnr
+    from rnr_tpu_torch.ops.gbuffer import make_mesh_buffers, render_gbuffer
+    from rnr_tpu_torch.synthetic import camera_ring, make_probes, sphere_mesh
+    from rnr_tpu_torch.train.steps import make_rnr_eval_step
+    model, vf, gcn_pos = state["model"], state["v_feature"], state["gcn_pos"]
+    probes = make_probes(N_PROBES, seed=0)
+    lights = {True: test_rnr.lightings(model, probes, lp_sh=True),
+              False: test_rnr.lightings(model, probes, lp_sh=False)}
+    fit_ms = cuda_ms(lambda: test_rnr.lightings(model, probes, lp_sh=True),
+                     iters=5)
+    models = {r: (variant(model, rays) if rays else model)
+              for r, (rays, _, _) in RELIGHT_ROUTES.items()}
+    steps = {r: make_rnr_eval_step(m) for r, m in models.items()}
+    mb = make_mesh_buffers(sphere_mesh(*MESH_LAT_LON))
+    views = camera_ring(IMG, n_views=N_VIEWS)
+
+    def batch_of(view):
+        return test_rnr._to_batch(test_rnr._gbuffer(render_gbuffer, mb, view,
+                                                    IMG), gcn_pos)
+
+    def frame(route, batch, lp, sh):
+        return test_rnr.relit_frame(steps[route], batch, lp, sh, vf,
+                                    save_lp_background=True)
+
+    b0 = batch_of(views[0])
+    for route, (_, fit, _) in RELIGHT_ROUTES.items():   # warm-up
+        frame(route, b0, *lights[fit][0][1:])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    finite, stds = [], {r: [] for r in RELIGHT_ROUTES}
+    for i, view in enumerate(views):
+        batch = batch_of(view)
+        inside = batch["alpha_map"][0, ..., 0] > 0
+        for route, (_, fit, want) in RELIGHT_ROUTES.items():
+            for name, lp, sh in lights[fit]:
+                before = read_launches()
+                img = frame(route, batch, lp, sh)
+                got = {k: n - before[k] for k, n in read_launches().items()}
+                for k, n in want.items():
+                    if got[k] != n:
+                        raise AssertionError(
+                            f"relight view {i} {route} {name}: {k} launched "
+                            f"{got[k]} times, expected {n}")
+                if got["sh_shade_fan_bwd"] or got["sh_shade_bwd"]:
+                    raise AssertionError("a backward kernel launched in "
+                                         "inference")
+                if img.shape != (IMG, IMG, 3):
+                    raise AssertionError(f"relit image {tuple(img.shape)}")
+                finite.append(torch.isfinite(img).all())
+                stds[route].append(img[inside].std())
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    relight_launches.update(read_launches())
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("relight: an image is not finite")
+    n_frames = N_VIEWS * N_PROBES
+    log(f"[relight] launches in {N_VIEWS} views x {N_PROBES} probes x "
+        f"{len(RELIGHT_ROUTES)} routes (G-buffer once per view): "
+        f"{relight_launches}")
+    for route, s in stds.items():
+        lo = float(torch.stack(s).min())
+        if not lo > 1e-4:
+            raise AssertionError(f"relight {route}: an image is constant "
+                                 f"over the object (std {lo})")
+    log(f"[relight] {len(finite)} frames finite, launches per frame as "
+        f"expected ({ {r: w for r, (_, _, w) in RELIGHT_ROUTES.items()} }); "
+        f"std over the object: "
+        + ", ".join(f"{r} {float(torch.stack(s).min()):.4g}.."
+                    f"{float(torch.stack(s).max()):.4g}"
+                    for r, s in stds.items())
+        + f"; {N_VIEWS} views (G-buffer + {len(finite) // N_VIEWS} frames "
+        f"each) in {loop_s:.3f} s, {N_VIEWS / loop_s:.3f} relit views/s")
+    log(f"[relight] fit_sh of {N_PROBES} probes (LightingLP from the "
+        f"256x512 probes, fit to lmax 10, bands reconciled): {fit_ms:.3f} ms "
+        f"by CUDA events")
+
+    batches = [batch_of(v) for v in views]
+    with torch.inference_mode():
+        for route, (_, fit, _) in RELIGHT_ROUTES.items():
+            lp, sh = lights[fit][0][1:]
+            ms = cuda_ms(lambda: frame(route, b0, lp, sh), iters=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for batch in batches:
+                for _, lp_, sh_ in lights[fit]:
+                    frame(route, batch, lp_, sh_)
+            torch.cuda.synchronize()
+            fps = n_frames / (time.perf_counter() - t0)
+            log(f"[relight] {route}: frame {ms:.3f} ms by CUDA events, "
+                f"{fps:.3f} frames/s by host clock ({n_frames} frames, "
+                f"G-buffers ready)")
+    with torch.inference_mode():
+        lp, sh = lights[False][0][1:]
+        profile_window("relit frame, probe route",
+                       lambda: frame("probe", b0, lp, sh), 1, top=10)
+    del batches
+    relight_card_vs_cpu(models, lights, vf)
+
+
+def relight_card_vs_cpu(models: dict, lights: dict, vf) -> None:
+    """One 128^2 relit frame per route on the card against the CPU (plain
+    versions), the synthetic G-buffer, the card's v_feature and lightings;
+    and the CPU's SH fit of the probes against the card's."""
+    from rnr_tpu_torch.drivers import test_rnr
+    from rnr_tpu_torch.synthetic import build_batch, make_probes, to_torch
+    from rnr_tpu_torch.train.steps import make_rnr_eval_step
+    torch.set_num_threads(os.cpu_count() or 1)
+    nb = build_batch(128, GCN_V)
+    bc, bh = to_torch(nb, DEV), to_torch(nb, "cpu")
+    cpu = {r: variant(m, {}, "cpu") for r, m in models.items()}
+    fit_c = test_rnr.lightings(cpu["sh"], make_probes(N_PROBES, seed=0))
+    for (_, _, a), (_, _, r) in zip(lights[True], fit_c):
+        e = float((a.cpu() - r).abs().max())
+        # f32 sums over 4096 samples in another order on the card
+        check("fit_sh card vs cpu", e, 1e-4 * float(r.abs().max()))
+    log(f"[relight] fit_sh card vs CPU: coefficients agree to 1e-4 of max")
+    for route, (_, fit, _) in RELIGHT_ROUTES.items():
+        _, lp, sh = lights[fit][0]
+        a = test_rnr.relit_frame(make_rnr_eval_step(models[route]), bc, lp,
+                                 sh, vf, save_lp_background=True).cpu()
+        t0 = time.perf_counter()
+        r = test_rnr.relit_frame(
+            make_rnr_eval_step(cpu[route]), bh, lp.cpu(),
+            None if sh is None else sh.cpu(), vf.cpu(),
+            save_lp_background=True)
+        cpu_s = time.perf_counter() - t0
+        scale = float(r.abs().max())
+        d = (a - r).abs()
+        err, mean = float(d.max()), float(d.mean())
+        # the bf16 U-Net, as the parity phase
+        log(f"[relight] card vs CPU 128^2 {route}: max abs err {err:.4g} "
+            f"(rel {err / scale:.3g}, tol 5e-2), mean {mean:.4g} (rel "
+            f"{mean / scale:.3g}, tol 5e-3); CPU frame {cpu_s:.1f} s")
+        check(f"relight parity {route} max", err, 5e-2 * scale)
+        check(f"relight parity {route} mean", mean, 5e-3 * scale)
+
+
 def phase_parity(state: dict) -> None:
     """The slice's model at 128^2: card (kernels) vs CPU (plain versions),
     both from the card's v_feature."""
@@ -1051,7 +1377,101 @@ def check_step(model, before: dict, u_before: dict, met: dict) -> None:
         f"{len(u_before)} SNDense vectors advanced")
 
 
-def phase_train(train_launches: dict) -> dict:
+def counted_step(model, step, b, statics, gen, want: dict, launches: dict,
+                 tag: str) -> None:
+    """One training step with the launch counts set to 0 just before it
+    and read just after: each kernel of `want` launched that many times,
+    the AT_LEAST_ONE kernels at least once; then check_step."""
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    u_before = {n: u.clone() for n, u in model.named_buffers()
+                if n.endswith(".u")}
+    reset_launches()
+    met = step(b, statics, gen)
+    torch.cuda.synchronize()
+    launches.update(read_launches())
+    log(f"[train] launches in one {tag} step at batch 1: {launches}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in a {tag} step, expected {n}")
+    for name in AT_LEAST_ONE:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} not launched in a {tag} step")
+    check_step(model, before, u_before, met)
+
+
+def timed_steps(step, b, statics, gen, bsz: int, tag: str,
+                n: int = 5) -> dict:
+    """n steps on the host clock after a synchronize, n by CUDA events,
+    the peak memory of the first n."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        met = step(b, statics, gen)
+    torch.cuda.synchronize()
+    fps = bsz * n / (time.perf_counter() - t0)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = cuda_ms(lambda: step(b, statics, gen), iters=n, warmup=0)
+    loss = float(met["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"loss {loss} in a {tag} step at batch {bsz}")
+    log(f"[train] {tag} batch {bsz} at {IMG}^2: {fps:.3f} train frames/s "
+        f"(host clock, {n} steps after synchronize); step {step_ms:.3f} ms "
+        f"by CUDA events; peak memory {mem:.3f} GiB; loss {loss:.6g}")
+    return dict(fps=fps, step_ms=step_ms, peak_gib=mem)
+
+
+def probe_scatter(model, b: dict, step_ms: float) -> None:
+    """The probe step's ray_render on its own: the gather from the
+    learned lighting's 64 x 128 probe and its backward (the scatter into
+    the probe, and d rays_lt) at the step's rays, the gather timed by CUDA
+    events and the backward by one profiled run, with the backward's share
+    of the step; beside it, as a yardstick the port does not use, one
+    index_add_ per tap of the same taps into the probe."""
+    from rnr_tpu_torch.models.rays import ray_render
+    from rnr_tpu_torch.ops.interpolate import bilinear_taps
+    with torch.no_grad():
+        out = model(b, train=False)
+    lp = model.lighting(0, is_lp=True).detach().requires_grad_()
+    rays_lt = out["rays_lt"].detach().requires_grad_()
+    args = (out["albedo_specular"], out["rays_uv"], rays_lt, lp)
+    kw = dict(num_ray_diffuse=model.num_ray_diffuse,
+              albedo_diffuse=out["albedo_diffuse"], separate_albedo=True)
+    g = torch.ones_like(out["img"])
+
+    def fwd():
+        return ray_render(*args, **kw)["out"]
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (lp, rays_lt), g)
+
+    f_ms = cuda_ms(fwd)
+    fb_ms = profile_window("probe ray_render gather + backward", fwd_bwd, 1,
+                           top=8, warm=False)
+    hl, wl = lp.shape[1], lp.shape[2]
+    taps = bilinear_taps(
+        torch.clamp(out["rays_uv"][..., 0, :] * wl, max=wl - 1).reshape(-1),
+        torch.clamp(out["rays_uv"][..., 1, :] * hl, max=hl - 1).reshape(-1),
+        hl, wl)
+    src = torch.ones((taps[0][0].numel(), 3), device=DEV)
+
+    def index_add():
+        acc = torch.zeros((hl * wl, 3), device=DEV)
+        for idx, w in taps:
+            acc.index_add_(0, idx, src * w[:, None])
+        return acc
+
+    ia_ms = cuda_ms(index_add)
+    log(f"[train] probe step's ray_render at {IMG}^2 "
+        f"({out['rays_uv'].shape[-1]} rays, {hl}x{wl} probe): gather "
+        f"{f_ms:.3f} ms by CUDA events; gather + backward {fb_ms:.3f} ms of "
+        f"kernels in one profiled run, backward {fb_ms - f_ms:.3f} ms = "
+        f"{100 * (fb_ms - f_ms) / step_ms:.1f}% of the step's "
+        f"{step_ms:.3f} ms; index_add_ of the same 4 x {src.shape[0]} taps "
+        f"into the probe (a yardstick, unused): {ia_ms:.3f} ms")
+
+
+def phase_train(train_launches: dict, variant_launches: dict) -> dict:
     from rnr_tpu_torch.models.rnr import RNRModel
     from rnr_tpu_torch.synthetic import build_statics, init_weights
     from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
@@ -1070,45 +1490,35 @@ def phase_train(train_launches: dict) -> dict:
             step(b, statics, gen)
         torch.cuda.synchronize()
         if bsz == 1:   # the main path: one step, counted and checked
-            before = {n: p.detach().clone()
-                      for n, p in model.named_parameters()}
-            u_before = {n: u.clone() for n, u in model.named_buffers()
-                        if n.endswith(".u")}
-            reset_launches()
-            met = step(b, statics, gen)
-            torch.cuda.synchronize()
-            train_launches.update(read_launches())
-            log(f"[train] launches in one step at batch 1: {train_launches}")
-            for name, want in TRAIN_LAUNCHES.items():
-                if train_launches[name] != want:
-                    raise AssertionError(f"{name} launched "
-                                         f"{train_launches[name]} times in a "
-                                         f"step, expected {want}")
-            for name in AT_LEAST_ONE:
-                if train_launches[name] < 1:
-                    raise AssertionError(f"{name} not launched in a step")
-            check_step(model, before, u_before, met)
-            del before
-        n = 5
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            met = step(b, statics, gen)
-        torch.cuda.synchronize()
-        fps = bsz * n / (time.perf_counter() - t0)
-        mem = torch.cuda.max_memory_allocated() / 2 ** 30
-        step_ms = cuda_ms(lambda: step(b, statics, gen), iters=5, warmup=0)
-        loss = float(met["loss"])
-        if not np.isfinite(loss):
-            raise AssertionError(f"loss {loss} at batch {bsz}")
-        log(f"[train] batch {bsz} at {IMG}^2: {fps:.3f} train frames/s "
-            f"(host clock, {n} steps after synchronize); step "
-            f"{step_ms:.3f} ms by CUDA events; peak memory "
-            f"{mem:.3f} GiB; loss {loss:.6g}")
-        out[bsz] = dict(fps=fps, step_ms=step_ms, peak_gib=mem)
+            counted_step(model, step, b, statics, gen, TRAIN_LAUNCHES,
+                         train_launches, "shipped")
+        out[bsz] = timed_steps(step, b, statics, gen, bsz, "shipped")
         if bsz == 1:
             profile_window("train step b1", lambda: step(b, statics, gen), 1,
                            top=20)
+    del model, step
+    torch.cuda.empty_cache()
+    # the relighting configurations, batch 1, from the same seeded weights
+    b = _gbuffer(IMG, 1)
+    for name, (rays, want) in TRAIN_VARIANTS.items():
+        model = init_weights(RNRModel(canonical_config(rays=rays), GCN_V),
+                             seed=0)
+        step = make_rnr_train_step(model, create_rnr_optimizer(model, 1e-3))
+        if name != "probe":
+            for _ in range(2):
+                step(b, statics, gen)
+        variant_launches[name] = {}
+        counted_step(model, step, b, statics, gen, want,
+                     variant_launches[name], name)
+        out[name] = timed_steps(step, b, statics, gen, 1, name,
+                                TIMED_STEPS[name])
+        if name == "probe":
+            probe_scatter(model, b, out[name]["step_ms"])
+        else:
+            profile_window(f"train step {name} b1",
+                           lambda: step(b, statics, gen), 1, top=12)
+        del model, step
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1241,7 +1651,8 @@ def phase_train_parity() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="device,build,kernels,slice,"
-                                        "gbuffer,parity,train,train_parity")
+                                        "gbuffer,relight,parity,train,"
+                                        "train_parity")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1249,6 +1660,8 @@ def main() -> None:
     eval_launches: dict = {}
     train_launches: dict = {}
     view_launches: dict = {}
+    relight_launches: dict = {}
+    variant_launches: dict = {}
 
     def done(name):
         torch.cuda.synchronize()
@@ -1260,33 +1673,44 @@ def main() -> None:
     if "kernels" in phases:
         phase_kernels(rec)
         done("kernels")
-    # gbuffer and parity reuse the slice's model and v_feature
-    if {"slice", "gbuffer", "parity"} & set(phases):
+    # gbuffer, relight and parity reuse the slice's model and v_feature
+    if {"slice", "gbuffer", "relight", "parity"} & set(phases):
         state = phase_slice(eval_launches)
         profile_slice(state)
         done("slice")
         if "gbuffer" in phases:
             phase_gbuffer(state, view_launches)
             done("gbuffer")
+        if "relight" in phases:
+            phase_relight(state, relight_launches)
+            done("relight")
         if "parity" in phases:
             phase_parity(state)
             done("parity")
         del state
         torch.cuda.empty_cache()
     if "train" in phases:
-        phase_train(train_launches)
+        phase_train(train_launches, variant_launches)
         done("train")
     if "train_parity" in phases:
         phase_train_parity()
         done("train_parity")
     # launches: the count on the kernel's main path, the training step
-    # (one step at b1) or, for K7, the G-buffer path (N_VIEWS views)
-    paths = {"train": train_launches, "gbuffer": view_launches}
+    # (one step at b1), or for K7 the G-buffer path (N_VIEWS views), for
+    # K5 the relight path (N_VIEWS views x N_PROBES probes x the routes),
+    # for K5b the unfused training step
+    paths = {"train": train_launches, "gbuffer": view_launches,
+             "relight": relight_launches,
+             "train_unfused": variant_launches.get("unfused", {})}
     kernels = [dict(name=n, route="cuda", source=s["source"],
                     replaces=s["replaces"],
                     launches=paths[s.get("path", "train")].get(n),
                     eval_launches=eval_launches.get(n),
-                    view_launches=view_launches.get(n), **rec.get(n, {}))
+                    view_launches=view_launches.get(n),
+                    relight_launches=relight_launches.get(n),
+                    train_variant_launches={
+                        v: c.get(n) for v, c in variant_launches.items()},
+                    **rec.get(n, {}))
                for n, s in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     log(smi)

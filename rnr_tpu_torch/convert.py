@@ -13,8 +13,10 @@ flax names, so a torch parameter `a.b.Conv_1.weight` reads flax
 - `SNDense.u`: from the `spectral` collection;
 - everything else (BatchActNorm scale/bias, textures, coeff, SNDense
   kernel/bias, biases) as is.
-`constants` holds the lighting's basis caches: the port computes its own
-`basis_val` (a buffer of `LightingSH`), and the probe grid is not ported.
+`constants` holds what `CONSTANT_BUFFERS` names: `LightingLP`'s probes
+`lps` are copied; `LightingSH`'s basis caches `basis_val` and
+`basis_val_recon` the port computes itself, and they are held to the JAX
+values (to 1e-4 of the larger of their largest magnitude and 1).
 `jax_grads_to_torch` maps a JAX gradient tree (the `params` structure)
 into the port's parameter names and layouts by the same rules.
 """
@@ -29,6 +31,11 @@ from torch import nn
 
 from rnr_tpu_torch.models.gcn import SNDense
 from rnr_tpu_torch.models.unet import Conv, ConvTranspose
+
+# buffers that mirror a leaf of the JAX `constants` collection: copied, or
+# computed by the port and checked against the JAX value
+CONSTANT_BUFFERS = {"lps": "copy", "basis_val": "check",
+                    "basis_val_recon": "check"}
 
 
 def _lookup(tree: dict, path: list[str]):
@@ -69,13 +76,38 @@ def _convert(mod: nn.Module, leaf: str, variables: dict, path: list[str]):
     return "params", path + [leaf], _lookup(params, path + [leaf])
 
 
+def _load_constants(model: nn.Module, consts: dict, used: set) -> None:
+    """The `CONSTANT_BUFFERS` of `model` from the JAX constants: copy the
+    probes, hold the basis caches to the port's own.  Without constants
+    (a tree of params only) the basis caches are not compared."""
+    for name, buf in model.named_buffers():
+        *mod_path, leaf = name.split(".")
+        how = CONSTANT_BUFFERS.get(leaf)
+        if how is None or (how == "check" and not consts):
+            continue
+        path = mod_path + [leaf]
+        arr = _lookup(consts, path)
+        if tuple(arr.shape) != tuple(buf.shape):
+            raise ValueError(f"{name}: JAX constants/{'/'.join(path)} has "
+                             f"shape {arr.shape}, torch {tuple(buf.shape)}")
+        if how == "copy":
+            buf.copy_(torch.from_numpy(np.array(arr)))
+        else:
+            err = float(np.abs(buf.cpu().numpy() - arr).max())
+            if not err <= 1e-4 * max(float(np.abs(arr).max()), 1.0):
+                raise ValueError(f"{name}: the port's values differ from "
+                                 f"JAX's by up to {err}")
+        used.add(tuple(path))
+
+
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
     """Copy every parameter (and SNDense `u`) of `model` from the JAX
-    variables; raises if one is missing, has another shape, or if a JAX
-    parameter is left unused."""
+    variables, and the `CONSTANT_BUFFERS`; raises if one is missing, has
+    another shape, or if a JAX parameter or constant is left unused."""
     modules = dict(model.named_modules())
-    used: dict[str, set] = {"params": set(), "spectral": set()}
+    used: dict[str, set] = {"params": set(), "spectral": set(),
+                            "constants": set()}
     targets = list(model.named_parameters()) + [
         (n, b) for n, b in model.named_buffers() if n.endswith(".u")]
     for name, tensor in targets:
@@ -87,7 +119,8 @@ def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
                              f"{arr.shape}, torch {tuple(tensor.shape)}")
         tensor.copy_(torch.from_numpy(np.array(arr)))   # a fresh C-order copy
         used[coll].add(tuple(fpath))
-    for coll in ("params", "spectral"):
+    _load_constants(model, variables.get("constants", {}), used["constants"])
+    for coll in ("params", "spectral", "constants"):
         left = _leaf_paths(variables.get(coll, {})) - used[coll]
         if left:
             raise ValueError(f"JAX {coll} not loaded: "

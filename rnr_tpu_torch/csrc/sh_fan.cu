@@ -43,35 +43,16 @@
 //   65 keeps the 32 lanes on 32 banks).  Each block writes its [121, 3]
 //   partial; a second kernel adds the partials in block order, so d coeff
 //   is bitwise the same from run to run (no atomics).
+// The ladder, the constant banks, the radiance fold and the backward's
+// basis tile, dot products and partial sum live in sh_common.cuh, shared
+// with K5 / K5b (sh_shade.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sh_common.cuh"
 
 namespace {
 
-constexpr int MAX_RAYS = 64;
-constexpr int MAX_BASIS = 121;          // lmax 10
-constexpr int MAX_LADDER = 2 * MAX_BASIS;
-constexpr int BWD_THREADS = 64;         // pixels per backward block
-constexpr int LDS = BWD_THREADS + 1;    // basis tile row stride (floats)
-
-// Uniform per-launch constants.  Every thread reads the same address at
-// the same time, and with compile-time offsets the FMAs take them as
-// constant-bank operands: no registers, no shared-memory loads.  The
-// entry points copy them in on the launch's stream, so launches in
-// stream order never see each other's values.
-__constant__ float c_coeff[MAX_BASIS * 3];
+// The fan's pivots [r_total, 3], uniform per launch like coeff.
 __constant__ float c_pivots[MAX_RAYS * 3];
-__constant__ float c_ladder[MAX_LADDER];
-
-__device__ __forceinline__ float load_lt(const float* p) { return *p; }
-__device__ __forceinline__ float load_lt(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_lt(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_lt(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // The fan ray r of a pixel in world space (_fan_ray), normalised.
 __device__ __forceinline__ void fan_ray(const float* tb, float vx, float vy,
@@ -95,52 +76,6 @@ __device__ __forceinline__ void fan_ray(const float* tb, float vx, float vy,
   const float inv_w = 1.f / fmaxf(sqrtf(x * x + y * y + z * z), 1e-12f);
   x *= inv_w; y *= inv_w; z *= inv_w;
 }
-
-// The ladder (_emit_basis) of direction (x, y, z): calls
-// put(l, m, q, cos(m phi), sin(m phi)) with each associated-Legendre
-// value q of order m >= 0, in the order of the ladder-constant table.
-// Unrolled, l and m are compile-time constants inside put.
-template <int LMAX, typename Put>
-__device__ __forceinline__ void sh_ladder(float x, float y, float z,
-                                          Put&& put) {
-  const float ct = fminf(fmaxf(z, -1.f), 1.f);
-  const float st = sqrtf(fmaxf(1.f - ct * ct, 0.f));
-  const float r2 = x * x + y * y;
-  const float inv_rxy = r2 > 0.f ? 1.f / sqrtf(r2) : 0.f;
-  const float c1 = r2 > 0.f ? x * inv_rxy : 1.f;
-  const float s1 = y * inv_rxy;
-  // cos(m phi), sin(m phi) by angle addition, advanced with m
-  float cos_m = 1.f, sin_m = 0.f;
-  int k = 0;   // position in the ladder-constant table (compile time)
-  float q_diag = 0.28209479177387814f;   // 1 / sqrt(4 pi)
-#pragma unroll
-  for (int m = 0; m <= LMAX; ++m) {
-    if (m == 1) {
-      cos_m = c1; sin_m = s1;
-    } else if (m > 1) {
-      const float cn = cos_m * c1 - sin_m * s1;
-      sin_m = sin_m * c1 + cos_m * s1;
-      cos_m = cn;
-    }
-    if (m > 0) q_diag = c_ladder[k++] * st * q_diag;
-    put(m, m, q_diag, cos_m, sin_m);
-    if (m < LMAX) {
-      float q_lm1 = q_diag;
-      float q_l = c_ladder[k++] * ct * q_diag;
-      put(m + 1, m, q_l, cos_m, sin_m);
-#pragma unroll
-      for (int l = m + 2; l <= LMAX; ++l) {
-        const float a = c_ladder[k++], b = c_ladder[k++];
-        const float q_new = a * (ct * q_l - b * q_lm1);
-        q_lm1 = q_l;
-        q_l = q_new;
-        put(l, m, q_l, cos_m, sin_m);
-      }
-    }
-  }
-}
-
-constexpr float SQRT2 = 1.4142135623730951f;
 
 template <int LMAX, typename LT>
 __global__ void __launch_bounds__(128)
@@ -169,17 +104,7 @@ sh_fan_kernel(const float* __restrict__ tbn, const float* __restrict__ vdt,
     // the ladder, folded into the radiance
     float rad[3] = {0.f, 0.f, 0.f};
     sh_ladder<LMAX>(x, y, z, [&](int l, int m, float q, float cm, float sm) {
-      if (m == 0) {
-        const int i = l * l + l;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) rad[c] += c_coeff[i * 3 + c] * q;
-      } else {
-        const float qc = SQRT2 * q * cm, qs = SQRT2 * q * sm;
-        const int ic = l * l + l + m, is = l * l + l - m;
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          rad[c] += c_coeff[ic * 3 + c] * qc + c_coeff[is * 3 + c] * qs;
-      }
+      fold_radiance(l, m, q, cm, sm, rad);
     });
 
     // ---- reduce into the spec / diff means ----
@@ -232,8 +157,7 @@ sh_fan_bwd_kernel(const float* __restrict__ tbn, const float* __restrict__ vdt,
   const LT* lt = rays_lt + (size_t)p * r_total * 3;
   LT* dl = dlt + (size_t)p * r_total * 3;
 
-  // this thread's basis rows of d coeff: b0 = tid, b1 = tid + 64
-  const int b0 = tid, b1 = tid + BWD_THREADS;
+  // this thread's basis rows of d coeff: tid and tid + 64
   float acc0[3] = {0.f, 0.f, 0.f}, acc1[3] = {0.f, 0.f, 0.f};
 
   for (int r = 0; r < r_total; ++r) {
@@ -241,20 +165,7 @@ sh_fan_bwd_kernel(const float* __restrict__ tbn, const float* __restrict__ vdt,
     fan_ray(tb, vx, vy, vz, al, r, r_spec, x, y, z);
     float rad[3] = {0.f, 0.f, 0.f};
     sh_ladder<LMAX>(x, y, z, [&](int l, int m, float q, float cm, float sm) {
-      if (m == 0) {
-        const int i = l * l + l;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) rad[c] += c_coeff[i * 3 + c] * q;
-        bs[i * LDS + tid] = q;
-      } else {
-        const float qc = SQRT2 * q * cm, qs = SQRT2 * q * sm;
-        const int ic = l * l + l + m, is = l * l + l - m;
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          rad[c] += c_coeff[ic * 3 + c] * qc + c_coeff[is * 3 + c] * qs;
-        bs[ic * LDS + tid] = qc;
-        bs[is * LDS + tid] = qs;
-      }
+      fold_radiance(l, m, q, cm, sm, rad, bs, tid);
     });
     float ltg[3];
 #pragma unroll
@@ -270,60 +181,11 @@ sh_fan_bwd_kernel(const float* __restrict__ tbn, const float* __restrict__ vdt,
     }
     lg[tid] = make_float4(ltg[0], ltg[1], ltg[2], 0.f);
     __syncthreads();
-    if (b0 < NB) {
-      const float* row = bs + b0 * LDS;
-#pragma unroll 8
-      for (int q = 0; q < BWD_THREADS; ++q) {
-        const float v = row[q];
-        const float4 w = lg[q];
-        acc0[0] += v * w.x; acc0[1] += v * w.y; acc0[2] += v * w.z;
-      }
-    }
-    if (b1 < NB) {
-      const float* row = bs + b1 * LDS;
-#pragma unroll 8
-      for (int q = 0; q < BWD_THREADS; ++q) {
-        const float v = row[q];
-        const float4 w = lg[q];
-        acc1[0] += v * w.x; acc1[1] += v * w.y; acc1[2] += v * w.z;
-      }
-    }
+    dot_basis_rows<NB>(bs, lg, tid, acc0, acc1);
     __syncthreads();
   }
-  float* out = part + (size_t)blockIdx.x * NB * 3;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    if (b0 < NB) out[b0 * 3 + c] = acc0[c];
-    if (b1 < NB) out[b1 * 3 + c] = acc1[c];
-  }
+  store_partial<NB>(part, blockIdx.x, tid, acc0, acc1);
 }
-
-// dcoeff[e] = sum over blocks k of part[k][e]: one block per entry, a
-// fixed strided split over 256 threads and a fixed tree (deterministic).
-__global__ void __launch_bounds__(256)
-sum_partials(const float* __restrict__ part, int n_part, int n_entry,
-             float* __restrict__ out) {
-  __shared__ float red[256];
-  const int e = blockIdx.x;
-  float s = 0.f;
-  for (int k = threadIdx.x; k < n_part; k += 256)
-    s += part[(size_t)k * n_entry + e];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = 128; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[e] = red[0];
-}
-
-#define RNR_SH_SWITCH(CASE)                                                 \
-  switch (lmax) {                                                           \
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5)                                 \
-    CASE(6) CASE(7) CASE(8) CASE(9) CASE(10)                                \
-    default:                                                                \
-      return (int)cudaErrorInvalidValue;                                    \
-  }
 
 template <typename LT>
 int launch(int lmax, const float* tbn, const float* vdt, const float* alpha,
@@ -364,22 +226,11 @@ int launch_bwd(int lmax, const float* tbn, const float* vdt,
 
 int copy_constants(const void* coeff, const void* pivots, const void* ladder,
                    int lmax, int n_ladder, int r_total, cudaStream_t stream) {
-  const int nb = (lmax + 1) * (lmax + 1);
-  cudaError_t e;
-  if ((e = cudaMemcpyToSymbolAsync(c_coeff, coeff, nb * 3 * sizeof(float), 0,
-                                   cudaMemcpyDeviceToDevice, stream)) ||
-      (e = cudaMemcpyToSymbolAsync(c_pivots, pivots,
-                                   r_total * 3 * sizeof(float), 0,
-                                   cudaMemcpyDeviceToDevice, stream)) ||
-      (e = cudaMemcpyToSymbolAsync(c_ladder, ladder, n_ladder * sizeof(float),
-                                   0, cudaMemcpyDeviceToDevice, stream)))
-    return (int)e;
-  return 0;
-}
-
-bool bad_args(int lmax, int n_ladder, int r_total, int r_spec) {
-  return lmax < 1 || lmax > 10 || r_total > MAX_RAYS ||
-         n_ladder > MAX_LADDER || r_spec < 1 || r_spec > r_total;
+  if (int e = copy_coeff_ladder(coeff, ladder, lmax, n_ladder, stream))
+    return e;
+  return (int)cudaMemcpyToSymbolAsync(c_pivots, pivots,
+                                      r_total * 3 * sizeof(float), 0,
+                                      cudaMemcpyDeviceToDevice, stream);
 }
 
 }  // namespace
@@ -393,7 +244,7 @@ extern "C" int rnr_sh_shade_fan(const void* tbn, const void* vdt,
                                 const void* ladder, void* spec, void* diff,
                                 int lmax, int n_ladder, int n_pix, int r_total,
                                 int r_spec, int lt_bf16, cudaStream_t stream) {
-  if (bad_args(lmax, n_ladder, r_total, r_spec))
+  if (bad_sh_args(lmax, n_ladder, r_total, r_spec))
     return (int)cudaErrorInvalidValue;
   if (int e = copy_constants(coeff, pivots, ladder, lmax, n_ladder, r_total,
                              stream))
@@ -420,7 +271,7 @@ extern "C" int rnr_sh_shade_fan_bwd(const void* tbn, const void* vdt,
                                     void* dcoeff, int lmax, int n_ladder,
                                     int n_pix, int r_total, int r_spec,
                                     int lt_bf16, cudaStream_t stream) {
-  if (bad_args(lmax, n_ladder, r_total, r_spec))
+  if (bad_sh_args(lmax, n_ladder, r_total, r_spec))
     return (int)cudaErrorInvalidValue;
   if (int e = copy_constants(coeff, pivots, ladder, lmax, n_ladder, r_total,
                              stream))

@@ -1,7 +1,10 @@
-"""Ray fans and SH-direct ray composition (port of rnr_tpu/models/rays.py).
+"""Ray fans and ray composition (port of rnr_tpu/models/rays.py).
 
 Channels-last throughout: per-pixel rays are [..., 3, R] (xyz by ray),
-light transport [N, H, W, R, C].
+light transport [N, H, W, R, C].  Two compositions: `ray_render` gathers
+each ray's colour from an equirect light probe, `ray_render_sh` shades
+each ray from SH coefficients (K1 with the fan built in the kernel, K5 on
+a materialised rays_dir).
 """
 
 from __future__ import annotations
@@ -11,8 +14,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from rnr_tpu_torch.ops.cameras import euler_to_rot
-from rnr_tpu_torch.ops.sh_cuda import sh_shade_fan
+from rnr_tpu_torch.ops.cameras import euler_to_rot, get_reflect_dir
+from rnr_tpu_torch.ops.interpolate import interpolate_bilinear_batch
+from rnr_tpu_torch.ops.sh_cuda import sh_shade, sh_shade_fan
+from rnr_tpu_torch.ops.spherical import spherical_mapping_batch
 
 
 @dataclasses.dataclass
@@ -20,8 +25,9 @@ class RaySampler:
     """Fixed fan of ray pivots around the tangent-space normal.
 
     num_ray = num_azi * num_polar + 1 (the +1 is the identity pivot);
-    `pivots_dir` is [3, num_ray].  Only the pivot table is ported: the
-    serving path builds the rays with `build_fan_channels`.
+    `pivots_dir` is [3, num_ray].  mode "reflect" reflects each pixel's
+    tangent-space view direction about each pivot (the specular fan),
+    "diffuse" uses the pivots as they are.
     """
 
     num_azi: int
@@ -42,6 +48,40 @@ class RaySampler:
         for i in range(self.num_ray - 1):
             rs[i + 1] = euler_to_rot(rot[:, i])
         self.pivots_dir = np.einsum("rij,j->ir", rs, np.array([0.0, 0.0, 1.0]))
+        self._pivots: dict = {}     # device -> pivots_dir as f32
+
+    def __call__(self, tbn_matrices: torch.Tensor,
+                 view_dir_tangent: torch.Tensor, alpha_map: torch.Tensor,
+                 with_uv: bool = True):
+        """tbn_matrices [N, ..., 3, 3], view_dir_tangent [N, ..., 3],
+        alpha_map [N, ..., 1] -> (rays_dir [N, ..., 3, R] world-space
+        unit rays; rays_uv [N, ..., 2, R] equirect probe UVs, -1 at masked
+        pixels, or None without `with_uv`; rays_dir_tangent, [N, ..., 3, R]
+        or, diffuse, [3, R])."""
+        dev = tbn_matrices.device
+        pivots = self._pivots.get(dev)
+        if pivots is None:
+            pivots = self._pivots[dev] = torch.as_tensor(
+                self.pivots_dir, dtype=torch.float32, device=dev)
+        if self.mode == "reflect":
+            rays_dir_tangent = (get_reflect_dir(view_dir_tangent[..., None],
+                                                pivots, axis=-2)
+                                * alpha_map[..., None])
+            rays_dir = torch.einsum("...ij,...jr->...ir", tbn_matrices,
+                                    rays_dir_tangent)
+        else:
+            rays_dir_tangent = pivots
+            rays_dir = torch.einsum("...ij,jr->...ir", tbn_matrices, pivots)
+        rays_dir = rays_dir / torch.clamp(torch.linalg.vector_norm(
+            rays_dir, dim=-2, keepdim=True), min=1e-12)
+        if not with_uv:
+            return rays_dir, None, rays_dir_tangent
+        # the batch mapping takes xyz on axis 1
+        uv = spherical_mapping_batch(torch.movedim(rays_dir, -2, 1))
+        rays_uv = torch.movedim(uv, 1, -2)                  # [N, ..., 2, R]
+        masked = (alpha_map[..., None] == 0).to(rays_uv.dtype)
+        rays_uv = rays_uv * alpha_map[..., None] - masked
+        return rays_dir, rays_uv, rays_dir_tangent
 
 
 def build_fan_channels(tbn, vdt, alpha, pivots, r_spec: int):
@@ -103,20 +143,103 @@ def rays_lt_chrom_loss(rays_lt: torch.Tensor, alpha_map: torch.Tensor,
     return loss, chrom, chrom_mean, diff
 
 
-def ray_render_sh(albedo_specular, alpha_map, rays_lt, sh_coeff, sh_lmax: int,
-                  fan_inputs, num_ray_diffuse: int, albedo_diffuse):
-    """SH-direct composition, fan-fused branch (K1), separate albedos.
+def _compose(albedo_specular, albedo_diffuse, ltt_specular, ltt_diffuse,
+             num_ray_diffuse: int, no_albedo: bool, separate_albedo: bool):
+    """(out_specular, out_diffuse) of rnr_tpu's compositions."""
+    out_specular = ltt_specular if no_albedo else albedo_specular * ltt_specular
+    if num_ray_diffuse == 0:
+        return out_specular, torch.zeros_like(out_specular)
+    if no_albedo:
+        return out_specular, ltt_diffuse
+    if separate_albedo:
+        if albedo_diffuse is None:
+            raise ValueError("separate_albedo requires albedo_diffuse")
+        return out_specular, albedo_diffuse * ltt_diffuse
+    return out_specular, albedo_specular * ltt_diffuse
 
-    fan_inputs = (tbn [N,H,W,3,3], view_dir_tangent [N,H,W,3],
-    pivots [R,3]).  Returns the dict of rnr_tpu's ray_render_sh (with
-    rays_color None: it is never materialised on this path).
+
+def ray_render(albedo_specular, rays_uv, rays_lt, lp, num_ray_diffuse: int = 0,
+               albedo_diffuse=None, no_albedo: bool = False,
+               separate_albedo: bool = False, lp_scale_factor: float = 1.0):
+    """Compose the image from per-ray light transport and a light probe.
+
+    albedo_specular [N, H, W, C], rays_uv [N, H, W, 2, R] (-1 at masked
+    pixels), rays_lt [N, H, W, R, C], lp [N or 1, Hl, Wl, C] (equirect);
+    the last `num_ray_diffuse` rays are the diffuse fan.  Each ray's
+    colour is the probe's bilinear value at its uv (masked rays give 0;
+    u and v clipped from above only), and rays_lt * colour is averaged
+    over each fan.  Its backward is a scatter-add into the probe.
+    Returns dict(out, out_specular, out_diffuse, ltt_specular_map,
+    ltt_diffuse_map, rays_color, lp).
     """
-    tbn, vdt, pivots = fan_inputs
-    r_spec = pivots.shape[0] - num_ray_diffuse
-    ltt_specular, ltt_diffuse = sh_shade_fan(
-        tbn, vdt, alpha_map, rays_lt, sh_coeff, pivots, sh_lmax, r_spec)
-    out_specular = albedo_specular * ltt_specular
-    out_diffuse = albedo_diffuse * ltt_diffuse
+    r_total = rays_uv.shape[-1]
+    r_spec = r_total - num_ray_diffuse
+    lp = lp * lp_scale_factor
+    hl, wl = lp.shape[1], lp.shape[2]
+    x = torch.clamp(rays_uv[..., 0, :] * wl, max=wl - 1)
+    y = torch.clamp(rays_uv[..., 1, :] * hl, max=hl - 1)
+    rays_color = interpolate_bilinear_batch(lp, x, y)     # [N, H, W, R, C]
+    ltt_specular = torch.sum(rays_lt[..., :r_spec, :]
+                             * rays_color[..., :r_spec, :], dim=-2) / r_spec
+    if num_ray_diffuse > 0:
+        ltt_diffuse = torch.sum(rays_lt[..., r_spec:, :]
+                                * rays_color[..., r_spec:, :],
+                                dim=-2) / num_ray_diffuse
+    else:
+        ltt_diffuse = torch.zeros_like(ltt_specular)
+    out_specular, out_diffuse = _compose(
+        albedo_specular, albedo_diffuse, ltt_specular, ltt_diffuse,
+        num_ray_diffuse, no_albedo, separate_albedo)
+    return {
+        "out": out_specular + out_diffuse,
+        "out_specular": out_specular,
+        "out_diffuse": out_diffuse,
+        "ltt_specular_map": ltt_specular,
+        "ltt_diffuse_map": ltt_diffuse,
+        "rays_color": rays_color,
+        "lp": lp,
+    }
+
+
+class RayRenderer:
+    """`ray_render` with a lighting model that supplies the probe when
+    `lp` is not given: lighting_apply(lighting_idx, is_lp=True) ->
+    [1, H, W, C]."""
+
+    def __init__(self, lighting_apply):
+        self.lighting_apply = lighting_apply
+
+    def __call__(self, albedo_specular, rays_uv, rays_lt, lighting_idx=None,
+                 lp=None, **kw):
+        if lp is None:
+            lp = self.lighting_apply(lighting_idx, is_lp=True)
+        return ray_render(albedo_specular, rays_uv, rays_lt, lp, **kw)
+
+
+def ray_render_sh(albedo_specular, rays_dir, alpha_map, rays_lt, sh_coeff,
+                  sh_lmax: int, num_ray_diffuse: int, albedo_diffuse,
+                  fan_inputs=None):
+    """SH-direct composition with separate albedos: each ray shaded as
+    coeff^T basis(dir) * alpha.
+
+    With fan_inputs = (tbn [N,H,W,3,3], view_dir_tangent [N,H,W,3],
+    pivots [R,3]) the kernel builds the ray fan itself and never reads
+    rays_dir (K1, the fan-fused configuration); without, it shades the
+    materialised rays_dir [N,H,W,3,R] (K5, sh_fan_fuse=False).  Returns
+    the dict of rnr_tpu's ray_render_sh, with rays_color None: neither
+    kernel materialises it.
+    """
+    r_spec = rays_dir.shape[-1] - num_ray_diffuse
+    if fan_inputs is not None:
+        tbn, vdt, pivots = fan_inputs
+        ltt_specular, ltt_diffuse = sh_shade_fan(
+            tbn, vdt, alpha_map, rays_lt, sh_coeff, pivots, sh_lmax, r_spec)
+    else:
+        ltt_specular, ltt_diffuse = sh_shade(
+            rays_dir, rays_lt, alpha_map, sh_coeff, sh_lmax, r_spec)
+    out_specular, out_diffuse = _compose(
+        albedo_specular, albedo_diffuse, ltt_specular, ltt_diffuse,
+        num_ray_diffuse, False, True)
     return {
         "out": out_specular + out_diffuse,
         "out_specular": out_specular,

@@ -3,15 +3,20 @@
 Data flow of one frame:
   v_feature  = gcn(mesh_pos)                 # K4; cached when serving
   neural_img = texture(uv_map, sh_basis_map)  # K2 (backward K2b)
-  net_rays   = fan channels of 13 + 13 rays
-  rays_lt    = unet([net_rays || normal || view || neural_img], v_feature)
+  rays       = fans of 13 + 13 rays (elementwise, or RaySampler's einsum,
+               which also gives the probe UVs)
+  rays_lt    = unet([rays || normal || view || neural_img], v_feature)
                                               # K3 (backward K3, K3b)
-  image      = SH-direct fan-fused shading of rays_lt  # K1 (backward K1b)
-Ported: the SH-direct path with the fan-fused shading (the shipped
-configuration), for serving and for training (train=True: dropout, the
-stochastic GCN graphs and the SNDense power-iteration update).  The
-light-probe path, the unfused shading, the einsum fan construction and
-remat raise NotImplementedError.
+  image      = SH shading of the rays          # K1 fan-fused (K1b), or
+                                              # K5 on rays_dir (K5b)
+             | or the probe gather (ray_render) from a light probe: a
+               novel one (lp_override) or the learned SH lighting
+               reconstructed on the probe grid (direct_sh_shading=False)
+The SH path runs when SH coefficients are given (sh_coeff_override) or
+when no probe is given and direct_sh_shading is on; the probe path
+otherwise.  Every configuration is ported, for serving and for training
+(train=True: dropout, the stochastic GCN graphs and the SNDense
+power-iteration update), except remat, which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from rnr_tpu_torch.config import RNRConfig
 from rnr_tpu_torch.models.gcn import DenseDeepGCN, GCNConfig
 from rnr_tpu_torch.models.lighting import LightingSH, fib_sphere
 from rnr_tpu_torch.models.rays import (RaySampler, build_fan_channels,
-                                       ray_render_sh)
+                                       ray_render, ray_render_sh)
 from rnr_tpu_torch.models.texture import TextureMapper
 from rnr_tpu_torch.models.unet import RenderingNet
 from rnr_tpu_torch.ops.backend import resolve_device
@@ -44,11 +49,6 @@ class RNRModel(nn.Module):
         super().__init__()
         device = resolve_device(device)
         c = cfg
-        if not c.rays.direct_sh_shading or not c.rays.sh_fan_fuse \
-                or c.rays.fan_impl != "elementwise":
-            raise NotImplementedError(
-                "the port serves the SH-direct, fan-fused path "
-                "(direct_sh_shading, sh_fan_fuse, fan_impl='elementwise')")
         if c.render_net.remat not in (False, "none"):
             raise NotImplementedError("remat is not ported")
         self.cfg = cfg
@@ -81,11 +81,15 @@ class RNRModel(nn.Module):
             l_dir = fib_sphere(c.lighting.num_sample)
         self.lighting = LightingSH(l_dir, c.lighting.sh_lmax,
                                    c.lighting.num_lighting, 3,
-                                   c.lighting.fix_lighting)
-        spec = RaySampler(c.rays.num_azi, c.rays.num_polar,
-                          c.rays.interval_polar_specular, "reflect")
-        diff = RaySampler(c.rays.num_azi, c.rays.num_polar,
-                          c.rays.interval_polar_diffuse, "diffuse")
+                                   c.lighting.fix_lighting,
+                                   c.lighting.lp_recon_h,
+                                   c.lighting.lp_recon_w)
+        self.ray_sampler = spec = RaySampler(
+            c.rays.num_azi, c.rays.num_polar, c.rays.interval_polar_specular,
+            "reflect")
+        self.ray_sampler_diffuse = diff = RaySampler(
+            c.rays.num_azi, c.rays.num_polar, c.rays.interval_polar_diffuse,
+            "diffuse")
         self.num_ray_specular = spec.num_ray
         self.num_ray_diffuse = diff.num_ray
         self.register_buffer("fan_pivots", torch.from_numpy(np.concatenate(
@@ -100,13 +104,17 @@ class RNRModel(nn.Module):
         return self.gcn(gcn_pos)
 
     def forward(self, batch: dict, lighting_idx: int = 0,
+                lp_override: torch.Tensor | None = None,
                 v_feature_override: torch.Tensor | None = None,
                 sh_coeff_override: torch.Tensor | None = None,
                 train: bool = False,
                 generator: torch.Generator | None = None) -> dict:
         """batch: NHWC G-buffer maps uv_map, sh_basis_map, normal_map,
         view_dir_map, view_dir_map_tangent, TBN_map, alpha_map, and
-        gcn_pos [V, 3].  train=True runs dropout and the stochastic GCN
+        gcn_pos [V, 3].  lp_override [1 or N, Hl, Wl, C]: a probe to
+        relight with through the probe gather; sh_coeff_override [B, C]:
+        SH coefficients to relight with through the SH path, which takes
+        precedence.  train=True runs dropout and the stochastic GCN
         graphs from `generator` and advances the SNDense vectors."""
         c = self.cfg
         n, h, w = batch["alpha_map"].shape[:3]
@@ -122,12 +130,28 @@ class RNRModel(nn.Module):
         albedo_diffuse = neural_img[..., 0:3]
         albedo_specular = neural_img[..., 3:6]
 
+        # the SH path never touches a probe, so it skips the equirect UVs
+        use_sh = sh_coeff_override is not None or (
+            lp_override is None and c.rays.direct_sh_shading)
         rdt = self.rays_dtype
-        net_rays, rays_dir = build_fan_channels(
-            batch["TBN_map"], batch["view_dir_map_tangent"],
-            batch["alpha_map"], self.fan_pivots, self.num_ray_specular)
-        net_rays = net_rays.to(rdt)
-        rays_dir = rays_dir.to(rdt)
+        tbn, vdt = batch["TBN_map"], batch["view_dir_map_tangent"]
+        rays_uv = None
+        if use_sh and c.rays.fan_impl == "elementwise":
+            net_rays, rays_dir = build_fan_channels(
+                tbn, vdt, batch["alpha_map"], self.fan_pivots,
+                self.num_ray_specular)
+            net_rays = net_rays.to(rdt)
+            rays_dir = rays_dir.to(rdt)
+        else:
+            dir_s, uv_s, _ = self.ray_sampler(tbn, vdt, batch["alpha_map"],
+                                              with_uv=not use_sh)
+            dir_d, uv_d, _ = self.ray_sampler_diffuse(
+                tbn, vdt, batch["alpha_map"], with_uv=not use_sh)
+            rays_dir = torch.cat([dir_s, dir_d], dim=-1).to(rdt)
+            if not use_sh:
+                rays_uv = torch.cat([uv_s, uv_d], dim=-1)
+            # per-ray xyz grouping of the U-Net's ray channels
+            net_rays = torch.swapaxes(rays_dir, -1, -2).reshape(n, h, w, -1)
         r_total = rays_dir.shape[-1]
 
         net_in = torch.cat([net_rays, batch["normal_map"].to(rdt),
@@ -137,18 +161,28 @@ class RNRModel(nn.Module):
         rays_lt = lt.reshape(n, h, w, r_total, 3)
         rays_lt = ((rays_lt * 0.5 + 0.5) * c.rays.lt_max_val).to(rdt)
 
-        sh_coeff = (sh_coeff_override if sh_coeff_override is not None
-                    else self.lighting.get_lighting_params(lighting_idx))
-        rendered = ray_render_sh(
-            albedo_specular, batch["alpha_map"], rays_lt, sh_coeff,
-            c.lighting.sh_lmax,
-            (batch["TBN_map"], batch["view_dir_map_tangent"], self.fan_pivots),
-            num_ray_diffuse=self.num_ray_diffuse,
-            albedo_diffuse=albedo_diffuse)
+        if use_sh:
+            sh_coeff = (sh_coeff_override if sh_coeff_override is not None
+                        else self.lighting.get_lighting_params(lighting_idx))
+            rendered = ray_render_sh(
+                albedo_specular, rays_dir, batch["alpha_map"], rays_lt,
+                sh_coeff, c.lighting.sh_lmax,
+                num_ray_diffuse=self.num_ray_diffuse,
+                albedo_diffuse=albedo_diffuse,
+                fan_inputs=((tbn, vdt, self.fan_pivots)
+                            if c.rays.sh_fan_fuse else None))
+        else:
+            lp = (self.lighting(lighting_idx, is_lp=True)
+                  if lp_override is None else lp_override)
+            rendered = ray_render(
+                albedo_specular, rays_uv, rays_lt, lp,
+                num_ray_diffuse=self.num_ray_diffuse,
+                albedo_diffuse=albedo_diffuse, separate_albedo=True)
         return {
             "img": rendered["out"],
             "l_samples_est": self.lighting(lighting_idx)[0],
             "rays_lt": rays_lt,
+            "rays_uv": rays_uv,
             "rays_dir": rays_dir,
             "neural_img": neural_img,
             "albedo_specular": albedo_specular,
@@ -158,3 +192,11 @@ class RNRModel(nn.Module):
             "ltt_specular_map": rendered["ltt_specular_map"],
             "ltt_diffuse_map": rendered["ltt_diffuse_map"],
         }
+
+    def lighting_samples(self, lighting_idx) -> torch.Tensor:
+        """The learned lighting's samples at the sphere directions [S, C]."""
+        return self.lighting(lighting_idx)[0]
+
+    def reconstruct_lp(self, lighting_idx) -> torch.Tensor:
+        """The learned lighting as a probe [H, W, C] on the recon grid."""
+        return self.lighting(lighting_idx, is_lp=True)[0]

@@ -47,6 +47,16 @@ def interpolate_bilinear(data: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def interpolate_bilinear_batch(data: torch.Tensor, x: torch.Tensor,
+                               y: torch.Tensor) -> torch.Tensor:
+    """data [N, H, W, C], or [1, H, W, C] shared by the batch; x/y [N, ...]
+    -> [N, ..., C]: one gather from a shared probe, else one per item."""
+    if data.shape[0] == 1:
+        return interpolate_bilinear(data[0], x, y)
+    return torch.stack([interpolate_bilinear(d, xi, yi)
+                        for d, xi, yi in zip(data, x, y)])
+
+
 def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """img [H, W, C] -> [out_h, out_w, C], bilinear with half-pixel
     centres and clamped edges: jax.image.resize(..., "bilinear") when

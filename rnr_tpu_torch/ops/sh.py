@@ -83,6 +83,15 @@ def evaluate_sh_basis(lmax: int, directions: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+def fit_sh_coeff(samples: torch.Tensor, sh_basis_val: torch.Tensor
+                 ) -> torch.Tensor:
+    """Monte-Carlo projection of sphere samples onto the basis: samples
+    [S, C] or [L, S, C] at [S, B] basis values -> [B, C] / [L, B, C],
+    with the weight 4 pi / S of samples uniform on the sphere."""
+    weight = 4.0 * math.pi / samples.shape[-2]
+    return torch.einsum("...sc,sb->...bc", samples, sh_basis_val) * weight
+
+
 def reconstruct_sh(sh_coeff: torch.Tensor, sh_basis_val: torch.Tensor) -> torch.Tensor:
     """[B, C] or [L, B, C] coefficients at [S, B] basis -> [S, C] / [L, S, C]."""
     return torch.einsum("sb,...bc->...sc", sh_basis_val, sh_coeff)

@@ -1,13 +1,16 @@
-"""K1 / K1b: fan-fused SH shading forward and backward (csrc/sh_fan.cu),
-their plain versions, and the autograd.Function that binds them.
+"""SH shading kernels, their plain versions, and the autograd.Functions
+that bind them.
 
-Replaces rnr_tpu/ops/sh_pallas.py::sh_shade_fan with its custom VJP: the
-ray fan is built per pixel from TBN + tangent view direction + pivots in
-f32, each ray is shaded as coeff^T basis(dir) * alpha, and rays_lt *
-radiance is averaged over the specular and the diffuse fan.  Gradients go
-to rays_lt (in its own dtype) and to coeff (f32); TBN, the view direction,
-alpha and the pivots are G-buffer data and get none (`_sh_shade_fan_bwd`
-:773-775 returns zeros for them).
+K1 / K1b (csrc/sh_fan.cu) replace rnr_tpu/ops/sh_pallas.py::sh_shade_fan
+with its custom VJP: the ray fan is built per pixel from TBN + tangent
+view direction + pivots in f32, each ray is shaded as coeff^T basis(dir)
+* alpha, and rays_lt * radiance is averaged over the specular and the
+diffuse fan.  K5 / K5b (csrc/sh_shade.cu) replace sh_pallas.py::sh_shade,
+the same shading of a materialised rays_dir [N, H, W, 3, R] (the unfused
+configuration, sh_fan_fuse=False).  Gradients go to rays_lt (in its own
+dtype) and to coeff (f32); the rays, TBN, the view direction, alpha and
+the pivots are G-buffer data and get none (rnr_tpu's VJPs return zeros
+for them).
 """
 
 from __future__ import annotations
@@ -19,10 +22,67 @@ from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
                                        use_kernel)
 from rnr_tpu_torch.ops.sh import evaluate_sh_basis, ladder_constants
 
-MAX_LMAX = 10   # csrc/sh_fan.cu instantiates lmax 1..10
+MAX_LMAX = 10   # csrc/sh_common.cuh: the kernels instantiate lmax 1..10
 MAX_RAYS = 64
-BWD_PIXELS = 64   # csrc/sh_fan.cu BWD_THREADS: pixels per backward block
+BWD_PIXELS = 64   # csrc/sh_common.cuh BWD_THREADS: pixels per backward block
 _LADDER: dict = {}   # (lmax, device) -> the kernel's ladder constants
+
+
+def _ladder(lmax: int, device) -> torch.Tensor:
+    key = (lmax, device)
+    ladder = _LADDER.get(key)
+    if ladder is None:
+        ladder = _LADDER[key] = torch.tensor(
+            ladder_constants(lmax), dtype=torch.float32, device=device)
+    return ladder
+
+
+def sh_shade_torch(rays_dir, rays_lt, alpha_map, coeff, lmax: int,
+                   r_spec: int):
+    """Plain version of K5: per ray the basis of rays_dir[..., r] widened
+    to f32, the radiance coeff^T basis * alpha, and rays_lt * radiance
+    summed into the two means (rnr_tpu's _fwd_kernel :101), in f32."""
+    f32 = torch.float32
+    r_total = rays_dir.shape[-1]
+    cf = coeff.to(f32)
+    alpha = alpha_map.to(f32)
+    spec = diff = None
+    for r in range(r_total):
+        basis = evaluate_sh_basis(lmax, rays_dir[..., r].to(f32))
+        color = torch.einsum("nhwb,bc->nhwc", basis, cf) * alpha
+        contrib = rays_lt[..., r, :].to(f32) * color
+        if r < r_spec:
+            spec = contrib if spec is None else spec + contrib
+        else:
+            diff = contrib if diff is None else diff + contrib
+    spec = spec / r_spec
+    diff = (diff / (r_total - r_spec) if diff is not None
+            else torch.zeros_like(spec))
+    return spec, diff
+
+
+def sh_shade_bwd_torch(rays_dir, rays_lt, alpha_map, coeff, gs, gd,
+                       lmax: int, r_spec: int):
+    """Plain backward of K5, the structure of `_bwd_kernel` (:140): per
+    ray the basis again, gsel = (gs / r_spec or gd / r_diff) * alpha,
+    d rays_lt = (coeff^T basis) * gsel in rays_lt's dtype, and
+    d coeff += basis^T (rays_lt * gsel) in f32."""
+    f32 = torch.float32
+    r_total = rays_dir.shape[-1]
+    r_diff = max(r_total - r_spec, 1)
+    cf = coeff.to(f32)
+    alpha = alpha_map.to(f32)
+    gs, gd = gs.to(f32), gd.to(f32)
+    dlt = torch.empty_like(rays_lt)
+    dcoeff = torch.zeros_like(cf)
+    for r in range(r_total):
+        basis = evaluate_sh_basis(lmax, rays_dir[..., r].to(f32))
+        rad = torch.einsum("nhwb,bc->nhwc", basis, cf)
+        gsel = (gs / r_spec if r < r_spec else gd / r_diff) * alpha
+        dlt[..., r, :] = (rad * gsel).to(rays_lt.dtype)
+        ltg = rays_lt[..., r, :].to(f32) * gsel
+        dcoeff += torch.einsum("nhwb,nhwc->bc", basis, ltg)
+    return dlt, dcoeff
 
 
 def _fan_dirs(tbn, view_dir_tangent, alpha_map, pivots, r_spec):
@@ -36,51 +96,19 @@ def _fan_dirs(tbn, view_dir_tangent, alpha_map, pivots, r_spec):
 
 def sh_shade_fan_torch(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
                        pivots, lmax: int, r_spec: int):
-    """Plain version: build_fan_channels + evaluate_sh_basis + the per-ray
-    radiance and the two means (rnr_tpu/models/rays.py:353-421), in f32."""
-    f32 = torch.float32
+    """Plain version of K1: build_fan_channels' rays, then K5's plain
+    version (rnr_tpu/models/rays.py:353-421), in f32."""
     rays_dir = _fan_dirs(tbn, view_dir_tangent, alpha_map, pivots, r_spec)
-    r_total = rays_dir.shape[-1]
-    cf = coeff.to(f32)
-    alpha = alpha_map.to(f32)
-    spec = diff = None
-    for r in range(r_total):
-        basis = evaluate_sh_basis(lmax, rays_dir[..., r])
-        color = torch.einsum("nhwb,bc->nhwc", basis, cf) * alpha
-        contrib = rays_lt[..., r, :].to(f32) * color
-        if r < r_spec:
-            spec = contrib if spec is None else spec + contrib
-        else:
-            diff = contrib if diff is None else diff + contrib
-    spec = spec / r_spec
-    diff = (diff / (r_total - r_spec) if diff is not None
-            else torch.zeros_like(spec))
-    return spec, diff
+    return sh_shade_torch(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec)
 
 
 def sh_shade_fan_bwd_torch(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
                            pivots, gs, gd, lmax: int, r_spec: int):
-    """Plain backward, the structure of `_bwd_kernel_fan` (:500): per ray
-    the basis again, gsel = (gs / r_spec or gd / r_diff) * alpha,
-    d rays_lt = (coeff^T basis) * gsel in rays_lt's dtype, and
-    d coeff += basis^T (rays_lt * gsel) in f32."""
-    f32 = torch.float32
+    """Plain backward of K1, the structure of `_bwd_kernel_fan` (:500):
+    the fan's rays, then K5's plain backward."""
     rays_dir = _fan_dirs(tbn, view_dir_tangent, alpha_map, pivots, r_spec)
-    r_total = rays_dir.shape[-1]
-    r_diff = max(r_total - r_spec, 1)
-    cf = coeff.to(f32)
-    alpha = alpha_map.to(f32)
-    gs, gd = gs.to(f32), gd.to(f32)
-    dlt = torch.empty_like(rays_lt)
-    dcoeff = torch.zeros_like(cf)
-    for r in range(r_total):
-        basis = evaluate_sh_basis(lmax, rays_dir[..., r])   # [N, H, W, B]
-        rad = torch.einsum("nhwb,bc->nhwc", basis, cf)
-        gsel = (gs / r_spec if r < r_spec else gd / r_diff) * alpha
-        dlt[..., r, :] = (rad * gsel).to(rays_lt.dtype)
-        ltg = rays_lt[..., r, :].to(f32) * gsel
-        dcoeff += torch.einsum("nhwb,nhwc->bc", basis, ltg)
-    return dlt, dcoeff
+    return sh_shade_bwd_torch(rays_dir, rays_lt, alpha_map, coeff, gs, gd,
+                              lmax, r_spec)
 
 
 def _check(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots, lmax,
@@ -106,12 +134,7 @@ def _check(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots, lmax,
     require(pv, "pivots", f32, (r_total, 3))
     if lt.dtype not in (torch.bfloat16, f32):
         raise TypeError(f"rays_lt: dtype {lt.dtype}, kernel takes bf16 or f32")
-    key = (lmax, lt.device)
-    ladder = _LADDER.get(key)
-    if ladder is None:
-        ladder = _LADDER[key] = torch.tensor(
-            ladder_constants(lmax), dtype=f32, device=lt.device)
-    return tb, vd, al, lt, cf, pv, ladder
+    return tb, vd, al, lt, cf, pv, _ladder(lmax, lt.device)
 
 
 def _launch_fwd(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots,
@@ -204,3 +227,108 @@ def sh_shade_fan(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots,
 
 sh_shade_fan.launches = 0
 sh_shade_fan_bwd.launches = 0
+
+
+# ------------------------------------------------- K5 / K5b: materialised rays
+
+
+def _check_rays(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec):
+    """The contiguous operands and the ladder table K5 / K5b take: rays_dir
+    and rays_lt in one storage type (bf16 or f32), alpha and coeff f32."""
+    n, h, w, r_total, c = rays_lt.shape
+    if not 1 <= lmax <= MAX_LMAX:
+        raise ValueError(f"sh_shade kernel: lmax {lmax} not in 1..{MAX_LMAX}")
+    if c != 3 or r_total > MAX_RAYS or not 1 <= r_spec <= r_total:
+        raise ValueError(f"sh_shade kernel: C={c}, R={r_total}, "
+                         f"r_spec={r_spec} unsupported")
+    f32 = torch.float32
+    lt = rays_lt.contiguous()
+    if lt.dtype not in (torch.bfloat16, f32):
+        raise TypeError(f"rays_lt: dtype {lt.dtype}, kernel takes bf16 or f32")
+    rd = rays_dir.contiguous()
+    al = alpha_map.to(f32).contiguous()
+    cf = coeff.to(f32).contiguous()
+    require(rd, "rays_dir", lt.dtype, (n, h, w, 3, r_total))
+    require(al, "alpha_map", f32, (n, h, w, 1))
+    require(cf, "coeff", f32, ((lmax + 1) ** 2, 3))
+    return rd, lt, al, cf, _ladder(lmax, lt.device)
+
+
+def _launch_shade(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec):
+    rd, lt, al, cf, ladder = _check_rays(rays_dir, rays_lt, alpha_map, coeff,
+                                         lmax, r_spec)
+    n, h, w, r_total, _ = lt.shape
+    spec = torch.empty((n, h, w, 3), dtype=torch.float32, device=lt.device)
+    diff = torch.empty_like(spec)
+    fn = _build.fn("sh_shade", "rnr_sh_shade", 7, 6)
+    sh_shade.launches += 1
+    check_launch(fn(rd.data_ptr(), al.data_ptr(), lt.data_ptr(),
+                    cf.data_ptr(), ladder.data_ptr(), spec.data_ptr(),
+                    diff.data_ptr(), lmax, ladder.numel(), n * h * w,
+                    r_total, r_spec, int(lt.dtype == torch.bfloat16),
+                    stream_of(lt)), "sh_shade")
+    return spec, diff
+
+
+def sh_shade_bwd(rays_dir, rays_lt, alpha_map, coeff, gs, gd, lmax: int,
+                 r_spec: int):
+    """K5b: gs, gd [N,H,W,C] -> (d rays_lt in rays_lt's dtype, d coeff
+    [B, C] f32); the plain backward on CPU tensors."""
+    if not use_kernel(rays_dir, rays_lt, alpha_map, coeff, gs, gd):
+        return sh_shade_bwd_torch(rays_dir, rays_lt, alpha_map, coeff, gs,
+                                  gd, lmax, r_spec)
+    rd, lt, al, cf, ladder = _check_rays(rays_dir, rays_lt, alpha_map, coeff,
+                                         lmax, r_spec)
+    n, h, w, r_total, c = lt.shape
+    gsf = gs.to(torch.float32).contiguous()
+    gdf = gd.to(torch.float32).contiguous()
+    require(gsf, "gs", torch.float32, (n, h, w, c))
+    require(gdf, "gd", torch.float32, (n, h, w, c))
+    n_pix = n * h * w
+    dlt = torch.empty_like(lt)
+    dcoeff = torch.empty_like(cf)
+    part = torch.empty((-(-n_pix // BWD_PIXELS), cf.numel()),
+                       dtype=torch.float32, device=lt.device)
+    fn = _build.fn("sh_shade", "rnr_sh_shade_bwd", 10, 6)
+    sh_shade_bwd.launches += 1
+    check_launch(fn(rd.data_ptr(), al.data_ptr(), lt.data_ptr(),
+                    cf.data_ptr(), ladder.data_ptr(), gsf.data_ptr(),
+                    gdf.data_ptr(), dlt.data_ptr(), part.data_ptr(),
+                    dcoeff.data_ptr(), lmax, ladder.numel(), n_pix, r_total,
+                    r_spec, int(lt.dtype == torch.bfloat16), stream_of(lt)),
+                 "sh_shade_bwd")
+    return dlt, dcoeff
+
+
+class ShShadeFn(torch.autograd.Function):
+    """K5 forward / K5b backward on CUDA tensors, the plain versions on
+    CPU tensors.  Differentiable in rays_lt and coeff only."""
+
+    @staticmethod
+    def forward(ctx, rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec):
+        ctx.lmax, ctx.r_spec = lmax, r_spec
+        ctx.save_for_backward(rays_dir, rays_lt, alpha_map, coeff)
+        if use_kernel(rays_dir, rays_lt, alpha_map, coeff):
+            return _launch_shade(rays_dir, rays_lt, alpha_map, coeff, lmax,
+                                 r_spec)
+        return sh_shade_torch(rays_dir, rays_lt, alpha_map, coeff, lmax,
+                              r_spec)
+
+    @staticmethod
+    def backward(ctx, gs, gd):
+        rays_dir, rays_lt, alpha, coeff = ctx.saved_tensors
+        dlt, dcoeff = sh_shade_bwd(rays_dir, rays_lt, alpha, coeff, gs, gd,
+                                   ctx.lmax, ctx.r_spec)
+        # rays_dir and alpha: no gradient (zeros in rnr_tpu)
+        return None, dlt, None, dcoeff.to(coeff.dtype), None, None
+
+
+def sh_shade(rays_dir, rays_lt, alpha_map, coeff, lmax: int, r_spec: int):
+    """rays_dir [N,H,W,3,R] and rays_lt [N,H,W,R,C] (one dtype, bf16 or
+    f32), alpha_map [N,H,W,1], coeff [B,C] -> (ltt_specular, ltt_diffuse)
+    [N,H,W,C] f32, differentiable in rays_lt and coeff."""
+    return ShShadeFn.apply(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec)
+
+
+sh_shade.launches = 0
+sh_shade_bwd.launches = 0

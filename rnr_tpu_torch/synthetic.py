@@ -7,7 +7,8 @@ vertex cloud for the GCN.  `build_config` mirrors that function's
 RNRConfig; `init_weights` fills a model from a NumPy seed;
 `build_statics` gives the training anchors `bench.py` draws.
 `make_sphere` / `sphere_mesh` and `camera_ring` give a procedural mesh
-and the views around it for the G-buffer path (mesh + camera -> frame).
+and the views around it for the G-buffer path (mesh + camera -> frame);
+`make_probes` gives procedural equirect light probes for relighting.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from rnr_tpu_torch.config import (GCNTrainConfig, LightingConfig, LossConfig,
 from rnr_tpu_torch.models.lighting import fib_sphere
 
 __all__ = ["build_batch", "build_config", "build_statics", "camera_ring",
-           "fib_sphere", "init_weights", "make_sphere", "sphere_mesh",
-           "to_torch"]
+           "fib_sphere", "init_weights", "make_probes", "make_sphere",
+           "sphere_mesh", "to_torch"]
 
 
 def build_config(img_size: int, tex_size: int, lmax: int, nf0: int,
@@ -226,3 +227,41 @@ def camera_ring(img_size: int, n_views: int = 20, elevation_deg: float = 30.0,
                       "pose": rt_from_pos_lookat(pos).astype(np.float32),
                       "dist_coeffs": np.zeros(5, np.float32)})
     return views
+
+
+def make_probes(n: int = 2, h: int = 256, w: int = 512, seed: int = 0
+                ) -> np.ndarray:
+    """`n` equirect light probes [n, h, w, 3] f32 (the probe size of
+    rnr_tpu's config), HDR: a sky gradient about +y (zenith, horizon and
+    ground colours drawn per probe) plus two sharp sun lobes c exp(k (d.s
+    - 1)) with k in 300..1500, which put energy into the high SH bands.
+    The first probe's first sun sits on the seam (u = 0 / 1, the -x axis)
+    at 20 degrees up; every other sun is drawn above the horizon.  Texel
+    (i, j) holds the direction of u = j / w, v = i / h, where the probe
+    gather reads it."""
+    rng = np.random.default_rng(seed)
+    v = np.arange(h, dtype=np.float64)[:, None] / h
+    u = np.arange(w, dtype=np.float64)[None, :] / w
+    y = np.cos(v * np.pi) * np.ones_like(u)
+    r = np.sin(v * np.pi)
+    t = (2.0 * u - 1.0) * np.pi
+    d = np.stack([r * np.cos(t), y, r * np.sin(t)], axis=-1)   # [h, w, 3]
+    out = []
+    for k in range(n):
+        zenith, horizon, ground = rng.uniform(0.05, 1.0, (3, 3))
+        up = np.clip(y, 0.0, 1.0)[..., None]
+        img = np.where(y[..., None] >= 0, horizon + (zenith - horizon) * up,
+                       ground * (0.3 + 0.7 * np.clip(-y, 0, 1))[..., None])
+        for s in range(2):
+            if k == 0 and s == 0:
+                el, az = np.radians(20.0), np.pi      # on the seam
+            else:
+                el = np.radians(rng.uniform(10.0, 70.0))
+                az = rng.uniform(-np.pi, np.pi)
+            sun = np.array([np.cos(el) * np.cos(az), np.sin(el),
+                            np.cos(el) * np.sin(az)])
+            sharp = rng.uniform(300.0, 1500.0)
+            color = rng.uniform(2.0, 20.0) * rng.uniform(0.6, 1.0, 3)
+            img = img + color * np.exp(sharp * (d @ sun - 1.0))[..., None]
+        out.append(img)
+    return np.stack(out).astype(np.float32)

@@ -114,22 +114,29 @@ def make_rnr_train_step(model: RNRModel, optimizer: torch.optim.Optimizer,
 def make_rnr_eval_step(model: RNRModel, lighting_idx: int = 0,
                        output_keys: tuple[str, ...] | None = ("img",)
                        ) -> Callable:
-    """Inference step: step(batch, v_feature=None, sh_override=None) ->
-    dict of `output_keys` (all outputs when None).
+    """Inference step: step(batch, v_feature=None, lp_override=None,
+    sh_override=None, relight=False) -> dict of `output_keys` (all
+    outputs when None).
 
     Pass the cached `model.compute_v_feature(batch["gcn_pos"])` as
-    `v_feature` to skip the GCN per frame; `sh_override` [B, C] relights
-    through the SH-direct path.  The model runs in eval mode under
+    `v_feature` to skip the GCN per frame.  With `relight`, the frame is
+    lit by `sh_override` [B, C] through the SH path, else by the probe
+    `lp_override` [1 or N, Hl, Wl, C] through the probe gather; without
+    it both are ignored and the learned lighting `lighting_idx` lights
+    the frame (rnr_tpu's semantics).  The model runs in eval mode under
     torch.inference_mode().
     """
     model.eval()
 
     def step(batch: dict, v_feature: torch.Tensor | None = None,
-             sh_override: torch.Tensor | None = None) -> dict:
+             lp_override: torch.Tensor | None = None,
+             sh_override: torch.Tensor | None = None,
+             relight: bool = False) -> dict:
         with torch.inference_mode():
             out = model(batch, lighting_idx=lighting_idx,
+                        lp_override=lp_override if relight else None,
                         v_feature_override=v_feature,
-                        sh_coeff_override=sh_override)
+                        sh_coeff_override=sh_override if relight else None)
         if output_keys is not None:
             out = {k: out[k] for k in output_keys}
         return out

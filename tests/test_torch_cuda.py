@@ -5,16 +5,17 @@ torch.cuda.is_available() is False, which is decided inside the fixture,
 never at import.  On the GPU machine:  python -m pytest tests/test_torch_cuda.py -q
 Small, odd shapes that the canonical frame does not reach (scalar
 staging paths, ragged tiles, more than four texture levels); the slice
-shapes are checked by chip_smoke.py.  The backward kernels K1b (SH fan)
-and K3b (conv weight gradient) must also be bitwise deterministic, and the
-rasterizer K7 bitwise equal to its plain version.
+shapes are checked by chip_smoke.py.  The backward kernels K1b (SH fan),
+K5b (SH of materialised rays) and K3b (conv weight gradient) must also be
+bitwise deterministic, and the rasterizer K7 bitwise equal to its plain
+version.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rnr_tpu_torch.models.rays import RaySampler
+from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
 from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,
                                          conv3x3_dgrad_torch, conv3x3_torch,
                                          conv3x3_wgrad, conv3x3_wgrad_torch)
@@ -22,9 +23,11 @@ from rnr_tpu_torch.ops.knn_cuda import stratified_knn, stratified_knn_torch
 from rnr_tpu_torch.ops.rasterize_cuda import (bin_faces, rasterize_tiled,
                                               rasterize_tiles,
                                               rasterize_tiles_torch)
-from rnr_tpu_torch.ops.sh_cuda import (sh_shade_fan, sh_shade_fan_bwd,
+from rnr_tpu_torch.ops.sh_cuda import (sh_shade, sh_shade_bwd,
+                                       sh_shade_bwd_torch, sh_shade_fan,
+                                       sh_shade_fan_bwd,
                                        sh_shade_fan_bwd_torch,
-                                       sh_shade_fan_torch)
+                                       sh_shade_fan_torch, sh_shade_torch)
 from rnr_tpu_torch.ops.texture_cuda import (mipmap_sample, mipmap_sample_torch,
                                             mipmap_scatter,
                                             mipmap_scatter_torch)
@@ -156,6 +159,57 @@ def test_sh_shade_fan_bwd_kernel(dev, lmax, lt_dtype):
     assert torch.equal(kc, kc2) and torch.equal(kl, kl2)
 
 
+def _shade_args(dev, lmax, dtype, seed):
+    """K5's operands from _sh_args: the fan's rays_dir (zero directions
+    at the masked pixels), rays_lt, alpha, coeff in the ray dtype, and
+    two output gradients; 24^2 pixels, R = 5 + 5."""
+    tb, vd, al, lt, cf, piv, gs, gd = _sh_args(dev, lmax, dtype, seed)
+    rd = build_fan_channels(tb, vd, al, piv, 5)[1].to(dtype)
+    return rd, lt, al, cf, gs, gd
+
+
+@pytest.mark.parametrize("lmax", [2, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sh_shade_kernel(dev, lmax, dtype):
+    rd, lt, al, cf, _, _ = _shade_args(dev, lmax, dtype, lmax + 2)
+    masked = al[..., 0] == 0
+    assert bool(masked.any())
+    n0 = sh_shade.launches
+    ks, kd = sh_shade(rd, lt, al, cf, lmax, 5)
+    assert sh_shade.launches == n0 + 1
+    ts, td = sh_shade_torch(rd, lt, al, cf, lmax, 5)
+    torch.cuda.synchronize()
+    # f32 on both sides from the same stored rays; FMA and sum order differ
+    for k, t in ((ks, ts), (kd, td)):
+        tol = 1e-4 * float(t.abs().max()) + 1e-6
+        assert float((k - t).abs().max()) <= tol
+        assert bool((k[masked] == 0).all())    # finite ladder at (0, 0, 0)
+
+
+@pytest.mark.parametrize("lmax", [2, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sh_shade_bwd_kernel(dev, lmax, dtype):
+    args = _shade_args(dev, lmax, dtype, lmax + 3)
+    n0 = sh_shade_bwd.launches
+    kl, kc = sh_shade_bwd(*args, lmax, 5)
+    kl2, kc2 = sh_shade_bwd(*args, lmax, 5)
+    assert sh_shade_bwd.launches == n0 + 2
+    tl, tc = sh_shade_bwd_torch(*args, lmax, 5)
+    torch.cuda.synchronize()
+    assert kl.dtype == dtype and kc.dtype == torch.float32
+    assert float((kc - tc).abs().max()) <= 1e-4 * float(tc.abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert float((kl.float() - tl.float()).abs().max()) <= (
+        tol * float(tl.float().abs().max()))
+    assert torch.equal(kc, kc2) and torch.equal(kl, kl2)
+
+
+def test_sh_shade_kernel_rejects_mixed_ray_dtypes(dev):
+    rd, lt, al, cf, _, _ = _shade_args(dev, 2, torch.bfloat16, 0)
+    with pytest.raises(TypeError, match="rays_dir"):
+        sh_shade(rd.float(), lt, al, cf, 2, 5)
+
+
 @pytest.mark.parametrize("ch,sizes", [(24, (64, 32, 16, 8)), (5, (16, 8)),
                                       (8, (32, 16, 8, 4, 2))])
 @pytest.mark.parametrize("one_texel", [False, True])
@@ -238,6 +292,15 @@ def test_autograd_functions_launch_the_backward_kernels(dev):
     s, d = sh_shade_fan(tb, vd, al, lt, cf, piv, 2, 5)
     (s.sum() + d.sum()).backward()
     assert sh_shade_fan_bwd.launches == n0 + 1
+    assert lt.grad.dtype == torch.bfloat16 and cf.grad is not None
+
+    rd, lt, al, cf, _, _ = _shade_args(dev, 2, torch.bfloat16, 2)
+    lt.requires_grad_()
+    cf.requires_grad_()
+    n0 = sh_shade_bwd.launches
+    s, d = sh_shade(rd, lt, al, cf, 2, 5)
+    (s.sum() + d.sum()).backward()
+    assert sh_shade_bwd.launches == n0 + 1
     assert lt.grad.dtype == torch.bfloat16 and cf.grad is not None
 
     texs = [torch.ones((s_, s_, 4), device=dev, requires_grad=True)

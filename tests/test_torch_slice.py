@@ -131,8 +131,10 @@ def test_synthetic_batch_equals_graft_build():
 
 def test_port_never_imports_jax():
     """Import the port and chip_smoke.py, run a CPU frame, a CPU train
-    step and a CPU frame from a mesh (G-buffer, then the eval step) in a
-    fresh interpreter: no jax, flax or rnr_tpu module is ever loaded."""
+    step, a CPU frame from a mesh (G-buffer, then the eval step) and that
+    view relit under a procedural probe, through SH and through the probe
+    gather, in a fresh interpreter: no jax, flax or rnr_tpu module is
+    ever loaded."""
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -170,6 +172,14 @@ gb = _gbuffer(render_gbuffer, make_mesh_buffers(sphere_mesh(8, 12), 'cpu'),
 assert int(gb['raster_overflow'][0]) == 0 and bool(gb['alpha_map'].any())
 img = make_rnr_eval_step(m)(_to_batch(gb, b['gcn_pos']))['img']
 assert img.shape == (1, 32, 32, 3) and bool(torch.isfinite(img).all())
+assert not foreign(), foreign()
+from rnr_tpu_torch.drivers.test_rnr import lightings, relit_frame
+from rnr_tpu_torch.synthetic import make_probes
+for lp_sh in (True, False):
+    (_, lp, sh), = lightings(m, make_probes(1, 16, 32), lp_sh=lp_sh)
+    img = relit_frame(make_rnr_eval_step(m), _to_batch(gb, b['gcn_pos']), lp,
+                      sh, save_lp_background=True)
+    assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all())
 assert not foreign(), foreign()
 print('NOJAX_OK')
 """
