@@ -1,17 +1,19 @@
 """Drive the PyTorch + CUDA port on one NVIDIA GPU: the serving path, the
-training step, inference from a mesh (G-buffer, then the frame) and
-relighting under novel light probes.
+training step, inference from a mesh (G-buffer, then the frame),
+relighting under novel light probes, and the U-Net's conv routes
+"pallas" (K6) and "p3s4" (K8's 4x4 pair).
 
     python3 chip_smoke.py            # every phase (one H100, a few minutes)
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,train
     python3 chip_smoke.py --phases device,build,kernels,slice,gbuffer
     python3 chip_smoke.py --phases device,build,kernels,slice,relight
+    python3 chip_smoke.py --phases device,build,kernels,slice,train
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
-  build    nvcc builds the eight sources of rnr_tpu_torch/csrc/ (the ten
-           kernels), one nvcc per source, all started together.
+  build    nvcc builds the ten sources of rnr_tpu_torch/csrc/ (the
+           fourteen kernels), one nvcc per source, all started together.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes of the canonical 512^2 step, with the stated
            tolerance; the median time of the kernel, of its plain version
@@ -25,14 +27,21 @@ Phases (each failure raises, so the script exits non-zero):
            spheres seen from the camera ring at 512^2 (the G-buffer
            phase's mesh; 48,768 faces at 0 and, overflowing the default
            cap, 45 degrees; 12,096 faces at N = 2) and on a 32^2 overflow
-           case, its binning on the card equal to the CPU's.
+           case, its binning on the card equal to the CPU's.  The 4x4
+           pair (K6 down4 / convt4, K8 down4s / convt4s) runs at the ten
+           4x4 convs of a frame and as each other's f32 data gradient,
+           then at odd C and O and an odd H; beside them the pallas3
+           route's own cuDNN 4x4 convs are timed.
   slice    the canonical model (512^2, texture 512^2 x 24, lmax 10, 13+13
            rays, U-Net nf0 64 / 5 downs / dense fusion, GCN 20 blocks k=16
            on 7500 vertices; bf16 rays, fan-fused K1, K3 for every 3x3)
            with seeded weights: v_feature once, then eval frames.  Checks
            the image and the launch count of every kernel, then times the
            GCN and the eval frames/s; a torch.profiler pass prints device
-           time by kernel.
+           time by kernel.  Then the same model and v_feature under the
+           conv routes "pallas" and "p3s4": launches per frame (K3 14, the
+           route's down and transpose kernel 5 each), a finite image near
+           the shipped route's, frames/s, frame ms and a profile.
   gbuffer  inference from a mesh with the slice's model and v_feature:
            the 27,360-face UV sphere seen from 20 views of a ring (30
            degrees up, 2.5 away) -> render_gbuffer (K7) -> _to_batch ->
@@ -54,7 +63,8 @@ Phases (each failure raises, so the script exits non-zero):
            (CUDA events) and frames/s (host clock), and the fit_sh ms;
            then one 128^2 frame per route on the card against the CPU.
   parity   the same model at 128^2 on the card (kernels) and on the CPU
-           (plain versions) from the same v_feature; images compared.
+           (plain versions) from the same v_feature, under the shipped
+           route and the conv routes "pallas" and "p3s4"; images compared.
   train    the canonical training step (the slice's model, dropout 0.1,
            stochastic GCN with epsilon 0.2, Adam lr 1e-3) at batch 1, then
            batch 2: two warm-up steps, one step whose launch counts,
@@ -65,7 +75,11 @@ Phases (each failure raises, so the script exits non-zero):
            unfused SH shading (K5 and K5b once per step) and the probe
            path (direct_sh_shading=False: the learned lighting as a 64 x
            128 probe, gathered per ray), whose probe gather and scatter
-           are also timed and profiled on their own.
+           are also timed and profiled on their own; and under the conv
+           routes "pallas" (down4 10, convt4 5 per step) and "p3s4"
+           (down4s 10, convt4s 5).  Last, one counted step of each conv
+           route under zero padding at 256^2, where the down convs' data
+           gradient is K6's convt4 in both routes.
   train_parity  one training step (loss and every gradient) of the
            canonical model at 128^2 and 1024 vertices on the card and on
            the CPU, same weights, dropout and the stochastic GCN off.
@@ -95,6 +109,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from rnr_tpu_torch.ops import _build  # noqa: E402
+from rnr_tpu_torch.ops.conv4_cuda import (convt4, convt4_fwd,  # noqa: E402
+                                          convt4_torch, convt4s, convt4s_fwd,
+                                          down4, down4_fwd, down4_torch,
+                                          down4s, down4s_fwd)
 from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,  # noqa: E402
                                          conv3x3_dgrad_torch, conv3x3_torch,
                                          conv3x3_wgrad, conv3x3_wgrad_torch)
@@ -149,25 +167,62 @@ KERNELS = {
     "sh_shade_bwd": dict(
         wrapper=sh_shade_bwd, source="rnr_tpu_torch/csrc/sh_shade.cu",
         replaces="rnr_tpu/ops/sh_pallas.py:276", path="train_unfused"),
+    # the 4x4 pair: K6 under conv_backend "pallas", K8's under "p3s4"; the
+    # down convs also with an f32 output, as the transpose convs' dgrad
+    "down4": dict(
+        wrapper=down4, source="rnr_tpu_torch/csrc/conv4x4.cu",
+        replaces="rnr_tpu/ops/conv_pallas.py:532", path="train_pallas"),
+    "convt4": dict(
+        wrapper=convt4, source="rnr_tpu_torch/csrc/conv4x4.cu",
+        replaces="rnr_tpu/ops/conv_pallas.py:664", path="train_pallas"),
+    "down4s": dict(
+        wrapper=down4s, source="rnr_tpu_torch/csrc/conv4x4_slab.cu",
+        replaces="rnr_tpu/ops/conv_pallas.py:1138", path="train_p3s4"),
+    "convt4s": dict(
+        wrapper=convt4s, source="rnr_tpu_torch/csrc/conv4x4_slab.cu",
+        replaces="rnr_tpu/ops/conv_pallas.py:1276", path="train_p3s4"),
 }
 SOURCES = ("sh_fan", "sh_shade", "mipmap_gather", "mipmap_scatter", "conv3x3",
-           "conv3x3_wgrad", "stratified_knn", "rasterize_tiles")
+           "conv3x3_wgrad", "stratified_knn", "rasterize_tiles", "conv4x4",
+           "conv4x4_slab")
 
 # launches of each kernel in one canonical training step, and in one step
-# of each relighting configuration (rays overrides of the config)
+# of each variant: the relighting configurations (rays overrides of the
+# config) and the U-Net's conv backends (render_net overrides).  Under
+# reflect padding rnr_tpu's VJPs take the down convs' data gradient from
+# XLA and the transpose convs' from the down kernel, f32 out.
 TRAIN_LAUNCHES = {"stratified_knn": 17, "conv3x3": 28, "conv3x3_wgrad": 14,
                   "sh_shade_fan": 1, "sh_shade_fan_bwd": 1, "sh_shade": 0,
-                  "sh_shade_bwd": 0}
+                  "sh_shade_bwd": 0, "down4": 0, "convt4": 0, "down4s": 0,
+                  "convt4s": 0}
 TRAIN_VARIANTS = {
-    "unfused": (dict(sh_fan_fuse=False),
+    "unfused": (dict(rays=dict(sh_fan_fuse=False)),
                 dict(TRAIN_LAUNCHES, sh_shade_fan=0, sh_shade_fan_bwd=0,
                      sh_shade=1, sh_shade_bwd=1)),
-    "probe": (dict(direct_sh_shading=False),
+    "probe": (dict(rays=dict(direct_sh_shading=False)),
               dict(TRAIN_LAUNCHES, sh_shade_fan=0, sh_shade_fan_bwd=0)),
+    "pallas": (dict(render_net=dict(conv_backend="pallas")),
+               dict(TRAIN_LAUNCHES, down4=10, convt4=5)),
+    "p3s4": (dict(render_net=dict(conv_backend="p3s4")),
+             dict(TRAIN_LAUNCHES, down4s=10, convt4s=5)),
 }
 # the probe step takes seconds on the card (its backward's scatter into
 # the probe), so it is warmed by its counted step and timed over 1 step
-TIMED_STEPS = {"unfused": 5, "probe": 1}
+TIMED_STEPS = {"unfused": 5, "probe": 1, "pallas": 5, "p3s4": 5}
+# the conv routes' steps under zero ("same") padding, at SAME_IMG^2: the
+# down convs' data gradient is then K6's convt4 (f32 out) in both routes
+SAME_IMG = 256
+SAME_LAUNCHES = {
+    "pallas": dict(TRAIN_LAUNCHES, down4=10, convt4=10),
+    "p3s4": dict(TRAIN_LAUNCHES, down4s=10, convt4s=5, convt4=5),
+}
+# launches per eval frame of the conv routes (cached v_feature)
+ROUTE_FRAME_LAUNCHES = {
+    "pallas": {"conv3x3": 14, "down4": 5, "convt4": 5, "down4s": 0,
+               "convt4s": 0},
+    "p3s4": {"conv3x3": 14, "down4": 0, "convt4": 0, "down4s": 5,
+             "convt4s": 5},
+}
 AT_LEAST_ONE = ("mipmap_gather", "mipmap_scatter")
 
 # K1 and K1b at the kernels phase's inputs, sha256 of their outputs' bytes
@@ -200,6 +255,15 @@ CONV_SHAPES = [(108, 64, 512), (64, 64, 512), (128, 640, 256),
                (512, 512, 64), (256, 256, 128), (128, 128, 256),
                (64, 64, 512), (128, 78, 512)]
 TEX_SIZES = (512, 256, 128, 64)
+# (C, O, H) of the 4x4 stride-2 down convs and of the 4x4 transpose convs
+# of one canonical 512^2 frame (input channels, output channels, input
+# side), in order; and the extra shapes of the kernels phase: odd C and O,
+# odd H
+DOWN4_SHAPES = [(64, 128, 512), (128, 256, 256), (256, 512, 128),
+                (512, 512, 64), (512, 512, 32)]
+CONVT4_SHAPES = [(512, 512, 16), (1024, 512, 32), (1024, 256, 64),
+                 (512, 128, 128), (256, 64, 256)]
+CONV4_ODD = [(45, 77, 64), (64, 64, 63)]
 
 # launches of each kernel per view of the G-buffer path (G-buffer + frame)
 VIEW_LAUNCHES = {"rasterize_tiles": 1, "conv3x3": 14}
@@ -339,6 +403,18 @@ def conv_work(kind: str, n_pix: int, c: int, o: int):
         nbytes = n_pix * o * 2 + 9 * c * o * 2 + n_pix * c * 4
     else:                  # x, g bf16 -> dW f32
         nbytes = n_pix * (c + o) * 2 + 9 * c * o * 4
+    return bound(nbytes, flops, BF16_TENSOR_FLOPS)
+
+
+def conv4_work(down: bool, c: int, o: int, h: int, out_item: int):
+    """A 4x4 stride-2 conv (down) or transpose conv on a [1, h, h, c] bf16
+    input: 16 useful taps of depth c per output pixel of the down conv,
+    as many per input pixel of the transpose conv (4 per output pixel);
+    x and w read once in bf16, y written once in bf16 or f32."""
+    pix_in = h * h
+    pix_out = (h // 2) ** 2 if down else 4 * pix_in
+    flops = 2 * 16 * c * o * (pix_out if down else pix_in)
+    nbytes = pix_in * c * 2 + 16 * c * o * 2 + pix_out * o * out_item
     return bound(nbytes, flops, BF16_TENSOR_FLOPS)
 
 
@@ -711,6 +787,195 @@ def kernels_conv(rec: dict, rng) -> None:
     torch.cuda.synchronize()
 
 
+def _bf16_input(rng, shape, scale=1.0):
+    return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+        np.float32)).to(DEV, torch.bfloat16)
+
+
+def _conv4_weight(rng, c, o):
+    return torch.from_numpy((rng.standard_normal((4, 4, c, o))
+                             / np.sqrt(16 * c)).astype(np.float32)).to(DEV)
+
+
+def _conv4_check(name: str, k: torch.Tensor, t: torch.Tensor,
+                 rel: float) -> float:
+    """Max abs error of kernel output k against the plain t, held to rel
+    x max |t|; returns the error."""
+    if k.shape != t.shape or k.dtype != t.dtype:
+        raise AssertionError(f"{name}: {tuple(k.shape)} {k.dtype} against "
+                             f"{tuple(t.shape)} {t.dtype}")
+    kf, tf = k.float(), t.float()
+    e = float((kf - tf).abs().max())
+    check(name, e, rel * float(tf.abs().max()))
+    return e
+
+
+def kernels_conv4(rec: dict, rng) -> None:
+    """K6 (down4, convt4) and K8's 4x4 pair (down4s, convt4s) at the ten
+    4x4 convs of a 512^2 frame, reflect padding, bf16 (forward: within
+    2^-7 of max, one rounding step), and each kernel's f32 output as a
+    data gradient at the shapes its use gives it (within 1e-4 of max):
+    down4 / down4s on the transpose convs' output gradients (the main
+    path's use), convt4 / convt4s on the down convs' (the "same" use); then
+    odd C and O and an odd H.  Per kernel, as the launches of a b1 train
+    step of its route (reflect): the median ms of the kernel, its plain
+    version and one cuDNN call of the same function (F.conv2d at stride 2
+    on the reflect-padded channels-last input; F.conv_transpose2d at
+    stride 2, padding 1; for the dgrad use F.conv2d with padding 1), and
+    the bound.  Then the pallas3 route's own 4x4 convs (the U-Net's Conv
+    and ConvTranspose modules as the shipped step runs them)."""
+    from rnr_tpu_torch.models.unet import Conv, ConvTranspose
+    fwds = {"down4": down4_fwd, "down4s": down4s_fwd, "convt4": convt4_fwd,
+            "convt4s": convt4s_fwd}
+    keys = ("ms", "plain_ms", "library_ms", "dgrad_ms", "dgrad_plain_ms",
+            "dgrad_library_ms")
+    acc = {n: dict({k: 0.0 for k in keys}, errs=[], dgrad_errs=[], works=[],
+                   dgrad_works=[]) for n in fwds}
+    shipped = {"down": 0.0, "up": 0.0}
+
+    def add(name, part, err, ms, pms, lms, work):
+        a = acc[name]
+        pre = "dgrad_" if part == "dgrad" else ""
+        a[pre + "errs"].append(err)
+        a[pre + "ms"] += ms
+        a[pre + "plain_ms"] += pms
+        a[pre + "library_ms"] += lms
+        a[pre + "works"].append(work)
+
+    for c, o, h in DOWN4_SHAPES:
+        x, w = _bf16_input(rng, (1, h, h, c)), _conv4_weight(rng, c, o)
+        t = down4_torch(x, w, "reflect")
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+        wn = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lms = cuda_ms(lambda: F.conv2d(xp, wn, stride=2))
+        pms = cuda_ms(lambda: down4_torch(x, w, "reflect"), iters=3, warmup=1)
+        line = []
+        for name in ("down4", "down4s"):
+            e = _conv4_check(f"{name} {c}->{o} @{h}", fwds[name](
+                x, w, "reflect"), t, 2 ** -7)
+            ms = cuda_ms(lambda: fwds[name](x, w, "reflect"))
+            add(name, "fwd", e, ms, pms, lms, conv4_work(True, c, o, h, 2))
+            line.append(f"{name} {ms:.4f} ms (err {e:.3g})")
+        mod = Conv(c, o, 4, 2, use_bias=False, dtype=torch.bfloat16,
+                   pad_mode="reflect", backend="pallas3").to(DEV)
+        with torch.no_grad():
+            mod.kernel.copy_(w)
+            sms = cuda_ms(lambda: mod(x))
+        shipped["down"] += sms
+        # "same" use: the transpose convs' f32 output as this conv's dgrad
+        g = _bf16_input(rng, (1, h // 2, h // 2, o))
+        wd = w.flip(0, 1).transpose(2, 3)
+        td = convt4_torch(g, wd, torch.float32)
+        for name in ("convt4", "convt4s"):
+            e = _conv4_check(f"{name} f32 (down dgrad) {o}->{c} @{h // 2}",
+                             fwds[name](g, wd, torch.float32), td, 1e-4)
+            acc[name].setdefault("same_dgrad_errs", []).append(e)
+        wk = conv4_work(True, c, o, h, 2)
+        log(f"[kernels] 4x4 down {c}->{o} @{h}: " + ", ".join(line)
+            + f"; bound {wk['bound_ms']:.4f} ({wk['bound_by']}), cuDNN "
+            f"{lms:.4f}, plain {pms:.3f}; pallas3 route's Conv {sms:.4f} ms")
+        del x, t, xp, g, td
+
+    for c, o, h in CONVT4_SHAPES:
+        x, w = _bf16_input(rng, (1, h, h, c)), _conv4_weight(rng, c, o)
+        t = convt4_torch(x, w)
+        xn = x.permute(0, 3, 1, 2)
+        kn = w.to(torch.bfloat16).flip(0, 1).permute(2, 3, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lms = cuda_ms(lambda: F.conv_transpose2d(xn, kn, stride=2, padding=1))
+        pms = cuda_ms(lambda: convt4_torch(x, w), iters=3, warmup=1)
+        line = []
+        for name in ("convt4", "convt4s"):
+            e = _conv4_check(f"{name} {c}->{o} @{h}", fwds[name](x, w), t,
+                             2 ** -7)
+            ms = cuda_ms(lambda: fwds[name](x, w))
+            add(name, "fwd", e, ms, pms, lms, conv4_work(False, c, o, h, 2))
+            line.append(f"{name} {ms:.4f} ms (err {e:.3g})")
+        mod = ConvTranspose(c, o, use_bias=False, dtype=torch.bfloat16,
+                            backend="pallas3").to(DEV)
+        with torch.no_grad():
+            mod.kernel.copy_(w)
+            sms = cuda_ms(lambda: mod(x))
+        shipped["up"] += sms
+        # the main path's use: the down convs' f32 output as this conv's
+        # dgrad, on the output gradient [1, 2h, 2h, o], "same" padding
+        g = _bf16_input(rng, (1, 2 * h, 2 * h, o))
+        wd = w.flip(0, 1).transpose(2, 3)
+        td = down4_torch(g, wd, "same", torch.float32)
+        gn = g.permute(0, 3, 1, 2)
+        wdn = wd.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        dlms = cuda_ms(lambda: F.conv2d(gn, wdn, stride=2, padding=1))
+        dpms = cuda_ms(lambda: down4_torch(g, wd, "same", torch.float32),
+                       iters=3, warmup=1)
+        for name in ("down4", "down4s"):
+            e = _conv4_check(f"{name} f32 (convt dgrad) {o}->{c} @{2 * h}",
+                             fwds[name](g, wd, "same", torch.float32), td,
+                             1e-4)
+            ms = cuda_ms(lambda: fwds[name](g, wd, "same", torch.float32))
+            add(name, "dgrad", e, ms, dpms, dlms,
+                conv4_work(True, o, c, 2 * h, 4))
+            line.append(f"{name} f32 dgrad {ms:.4f} ms (err {e:.3g})")
+        wk = conv4_work(False, c, o, h, 2)
+        log(f"[kernels] 4x4 transpose {c}->{o} @{h}: " + ", ".join(line)
+            + f"; bound {wk['bound_ms']:.4f} ({wk['bound_by']}), cuDNN "
+            f"{lms:.4f}, plain {pms:.3f}; pallas3 route's ConvTranspose "
+            f"{sms:.4f} ms")
+        del x, t, g, td
+
+    # odd C and O, odd H: forward (bf16) and f32 output of all four
+    for c, o, h in CONV4_ODD:
+        x, w = _bf16_input(rng, (1, h, h, c)), _conv4_weight(rng, c, o)
+        for pm in ("reflect", "same"):
+            t = down4_torch(x, w, pm)
+            for name in ("down4", "down4s"):
+                _conv4_check(f"{name} {c}->{o} @{h} {pm}",
+                             fwds[name](x, w, pm), t, 2 ** -7)
+        t = convt4_torch(x, w)
+        t32 = convt4_torch(x, w, torch.float32)
+        d32 = down4_torch(x, w, "reflect", torch.float32)
+        for name in ("convt4", "convt4s"):
+            _conv4_check(f"{name} {c}->{o} @{h}", fwds[name](x, w), t,
+                         2 ** -7)
+            _conv4_check(f"{name} f32 {c}->{o} @{h}",
+                         fwds[name](x, w, torch.float32), t32, 1e-4)
+        for name in ("down4", "down4s"):
+            _conv4_check(f"{name} f32 {c}->{o} @{h}",
+                         fwds[name](x, w, "reflect", torch.float32), d32,
+                         1e-4)
+    torch.cuda.synchronize()
+    log(f"[kernels] 4x4 odd shapes {CONV4_ODD}: all four kernels agree "
+        "(bf16 within 2^-7 of max, f32 within 1e-4), both pad modes")
+
+    for name, a in acc.items():
+        parts = a["works"] + a["dgrad_works"]
+        r = dict(max_abs_err=max(a["errs"] + a["dgrad_errs"]),
+                 ms=a["ms"] + a["dgrad_ms"],
+                 plain_ms=a["plain_ms"] + a["dgrad_plain_ms"],
+                 library_ms=a["library_ms"] + a["dgrad_library_ms"],
+                 fwd_ms=a["ms"], fwd_plain_ms=a["plain_ms"],
+                 fwd_library_ms=a["library_ms"],
+                 fwd_bound_ms=add_bounds(a["works"])["bound_ms"],
+                 **add_bounds(parts))
+        if a["dgrad_works"]:
+            r.update(dgrad_ms=a["dgrad_ms"],
+                     dgrad_bound_ms=add_bounds(a["dgrad_works"])["bound_ms"],
+                     dgrad_max_abs_err=max(a["dgrad_errs"]))
+        if "same_dgrad_errs" in a:
+            r["same_dgrad_max_abs_err"] = max(a["same_dgrad_errs"])
+        rec[name] = r
+        log(f"[kernels] {name}, {len(parts)} launches of a b1 train step: "
+            f"kernel {r['ms']:.3f} ms (forward {r['fwd_ms']:.3f}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN "
+            f"{r['library_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+    rec["_pallas3_4x4"] = dict(down_ms=shipped["down"], up_ms=shipped["up"])
+    log(f"[kernels] the pallas3 route's 4x4 convs of a frame (cuDNN through "
+        f"the U-Net's modules, reflect pad included): downs "
+        f"{shipped['down']:.3f} ms, transpose convs {shipped['up']:.3f} ms")
+    torch.cuda.synchronize()
+
+
 def kernels_knn(rec: dict, rng) -> None:
     """K4: V 7500, C 64; indices must agree except at exact score ties."""
     x = torch.from_numpy(rng.standard_normal((7500, 64)).astype(
@@ -841,9 +1106,12 @@ def phase_kernels(rec: dict) -> None:
     kernels_shade(rec, b)
     kernels_texture(rec, b, rng)
     kernels_conv(rec, rng)
+    kernels_conv4(rec, rng)
     kernels_knn(rec, rng)
     kernels_raster(rec)
     for name, r in rec.items():
+        if name.startswith("_"):
+            continue
         log(f"[kernels] {name}: kernel {r['ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.3f} ms, library "
@@ -851,29 +1119,32 @@ def phase_kernels(rec: dict) -> None:
                else f"{r['library_ms']:.3f} ms"))
 
 
-def canonical_config(img: int = IMG, rays: dict | None = None, **gcn):
-    """The canonical configuration; `rays` and `gcn` override fields of
-    its rays and GCN sections."""
+def override(cfg, **sections):
+    """`cfg` with fields of its sections replaced: section=dict(...)."""
+    return dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v)
+        for k, v in sections.items() if v})
+
+
+def canonical_config(img: int = IMG, rays: dict | None = None,
+                     render_net: dict | None = None, **gcn):
+    """The canonical configuration; `rays`, `render_net` and `gcn`
+    override fields of those sections."""
     from rnr_tpu_torch.synthetic import build_config
     cfg = build_config(img_size=img, tex_size=512, lmax=10, nf0=64,
                        num_down=5, gcn_blocks=20, num_azi=6, num_polar=2,
                        num_sample=4096)
-    if gcn:
-        cfg = dataclasses.replace(cfg, gcn=dataclasses.replace(cfg.gcn,
-                                                               **gcn))
-    if rays:
-        cfg = dataclasses.replace(cfg, rays=dataclasses.replace(cfg.rays,
-                                                                **rays))
-    return cfg
+    return override(cfg, gcn=gcn, rays=rays, render_net=render_net)
 
 
-def variant(model, rays: dict, device=None):
-    """A model of `model`'s configuration with the `rays` overrides and
-    its weights (and buffers), on `device` (the card when None)."""
+def variant(model, rays: dict | None = None, device=None,
+            render_net: dict | None = None):
+    """A model of `model`'s configuration with the `rays` and
+    `render_net` overrides and its weights (and buffers), on `device`
+    (the card when None)."""
     from rnr_tpu_torch.models.rnr import RNRModel
     device = DEV if device is None else device
-    cfg = dataclasses.replace(model.cfg, rays=dataclasses.replace(
-        model.cfg.rays, **rays))
+    cfg = override(model.cfg, rays=rays, render_net=render_net)
     out = RNRModel(cfg, GCN_V, device=device)
     out.load_state_dict({k: v.to(device)
                          for k, v in model.state_dict().items()})
@@ -939,7 +1210,71 @@ def phase_slice(eval_launches: dict) -> dict:
     log(f"[slice] GCN forward (v_feature, V 7500, 20 blocks): {gcn_ms:.3f} ms")
     log(f"[slice] eval frames/s at {IMG}^2 (cached v_feature): {fps:.3f}; "
         f"frame {frame_ms:.3f} ms by CUDA events")
-    return {"model": model, "v_feature": vf, "gcn_pos": b["gcn_pos"]}
+    return {"model": model, "v_feature": vf, "gcn_pos": b["gcn_pos"],
+            "batch": b, "img": img}
+
+
+def slice_routes(state: dict, route_launches: dict, frames: int = 3) -> None:
+    """Eval frames of the slice's model under the U-Net's conv routes
+    "pallas" (K3 + K6) and "p3s4" (K3 + K8's 4x4 pair), same weights and
+    v_feature: the launches per frame, a finite image near the shipped
+    route's (the same function in bf16: held as the parity phase holds the
+    card to the CPU), frames/s and frame ms."""
+    from rnr_tpu_torch.train.steps import make_rnr_eval_step
+    model, vf, b, shipped = (state[k] for k in ("model", "v_feature",
+                                                "batch", "img"))
+    inside = b["alpha_map"][..., 0] > 0
+    for route, want in ROUTE_FRAME_LAUNCHES.items():
+        m = variant(model, render_net=dict(conv_backend=route))
+        step = make_rnr_eval_step(m)
+        step(b, v_feature=vf)          # warm-up: allocator, first launches
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = [step(b, v_feature=vf)["img"] for _ in range(frames)]
+        torch.cuda.synchronize()
+        got = read_launches()
+        route_launches[route] = got
+        log(f"[slice] {route} route: launches in {frames} frames: {got}")
+        for name, n in want.items():
+            if got[name] != n * frames:
+                raise AssertionError(f"{route} route: {name} launched "
+                                     f"{got[name]} times in {frames} "
+                                     f"frames, expected {n * frames}")
+        img = outs[-1].float()
+        if img.shape != (1, IMG, IMG, 3) or not bool(
+                torch.isfinite(img).all()):
+            raise AssertionError(f"{route} route: image {tuple(img.shape)} "
+                                 "not finite")
+        std = float(img[inside].std())
+        if not std > 1e-4:
+            raise AssertionError(f"{route} route: image constant over the "
+                                 f"object (std {std})")
+        scale = float(shipped.abs().max())
+        d = (img - shipped).abs()
+        err, mean = float(d.max()), float(d.mean())
+        log(f"[slice] {route} route vs the shipped route's frame: max abs "
+            f"diff {err:.4g} (rel {err / scale:.3g}), mean {mean:.4g} "
+            f"(rel {mean / scale:.3g})")
+        check(f"{route} route vs shipped max", err, 5e-2 * scale)
+        check(f"{route} route vs shipped mean", mean, 5e-3 * scale)
+        with torch.inference_mode():
+            n = 20
+            for _ in range(3):
+                step(b, v_feature=vf)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(b, v_feature=vf)
+            torch.cuda.synchronize()
+            fps = n / (time.perf_counter() - t0)
+            frame_ms = cuda_ms(lambda: step(b, v_feature=vf), iters=10)
+        log(f"[slice] {route} route: eval frames/s at {IMG}^2 (cached "
+            f"v_feature): {fps:.3f}; frame {frame_ms:.3f} ms by CUDA events")
+        with torch.inference_mode():
+            profile_window(f"frame, {route} route",
+                           lambda: step(b, v_feature=vf), 1, top=8)
+        del m, step, outs
+        torch.cuda.empty_cache()
 
 
 def profile_window(name: str, fn, n: int, top: int = 12,
@@ -1284,33 +1619,37 @@ def relight_card_vs_cpu(models: dict, lights: dict, vf) -> None:
 
 
 def phase_parity(state: dict) -> None:
-    """The slice's model at 128^2: card (kernels) vs CPU (plain versions),
+    """The slice's model at 128^2 under the shipped route and the conv
+    routes "pallas" and "p3s4": card (kernels) vs CPU (plain versions),
     both from the card's v_feature."""
     model, vf = state["model"], state["v_feature"]
-    from rnr_tpu_torch.models.rnr import RNRModel
     from rnr_tpu_torch.synthetic import build_batch, to_torch
     from rnr_tpu_torch.train.steps import make_rnr_eval_step
     nb = build_batch(128, GCN_V)
     bc, bh = to_torch(nb, DEV), to_torch(nb, "cpu")
-    cpu = RNRModel(model.cfg, GCN_V, device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     torch.set_num_threads(os.cpu_count() or 1)
-    a = make_rnr_eval_step(model)(bc, v_feature=vf)["img"].float().cpu()
-    t0 = time.perf_counter()
-    r = make_rnr_eval_step(cpu)(bh, v_feature=vf.cpu())["img"].float()
-    log(f"[parity] CPU frame at 128^2: {time.perf_counter() - t0:.1f} s")
-    scale = float(r.abs().max())
-    d = (a - r).abs()
-    err, mean = float(d.max()), float(d.mean())
-    # bf16 U-Net (14 convs, 5 levels of batch statistics): a flipped bf16
-    # rounding (2^-8 relative) in one layer moves the next layers' inputs
-    tol_max, tol_mean = 5e-2 * scale, 5e-3 * scale
-    log(f"[parity] card vs CPU image 128^2: max abs err {err:.4g} "
-        f"(rel {err / scale:.3g}, tol {tol_max:.4g}), mean abs err "
-        f"{mean:.4g} (rel {mean / scale:.3g}, tol {tol_mean:.4g}), "
-        f"max |ref| {scale:.4g}")
-    check("parity max", err, tol_max)
-    check("parity mean", mean, tol_mean)
+    for route in ("pallas3", "pallas", "p3s4"):
+        card = (model if route == model.cfg.render_net.conv_backend
+                else variant(model, render_net=dict(conv_backend=route)))
+        cpu = variant(card, device="cpu")
+        a = make_rnr_eval_step(card)(bc, v_feature=vf)["img"].float().cpu()
+        t0 = time.perf_counter()
+        r = make_rnr_eval_step(cpu)(bh, v_feature=vf.cpu())["img"].float()
+        log(f"[parity] {route}: CPU frame at 128^2: "
+            f"{time.perf_counter() - t0:.1f} s")
+        scale = float(r.abs().max())
+        d = (a - r).abs()
+        err, mean = float(d.max()), float(d.mean())
+        # bf16 U-Net (14 convs, 5 levels of batch statistics): a flipped
+        # bf16 rounding (2^-8 relative) in one layer moves the next
+        # layers' inputs
+        tol_max, tol_mean = 5e-2 * scale, 5e-3 * scale
+        log(f"[parity] {route}: card vs CPU image 128^2: max abs err "
+            f"{err:.4g} (rel {err / scale:.3g}, tol {tol_max:.4g}), mean abs "
+            f"err {mean:.4g} (rel {mean / scale:.3g}, tol {tol_mean:.4g}), "
+            f"max |ref| {scale:.4g}")
+        check(f"parity {route} max", err, tol_max)
+        check(f"parity {route} mean", mean, tol_mean)
 
 
 # ------------------------------------------------------------ training
@@ -1498,10 +1837,11 @@ def phase_train(train_launches: dict, variant_launches: dict) -> dict:
                            top=20)
     del model, step
     torch.cuda.empty_cache()
-    # the relighting configurations, batch 1, from the same seeded weights
+    # the relighting configurations and the conv routes, batch 1, from the
+    # same seeded weights
     b = _gbuffer(IMG, 1)
-    for name, (rays, want) in TRAIN_VARIANTS.items():
-        model = init_weights(RNRModel(canonical_config(rays=rays), GCN_V),
+    for name, (sections, want) in TRAIN_VARIANTS.items():
+        model = init_weights(RNRModel(canonical_config(**sections), GCN_V),
                              seed=0)
         step = make_rnr_train_step(model, create_rnr_optimizer(model, 1e-3))
         if name != "probe":
@@ -1517,6 +1857,21 @@ def phase_train(train_launches: dict, variant_launches: dict) -> dict:
         else:
             profile_window(f"train step {name} b1",
                            lambda: step(b, statics, gen), 1, top=12)
+        del model, step
+        torch.cuda.empty_cache()
+    # the conv routes under zero padding at SAME_IMG^2: one counted step
+    b = _gbuffer(SAME_IMG, 1)
+    for name, want in SAME_LAUNCHES.items():
+        cfg = canonical_config(img=SAME_IMG, render_net=dict(
+            conv_backend=name, pad_mode="same"))
+        model = init_weights(RNRModel(cfg, GCN_V), seed=0)
+        step = make_rnr_train_step(model, create_rnr_optimizer(model, 1e-3))
+        step(b, statics, gen)
+        torch.cuda.synchronize()
+        variant_launches[f"{name}_same"] = {}
+        counted_step(model, step, b, statics, gen, want,
+                     variant_launches[f"{name}_same"],
+                     f"{name} same-padding {SAME_IMG}^2")
         del model, step
         torch.cuda.empty_cache()
     return out
@@ -1662,6 +2017,7 @@ def main() -> None:
     view_launches: dict = {}
     relight_launches: dict = {}
     variant_launches: dict = {}
+    route_launches: dict = {}
 
     def done(name):
         torch.cuda.synchronize()
@@ -1677,6 +2033,7 @@ def main() -> None:
     if {"slice", "gbuffer", "relight", "parity"} & set(phases):
         state = phase_slice(eval_launches)
         profile_slice(state)
+        slice_routes(state, route_launches)
         done("slice")
         if "gbuffer" in phases:
             phase_gbuffer(state, view_launches)
@@ -1698,14 +2055,19 @@ def main() -> None:
     # launches: the count on the kernel's main path, the training step
     # (one step at b1), or for K7 the G-buffer path (N_VIEWS views), for
     # K5 the relight path (N_VIEWS views x N_PROBES probes x the routes),
-    # for K5b the unfused training step
+    # for K5b the unfused training step, for K6 and K8's 4x4 pair the b1
+    # training step of their conv route ("pallas", "p3s4")
     paths = {"train": train_launches, "gbuffer": view_launches,
              "relight": relight_launches,
-             "train_unfused": variant_launches.get("unfused", {})}
+             "train_unfused": variant_launches.get("unfused", {}),
+             "train_pallas": variant_launches.get("pallas", {}),
+             "train_p3s4": variant_launches.get("p3s4", {})}
     kernels = [dict(name=n, route="cuda", source=s["source"],
                     replaces=s["replaces"],
                     launches=paths[s.get("path", "train")].get(n),
                     eval_launches=eval_launches.get(n),
+                    eval_route_launches={
+                        r: c.get(n) for r, c in route_launches.items()},
                     view_launches=view_launches.get(n),
                     relight_launches=relight_launches.get(n),
                     train_variant_launches={

@@ -3,16 +3,15 @@
 Input: rnr_tpu's variable collections as nested dicts of numpy arrays
 (`{"params": ..., "spectral": ..., "constants": ...}`, what
 `jax.device_get(model.init(...))` gives).  The port's modules carry the
-flax names, so a torch parameter `a.b.Conv_1.weight` reads flax
-`params/a/b/Conv_1/kernel`, with the layout change of its module:
+flax names, so a torch parameter `a.b.Dense_0.weight` reads flax
+`params/a/b/Dense_0/kernel`, with the layout change of its module:
 
-- 3x3 stride-1 `Conv.kernel`: [kh, kw, I, O] as is (K3 reads HWIO);
-- other `Conv.weight`: [kh, kw, I, O] -> OIHW for F.conv2d;
-- `ConvTranspose.weight`: flip(k, (0, 1)).permute(2, 3, 0, 1) [I, O, 4, 4];
 - `nn.Linear.weight` (flax Dense): [in, out] transposed;
 - `SNDense.u`: from the `spectral` collection;
-- everything else (BatchActNorm scale/bias, textures, coeff, SNDense
-  kernel/bias, biases) as is.
+- everything else as is: `Conv.kernel` and `ConvTranspose.kernel` keep
+  flax's HWIO layout under every conv_backend (the kernels and the plain
+  convs read the same tensor), and BatchActNorm / GroupNorm scale and
+  bias, textures, coeff, SNDense kernel/bias and biases are copied.
 `constants` holds what `CONSTANT_BUFFERS` names: `LightingLP`'s probes
 `lps` are copied; `LightingSH`'s basis caches `basis_val` and
 `basis_val_recon` the port computes itself, and they are held to the JAX
@@ -30,7 +29,6 @@ import torch
 from torch import nn
 
 from rnr_tpu_torch.models.gcn import SNDense
-from rnr_tpu_torch.models.unet import Conv, ConvTranspose
 
 # buffers that mirror a leaf of the JAX `constants` collection: copied, or
 # computed by the port and checked against the JAX value
@@ -63,13 +61,6 @@ def _convert(mod: nn.Module, leaf: str, variables: dict, path: list[str]):
     if isinstance(mod, SNDense) and leaf == "u":
         return "spectral", path + ["u"], _lookup(variables["spectral"],
                                                  path + ["u"])
-    if isinstance(mod, Conv) and leaf == "weight":
-        k = _lookup(params, path + ["kernel"])
-        return "params", path + ["kernel"], np.transpose(k, (3, 2, 0, 1))
-    if isinstance(mod, ConvTranspose) and leaf == "weight":
-        k = _lookup(params, path + ["kernel"])
-        return "params", path + ["kernel"], np.transpose(
-            k[::-1, ::-1], (2, 3, 0, 1))
     if isinstance(mod, nn.Linear) and leaf == "weight":
         return "params", path + ["kernel"], _lookup(
             params, path + ["kernel"]).T

@@ -16,7 +16,10 @@ The SH path runs when SH coefficients are given (sh_coeff_override) or
 when no probe is given and direct_sh_shading is on; the probe path
 otherwise.  Every configuration is ported, for serving and for training
 (train=True: dropout, the stochastic GCN graphs and the SNDense
-power-iteration update), except remat, which raises NotImplementedError.
+power-iteration update), except remat, which raises NotImplementedError,
+and the conv_backends "slab3" and "slab", which the U-Net refuses
+(models/unet.py::conv_routes) with NotImplementedError, another name
+with ValueError.
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ class RNRModel(nn.Module):
             num_down_unet=c.render_net.num_down_unet,
             out_channels_gcn=c.gcn.out_channels, use_gcn=c.use_gcn,
             norm=c.render_net.norm, compute_dtype=c.render_net.compute_dtype,
-            fuse_mode=c.render_net.fuse_mode, pad_mode=c.render_net.pad_mode)
+            fuse_mode=c.render_net.fuse_mode, pad_mode=c.render_net.pad_mode,
+            conv_backend=c.render_net.conv_backend)
         if c.use_gcn:
             g = c.gcn
             self.gcn = DenseDeepGCN(GCNConfig(

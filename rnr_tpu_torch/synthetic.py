@@ -149,10 +149,6 @@ def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         else:   # conv / dense kernels: lecun-normal by fan-in
             if leaf == "kernel":        # [..., in, out] (HWIO or dense)
                 fan_in = int(np.prod(shape[:-1]))
-            elif p.ndim == 4:           # OIHW weight or IOHW transpose
-                fan_in = int(np.prod(shape[1:]))
-                if "ConvTranspose" in name:
-                    fan_in = shape[0] * shape[2] * shape[3]
             else:                       # nn.Linear [out, in]
                 fan_in = shape[-1]
             a = rng.standard_normal(shape) / np.sqrt(fan_in)

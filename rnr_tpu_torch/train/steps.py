@@ -125,6 +125,12 @@ def make_rnr_eval_step(model: RNRModel, lighting_idx: int = 0,
     it both are ignored and the learned lighting `lighting_idx` lights
     the frame (rnr_tpu's semantics).  The model runs in eval mode under
     torch.inference_mode().
+
+    The U-Net runs the model's conv_backend as configured.  rnr_tpu's
+    eval step swaps "auto" for "xla" (rnr_tpu/train/steps.py:238-247)
+    because a TPU measurement found XLA's fused forward convs faster
+    there; nothing measured that on this card, so "auto" stays "pallas3"
+    here as in the training step.
     """
     model.eval()
 

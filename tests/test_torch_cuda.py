@@ -5,7 +5,10 @@ torch.cuda.is_available() is False, which is decided inside the fixture,
 never at import.  On the GPU machine:  python -m pytest tests/test_torch_cuda.py -q
 Small, odd shapes that the canonical frame does not reach (scalar
 staging paths, ragged tiles, more than four texture levels); the slice
-shapes are checked by chip_smoke.py.  The backward kernels K1b (SH fan),
+shapes are checked by chip_smoke.py.  The 4x4 pair of K6 and K8 is run
+at odd channel counts, odd sizes and widths past one tile, with both
+output types (bf16, and f32 as each serves the other's data gradient).
+The backward kernels K1b (SH fan),
 K5b (SH of materialised rays) and K3b (conv weight gradient) must also be
 bitwise deterministic, and the rasterizer K7 bitwise equal to its plain
 version.
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
+from rnr_tpu_torch.ops import conv4_cuda as c4
 from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,
                                          conv3x3_dgrad_torch, conv3x3_torch,
                                          conv3x3_wgrad, conv3x3_wgrad_torch)
@@ -364,3 +368,81 @@ def test_rasterize_tiled_kernel_overflow(dev):
     assert torch.equal(k.depth_map.cpu(), p.depth_map)
     fim = k.face_index_map
     assert set(fim[fim >= 0].unique().tolist()) == {0}
+
+
+# (kernel's wrapper, its counter, plain version, down conv?)
+CONV4 = {"down4": (c4.down4_fwd, c4.down4, c4.down4_torch, True),
+         "down4s": (c4.down4s_fwd, c4.down4s, c4.down4_torch, True),
+         "convt4": (c4.convt4_fwd, c4.convt4, c4.convt4_torch, False),
+         "convt4s": (c4.convt4s_fwd, c4.convt4s, c4.convt4_torch, False)}
+
+
+@pytest.mark.parametrize("c,o,h,w", [(5, 7, 10, 12), (8, 16, 16, 16),
+                                     (64, 72, 18, 34), (16, 24, 7, 150),
+                                     (40, 130, 5, 9)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pad_mode", ["same", "reflect"])
+@pytest.mark.parametrize("name", sorted(CONV4))
+def test_conv4_kernels(dev, name, pad_mode, out_dtype, c, o, h, w):
+    """Each 4x4 kernel against its plain version: bf16 output within one
+    rounding step of the largest values (2^-7 of max), f32 output within
+    1e-4 of max (bf16 products are exact, f32 sums in another order).
+    The transpose convs have no padding mode."""
+    fwd, counter, plain, down = CONV4[name]
+    rng = np.random.default_rng(c + o + h + w)
+    x = _t(rng.standard_normal((2, h, w, c)).astype(np.float32), dev,
+           torch.bfloat16)
+    wt = _t((rng.standard_normal((4, 4, c, o)) / np.sqrt(16 * c)).astype(
+        np.float32), dev)
+    args = (pad_mode,) if down else ()
+    n0 = counter.launches
+    k = fwd(x, wt, *args, out_dtype)
+    assert counter.launches == n0 + 1 and k.dtype == out_dtype
+    t = plain(x, wt, *args, out_dtype)
+    torch.cuda.synchronize()
+    assert k.shape == t.shape == ((2, h // 2, w // 2, o) if down
+                                  else (2, 2 * h, 2 * w, o))
+    rel = 2 ** -7 if out_dtype == torch.bfloat16 else 1e-4
+    err = float((k.float() - t.float()).abs().max())
+    assert err <= rel * float(t.float().abs().max()), err
+
+
+def test_conv4_kernels_reject_f32_activations(dev):
+    x = torch.zeros((1, 8, 8, 8), device=dev)
+    for fwd, *_ in CONV4.values():
+        with pytest.raises(TypeError):
+            fwd(x, torch.zeros((4, 4, 8, 8), device=dev))
+
+
+@pytest.mark.parametrize("pad_mode", ["same", "reflect"])
+def test_conv4_autograd_launches_their_dgrad_kernels(dev, pad_mode):
+    """down4 / down4s: dx by K6's convt4 under "same", by the plain conv
+    under reflect; convt4: dx by down4; convt4s: dx by down4s.  Gradients
+    against the plain versions' autograd on the card: dx within one bf16
+    step of its max, dw (the bf16 conv's, rounded to bf16) likewise."""
+    rng = np.random.default_rng(21)
+    xs = _t(rng.standard_normal((1, 16, 16, 24)).astype(np.float32), dev,
+            torch.bfloat16)
+    ws = _t((rng.standard_normal((4, 4, 24, 40)) / 8).astype(np.float32),
+            dev)
+    for name, (fwd, counter, plain, down) in CONV4.items():
+        fn = getattr(c4, name)
+        args = (pad_mode,) if down else ()
+        x = xs.clone().requires_grad_()
+        w = ws.clone().requires_grad_()
+        before = {k: v[1].launches for k, v in CONV4.items()}
+        y = fn(x, w, *args)
+        g = torch.ones_like(y)
+        y.backward(g)
+        got = {k: v[1].launches - before[k] for k, v in CONV4.items()}
+        dgrad = {"down4": "convt4" if pad_mode == "same" else None,
+                 "down4s": "convt4" if pad_mode == "same" else None,
+                 "convt4": "down4", "convt4s": "down4s"}[name]
+        want = {k: int(k == name) + int(k == dgrad) for k in CONV4}
+        assert got == want, (name, got)
+        xr = xs.float().requires_grad_()
+        wr = ws.to(torch.bfloat16).float().requires_grad_()
+        plain(xr, wr, *args, torch.float32).backward(g.float())
+        for a, r in ((x.grad, xr.grad), (w.grad, wr.grad)):
+            err = float((a.float() - r).abs().max())
+            assert err <= 2 ** -7 * float(r.abs().max()), (name, err)

@@ -42,8 +42,9 @@ CONFIGS = {
 }
 
 
-def _jax_step(rays: dict):
-    jcfg, _, batch = graft._build(rays_dtype="float32", conv_backend="xla",
+def _jax_step(rays: dict, conv_backend: str = "xla"):
+    jcfg, _, batch = graft._build(rays_dtype="float32",
+                                  conv_backend=conv_backend,
                                   sh_kernel="xla", **SMALL)
     jcfg = dataclasses.replace(
         jcfg, rays=dataclasses.replace(jcfg.rays, **rays),
@@ -53,9 +54,15 @@ def _jax_step(rays: dict):
                                        compute_dtype="float32"))
     l_dir = graft._fib_sphere(SMALL["num_sample"])
     jm = JaxRNRModel(cfg=jcfg, l_dir=l_dir)
+    # init under the "xla" conv route: flax keeps one variable tree across
+    # conv backends, and only the step then traces any Pallas kernel
+    ji = JaxRNRModel(cfg=dataclasses.replace(jcfg, render_net=dataclasses.
+                                             replace(jcfg.render_net,
+                                                     conv_backend="xla")),
+                     l_dir=l_dir)
     keys = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
             "gcn": jax.random.PRNGKey(2)}
-    variables = jax.device_get(jax.jit(lambda r, b: jm.init(
+    variables = jax.device_get(jax.jit(lambda r, b: ji.init(
         r, b, lighting_idx=0, train=False))(keys, batch))
     rng = np.random.default_rng(0)
     params = dict(variables["params"])
@@ -99,7 +106,12 @@ def test_relight_train_step_f32_matches_jax(name):
     noise below 1e-6 of the largest gradient on both sides.  The lighting
     coefficients' gradient comes through K5b's d coeff (unfused) or
     through the probe scatter and the reconstruction grid (probe)."""
-    case = _jax_step(CONFIGS[name])
+    check_port_step(_jax_step(CONFIGS[name]))
+
+
+def check_port_step(case: dict) -> None:
+    """The port's loss terms and gradients at `case`'s weights and batch
+    against rnr_tpu's (`_jax_step`), at the tolerances stated above."""
     m = RNRModel(RNRConfig.from_dict(dataclasses.asdict(case["cfg"])),
                  SMALL["gcn_v"], l_dir=case["l_dir"], device="cpu")
     load_jax_variables(m, case["variables"])

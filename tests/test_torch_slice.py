@@ -60,9 +60,12 @@ def _models(rays_dtype, unet_dtype):
         k: (0.5 + 0.5 * rng.standard_normal(v.shape)).astype(np.float32)
         for k, v in params["texture_mapper"].items()}
     variables = dict(variables, params=params)
-    tm = load_jax_variables(RNRModel(
-        RNRConfig.from_dict(dataclasses.asdict(cfg)), SMALL["gcn_v"],
-        device="cpu"), variables)
+    # the port's K3 twins for every 3x3 conv ("pallas3"), against XLA's
+    pcfg = RNRConfig.from_dict(dataclasses.asdict(cfg))
+    pcfg = dataclasses.replace(pcfg, render_net=dataclasses.replace(
+        pcfg.render_net, conv_backend="pallas3"))
+    tm = load_jax_variables(RNRModel(pcfg, SMALL["gcn_v"], device="cpu"),
+                            variables)
     return jm, variables, tm, batch
 
 
