@@ -1,7 +1,8 @@
 """Drive the PyTorch + CUDA port on one NVIDIA GPU: the serving path, the
 training step, inference from a mesh (G-buffer, then the frame),
 relighting under novel light probes, and the U-Net's conv routes
-"pallas" (K6) and "p3s4" (K8's 4x4 pair).
+"pallas" (K6), "p3s4" (K8's 4x4 pair), "slab3" (K8's 3x3 slab conv, K8a
+and K8b) and "slab" (the 3x3 slab conv and K8's 4x4 pair).
 
     python3 chip_smoke.py            # every phase (one H100, a few minutes)
     python3 chip_smoke.py --phases device,build,kernels
@@ -12,8 +13,8 @@ relighting under novel light probes, and the U-Net's conv routes
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
-  build    nvcc builds the ten sources of rnr_tpu_torch/csrc/ (the
-           fourteen kernels), one nvcc per source, all started together.
+  build    nvcc builds the thirteen sources of rnr_tpu_torch/csrc/ (the
+           seventeen kernels), one nvcc per source, all started together.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes of the canonical 512^2 step, with the stated
            tolerance; the median time of the kernel, of its plain version
@@ -31,7 +32,14 @@ Phases (each failure raises, so the script exits non-zero):
            pair (K6 down4 / convt4, K8 down4s / convt4s) runs at the ten
            4x4 convs of a frame and as each other's f32 data gradient,
            then at odd C and O and an odd H; beside them the pallas3
-           route's own cuDNN 4x4 convs are timed.
+           route's own cuDNN 4x4 convs are timed.  The 3x3 slab pair (K8a
+           forward and f32 data gradient, K8b weight gradient) runs on K3's
+           inputs at the 14 3x3 convs of a frame, K8a's forward within a
+           rounding step of K3's, K8b twice and bit-equal, then at odd C
+           and O and an odd H under both pad modes.  P1 (the GEMM chain of
+           tools/tpu_probe_r5.py) runs at the probe's section A shapes,
+           each launch counted, with cuBLAS's one product of the same
+           function beside it.
   slice    the canonical model (512^2, texture 512^2 x 24, lmax 10, 13+13
            rays, U-Net nf0 64 / 5 downs / dense fusion, GCN 20 blocks k=16
            on 7500 vertices; bf16 rays, fan-fused K1, K3 for every 3x3)
@@ -39,7 +47,8 @@ Phases (each failure raises, so the script exits non-zero):
            the image and the launch count of every kernel, then times the
            GCN and the eval frames/s; a torch.profiler pass prints device
            time by kernel.  Then the same model and v_feature under the
-           conv routes "pallas" and "p3s4": launches per frame (K3 14, the
+           conv routes "pallas", "p3s4", "slab3" and "slab": launches per
+           frame (K3 14, or K8a 14 and K3 0 under the slab routes; the
            route's down and transpose kernel 5 each), a finite image near
            the shipped route's, frames/s, frame ms and a profile.
   gbuffer  inference from a mesh with the slice's model and v_feature:
@@ -64,7 +73,8 @@ Phases (each failure raises, so the script exits non-zero):
            then one 128^2 frame per route on the card against the CPU.
   parity   the same model at 128^2 on the card (kernels) and on the CPU
            (plain versions) from the same v_feature, under the shipped
-           route and the conv routes "pallas" and "p3s4"; images compared.
+           route and the conv routes "pallas", "p3s4", "slab3" and "slab";
+           images compared.
   train    the canonical training step (the slice's model, dropout 0.1,
            stochastic GCN with epsilon 0.2, Adam lr 1e-3) at batch 1, then
            batch 2: two warm-up steps, one step whose launch counts,
@@ -76,10 +86,12 @@ Phases (each failure raises, so the script exits non-zero):
            path (direct_sh_shading=False: the learned lighting as a 64 x
            128 probe, gathered per ray), whose probe gather and scatter
            are also timed and profiled on their own; and under the conv
-           routes "pallas" (down4 10, convt4 5 per step) and "p3s4"
-           (down4s 10, convt4s 5).  Last, one counted step of each conv
-           route under zero padding at 256^2, where the down convs' data
-           gradient is K6's convt4 in both routes.
+           routes "pallas" (down4 10, convt4 5 per step), "p3s4" (down4s
+           10, convt4s 5), "slab3" (K8a 28, K8b 14, K3 and K3b 0) and
+           "slab" (as slab3, and down4s 10, convt4s 5).  Last, one counted
+           step of each conv route under zero padding at 256^2, where the
+           down convs' data gradient is K6's convt4 under every route with
+           a 4x4 kernel.
   train_parity  one training step (loss and every gradient) of the
            canonical model at 128^2 and 1024 vertices on the card and on
            the CPU, same weights, dropout and the stochastic GCN off.
@@ -115,7 +127,13 @@ from rnr_tpu_torch.ops.conv4_cuda import (convt4, convt4_fwd,  # noqa: E402
                                           down4s, down4s_fwd)
 from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,  # noqa: E402
                                          conv3x3_dgrad_torch, conv3x3_torch,
-                                         conv3x3_wgrad, conv3x3_wgrad_torch)
+                                         conv3x3_wgrad, conv3x3_wgrad_torch,
+                                         conv3x3s, conv3x3s_dgrad,
+                                         conv3x3s_dgrad_torch, conv3x3s_fwd,
+                                         conv3x3s_torch, conv3x3s_wgrad,
+                                         conv3x3s_wgrad_torch)
+from rnr_tpu_torch.ops.gemm_chain_cuda import (gemm_chain,  # noqa: E402
+                                               gemm_chain_torch)
 from rnr_tpu_torch.ops.interpolate import bilinear_taps  # noqa: E402
 from rnr_tpu_torch.ops.knn_cuda import (stratified_knn,  # noqa: E402
                                         stratified_knn_torch)
@@ -181,10 +199,23 @@ KERNELS = {
     "convt4s": dict(
         wrapper=convt4s, source="rnr_tpu_torch/csrc/conv4x4_slab.cu",
         replaces="rnr_tpu/ops/conv_pallas.py:1276", path="train_p3s4"),
+    # the 3x3 slab pair under "slab3" and "slab": the forward and, with an
+    # f32 output, the data gradient; the weight gradient
+    "conv3x3s": dict(
+        wrapper=conv3x3s, source="rnr_tpu_torch/csrc/conv3x3_slab.cu",
+        replaces="rnr_tpu/ops/conv_pallas.py:917", path="train_slab3"),
+    "conv3x3s_wgrad": dict(
+        wrapper=conv3x3s_wgrad,
+        source="rnr_tpu_torch/csrc/conv3x3_slab_wgrad.cu",
+        replaces="rnr_tpu/ops/conv_pallas.py:982", path="train_slab3"),
+    # on no path of the package: launched by the kernels phase
+    "gemm_chain": dict(
+        wrapper=gemm_chain, source="rnr_tpu_torch/csrc/gemm_chain.cu",
+        replaces="tools/tpu_probe_r5.py:81", path="kernels"),
 }
 SOURCES = ("sh_fan", "sh_shade", "mipmap_gather", "mipmap_scatter", "conv3x3",
            "conv3x3_wgrad", "stratified_knn", "rasterize_tiles", "conv4x4",
-           "conv4x4_slab")
+           "conv4x4_slab", "conv3x3_slab", "conv3x3_slab_wgrad", "gemm_chain")
 
 # launches of each kernel in one canonical training step, and in one step
 # of each variant: the relighting configurations (rays overrides of the
@@ -194,7 +225,10 @@ SOURCES = ("sh_fan", "sh_shade", "mipmap_gather", "mipmap_scatter", "conv3x3",
 TRAIN_LAUNCHES = {"stratified_knn": 17, "conv3x3": 28, "conv3x3_wgrad": 14,
                   "sh_shade_fan": 1, "sh_shade_fan_bwd": 1, "sh_shade": 0,
                   "sh_shade_bwd": 0, "down4": 0, "convt4": 0, "down4s": 0,
-                  "convt4s": 0}
+                  "convt4s": 0, "conv3x3s": 0, "conv3x3s_wgrad": 0}
+# the slab routes' 3x3 convs: K8a forward and dgrad, K8b, and no K3
+SLAB_STEP = dict(TRAIN_LAUNCHES, conv3x3=0, conv3x3_wgrad=0, conv3x3s=28,
+                 conv3x3s_wgrad=14)
 TRAIN_VARIANTS = {
     "unfused": (dict(rays=dict(sh_fan_fuse=False)),
                 dict(TRAIN_LAUNCHES, sh_shade_fan=0, sh_shade_fan_bwd=0,
@@ -205,23 +239,34 @@ TRAIN_VARIANTS = {
                dict(TRAIN_LAUNCHES, down4=10, convt4=5)),
     "p3s4": (dict(render_net=dict(conv_backend="p3s4")),
              dict(TRAIN_LAUNCHES, down4s=10, convt4s=5)),
+    "slab3": (dict(render_net=dict(conv_backend="slab3")), SLAB_STEP),
+    "slab": (dict(render_net=dict(conv_backend="slab")),
+             dict(SLAB_STEP, down4s=10, convt4s=5)),
 }
 # the probe step takes seconds on the card (its backward's scatter into
 # the probe), so it is warmed by its counted step and timed over 1 step
-TIMED_STEPS = {"unfused": 5, "probe": 1, "pallas": 5, "p3s4": 5}
+TIMED_STEPS = {"unfused": 5, "probe": 1, "pallas": 5, "p3s4": 5, "slab3": 5,
+               "slab": 5}
 # the conv routes' steps under zero ("same") padding, at SAME_IMG^2: the
-# down convs' data gradient is then K6's convt4 (f32 out) in both routes
+# down convs' data gradient is then K6's convt4 (f32 out) in every route
+# with a 4x4 kernel
 SAME_IMG = 256
 SAME_LAUNCHES = {
     "pallas": dict(TRAIN_LAUNCHES, down4=10, convt4=10),
     "p3s4": dict(TRAIN_LAUNCHES, down4s=10, convt4s=5, convt4=5),
+    "slab3": SLAB_STEP,
+    "slab": dict(SLAB_STEP, down4s=10, convt4s=5, convt4=5),
 }
 # launches per eval frame of the conv routes (cached v_feature)
 ROUTE_FRAME_LAUNCHES = {
-    "pallas": {"conv3x3": 14, "down4": 5, "convt4": 5, "down4s": 0,
-               "convt4s": 0},
-    "p3s4": {"conv3x3": 14, "down4": 0, "convt4": 0, "down4s": 5,
-             "convt4s": 5},
+    "pallas": {"conv3x3": 14, "conv3x3s": 0, "down4": 5, "convt4": 5,
+               "down4s": 0, "convt4s": 0},
+    "p3s4": {"conv3x3": 14, "conv3x3s": 0, "down4": 0, "convt4": 0,
+             "down4s": 5, "convt4s": 5},
+    "slab3": {"conv3x3": 0, "conv3x3s": 14, "down4": 0, "convt4": 0,
+              "down4s": 0, "convt4s": 0},
+    "slab": {"conv3x3": 0, "conv3x3s": 14, "down4": 0, "convt4": 0,
+             "down4s": 5, "convt4s": 5},
 }
 AT_LEAST_ONE = ("mipmap_gather", "mipmap_scatter")
 
@@ -688,14 +733,38 @@ def kernels_texture(rec: dict, b: dict, rng) -> None:
     torch.cuda.synchronize()
 
 
+# the two formulations of the 3x3 conv at reflect padding: forward (bf16),
+# data gradient (f32), weight gradient (f32), each with its plain version
+CONV3_FORMS = {
+    "conv3x3": dict(
+        fwd=lambda x, w, b: conv3x3(x, w, b, "reflect"),
+        fwd_plain=lambda x, w, b: conv3x3_torch(x, w, b, "reflect"),
+        dgrad=conv3x3_dgrad, dgrad_plain=conv3x3_dgrad_torch,
+        wgrad=conv3x3_wgrad, wgrad_plain=conv3x3_wgrad_torch),
+    "conv3x3s": dict(
+        fwd=lambda x, w, b: conv3x3s_fwd(x, w, b, "reflect"),
+        fwd_plain=lambda x, w, b: conv3x3s_torch(x, w, b, "reflect"),
+        dgrad=conv3x3s_dgrad, dgrad_plain=conv3x3s_dgrad_torch,
+        wgrad=conv3x3s_wgrad, wgrad_plain=conv3x3s_wgrad_torch),
+}
+# odd C and O, odd H: the slab pair under both pad modes
+CONV3_ODD = [(45, 77, 64), (64, 64, 63)]
+
+
 def kernels_conv(rec: dict, rng) -> None:
-    """K3 (forward, and its f32-output data gradient) and K3b over the 14
-    convs of a frame, reflect padding, bf16 activations and gradients."""
-    errs = {"fwd": [], "dgrad": [], "wgrad": []}
-    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-           for k in errs}
-    works = {k: [] for k in errs}
+    """K3 (forward, and its f32-output data gradient) and K3b, then the
+    slab pair K8a (the same two) and K8b on the same inputs, over the 14
+    convs of a frame, reflect padding, bf16 activations and gradients;
+    K8a's forward within one rounding step of K3's.  cuDNN computes the
+    same function for both formulations: it is timed once per shape.
+    Then the slab pair at odd C and O and an odd H, both pad modes."""
+    errs = {(f, k): [] for f in CONV3_FORMS for k in ("fwd", "dgrad",
+                                                      "wgrad")}
+    tot = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+           for key in errs}
+    works = {k: [] for k in ("fwd", "dgrad", "wgrad")}
     aten_bwd = torch.ops.aten.convolution_backward
+    vs_k3 = []
     for c, o, h in CONV_SHAPES:
         x = torch.from_numpy(rng.standard_normal((1, h, h, c)).astype(
             np.float32)).to(DEV, torch.bfloat16)
@@ -705,85 +774,187 @@ def kernels_conv(rec: dict, rng) -> None:
                               / np.sqrt(9 * c)).astype(np.float32)).to(DEV)
         bias = torch.from_numpy(rng.standard_normal(o).astype(
             np.float32)).to(DEV)
-        ky = conv3x3(x, w, bias, "reflect")
-        ty = conv3x3_torch(x, w, bias, "reflect")
-        kd = conv3x3_dgrad(g, w, "reflect")
-        td = conv3x3_dgrad_torch(g, w, "reflect")
-        kw = conv3x3_wgrad(x, g, "reflect")
-        kw2 = conv3x3_wgrad(x, g, "reflect")
-        tw = conv3x3_wgrad_torch(x, g, "reflect")
-        torch.cuda.synchronize()
-        if not torch.equal(kw, kw2):
-            raise AssertionError(f"conv3x3_wgrad {c}->{o} @{h}: two runs "
-                                 "differ")
         tag = f"{c}->{o} @{h}"
-        # fwd: bf16 output, one rounding step of the largest values (2^-8
-        # relative) from f32 sums in another order; dgrad and wgrad: bf16
-        # operands multiply exactly, f32 sums in another order
-        for kind, k, t, rel in (("fwd", ky.float(), ty.float(), 2 ** -7),
-                                ("dgrad", kd, td, 1e-4),
-                                ("wgrad", kw, tw, 1e-4)):
-            scale = float(t.abs().max())
-            e = float((k - t).abs().max())
-            check(f"conv3x3 {kind} {tag}", e, rel * scale)
-            errs[kind].append(e)
+        outs = {}
+        for form, fs in CONV3_FORMS.items():
+            ky = fs["fwd"](x, w, bias)
+            ty = fs["fwd_plain"](x, w, bias)
+            kd = fs["dgrad"](g, w, "reflect")
+            td = fs["dgrad_plain"](g, w, "reflect")
+            kw = fs["wgrad"](x, g, "reflect")
+            kw2 = fs["wgrad"](x, g, "reflect")
+            tw = fs["wgrad_plain"](x, g, "reflect")
+            torch.cuda.synchronize()
+            if not torch.equal(kw, kw2):
+                raise AssertionError(f"{form}_wgrad {tag}: two runs differ")
+            # fwd: bf16 output, one rounding step of the largest values
+            # (2^-8 relative) from f32 sums in another order; dgrad and
+            # wgrad: bf16 operands multiply exactly, f32 sums in another
+            # order
+            for kind, k, t, rel in (("fwd", ky.float(), ty.float(), 2 ** -7),
+                                    ("dgrad", kd, td, 1e-4),
+                                    ("wgrad", kw, tw, 1e-4)):
+                scale = float(t.abs().max())
+                e = float((k - t).abs().max())
+                check(f"{form} {kind} {tag}", e, rel * scale)
+                errs[(form, kind)].append(e)
+            outs[form] = ky.float()
+            del ky, ty, kd, td, kw, kw2, tw
+        e = float((outs["conv3x3s"] - outs["conv3x3"]).abs().max())
+        check(f"conv3x3s fwd vs conv3x3 fwd {tag}", e,
+              2 ** -7 * float(outs["conv3x3"].abs().max()))
+        vs_k3.append(e)
         # the library yardsticks: cuDNN on the NCHW channels-last views,
         # zero padding (the same FLOPs; reflect needs a second call)
         xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
         wn = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         bn = bias.to(torch.bfloat16)
-        fns = {
-            "fwd": (lambda: conv3x3(x, w, bias, "reflect"),
-                    lambda: conv3x3_torch(x, w, bias, "reflect"),
-                    lambda: F.conv2d(xn, wn, bn, padding=1)),
-            "dgrad": (lambda: conv3x3_dgrad(g, w, "reflect"),
-                      lambda: conv3x3_dgrad_torch(g, w, "reflect"),
-                      lambda: aten_bwd(gn, xn, wn, None, [1, 1], [1, 1],
-                                       [1, 1], False, [0, 0], 1,
-                                       [True, False, False])),
-            "wgrad": (lambda: conv3x3_wgrad(x, g, "reflect"),
-                      lambda: conv3x3_wgrad_torch(x, g, "reflect"),
-                      lambda: aten_bwd(gn, xn, wn, None, [1, 1], [1, 1],
-                                       [1, 1], False, [0, 0], 1,
-                                       [False, True, False])),
+        lib = {
+            "fwd": lambda: F.conv2d(xn, wn, bn, padding=1),
+            "dgrad": lambda: aten_bwd(gn, xn, wn, None, [1, 1], [1, 1],
+                                      [1, 1], False, [0, 0], 1,
+                                      [True, False, False]),
+            "wgrad": lambda: aten_bwd(gn, xn, wn, None, [1, 1], [1, 1],
+                                      [1, 1], False, [0, 0], 1,
+                                      [False, True, False]),
         }
-        line = []
-        for kind, (kf, pf, lf) in fns.items():
-            ms = cuda_ms(kf)
-            pms = cuda_ms(pf, iters=3, warmup=1)
+        args = {"fwd": (x, w, bias), "dgrad": (g, w, "reflect"),
+                "wgrad": (x, g, "reflect")}
+        line = {f: [] for f in CONV3_FORMS}
+        for kind, lf in lib.items():
             lms = cuda_ms(lf)
             wk = conv_work(kind, h * h, c, o)
             works[kind].append(wk)
-            tot[kind]["ms"] += ms
-            tot[kind]["plain_ms"] += pms
-            tot[kind]["library_ms"] += lms
-            tflops = 2 * 9 * c * o * h * h / ms / 1e9
-            line.append(f"{kind} {ms:.3f} ms ({tflops:.1f} TFLOP/s, bound "
-                        f"{wk['bound_ms']:.3f}, cuDNN {lms:.3f}, plain "
-                        f"{pms:.3f})")
-        log(f"[kernels] conv3x3 {tag}: errs fwd {errs['fwd'][-1]:.3g} "
-            f"dgrad {errs['dgrad'][-1]:.3g} wgrad {errs['wgrad'][-1]:.3g}; "
-            + "; ".join(line))
-        del x, g, ky, ty, kd, td, kw, kw2, tw
-    for kind in errs:
-        b = add_bounds(works[kind])
-        log(f"[kernels] conv3x3 {kind}, 14 convs of a frame: kernel "
-            f"{tot[kind]['ms']:.3f} ms, bound {b['bound_ms']:.3f} ms, "
-            f"cuDNN {tot[kind]['library_ms']:.3f} ms, plain "
-            f"{tot[kind]['plain_ms']:.3f} ms")
-    fd = add_bounds(works["fwd"] + works["dgrad"])
-    rec["conv3x3"] = dict(
-        max_abs_err=max(errs["fwd"] + errs["dgrad"]),
-        ms=tot["fwd"]["ms"] + tot["dgrad"]["ms"],
-        plain_ms=tot["fwd"]["plain_ms"] + tot["dgrad"]["plain_ms"],
-        library_ms=tot["fwd"]["library_ms"] + tot["dgrad"]["library_ms"],
-        fwd_ms=tot["fwd"]["ms"], dgrad_ms=tot["dgrad"]["ms"],
-        fwd_bound_ms=add_bounds(works["fwd"])["bound_ms"],
-        dgrad_bound_ms=add_bounds(works["dgrad"])["bound_ms"], **fd)
-    rec["conv3x3_wgrad"] = dict(
-        max_abs_err=max(errs["wgrad"]), bitwise_reproducible=True,
-        **tot["wgrad"], **add_bounds(works["wgrad"]))
+            tflop = 2 * 9 * c * o * h * h / 1e9
+            for form, fs in CONV3_FORMS.items():
+                a = args[kind]
+                ms = cuda_ms(lambda: fs[kind](*a))
+                pms = cuda_ms(lambda: fs[kind + "_plain"](*a), iters=3,
+                              warmup=1)
+                t = tot[(form, kind)]
+                t["ms"] += ms
+                t["plain_ms"] += pms
+                t["library_ms"] += lms
+                line[form].append(
+                    f"{kind} {ms:.3f} ms ({tflop / ms:.1f} TFLOP/s, bound "
+                    f"{wk['bound_ms']:.3f}, cuDNN {lms:.3f}, plain "
+                    f"{pms:.3f})")
+        for form in CONV3_FORMS:
+            log(f"[kernels] {form} {tag}: errs fwd "
+                f"{errs[(form, 'fwd')][-1]:.3g} dgrad "
+                f"{errs[(form, 'dgrad')][-1]:.3g} wgrad "
+                f"{errs[(form, 'wgrad')][-1]:.3g}; " + "; ".join(line[form]))
+        log(f"[kernels] conv3x3s fwd vs conv3x3 fwd {tag}: max abs diff "
+            f"{e:.3g}")
+        del x, g, outs
+    for form in CONV3_FORMS:
+        for kind in ("fwd", "dgrad", "wgrad"):
+            b = add_bounds(works[kind])
+            t = tot[(form, kind)]
+            log(f"[kernels] {form} {kind}, 14 convs of a frame: kernel "
+                f"{t['ms']:.3f} ms, bound {b['bound_ms']:.3f} ms, cuDNN "
+                f"{t['library_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms")
+        fd = add_bounds(works["fwd"] + works["dgrad"])
+        f_, d_, w_ = (tot[(form, k)] for k in ("fwd", "dgrad", "wgrad"))
+        rec[form] = dict(
+            max_abs_err=max(errs[(form, "fwd")] + errs[(form, "dgrad")]),
+            ms=f_["ms"] + d_["ms"], plain_ms=f_["plain_ms"] + d_["plain_ms"],
+            library_ms=f_["library_ms"] + d_["library_ms"],
+            fwd_ms=f_["ms"], dgrad_ms=d_["ms"],
+            fwd_bound_ms=add_bounds(works["fwd"])["bound_ms"],
+            dgrad_bound_ms=add_bounds(works["dgrad"])["bound_ms"], **fd)
+        rec[form + "_wgrad"] = dict(
+            max_abs_err=max(errs[(form, "wgrad")]), bitwise_reproducible=True,
+            **w_, **add_bounds(works["wgrad"]))
+    rec["conv3x3s"]["vs_conv3x3_max_abs_diff"] = max(vs_k3)
+
+    # the slab pair at odd C and O and an odd H, both pad modes
+    for c, o, h in CONV3_ODD:
+        x = _bf16_input(rng, (1, h, h, c))
+        g = _bf16_input(rng, (1, h, h, o))
+        w = torch.from_numpy((rng.standard_normal((3, 3, c, o))
+                              / np.sqrt(9 * c)).astype(np.float32)).to(DEV)
+        bias = torch.from_numpy(rng.standard_normal(o).astype(
+            np.float32)).to(DEV)
+        for pm in ("reflect", "same"):
+            tag = f"{c}->{o} @{h} {pm}"
+            _conv4_check(f"conv3x3s {tag}", conv3x3s_fwd(x, w, bias, pm),
+                         conv3x3s_torch(x, w, bias, pm), 2 ** -7)
+            _conv4_check(f"conv3x3s f32 {tag}",
+                         conv3x3s_fwd(x, w, bias, pm, torch.float32),
+                         conv3x3s_torch(x, w, bias, pm, torch.float32), 1e-4)
+            _conv4_check(f"conv3x3s dgrad {tag}", conv3x3s_dgrad(g, w, pm),
+                         conv3x3s_dgrad_torch(g, w, pm), 1e-4)
+            kw = conv3x3s_wgrad(x, g, pm)
+            _conv4_check(f"conv3x3s_wgrad {tag}", kw,
+                         conv3x3s_wgrad_torch(x, g, pm), 1e-4)
+            if not torch.equal(kw, conv3x3s_wgrad(x, g, pm)):
+                raise AssertionError(f"conv3x3s_wgrad {tag}: two runs differ")
+    torch.cuda.synchronize()
+    log(f"[kernels] 3x3 slab odd shapes {CONV3_ODD}: K8a (bf16 within 2^-7 "
+        "of max, f32 and dgrad within 1e-4) and K8b (within 1e-4, twice "
+        "bit-equal) agree, both pad modes")
+
+
+# (K, N, T) of tools/tpu_probe_r5.py's section A (:108-146); M is 16 tiles
+# of the rows that fit the probe's 13 MB VMEM model, as there
+GEMM_SHAPES = [(64, 64, 9), (128, 64, 9), (192, 64, 9), (64, 128, 9),
+               (128, 128, 9), (192, 128, 9), (256, 256, 9), (512, 512, 4)]
+
+
+def gemm_rows(k: int, n: int, taps: int) -> int:
+    rows = 8320
+    while (2 * rows * k * 2 + taps * k * n * 2 + rows * n * 4
+           + 2 * rows * n * 2) > 13 * 1024 * 1024:
+        rows //= 2
+    return 16 * rows
+
+
+def kernels_gemm_chain(rec: dict, launches: dict, rng) -> None:
+    """P1 at section A's eight shapes: one launch per shape, counted (the
+    kernel lies on no path of the package), against its plain version
+    (bf16 within 2^-7 of max); the median ms of the kernel, its plain
+    version and cuBLAS's one product of x repeated T times along K [M, T K]
+    with w as [T K, N] (the same function, summed in another order; its
+    inputs built before the timing), and the bound."""
+    parts, errs = [], []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    inputs = []
+    for k, n, taps in GEMM_SHAPES:
+        m = gemm_rows(k, n, taps)
+        inputs.append((_bf16_input(rng, (m, k)),
+                       _bf16_input(rng, (taps, k, n), 1 / math.sqrt(k * taps))))
+    gemm_chain.launches = 0
+    outs = [gemm_chain(x, w) for x, w in inputs]
+    torch.cuda.synchronize()
+    launches["gemm_chain"] = gemm_chain.launches
+    if launches["gemm_chain"] != len(GEMM_SHAPES):
+        raise AssertionError(f"gemm_chain launched {gemm_chain.launches} "
+                             f"times for {len(GEMM_SHAPES)} shapes")
+    for (k, n, taps), (x, w), y in zip(GEMM_SHAPES, inputs, outs):
+        m = x.shape[0]
+        tag = f"M {m} K {k} N {n} T {taps}"
+        e = _conv4_check(f"gemm_chain {tag}", y, gemm_chain_torch(x, w),
+                         2 ** -7)
+        errs.append(e)
+        xr = x.repeat(1, taps)                 # [M, T K]
+        wr = w.reshape(taps * k, n)            # [T K, N]
+        ms = cuda_ms(lambda: gemm_chain(x, w))
+        pms = cuda_ms(lambda: gemm_chain_torch(x, w), iters=3, warmup=1)
+        lms = cuda_ms(lambda: torch.matmul(xr, wr))
+        work = bound(2 * (m * k + taps * k * n + m * n),
+                     2.0 * m * k * n * taps, BF16_TENSOR_FLOPS)
+        parts.append(work)
+        tot["ms"] += ms
+        tot["plain_ms"] += pms
+        tot["library_ms"] += lms
+        log(f"[kernels] gemm_chain {tag}: err {e:.3g}; kernel {ms:.4f} ms "
+            f"({2 * m * k * n * taps / ms / 1e9:.1f} TFLOP/s), bound "
+            f"{work['bound_ms']:.4f} ({work['bound_by']}), cuBLAS {lms:.4f}, "
+            f"plain {pms:.3f}")
+        del xr, wr
+    rec["gemm_chain"] = dict(max_abs_err=max(errs), **tot, **add_bounds(parts))
     torch.cuda.synchronize()
 
 
@@ -1099,7 +1270,7 @@ def kernels_raster(rec: dict) -> None:
     torch.cuda.synchronize()
 
 
-def phase_kernels(rec: dict) -> None:
+def phase_kernels(rec: dict, launches: dict) -> None:
     rng = np.random.default_rng(0)
     b = _gbuffer(IMG)
     kernels_sh(rec, b, rng)
@@ -1107,6 +1278,7 @@ def phase_kernels(rec: dict) -> None:
     kernels_texture(rec, b, rng)
     kernels_conv(rec, rng)
     kernels_conv4(rec, rng)
+    kernels_gemm_chain(rec, launches, rng)
     kernels_knn(rec, rng)
     kernels_raster(rec)
     for name, r in rec.items():
@@ -1216,8 +1388,8 @@ def phase_slice(eval_launches: dict) -> dict:
 
 def slice_routes(state: dict, route_launches: dict, frames: int = 3) -> None:
     """Eval frames of the slice's model under the U-Net's conv routes
-    "pallas" (K3 + K6) and "p3s4" (K3 + K8's 4x4 pair), same weights and
-    v_feature: the launches per frame, a finite image near the shipped
+    "pallas" (K3 + K6), "p3s4" (K3 + K8's 4x4 pair), "slab3" (K8a) and
+    "slab" (K8a + K8's 4x4 pair), same weights and v_feature: the launches per frame, a finite image near the shipped
     route's (the same function in bf16: held as the parity phase holds the
     card to the CPU), frames/s and frame ms."""
     from rnr_tpu_torch.train.steps import make_rnr_eval_step
@@ -1619,16 +1791,16 @@ def relight_card_vs_cpu(models: dict, lights: dict, vf) -> None:
 
 
 def phase_parity(state: dict) -> None:
-    """The slice's model at 128^2 under the shipped route and the conv
-    routes "pallas" and "p3s4": card (kernels) vs CPU (plain versions),
-    both from the card's v_feature."""
+    """The slice's model at 128^2 under the shipped route and each conv
+    route: card (kernels) vs CPU (plain versions), both from the card's
+    v_feature."""
     model, vf = state["model"], state["v_feature"]
     from rnr_tpu_torch.synthetic import build_batch, to_torch
     from rnr_tpu_torch.train.steps import make_rnr_eval_step
     nb = build_batch(128, GCN_V)
     bc, bh = to_torch(nb, DEV), to_torch(nb, "cpu")
     torch.set_num_threads(os.cpu_count() or 1)
-    for route in ("pallas3", "pallas", "p3s4"):
+    for route in ("pallas3", *ROUTE_FRAME_LAUNCHES):
         card = (model if route == model.cfg.render_net.conv_backend
                 else variant(model, render_net=dict(conv_backend=route)))
         cpu = variant(card, device="cpu")
@@ -2018,6 +2190,7 @@ def main() -> None:
     relight_launches: dict = {}
     variant_launches: dict = {}
     route_launches: dict = {}
+    kernel_launches: dict = {}
 
     def done(name):
         torch.cuda.synchronize()
@@ -2027,7 +2200,7 @@ def main() -> None:
         phase_build()
         done("build")
     if "kernels" in phases:
-        phase_kernels(rec)
+        phase_kernels(rec, kernel_launches)
         done("kernels")
     # gbuffer, relight and parity reuse the slice's model and v_feature
     if {"slice", "gbuffer", "relight", "parity"} & set(phases):
@@ -2055,13 +2228,16 @@ def main() -> None:
     # launches: the count on the kernel's main path, the training step
     # (one step at b1), or for K7 the G-buffer path (N_VIEWS views), for
     # K5 the relight path (N_VIEWS views x N_PROBES probes x the routes),
-    # for K5b the unfused training step, for K6 and K8's 4x4 pair the b1
-    # training step of their conv route ("pallas", "p3s4")
+    # for K5b the unfused training step, for K6, K8's 4x4 pair and the 3x3
+    # slab pair the b1 training step of their conv route ("pallas", "p3s4",
+    # "slab3"), for P1 the kernels phase
     paths = {"train": train_launches, "gbuffer": view_launches,
              "relight": relight_launches,
              "train_unfused": variant_launches.get("unfused", {}),
              "train_pallas": variant_launches.get("pallas", {}),
-             "train_p3s4": variant_launches.get("p3s4", {})}
+             "train_p3s4": variant_launches.get("p3s4", {}),
+             "train_slab3": variant_launches.get("slab3", {}),
+             "kernels": kernel_launches}
     kernels = [dict(name=n, route="cuda", source=s["source"],
                     replaces=s["replaces"],
                     launches=paths[s.get("path", "train")].get(n),

@@ -6,7 +6,9 @@ Data flow of one frame:
   rays       = fans of 13 + 13 rays (elementwise, or RaySampler's einsum,
                which also gives the probe UVs)
   rays_lt    = unet([rays || normal || view || neural_img], v_feature)
-                                              # K3 (backward K3, K3b)
+                                              # K3 (backward K3, K3b);
+                                              # by conv_backend K8a (K8b),
+                                              # K6, K8's 4x4 pair
   image      = SH shading of the rays          # K1 fan-fused (K1b), or
                                               # K5 on rays_dir (K5b)
              | or the probe gather (ray_render) from a light probe: a
@@ -16,10 +18,9 @@ The SH path runs when SH coefficients are given (sh_coeff_override) or
 when no probe is given and direct_sh_shading is on; the probe path
 otherwise.  Every configuration is ported, for serving and for training
 (train=True: dropout, the stochastic GCN graphs and the SNDense
-power-iteration update), except remat, which raises NotImplementedError,
-and the conv_backends "slab3" and "slab", which the U-Net refuses
-(models/unet.py::conv_routes) with NotImplementedError, another name
-with ValueError.
+power-iteration update), every conv_backend among them
+(models/unet.py::conv_routes; an unknown name raises ValueError), except
+remat, which raises NotImplementedError.
 """
 
 from __future__ import annotations

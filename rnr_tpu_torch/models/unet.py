@@ -9,17 +9,19 @@ as rnr_tpu's selector does (rnr_tpu/models/unet.py:98-138, 170-182):
   "pallas3", "auto"         K3             plain               plain
   "pallas", "pallas_interpret"  K3         K6 down4            K6 convt4
   "p3s4"                    K3             K8 down4s           K8 convt4s
+  "slab3"                   K8a conv3x3s   plain               plain
+  "slab"                    K8a conv3x3s   K8 down4s           K8 convt4s
 
 "plain" is F.conv2d / F.conv_transpose2d at the activation dtype (cuDNN
-on the card), where rnr_tpu has XLA's convs.  K3 is ops/conv_cuda.py, K6
-and K8's 4x4 pair ops/conv4_cuda.py; each backward is its kernels' too.
+on the card), where rnr_tpu has XLA's convs.  K3 and K8a (the 3x3 slab
+conv) are ops/conv_cuda.py, K6 and K8's 4x4 pair ops/conv4_cuda.py; each
+backward is its kernels' too (K3b, K8b for the 3x3 weight gradients).
 "auto" is "pallas3" in every step: rnr_tpu's eval step swaps it to
 "xla" on the strength of a TPU measurement (rnr_tpu/train/steps.py:
 238-247), which says nothing of this card.  "pallas_interpret" is
-"pallas" (the CPU runs the plain versions anyway).  "slab3" and "slab"
-(K8's 3x3 slab conv) raise NotImplementedError.  Every selector shares
-one parameter layout: each conv and transpose conv keeps flax's HWIO
-`kernel`.
+"pallas" (the CPU runs the plain versions anyway).  Every selector
+shares one parameter layout: each conv and transpose conv keeps flax's
+HWIO `kernel`.
 
 Normalisation uses current-batch statistics ("batch", no running
 state), flax's GroupNorm with groups of 16 channels ("group"), or none.
@@ -39,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rnr_tpu_torch.ops.conv4_cuda import convt4, convt4s, down4, down4s
-from rnr_tpu_torch.ops.conv_cuda import conv3x3
+from rnr_tpu_torch.ops.conv_cuda import conv3x3, conv3x3s
 
 DROPOUT_P = 0.1   # rnr_tpu's RenderingNet fixes the U-Net's dropout rate
 GROUP_SIZE = 16   # rnr_tpu's GroupNorm(num_groups=None, group_size=16)
@@ -52,19 +54,16 @@ CONV_ROUTES = {
     "pallas": ("k3", "down4", "convt4"),
     "pallas_interpret": ("k3", "down4", "convt4"),
     "p3s4": ("k3", "down4s", "convt4s"),
+    "slab3": ("slab", "plain", "plain"),
+    "slab": ("slab", "down4s", "convt4s"),
 }
 
 
 def conv_routes(backend: str) -> tuple[str, str, str]:
-    """The routes of a conv_backend selector; raises for one the port does
-    not run."""
-    if backend in ("slab3", "slab"):
-        raise NotImplementedError(
-            f"conv_backend {backend!r}: K8's 3x3 slab conv is not ported "
-            "(ROADMAP.md Queue 1 item 1)")
+    """The routes of a conv_backend selector; raises for an unknown one."""
     if backend not in CONV_ROUTES:
         raise ValueError(f"conv_backend {backend!r}: expected one of "
-                         f"{sorted(CONV_ROUTES) + ['slab', 'slab3']}")
+                         f"{sorted(CONV_ROUTES)}")
     return CONV_ROUTES[backend]
 
 
@@ -78,10 +77,10 @@ def _check_norm(norm: str) -> str:
 class Conv(nn.Module):
     """kxk conv with bias optional and the HWIO `kernel` [k, k, I, O] of
     flax.  Padding is internal: reflect by 1, or zero "same".  `backend`
-    (a conv_backend selector) picks K3 for 3x3 stride 1 and K6 / K8 for
-    4x4 stride 2, or the plain conv; a kernel's output gets the bias added
-    in the activation dtype after it, as rnr_tpu does, except K3's, which
-    adds it in f32 inside."""
+    (a conv_backend selector) picks K3 or K8a for 3x3 stride 1 and K6 / K8
+    for 4x4 stride 2, or the plain conv; a kernel's output gets the bias
+    added in the activation dtype after it, as rnr_tpu does, except K3's
+    and K8a's, which add it in f32 inside."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, use_bias: bool = True,
@@ -102,10 +101,11 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
         x = x.to(dt)
-        if self.route == "k3":
+        if self.route in ("k3", "slab"):
             b = self.bias if self.bias is not None else torch.zeros(
                 self.kernel.shape[-1], device=x.device)
-            return conv3x3(x, self.kernel, b, self.pad_mode)
+            op = conv3x3 if self.route == "k3" else conv3x3s
+            return op(x, self.kernel, b, self.pad_mode)
         if self.route == "down4":
             y = down4(x, self.kernel, self.pad_mode)
         elif self.route == "down4s":

@@ -8,10 +8,12 @@ staging paths, ragged tiles, more than four texture levels); the slice
 shapes are checked by chip_smoke.py.  The 4x4 pair of K6 and K8 is run
 at odd channel counts, odd sizes and widths past one tile, with both
 output types (bf16, and f32 as each serves the other's data gradient).
-The backward kernels K1b (SH fan),
-K5b (SH of materialised rays) and K3b (conv weight gradient) must also be
-bitwise deterministic, and the rasterizer K7 bitwise equal to its plain
-version.
+The 3x3 slab pair (K8a forward and f32 data gradient, K8b weight
+gradient) runs at odd C, O, H and W under both pad modes, and P1 (the
+GEMM chain) at section A's kinds of shape and odd ones.  The backward
+kernels K1b (SH fan), K5b (SH of materialised rays), K3b and K8b (conv
+weight gradients) must also be bitwise deterministic, and the rasterizer
+K7 bitwise equal to its plain version.
 """
 
 import numpy as np
@@ -20,9 +22,11 @@ import torch
 
 from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
 from rnr_tpu_torch.ops import conv4_cuda as c4
+from rnr_tpu_torch.ops import conv_cuda as cc
 from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,
                                          conv3x3_dgrad_torch, conv3x3_torch,
                                          conv3x3_wgrad, conv3x3_wgrad_torch)
+from rnr_tpu_torch.ops.gemm_chain_cuda import gemm_chain, gemm_chain_torch
 from rnr_tpu_torch.ops.knn_cuda import stratified_knn, stratified_knn_torch
 from rnr_tpu_torch.ops.rasterize_cuda import (bin_faces, rasterize_tiled,
                                               rasterize_tiles,
@@ -446,3 +450,124 @@ def test_conv4_autograd_launches_their_dgrad_kernels(dev, pad_mode):
         for a, r in ((x.grad, xr.grad), (w.grad, wr.grad)):
             err = float((a.float() - r).abs().max())
             assert err <= 2 ** -7 * float(r.abs().max()), (name, err)
+
+
+# ------------------------------------------------ K8a / K8b: the 3x3 slab
+
+
+@pytest.mark.parametrize("c,o,h,w", [(5, 12, 7, 9), (64, 78, 9, 70),
+                                     (108, 64, 2, 33), (24, 640, 6, 16),
+                                     (45, 77, 5, 130)])
+@pytest.mark.parametrize("pad_mode", ["same", "reflect"])
+def test_conv3x3s_kernels(dev, c, o, h, w, pad_mode):
+    """K8a (bf16 output within one rounding step of max; f32 output and the
+    f32 data gradient within 1e-4 of max: bf16 products are exact, f32
+    sums in another order) and K8b (within 1e-4 of max, twice, bitwise
+    equal) against their plain versions; K8a's forward within one
+    rounding step of K3's."""
+    rng = np.random.default_rng(c + o + h + w)
+    x = _t(rng.standard_normal((2, h, w, c)).astype(np.float32), dev,
+           torch.bfloat16)
+    g = _t(rng.standard_normal((2, h, w, o)).astype(np.float32), dev,
+           torch.bfloat16)
+    wt = _t((rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(
+        np.float32), dev)
+    b = _t(rng.standard_normal(o).astype(np.float32), dev)
+    n0, m0 = cc.conv3x3s.launches, cc.conv3x3s_wgrad.launches
+    ky = cc.conv3x3s_fwd(x, wt, b, pad_mode)
+    k32 = cc.conv3x3s_fwd(x, wt, b, pad_mode, torch.float32)
+    kd = cc.conv3x3s_dgrad(g, wt, pad_mode)
+    kw = cc.conv3x3s_wgrad(x, g, pad_mode)
+    kw2 = cc.conv3x3s_wgrad(x, g, pad_mode)
+    assert cc.conv3x3s.launches == n0 + 3
+    assert cc.conv3x3s_wgrad.launches == m0 + 2
+    k3 = conv3x3(x, wt, b, pad_mode)
+    ty = cc.conv3x3s_torch(x, wt, b, pad_mode)
+    t32 = cc.conv3x3s_torch(x, wt, b, pad_mode, torch.float32)
+    td = cc.conv3x3s_dgrad_torch(g, wt, pad_mode)
+    tw = cc.conv3x3s_wgrad_torch(x, g, pad_mode)
+    torch.cuda.synchronize()
+    assert ky.dtype == torch.bfloat16 and k32.dtype == kd.dtype == torch.float32
+    for k, t, rel in ((ky.float(), ty.float(), 2 ** -7),
+                      (ky.float(), k3.float(), 2 ** -7),
+                      (k32, t32, 1e-4), (kd, td, 1e-4), (kw, tw, 1e-4)):
+        assert k.shape == t.shape
+        err = float((k - t).abs().max())
+        assert err <= rel * float(t.abs().max()), err
+    assert torch.equal(kw, kw2)    # split-K partials, fixed order
+
+
+def test_conv3x3s_wgrad_kernel_deep_split(dev):
+    """A K deep enough for many split-K slices (64 x 64 at 128^2)."""
+    rng = np.random.default_rng(6)
+    x = _t(rng.standard_normal((1, 128, 128, 64)).astype(np.float32), dev,
+           torch.bfloat16)
+    g = _t(rng.standard_normal((1, 128, 128, 64)).astype(np.float32), dev,
+           torch.bfloat16)
+    k = cc.conv3x3s_wgrad(x, g, "reflect")
+    t = cc.conv3x3s_wgrad_torch(x, g, "reflect")
+    torch.cuda.synchronize()
+    assert float((k - t).abs().max()) <= 1e-4 * float(t.abs().max())
+    assert torch.equal(k, cc.conv3x3s_wgrad(x, g, "reflect"))
+
+
+def test_conv3x3s_autograd_launches_its_kernels(dev):
+    """On CUDA tensors conv3x3s's backward returns every gradient through
+    K8a (f32 out) and K8b, and launches neither K3 nor K3b; the gradients
+    against the plain versions' autograd within one bf16 step of max."""
+    rng = np.random.default_rng(10)
+    xs = _t(rng.standard_normal((1, 12, 20, 16)).astype(np.float32), dev,
+            torch.bfloat16)
+    ws = _t((rng.standard_normal((3, 3, 16, 24)) / 12).astype(np.float32),
+            dev)
+    x, w = xs.clone().requires_grad_(), ws.clone().requires_grad_()
+    b = torch.zeros(24, device=dev, requires_grad=True)
+    before = (cc.conv3x3s.launches, cc.conv3x3s_wgrad.launches,
+              conv3x3.launches, conv3x3_wgrad.launches)
+    y = cc.conv3x3s(x, w, b, "reflect")
+    gy = _t(rng.standard_normal(tuple(y.shape)).astype(np.float32), dev,
+            torch.bfloat16)
+    y.backward(gy)
+    after = (cc.conv3x3s.launches, cc.conv3x3s_wgrad.launches,
+             conv3x3.launches, conv3x3_wgrad.launches)
+    assert tuple(a - c for a, c in zip(after, before)) == (2, 1, 0, 0)
+    xr = xs.float().requires_grad_()
+    wr = ws.to(torch.bfloat16).float().requires_grad_()
+    br = torch.zeros(24, device=dev, requires_grad=True)
+    cc.conv3x3s_torch(xr, wr, br, "reflect").backward(gy.float())
+    for a, r in ((x.grad, xr.grad), (w.grad, wr.grad), (b.grad, br.grad)):
+        err = float((a.float() - r).abs().max())
+        assert err <= 2 ** -7 * float(r.abs().max()), err
+
+
+def test_conv3x3s_kernels_reject_f32_activations(dev):
+    x = torch.zeros((1, 4, 4, 8), device=dev)
+    w, b = torch.zeros((3, 3, 8, 8), device=dev), torch.zeros(8, device=dev)
+    with pytest.raises(TypeError):
+        cc.conv3x3s_fwd(x, w, b)
+    with pytest.raises(TypeError):
+        cc.conv3x3s_wgrad(x, x)
+
+
+# ------------------------------------------------------ P1: the GEMM chain
+
+
+@pytest.mark.parametrize("m,k,n,t", [(1000, 64, 64, 9), (512, 192, 128, 9),
+                                     (300, 512, 512, 4), (77, 13, 11, 2),
+                                     (129, 40, 70, 3)])
+def test_gemm_chain_kernel(dev, m, k, n, t):
+    """P1 against its plain version: bf16 output within one rounding step
+    of max (bf16 products exact, f32 sums in another order)."""
+    rng = np.random.default_rng(m + k + n + t)
+    x = _t(rng.standard_normal((m, k)).astype(np.float32), dev,
+           torch.bfloat16)
+    w = _t((rng.standard_normal((t, k, n)) / np.sqrt(k * t)).astype(
+        np.float32), dev, torch.bfloat16)
+    n0 = gemm_chain.launches
+    y = gemm_chain(x, w)
+    assert gemm_chain.launches == n0 + 1 and y.dtype == torch.bfloat16
+    r = gemm_chain_torch(x, w)
+    torch.cuda.synchronize()
+    assert y.shape == r.shape == (m, n)
+    err = float((y.float() - r.float()).abs().max())
+    assert err <= 2 ** -7 * float(r.float().abs().max()), err

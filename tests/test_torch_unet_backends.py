@@ -1,14 +1,18 @@
 """The U-Net's conv_backend in the port: routing, parity with rnr_tpu
 under each route, one parameter layout for every route, and group norm
-(one training step under each new route: test_torch_conv4_train.py).
+(one training step under each kernel route: test_torch_conv4_train.py).
 
-rnr_tpu runs "pallas_interpret" (K3 and K6 in Pallas interpret mode) and
-"p3s4" (K3 and K8's 4x4 pair, which it reaches on the CPU only with
-RNR_PALLAS_INTERPRET=1, set here per test with monkeypatch); the port
-runs "pallas" and "p3s4" through its autograd.Functions, whose wrappers
-take the plain versions on CPU tensors.  Which wrapper ran is counted by
-patching the four `*_fwd` functions of ops/conv4_cuda.py, through which
-every forward and every data gradient of the 4x4 pair goes.
+rnr_tpu runs "pallas_interpret" (K3 and K6 in Pallas interpret mode),
+"p3s4" (K3 and K8's 4x4 pair), "slab3" (K8's 3x3 slab conv) and "slab"
+(the 3x3 slab conv and K8's 4x4 pair), the last three reached on the CPU
+only with RNR_PALLAS_INTERPRET=1, set here per test with monkeypatch;
+the port runs "pallas", "p3s4", "slab3" and "slab" through its
+autograd.Functions, whose wrappers take the plain versions on CPU
+tensors.  Which wrapper ran is counted by patching the four `*_fwd`
+functions of ops/conv4_cuda.py, through which every forward and every
+data gradient of the 4x4 pair goes, and the slab conv's `conv3x3s_fwd`
+(its forward and data gradient) and `conv3x3s_wgrad` in
+ops/conv_cuda.py.
 """
 
 import collections
@@ -25,29 +29,36 @@ from rnr_tpu_torch.convert import load_jax_variables
 from rnr_tpu_torch.models.rnr import RNRModel
 from rnr_tpu_torch.models.unet import CONV_ROUTES, RenderingNet, conv_routes
 from rnr_tpu_torch.ops import conv4_cuda as c4
+from rnr_tpu_torch.ops import conv_cuda as cc
 from rnr_tpu_torch.synthetic import build_config
 from test_torch_conv import _perturb
 
 torch.set_num_threads(2)
 
 FWDS = ("down4_fwd", "convt4_fwd", "down4s_fwd", "convt4s_fwd")
+SLAB = ("conv3x3s_fwd", "conv3x3s_wgrad")
 # the port's selector -> rnr_tpu's, run on the CPU
 JAX_BACKEND = {"xla": "xla", "pallas3": "xla", "pallas": "pallas_interpret",
-               "p3s4": "p3s4"}
+               "p3s4": "p3s4", "slab3": "slab3", "slab": "slab"}
+# rnr_tpu's selectors that reach their Pallas kernels on the CPU only
+# with RNR_PALLAS_INTERPRET=1
+FORCED_INTERPRET = ("p3s4", "slab3", "slab")
 
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Counts of the four 4x4 wrappers' calls, by name."""
+    """Counts of the four 4x4 wrappers' and the two slab wrappers' calls,
+    by name."""
     seen = collections.Counter()
-    for name in FWDS:
-        fn = getattr(c4, name)
+    for mod, names in ((c4, FWDS), (cc, SLAB)):
+        for name in names:
+            fn = getattr(mod, name)
 
-        def counted(*a, _fn=fn, _name=name, **k):
-            seen[_name] += 1
-            return _fn(*a, **k)
+            def counted(*a, _fn=fn, _name=name, **k):
+                seen[_name] += 1
+                return _fn(*a, **k)
 
-        monkeypatch.setattr(c4, name, counted)
+            monkeypatch.setattr(mod, name, counted)
     return seen
 
 
@@ -55,7 +66,7 @@ def _nets(backend, pad_mode, monkeypatch, nf0=8, norm="batch"):
     kw = dict(nf0=nf0, in_channels=11, out_channels=6, num_down_unet=3,
               out_channels_gcn=16, norm=norm, compute_dtype="float32",
               fuse_mode="dense", pad_mode=pad_mode)
-    if backend == "p3s4":
+    if backend in FORCED_INTERPRET:
         monkeypatch.setenv("RNR_PALLAS_INTERPRET", "1")
     return (JaxRenderingNet(conv_backend=JAX_BACKEND[backend], **kw),
             RenderingNet(conv_backend=backend, **kw))
@@ -84,13 +95,8 @@ def _xv(seed=11, side=32):
 # ------------------------------------------------------------ routing
 
 
-@pytest.mark.parametrize("backend", sorted(CONV_ROUTES) + ["slab3", "slab",
-                                                           "cudnn"])
+@pytest.mark.parametrize("backend", sorted(CONV_ROUTES) + ["cudnn"])
 def test_conv_routes_raise_or_route(backend):
-    if backend in ("slab3", "slab"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            conv_routes(backend)
-        return
     if backend == "cudnn":
         with pytest.raises(ValueError, match="conv_backend"):
             conv_routes(backend)
@@ -100,7 +106,9 @@ def test_conv_routes_raise_or_route(backend):
             "pallas3": ("k3", "plain", "plain"),
             "pallas": ("k3", "down4", "convt4"),
             "pallas_interpret": ("k3", "down4", "convt4"),
-            "p3s4": ("k3", "down4s", "convt4s")}[backend]
+            "p3s4": ("k3", "down4s", "convt4s"),
+            "slab3": ("slab", "plain", "plain"),
+            "slab": ("slab", "down4s", "convt4s")}[backend]
     assert conv_routes(backend) == want
     net = RenderingNet(nf0=4, in_channels=5, out_channels=3, num_down_unet=2,
                        out_channels_gcn=8, conv_backend=backend)
@@ -111,19 +119,26 @@ def test_conv_routes_raise_or_route(backend):
     assert u.UpBlock_0.ConvTranspose_0.route == want[2]
 
 
-@pytest.mark.parametrize("backend,err", [("slab3", NotImplementedError),
-                                         ("slab", NotImplementedError),
+@pytest.mark.parametrize("backend,err", [("slab3", None), ("slab", None),
                                          ("tpu", ValueError)])
 def test_rnr_model_refuses_unported_backends(backend, err):
+    """RNRModel builds under the slab selectors, with the slab conv on
+    every 3x3 conv, and refuses a name that is no selector."""
     cfg = build_config(img_size=16, tex_size=16, lmax=2, nf0=4, num_down=2,
                        gcn_blocks=2, num_azi=2, num_polar=1, num_sample=16)
     cfg = dataclasses.replace(cfg, render_net=dataclasses.replace(
         cfg.render_net, conv_backend=backend))
-    with pytest.raises(err):
-        RNRModel(cfg, 64, device="cpu")
+    if err is not None:
+        with pytest.raises(err):
+            RNRModel(cfg, 64, device="cpu")
+        return
+    u = RNRModel(cfg, 64, device="cpu").render_net.Unet_0
+    assert u.Conv_0.route == u.UpBlock_0.Conv_0.route == "slab"
+    assert u.DownBlock_0.Conv_1.route == CONV_ROUTES[backend][1]
 
 
-@pytest.mark.parametrize("backend", ["pallas", "p3s4", "xla"])
+@pytest.mark.parametrize("backend", ["pallas", "p3s4", "slab3", "slab",
+                                     "xla"])
 def test_rnr_model_passes_conv_backend(backend, calls):
     """The repaired fault: RNRModel used to build its U-Net without the
     config's conv_backend, so every selector ran as "pallas3".  A config
@@ -139,29 +154,45 @@ def test_rnr_model_passes_conv_backend(backend, calls):
         img = m(to_torch(build_batch(16, 64), "cpu"))["img"]
     assert bool(torch.isfinite(img).all())
     nd = cfg.render_net.num_down_unet
+    slab = {"conv3x3s_fwd": _n3x3(nd)}
     want = {"pallas": {"down4_fwd": nd, "convt4_fwd": nd},
             "p3s4": {"down4s_fwd": nd, "convt4s_fwd": nd},
+            "slab3": slab,
+            "slab": dict(slab, down4s_fwd=nd, convt4s_fwd=nd),
             "xla": {}}[backend]
     assert dict(calls) == want
 
 
-# per selector and pad mode: calls of each 4x4 wrapper in one forward and
-# backward of a U-Net with nd downs (rnr_tpu's VJPs: under reflect the
-# down convs' data gradient is the plain conv's)
-def _want_calls(backend, pad_mode, nd):
+def _n3x3(nd):
+    """The 3x3 convs of a U-Net with nd downs and GCN fusion: the in and
+    out convs, one per down and per up level, two in the fusion block."""
+    return 2 * nd + 4
+
+
+# per selector and pad mode: calls of each 4x4 and slab wrapper in one
+# forward and backward of a U-Net with nd downs and GCN fusion (rnr_tpu's
+# VJPs: under reflect the down convs' data gradient is the plain conv's);
+# `input_grad`: whether the U-Net's input needs a gradient (the first
+# conv's data gradient)
+def _want_calls(backend, pad_mode, nd, input_grad=True):
+    want = {}
+    if backend in ("slab3", "slab"):
+        n3 = _n3x3(nd)
+        want = {"conv3x3s_fwd": 2 * n3 - (not input_grad),
+                "conv3x3s_wgrad": n3}
     if backend == "pallas":
         return {"down4_fwd": 2 * nd, "convt4_fwd": nd + nd * (
             pad_mode == "same")}
-    if backend == "p3s4":
-        want = {"down4s_fwd": 2 * nd, "convt4s_fwd": nd}
+    if backend in ("p3s4", "slab"):
+        want.update(down4s_fwd=2 * nd, convt4s_fwd=nd)
         if pad_mode == "same":
             want["convt4_fwd"] = nd          # K6 as down4s's dgrad
-        return want
-    return {}
+    return want
 
 
 @pytest.mark.parametrize("pad_mode", ["same", "reflect"])
-@pytest.mark.parametrize("backend", ["pallas", "p3s4", "pallas3", "xla"])
+@pytest.mark.parametrize("backend", ["pallas", "p3s4", "slab3", "slab",
+                                     "pallas3", "xla"])
 def test_each_function_reached_in_forward_and_backward(backend, pad_mode,
                                                        calls):
     net = RenderingNet(nf0=4, in_channels=5, out_channels=3,
@@ -176,7 +207,7 @@ def test_each_function_reached_in_forward_and_backward(backend, pad_mode,
         np.float32))
     v = torch.from_numpy(rng.standard_normal((1, 8)).astype(np.float32))
     net(x, v).square().sum().backward()
-    assert dict(calls) == _want_calls(backend, pad_mode, 2)
+    assert dict(calls) == _want_calls(backend, pad_mode, 2, input_grad=False)
     assert all(p.grad is not None for p in net.parameters())
 
 
@@ -200,7 +231,8 @@ def test_port_ignores_rnr_pallas_interpret(monkeypatch, calls):
 
 
 @pytest.mark.parametrize("pad_mode", ["same", "reflect"])
-@pytest.mark.parametrize("backend", ["pallas", "p3s4", "xla"])
+@pytest.mark.parametrize("backend", ["pallas", "p3s4", "slab3", "slab",
+                                     "xla"])
 def test_rendering_net_backend_matches_jax(backend, pad_mode, monkeypatch,
                                            calls):
     """RenderingNet, f32, nf0 8, 3 downs, 32^2, the JAX init perturbed:
@@ -214,8 +246,11 @@ def test_rendering_net_backend_matches_jax(backend, pad_mode, monkeypatch,
         got = tn(torch.from_numpy(x), torch.from_numpy(v)).numpy()
     assert got.shape == (1, 32, 32, 6) and float(np.std(want)) > 0.05
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+    slab = {"conv3x3s_fwd": _n3x3(3)}
     want_calls = {"pallas": {"down4_fwd": 3, "convt4_fwd": 3},
                   "p3s4": {"down4s_fwd": 3, "convt4s_fwd": 3},
+                  "slab3": slab,
+                  "slab": dict(slab, down4s_fwd=3, convt4s_fwd=3),
                   "xla": {}}[backend]
     assert dict(calls) == want_calls
 
@@ -228,7 +263,7 @@ def test_one_state_dict_serves_every_backend():
     jn, _ = _nets("xla", "reflect", None)
     params, want = _jax_params_and_out(jn, x, v, seed=4)
     outs, states = {}, {}
-    for backend in ("xla", "pallas3", "pallas", "p3s4"):
+    for backend in ("xla", "pallas3", "pallas", "p3s4", "slab3", "slab"):
         tn = RenderingNet(nf0=8, in_channels=11, out_channels=6,
                           num_down_unet=3, out_channels_gcn=16,
                           fuse_mode="dense", conv_backend=backend)
