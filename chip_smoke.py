@@ -126,7 +126,8 @@ from rnr_tpu_torch.ops.conv4_cuda import (convt4, convt4_fwd,  # noqa: E402
                                           down4, down4_fwd, down4_torch,
                                           down4s, down4s_fwd)
 from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,  # noqa: E402
-                                         conv3x3_dgrad_torch, conv3x3_torch,
+                                         conv3x3_dgrad_torch, conv3x3_fwd,
+                                         conv3x3_torch,
                                          conv3x3_wgrad, conv3x3_wgrad_torch,
                                          conv3x3s, conv3x3s_dgrad,
                                          conv3x3s_dgrad_torch, conv3x3s_fwd,
@@ -365,6 +366,35 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def queued_ms(fn, calls: int = 20) -> float:
+    """Device time per call of fn() in ms over `calls` calls queued back to
+    back between two CUDA events: where the host enqueues faster than the
+    card runs, the kernels' own time, without the host's time per call."""
+    for _ in range(2):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host time per call of fn() in microseconds (enqueue only), the card
+    drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def check(name: str, err: float, tol: float) -> None:
@@ -747,21 +777,27 @@ CONV3_FORMS = {
         dgrad=conv3x3s_dgrad, dgrad_plain=conv3x3s_dgrad_torch,
         wgrad=conv3x3s_wgrad, wgrad_plain=conv3x3s_wgrad_torch),
 }
-# odd C and O, odd H: the slab pair under both pad modes
+# odd C and O, odd H: both 3x3 pairs under both pad modes
 CONV3_ODD = [(45, 77, 64), (64, 64, 63)]
+# K3 and K3b at batch 2 (their tiles never straddle two images): one
+# 512^2 shape of the frame, (C, O, H)
+CONV3_B2 = (64, 64, 512)
 
 
 def kernels_conv(rec: dict, rng) -> None:
     """K3 (forward, and its f32-output data gradient) and K3b, then the
     slab pair K8a (the same two) and K8b on the same inputs, over the 14
     convs of a frame, reflect padding, bf16 activations and gradients;
-    K8a's forward within one rounding step of K3's.  cuDNN computes the
-    same function for both formulations: it is timed once per shape.
-    Then the slab pair at odd C and O and an odd H, both pad modes."""
+    K3's forward and K3b twice bit-equal, K8a's forward within one
+    rounding step of K3's.  cuDNN computes the same function for both
+    formulations: it is timed once per shape.  Then the slab pair at odd
+    C and O and an odd H, both pad modes (K3's: kernels_conv3_odd)."""
     errs = {(f, k): [] for f in CONV3_FORMS for k in ("fwd", "dgrad",
                                                       "wgrad")}
     tot = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
            for key in errs}
+    # K3 / K3b and cuDNN with calls queued back to back (queued_ms)
+    queued = {k: [0.0, 0.0] for k in ("fwd", "dgrad", "wgrad")}
     works = {k: [] for k in ("fwd", "dgrad", "wgrad")}
     aten_bwd = torch.ops.aten.convolution_backward
     vs_k3 = []
@@ -787,6 +823,9 @@ def kernels_conv(rec: dict, rng) -> None:
             torch.cuda.synchronize()
             if not torch.equal(kw, kw2):
                 raise AssertionError(f"{form}_wgrad {tag}: two runs differ")
+            if form == "conv3x3" and not torch.equal(ky,
+                                                     fs["fwd"](x, w, bias)):
+                raise AssertionError(f"conv3x3 fwd {tag}: two runs differ")
             # fwd: bf16 output, one rounding step of the largest values
             # (2^-8 relative) from f32 sums in another order; dgrad and
             # wgrad: bf16 operands multiply exactly, f32 sums in another
@@ -824,6 +863,9 @@ def kernels_conv(rec: dict, rng) -> None:
         line = {f: [] for f in CONV3_FORMS}
         for kind, lf in lib.items():
             lms = cuda_ms(lf)
+            queued[kind][0] += queued_ms(
+                lambda: CONV3_FORMS["conv3x3"][kind](*args[kind]))
+            queued[kind][1] += queued_ms(lf)
             wk = conv_work(kind, h * h, c, o)
             works[kind].append(wk)
             tflop = 2 * 9 * c * o * h * h / 1e9
@@ -854,7 +896,8 @@ def kernels_conv(rec: dict, rng) -> None:
             t = tot[(form, kind)]
             log(f"[kernels] {form} {kind}, 14 convs of a frame: kernel "
                 f"{t['ms']:.3f} ms, bound {b['bound_ms']:.3f} ms, cuDNN "
-                f"{t['library_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms")
+                f"{t['library_ms']:.3f} ms ({t['ms'] / t['library_ms']:.2f}x),"
+                f" plain {t['plain_ms']:.3f} ms")
         fd = add_bounds(works["fwd"] + works["dgrad"])
         f_, d_, w_ = (tot[(form, k)] for k in ("fwd", "dgrad", "wgrad"))
         rec[form] = dict(
@@ -868,6 +911,27 @@ def kernels_conv(rec: dict, rng) -> None:
             max_abs_err=max(errs[(form, "wgrad")]), bitwise_reproducible=True,
             **w_, **add_bounds(works["wgrad"]))
     rec["conv3x3s"]["vs_conv3x3_max_abs_diff"] = max(vs_k3)
+    log("[kernels] conv3x3, 14 convs, 20 calls queued back to back per "
+        "shape: " + "; ".join(
+            f"{k} {q[0]:.3f} ms (cuDNN {q[1]:.3f}, {q[0] / q[1]:.2f}x)"
+            for k, q in queued.items()))
+    x = _bf16_input(np.random.default_rng(1), (1, IMG, IMG, 64))
+    w = torch.zeros((3, 3, 64, 64), device=DEV)
+    zb = torch.zeros(64, device=DEV)
+    log("[kernels] conv3x3 wrappers' host time per call at 64 -> 64 @512: "
+        f"fwd {host_us(lambda: conv3x3_fwd(x, w, zb, 'reflect')):.1f} us, "
+        f"dgrad {host_us(lambda: conv3x3_dgrad(x, w, 'reflect')):.1f} us, "
+        f"wgrad {host_us(lambda: conv3x3_wgrad(x, x, 'reflect')):.1f} us")
+    rec["conv3x3"]["queued_ms"] = queued["fwd"][0] + queued["dgrad"][0]
+    rec["conv3x3"]["queued_library_ms"] = (queued["fwd"][1]
+                                           + queued["dgrad"][1])
+    rec["conv3x3_wgrad"]["queued_ms"] = queued["wgrad"][0]
+    rec["conv3x3_wgrad"]["queued_library_ms"] = queued["wgrad"][1]
+    for form in CONV3_FORMS:
+        f_, d_ = tot[(form, "fwd")], tot[(form, "dgrad")]
+        ms, lms = f_["ms"] + d_["ms"], f_["library_ms"] + d_["library_ms"]
+        log(f"[kernels] {form} fwd + dgrad, 14 convs: {ms:.3f} ms, cuDNN "
+            f"{lms:.3f} ms ({ms / lms:.2f}x)")
 
     # the slab pair at odd C and O and an odd H, both pad modes
     for c, o, h in CONV3_ODD:
@@ -901,6 +965,55 @@ def kernels_conv(rec: dict, rng) -> None:
 # of the rows that fit the probe's 13 MB VMEM model, as there
 GEMM_SHAPES = [(64, 64, 9), (128, 64, 9), (192, 64, 9), (64, 128, 9),
                (128, 128, 9), (192, 128, 9), (256, 256, 9), (512, 512, 4)]
+
+
+def kernels_conv3_odd(rng) -> None:
+    """K3 (the forward in bf16 and f32, the dgrad) and K3b at odd C and O
+    and an odd H under both pad modes, then at batch 2 on a 512^2 shape:
+    each within its tolerance of its plain version, K3's forward and K3b
+    twice bit-equal.  Run last in the phase, so the inputs of the checks
+    before it are drawn as before it existed."""
+    for c, o, h in CONV3_ODD:
+        x = _bf16_input(rng, (1, h, h, c))
+        g = _bf16_input(rng, (1, h, h, o))
+        w = torch.from_numpy((rng.standard_normal((3, 3, c, o))
+                              / np.sqrt(9 * c)).astype(np.float32)).to(DEV)
+        bias = torch.from_numpy(rng.standard_normal(o).astype(
+            np.float32)).to(DEV)
+        for pm in ("reflect", "same"):
+            conv3_check(f"{c}->{o} @{h} {pm}", x, g, w, bias, pm)
+    c, o, h = CONV3_B2
+    x = _bf16_input(rng, (2, h, h, c))
+    g = _bf16_input(rng, (2, h, h, o))
+    w = torch.from_numpy((rng.standard_normal((3, 3, c, o))
+                          / np.sqrt(9 * c)).astype(np.float32)).to(DEV)
+    bias = torch.from_numpy(rng.standard_normal(o).astype(np.float32)).to(DEV)
+    conv3_check(f"batch 2 {c}->{o} @{h} reflect", x, g, w, bias, "reflect")
+    torch.cuda.synchronize()
+    log(f"[kernels] K3 / K3b at {CONV3_ODD} under both pads and at batch 2 "
+        f"{CONV3_B2}: K3 (bf16 within 2^-7 of max, f32 and dgrad within "
+        "1e-4; twice bit-equal) and K3b (within 1e-4, twice bit-equal) agree")
+
+
+def conv3_check(tag: str, x, g, w, bias, pm: str) -> None:
+    """K3 (bf16 and f32-out forward, the dgrad) and K3b against their
+    plain versions at one shape and pad mode; K3's forward and K3b each
+    bit-equal across two runs."""
+    ky = conv3x3_fwd(x, w, bias, pm)
+    _conv4_check(f"conv3x3 {tag}", ky, conv3x3_torch(x, w, bias, pm), 2 ** -7)
+    if not torch.equal(ky, conv3x3_fwd(x, w, bias, pm)):
+        raise AssertionError(f"conv3x3 {tag}: two runs differ")
+    _conv4_check(f"conv3x3 f32 {tag}",
+                 conv3x3_fwd(x, w, bias, pm, torch.float32),
+                 conv3x3_torch(x.float(), w.to(torch.bfloat16).float(), bias,
+                               pm), 1e-4)
+    _conv4_check(f"conv3x3 dgrad {tag}", conv3x3_dgrad(g, w, pm),
+                 conv3x3_dgrad_torch(g, w, pm), 1e-4)
+    kw = conv3x3_wgrad(x, g, pm)
+    _conv4_check(f"conv3x3_wgrad {tag}", kw, conv3x3_wgrad_torch(x, g, pm),
+                 1e-4)
+    if not torch.equal(kw, conv3x3_wgrad(x, g, pm)):
+        raise AssertionError(f"conv3x3_wgrad {tag}: two runs differ")
 
 
 def gemm_rows(k: int, n: int, taps: int) -> int:
@@ -1281,6 +1394,7 @@ def phase_kernels(rec: dict, launches: dict) -> None:
     kernels_gemm_chain(rec, launches, rng)
     kernels_knn(rec, rng)
     kernels_raster(rec)
+    kernels_conv3_odd(rng)
     for name, r in rec.items():
         if name.startswith("_"):
             continue

@@ -1,216 +1,443 @@
-// 3x3 stride-1 convolution, NHWC bf16 input, HWIO bf16 weights, f32
+// K3: 3x3 stride-1 convolution, NHWC bf16 input, HWIO bf16 weights, f32
 // accumulation, + bias in f32, bf16 output (rnr_conv3x3) or f32 output
 // (rnr_conv3x3_f32out, the data gradient: the same kernel run on the
 // output gradient with rotated, io-transposed weights, as
-// conv_pallas.py:409-451 runs _conv3x3_fwd_impl).  Zero ("same") or reflect
-// padding is done by index arithmetic while the input tile is staged:
-// no padded copy of the input is ever made.
+// conv_pallas.py:409-451 runs _conv3x3_fwd_impl).  Zero ("same") or
+// reflect padding is applied while the input is staged: no padded copy
+// of the input is made.
 //
 // Replaces: rnr_tpu/ops/conv_pallas.py  conv3x3 (:379) /
 //   _conv3x3_fwd_impl (:192) / _conv_kernel (:158), the implicit-GEMM
-//   3x3 conv of every U-Net level under conv_backend=pallas3.  The TPU
-//   kernel pre-pads in XLA, DMAs row halos and falls back to XLA past a
-//   VMEM budget; this kernel takes every shape (C up to 640, W from 16 to
-//   512) with no fallback.
+//   3x3 conv of every U-Net level under conv_backend=pallas3, pallas and
+//   p3s4.  The TPU kernel pre-pads in XLA, DMAs row halos and falls back
+//   to XLA past a VMEM budget; this kernel takes every shape with C a
+//   multiple of 8 (the wrapper pads other C with zero channels) and any
+//   O, with no fallback.
 //
-// Bound on the H100: tensor-core throughput.  The 14 convs of one 512^2
-//   frame are about 0.43 TFLOP against a few hundred MB of activations;
-//   a scalar-FMA kernel would take a good fraction of a second.
-// Design: implicit GEMM on the tensor cores with WMMA bf16 fragments
-//   (mma.sync underneath).  GEMM rows are output pixels (M = N*H*W),
-//   columns are output channels (O), the reduction runs over 9 taps x C
-//   channels.  A block owns a 128 x 64 output tile and walks K in steps
-//   of 32 channels of one tap: it stages the shifted input rows (with the
-//   padding rule applied per row) and the 32 x 64 weight slice in shared
-//   memory, and 8 warps (4 x 2) each multiply-accumulate a 32 x 32 f32
-//   tile in registers.  The epilogue goes through shared memory so the
-//   bf16 stores are coalesced along O.  Single-buffered and without TMA
-//   or wgmma: a right, simple first version.
+// Bound on the H100: tensor-core operations.  The 14 convs of one 512^2
+//   frame are about 0.45 TFLOP (0.46 ms at 989 TFLOP/s) against about
+//   0.2 GB of activations (0.06 ms at 3.35 TB/s).
+//
+// Design: implicit GEMM on wgmma, fed by TMA.  A block owns BM = 64 or
+//   128 consecutive output columns of one image row (GEMM rows) and BN =
+//   64, 80 (O = 78: one tile) or 128 output channels; the reduction runs
+//   over 9 taps x C in units of (64 channels, tap row dy).  For a unit,
+//   one TMA box brings the band of BM + 2 input columns of row i + dy - 1
+//   (64 channels, 128-byte swizzled rows, sm90.cuh) and one box per 64
+//   outputs the three taps' weights [3][64, 64].  The band serves all
+//   three taps dx of its row: tap dx is the band's descriptor moved down
+//   dx rows, so each input element is staged 3 times per output tile,
+//   not 9.  TMA writes zeros outside the tensor: zero padding, the
+//   columns of a tile past W and channel tiles past C cost nothing.
+//   Reflect takes the input row by index and a second producer warp
+//   copies the band's column 1 / W - 2 into column -1 / W on a row's
+//   first and last tile.  Warp-specialised: one producer warpgroup (a TMA
+//   warp and that patch warp) keeps a ring of 3 or 4 stages full through
+//   full / empty mbarriers, and 1 or 2 consumer warpgroups each issue 12
+//   m64nBNk16 wgmma per unit (3 taps x 4 steps of 16 channels), f32
+//   accumulators in registers, one unit behind the next (wait_group 1).
+//   The host takes BM 64 (and BN 64) where BM 128 gives fewer blocks than
+//   SMs (the 32^2 and 64^2 levels).  Epilogue: accumulators -> shared
+//   memory -> + bias in f32 -> 16-byte stores along O (elementwise where
+//   O's rows are not 16-byte multiples: O = 78 in bf16).  Fixed order of
+//   sums: bitwise equal results from run to run.
+//
+// The data gradient under reflect padding (pad = 2, "full"): the full
+//   correlation of g with a 2-pixel zero ring, (H + 2) x (W + 2) outputs,
+//   read from g by TMA's zeros (no F.pad(g) in device memory); the
+//   interior outputs go straight to dx, the ring to a side buffer that
+//   fold_ring_kernel adds onto dx's border lines with the exact adjoint
+//   of reflect-pad, in ops/conv_cuda.py::_dgrad's order of adds; all
+//   three launched by one call of rnr_conv3x3_f32out.
+//
+// What ragged and reflect cases cost: C % 8 != 0 (C = 108 on the first
+//   conv) is padded to a multiple of 8 by the wrapper (a copy of x); O
+//   % 8 != 0 pads the weights (a few KB) and wastes BN - O columns; W
+//   not a multiple of BM wastes the last tile's columns (half the
+//   products at 32^2); the reflect dgrad's W + 2 columns take one more
+//   column tile per row for the 2 ring columns (a fifth at 512^2, a third
+//   at 256^2); reflect costs the patch warp's 16 copies of 16 bytes per
+//   unit on a row's end tiles.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
+#include "sm90.cuh"
+
 namespace {
 
-using namespace nvcuda;
+using bf16 = __nv_bfloat16;
 
-constexpr int BM = 128;   // output pixels per block
-constexpr int BN = 64;    // output channels per block
-constexpr int BK = 32;    // input channels per K step
-constexpr int LDA = BK + 8;   // bf16 elements; multiple of 8 for WMMA
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;   // f32 elements; multiple of 4 for WMMA
+constexpr int KC = 64;         // input channels per pipeline unit: one row
 
-constexpr int SMEM_AB = (BM * LDA + BK * LDB) * 2;
-constexpr int SMEM_C = BM * LDC * 4;
-constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
+// the C entries' `pad`: zero ring, reflect ring, or the dgrad's full
+// correlation (a 2-pixel zero ring, outputs on the (H+2) x (W+2) grid)
+constexpr int PAD_REFLECT = 1, PAD_FULL = 2;
 
-__device__ __forceinline__ int pad_index(int i, int n, bool reflect) {
-  // -1 -> 1 and n -> n-2 under reflect (jnp.pad mode="reflect");
-  // -1 for "outside" under zero padding
-  if (i >= 0 && i < n) return i;
-  if (!reflect) return -1;
-  return i < 0 ? -i : 2 * n - 2 - i;
+template <int BN, int WGS>
+struct Cfg {
+  static constexpr int BM = 64 * WGS;            // output columns of a row
+  static constexpr int THREADS = 128 * (WGS + 1);  // + the producer
+  static constexpr int SEG = BM + 2;             // band rows (positions)
+  static constexpr int A_BYTES = (SEG * 128 + 1023) / 1024 * 1024;
+  // weights: per 64 outputs one TMA box [3 taps][KC][64]
+  static constexpr int NA = (BN + 63) / 64;
+  static constexpr int B_ATOM = 3 * KC * 128;
+  static constexpr int STAGE = NA * B_ATOM + A_BYTES;
+  static constexpr int STAGES = NA == 1 ? 4 : 3;
+  static constexpr int PIPE = STAGES * STAGE;
+  static constexpr int LDC = BN + 4;             // f32 epilogue row
+  static constexpr int EPI = BM * LDC * 4;
+  static constexpr int MAIN = PIPE > EPI ? PIPE : EPI;
+  // + the output rows, the barriers, and up to 1024 bytes of alignment
+  static constexpr int SMEM = MAIN + BM * 8 + 3 * STAGES * 8 + 1024;
+  static_assert(B_ATOM % 1024 == 0 && STAGE % 1024 == 0, "swizzle atoms");
+};
+
+__device__ __forceinline__ int reflect(int i, int n) {
+  // i in [-1, n]: -1 -> 1, n -> n - 2 (jnp.pad mode="reflect")
+  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ void store_vec(bf16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
 }
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_one(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 
-template <bool VA, bool VB, typename OutT>
-__global__ void __launch_bounds__(256)
-conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ w,
-               const float* __restrict__ bias, OutT* __restrict__ y,
-               int n, int h, int wd, int c, int o, int reflect) {
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem);
+// x [N, H, W, C] through xmap (boxes (64 channels, SEG columns, 1, 1)),
+// w [9, C, O8] through wmap (boxes (64 outputs, KC channels, 3 taps)),
+// both 128-byte swizzled, bias [O] (null: none) -> y: [N, H, W, O] for
+// pad 0 / 1; for pad 2, N H W rows of O (dx's interior) then N R rows of
+// the ring (R = 2 (W + 2) + 2 H per image: top, bottom, left, right).
+// Block (column tile, image row, output tile).
+template <int BN, int WGS, typename OutT>
+__global__ void __launch_bounds__(128 * (WGS + 1))
+conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap,
+               const float* __restrict__ bias, OutT* __restrict__ y, int n,
+               int h, int wd, int c, int o, int pad) {
+  using K = Cfg<BN, WGS>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  long long* dest = reinterpret_cast<long long*>(smem + K::MAIN);
+  // full[s]: stage s landed (the TMA warp's arrival with its bytes, and
+  // the patch warp's); tma[s]: the bytes of a band whose reflect columns
+  // the patch warp fixes; empty[s]: the consumers are done with it
+  const uint32_t full_bar = sm90::smem_addr(smem + K::MAIN + K::BM * 8);
+  const uint32_t tma_bar = full_bar + 8 * K::STAGES;
+  const uint32_t empty_bar = tma_bar + 8 * K::STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;   // 0..3: rows wm*32 .. +32
-  const int wn = warp % 2;   // 0..1: cols wn*32 .. +32
-  const long long m_total = (long long)n * h * wd;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int o0 = blockIdx.y * BN;
+  const int ext = pad == PAD_FULL ? 1 : 0;
+  const int ho = h + 2 * ext, wo = wd + 2 * ext;
+  const int img = blockIdx.y / ho, row = blockIdx.y - img * ho;
+  const int j0 = blockIdx.x * K::BM;
+  const int o0 = blockIdx.z * BN;
 
-  // the A row this thread stages (2 threads per row, 16 channels each)
-  const int a_row = tid / 2;
-  const int a_col = (tid % 2) * 16;
-  const long long pm = m0 + a_row;
-  int pn = 0, ph = 0, pw = 0;
-  const bool row_ok = pm < m_total;
-  if (row_ok) {
-    pw = (int)(pm % wd);
-    const long long t = pm / wd;
-    ph = (int)(t % h);
-    pn = (int)(t / h);
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-    // source pixel of this thread's A row under this tap (-1: zero pad)
-    long long src = -1;
-    if (row_ok) {
-      const int hs = pad_index(ph + dy - 1, h, reflect);
-      const int ws = pad_index(pw + dx - 1, wd, reflect);
-      if (hs >= 0 && ws >= 0) src = (((long long)pn * h + hs) * wd + ws) * c;
-    }
-    const __nv_bfloat16* wt = w + (size_t)tap * c * o;
-    for (int c0 = 0; c0 < c; c0 += BK) {
-      // ---- stage A: [BM, BK] shifted input rows ----
-      __nv_bfloat16* arow = As + a_row * LDA + a_col;
-      const int cb = c0 + a_col;
-      if (VA && src >= 0 && cb + 16 <= c) {
-        const uint4* g = reinterpret_cast<const uint4*>(x + src + cb);
-        uint4* s = reinterpret_cast<uint4*>(arow);
-        s[0] = __ldg(g);
-        s[1] = __ldg(g + 1);
+  // dest[m]: the output row (of O values) of column j0 + m, or -1
+  for (int m = tid; m < K::BM; m += K::THREADS) {
+    const int i = row, j = j0 + m;
+    long long d = -1;
+    if (j < wo) {
+      if (pad != PAD_FULL) {
+        d = ((long long)img * h + i) * wd + j;
+      } else if (i >= 1 && i <= h && j >= 1 && j <= wd) {
+        d = ((long long)img * h + i - 1) * wd + j - 1;
       } else {
-#pragma unroll
-        for (int k = 0; k < 16; ++k)
-          arow[k] = (src >= 0 && cb + k < c) ? x[src + cb + k] : zero;
+        const int ring = 2 * (wd + 2) + 2 * h;
+        const int k = i == 0 ? j
+                    : i == h + 1 ? wd + 2 + j
+                    : j == 0 ? 2 * (wd + 2) + i - 1
+                             : 2 * (wd + 2) + h + i - 1;
+        d = (long long)n * h * wd + (long long)img * ring + k;
       }
-      // ---- stage B: [BK, BN] weight slice, rows = input channels ----
-      {
-        const int b_row = tid / 8;          // 0..31
-        const int b_col = (tid % 8) * 8;    // 0..56
-        const int ci = c0 + b_row, oc = o0 + b_col;
-        __nv_bfloat16* brow = Bs + b_row * LDB + b_col;
-        if (VB && ci < c && oc + 8 <= o) {
-          *reinterpret_cast<uint4*>(brow) =
-              __ldg(reinterpret_cast<const uint4*>(wt + (size_t)ci * o + oc));
-        } else {
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            brow[k] = (ci < c && oc + k < o) ? wt[(size_t)ci * o + oc + k] : zero;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
     }
+    dest[m] = d;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < K::STAGES; ++s) {
+      sm90::mbar_init(full_bar + 8 * s, 2);
+      sm90::mbar_init(tma_bar + 8 * s, 1);
+      sm90::mbar_init(empty_bar + 8 * s, 128 * WGS);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the band's columns j0 - 1 - ext .. : under reflect, column -1 is
+  // column 1 (band row 0 from row 2) and column W is column W - 2
+  const int t_left = pad == PAD_REFLECT && j0 == 0 ? 0 : -1;
+  const int t_right = pad == PAD_REFLECT && wd - j0 + 1 < K::SEG ? wd - j0 + 1 : -1;
+  const bool fix = t_left >= 0 || t_right >= 0;
+  const int units = (c + KC - 1) / KC * 3;
+  const int wg = tid / 128;
+  if (wg == WGS) {
+    // ---- producer: warp 0 issues the TMA loads, warp 1 patches ----
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    uint32_t tphase = 0;
+    if (warp >= 2) return;
+#pragma unroll 1
+    for (int u = 0; u < units; ++u) {
+      const int s = u % K::STAGES;
+      if (u >= K::STAGES)
+        sm90::mbar_wait(empty_bar + 8 * s, (u / K::STAGES - 1) & 1);
+      const int c0 = (u / 3) * KC, dy = u % 3;
+      unsigned char* st = smem + s * K::STAGE;
+      const uint32_t sa = sm90::smem_addr(st);
+      if (warp == 0) {
+        if (lane == 0) {
+          const uint32_t bar = fix ? tma_bar + 8 * s : full_bar + 8 * s;
+          sm90::mbar_arrive_tx(bar, K::NA * K::B_ATOM + K::SEG * 128);
+          for (int a = 0; a < K::NA; ++a)
+            sm90::tma_load_3d(sa + a * K::B_ATOM, &wmap, o0 + 64 * a, c0,
+                              3 * dy, bar);
+          int xr = row + dy - 1 - ext;
+          if (pad == PAD_REFLECT) xr = reflect(xr, h);
+          sm90::tma_load_4d(sa + K::NA * K::B_ATOM, &xmap, c0, j0 - 1 - ext, xr,
+                            img, bar);
+          if (fix) sm90::mbar_arrive(full_bar + 8 * s);
+        }
+      } else {
+        if (fix) {
+          sm90::mbar_wait(tma_bar + 8 * s, (tphase >> s) & 1);
+          tphase ^= 1u << s;
+          unsigned char* band = st + K::NA * K::B_ATOM;
+          const int chunk = lane % 8;
+          if (lane < 8 && t_left >= 0) sm90::sw128_copy_chunk(band, 0, 2, chunk);
+          if (lane >= 8 && lane < 16 && t_right >= 0)
+            sm90::sw128_copy_chunk(band, t_right, t_right - 2, chunk);
+          sm90::fence_async_shared();
+          __syncwarp();
+        }
+        if (lane == 0) sm90::mbar_arrive(full_bar + 8 * s);
+      }
+    }
+    return;
   }
 
-  // ---- epilogue: accumulators -> shared -> + bias -> OutT, coalesced ----
+  // ---- consumer warpgroups: 64 columns each, one unit behind the next ----
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int u = 0; u < units; ++u) {
+    const int s = u % K::STAGES;
+    sm90::mbar_wait(full_bar + 8 * s, (u / K::STAGES) & 1);
+    const uint32_t sa = sm90::smem_addr(smem + s * K::STAGE);
+    const uint32_t band = sa + K::NA * K::B_ATOM;
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BM * BN; e += 256) {
-    const int r = e / BN, col = e % BN;
-    const long long pmo = m0 + r;
-    const int oc = o0 + col;
-    if (pmo < m_total && oc < o)
-      store_out(y + pmo * o + oc, Cs[r * LDC + col] + bias[oc]);
+    for (int dx = 0; dx < 3; ++dx) {
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        // A: band rows wg 64 + dx .., 16 channels from 16 ks (K-major);
+        // B: tap dx's [KC, BN] rows 16 ks .. (MN-major)
+        const uint64_t da =
+            sm90::desc_sw128(band + (wg * 64 + dx) * 128 + ks * 32, 16, 1024);
+        const uint64_t db = sm90::desc_sw128(sa + dx * KC * 128 + ks * 16 * 128,
+                                             K::B_ATOM, 1024);
+        sm90::wgmma<0, 1>(acc, da, db);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();           // unit u - 1's products are done
+    sm90::fence_regs(acc);
+    if (u > 0) sm90::mbar_arrive(empty_bar + 8 * ((u - 1) % K::STAGES));
   }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::bar_sync(1, 128 * WGS);      // no consumer reads the ring any more
+
+  // ---- epilogue: accumulators -> shared (f32) -> + bias -> OutT ----
+  float* cs = reinterpret_cast<float*>(smem);
+  {
+    const int lane = tid % 32, r = wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(cs + r * K::LDC + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(cs + (r + 8) * K::LDC + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  sm90::bar_sync(1, 128 * WGS);
+  constexpr int V = 16 / sizeof(OutT);
+  const bool vec = (o * (int)sizeof(OutT)) % 16 == 0;
+  for (int e = tid; e < K::BM * (BN / V); e += 128 * WGS) {
+    const int m = e / (BN / V), cv = (e % (BN / V)) * V;
+    const long long d = dest[m];
+    const int oc = o0 + cv;
+    if (d < 0 || oc >= o) continue;
+    const float* src = cs + m * K::LDC + cv;
+    OutT* dst = y + d * o + oc;
+    if (vec) {
+      float v[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] = src[k] + (bias ? bias[oc + k] : 0.f);
+      store_vec(dst, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (oc + k < o) store_one(dst + k, src[k] + (bias ? bias[oc + k] : 0.f));
+    }
+  }
+}
+
+// w [9, C, O8] bf16 as boxes [3 taps][KC channels][64 outputs] with the
+// 128-byte swizzle; zeros past C and O8
+int weight_map(CUtensorMap* map, const void* w, int c, int o8) {
+  const cuuint64_t dims[3] = {(cuuint64_t)o8, (cuuint64_t)c, 9};
+  const cuuint64_t strides[2] = {(cuuint64_t)o8 * 2, (cuuint64_t)c * o8 * 2};
+  const cuuint32_t box[3] = {64, KC, 3};
+  return sm90::bf16_map(map, w, 3, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int BN, int WGS, typename OutT>
+int launch_cfg(const void* x, const void* w, const float* b, OutT* y, int n,
+               int h, int wd, int c, int o, int pad, cudaStream_t stream) {
+  using K = Cfg<BN, WGS>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv3x3_kernel<BN, WGS, OutT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  CUtensorMap xmap, wmap;
+  int err = sm90::nhwc_map(&xmap, x, n, h, wd, c, K::SEG);
+  if (err == 0) err = weight_map(&wmap, w, c, (o + 7) / 8 * 8);
+  if (err != 0) return err;
+  const int ext = pad == PAD_FULL ? 1 : 0;
+  dim3 grid((unsigned)((wd + 2 * ext + K::BM - 1) / K::BM),
+            (unsigned)(n * (h + 2 * ext)), (unsigned)((o + BN - 1) / BN));
+  conv3x3_kernel<BN, WGS, OutT><<<grid, K::THREADS, K::SMEM, stream>>>(
+      xmap, wmap, b, y, n, h, wd, c, o, pad);
+  return (int)cudaGetLastError();
 }
 
 template <typename OutT>
 int launch(const void* x, const void* w, const void* bias, void* y, int n,
-           int h, int wd, int c, int o, int reflect, cudaStream_t stream) {
-  const long long m = (long long)n * h * wd;
-  dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)((o + BN - 1) / BN));
-  auto* xp = static_cast<const __nv_bfloat16*>(x);
-  auto* wp = static_cast<const __nv_bfloat16*>(w);
+           int h, int wd, int c, int o, int pad, cudaStream_t stream) {
+  if (n < 1 || h < 1 || wd < 1 || c < 8 || c % 8 || o < 1 || pad < 0 ||
+      pad > PAD_FULL || (long long)n * (h + 2) > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (pad == PAD_REFLECT && (h < 2 || wd < 2)) return (int)cudaErrorInvalidValue;
+  const int ext = pad == PAD_FULL ? 1 : 0;
+  const long long rows = (long long)n * (h + 2 * ext);
+  const int wo = wd + 2 * ext;
+  const int o8 = (o + 7) / 8 * 8;
+  // BN: one tile up to 80 outputs, else tiles of 128; BM 128 columns
+  // unless that gives fewer blocks than the card's 132 SMs, then 64 (and
+  // BN 64)
+  int bn = o8 <= 64 ? 64 : (o8 <= 80 ? 80 : 128);
+  auto blocks = [&](int bm, int bnn) {
+    return (wo + bm - 1) / bm * rows * ((o + bnn - 1) / bnn);
+  };
+  const int wgs = blocks(128, bn) >= 132 ? 2 : 1;
+  if (wgs == 1 && bn == 128 && blocks(64, 128) < 132) bn = 64;
   auto* bp = static_cast<const float*>(bias);
   auto* yp = static_cast<OutT*>(y);
-  // 16-byte staging needs rows of 8-element multiples
-  const bool va = c % 8 == 0, vb = o % 8 == 0;
-  if (va && vb)
-    conv3x3_kernel<true, true, OutT><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
-  else if (va)
-    conv3x3_kernel<true, false, OutT><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
-  else if (vb)
-    conv3x3_kernel<false, true, OutT><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
-  else
-    conv3x3_kernel<false, false, OutT><<<grid, 256, 0, stream>>>(xp, wp, bp, yp, n, h, wd, c, o, reflect);
-  return static_cast<int>(cudaGetLastError());
+#define RNR_K3(BN_, WGS_)                                                \
+  if (bn == BN_ && wgs == WGS_)                                          \
+    return launch_cfg<BN_, WGS_, OutT>(x, w, bp, yp, n, h, wd, c, o, pad, \
+                                       stream);
+  RNR_K3(64, 1) RNR_K3(64, 2) RNR_K3(80, 1) RNR_K3(80, 2) RNR_K3(128, 1)
+  RNR_K3(128, 2)
+#undef RNR_K3
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+// dx [N, H, W, C] += the ring of the full correlation, folded by the
+// adjoint of reflect-pad: per element, the additions of
+// ops/conv_cuda.py::_dgrad in its order (top, bottom, left, right, then
+// the four corners).  One thread per channel of each pixel on rows 1 and
+// H - 2 and columns 1 and W - 2.
+__global__ void __launch_bounds__(256)
+fold_ring_kernel(float* __restrict__ dx, const float* __restrict__ ring,
+                 int n, int h, int wd, int c) {
+  const int rlo = h - 2 < 1 ? h - 2 : 1, rhi = h - 2 < 1 ? 1 : h - 2;
+  const int clo = wd - 2 < 1 ? wd - 2 : 1, chi = wd - 2 < 1 ? 1 : wd - 2;
+  const int nr = rlo == rhi ? 1 : 2, nc = clo == chi ? 1 : 2;
+  const long long per = (long long)nr * wd + (long long)nc * (h - nr);
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= per * n * c) return;
+  const int ch = (int)(idx % c);
+  const long long t = idx / c;
+  const int img = (int)(t / per);
+  int l = (int)(t % per), a, b;
+  if (l < nr * wd) {
+    a = l / wd == 0 ? rlo : rhi;
+    b = l % wd;
+  } else {
+    l -= nr * wd;
+    b = l / (h - nr) == 0 ? clo : chi;
+    a = l % (h - nr);     // the a-th row outside {rlo, rhi}
+    if (a >= rlo) ++a;
+    if (nr == 2 && a >= rhi) ++a;
+  }
+  const long long rr = 2LL * (wd + 2) + 2LL * h;
+  const float* rg = ring + (size_t)img * rr * c + ch;
+  const float* top = rg;
+  const float* bot = rg + (size_t)(wd + 2) * c;
+  const float* left = rg + (size_t)(2 * (wd + 2) - 1) * c;       // row i' >= 1
+  const float* right = rg + (size_t)(2 * (wd + 2) + h - 1) * c;
+  float* p = dx + (((size_t)img * h + a) * wd + b) * c + ch;
+  float v = *p;
+  if (a == 1) v = __fadd_rn(v, top[(size_t)(b + 1) * c]);
+  if (a == h - 2) v = __fadd_rn(v, bot[(size_t)(b + 1) * c]);
+  if (b == 1) v = __fadd_rn(v, left[(size_t)(a + 1) * c]);
+  if (b == wd - 2) v = __fadd_rn(v, right[(size_t)(a + 1) * c]);
+  if (a == 1 && b == 1) v = __fadd_rn(v, top[0]);
+  if (a == 1 && b == wd - 2) v = __fadd_rn(v, top[(size_t)(wd + 1) * c]);
+  if (a == h - 2 && b == 1) v = __fadd_rn(v, bot[0]);
+  if (a == h - 2 && b == wd - 2) v = __fadd_rn(v, bot[(size_t)(wd + 1) * c]);
+  *p = v;
 }
 
 }  // namespace
 
 extern "C" int rnr_conv3x3(const void* x, const void* w, const void* bias,
                            void* y, int n, int h, int wd, int c, int o,
-                           int reflect, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(x, w, bias, y, n, h, wd, c, o, reflect, stream);
+                           int pad, cudaStream_t stream) {
+  if (pad == PAD_FULL) return (int)cudaErrorInvalidValue;
+  return launch<bf16>(x, w, bias, y, n, h, wd, c, o, pad, stream);
 }
 
 // The same conv with an f32 output: the dgrad of conv3x3 (no rounding of
-// the data gradient to bf16 before the reflect fold).
+// the data gradient to bf16 before the reflect fold).  Pad 2 (no bias)
+// is the reflect dgrad: y holds N H W + N R rows of O; the full
+// correlation's interior goes to the first N H W (dx), its ring to the
+// rest, and fold_ring_kernel then adds the ring onto dx: dx is done.
 extern "C" int rnr_conv3x3_f32out(const void* x, const void* w,
                                   const void* bias, void* y, int n, int h,
-                                  int wd, int c, int o, int reflect,
+                                  int wd, int c, int o, int pad,
                                   cudaStream_t stream) {
-  return launch<float>(x, w, bias, y, n, h, wd, c, o, reflect, stream);
+  if (pad == PAD_FULL && (bias != nullptr || h < 2 || wd < 2))
+    return (int)cudaErrorInvalidValue;    // the reflect dgrad: no bias
+  int e = launch<float>(x, w, bias, y, n, h, wd, c, o, pad, stream);
+  if (e != 0 || pad != PAD_FULL) return e;
+  // dx = the first N H W rows of y, += the ring that follows them
+  float* dx = static_cast<float*>(y);
+  const int nr = h == 3 ? 1 : 2, nc = wd == 3 ? 1 : 2;
+  const long long count =
+      ((long long)nr * wd + (long long)nc * (h - nr)) * n * o;
+  fold_ring_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
+      dx, dx + (size_t)n * h * wd * o, n, h, wd, o);
+  return (int)cudaGetLastError();
 }

@@ -96,11 +96,19 @@ def load_all(names) -> None:
         list(pool.map(load, names))
 
 
+_fns: dict[tuple, ctypes._CFuncPtr] = {}
+
+
 def fn(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
     """A C entry point `int symbol(ptr * n_ptr, int * n_int, float *
-    n_float, stream)` with its ctypes signature set."""
-    f = getattr(load(name), symbol)
-    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                  + [ctypes.c_float] * n_float + [ctypes.c_void_p])
-    f.restype = ctypes.c_int
+    n_float, stream)` with its ctypes signature set; cached per process,
+    so a launch pays no lookup."""
+    key = (name, symbol, n_ptr, n_int, n_float)
+    f = _fns.get(key)
+    if f is None:
+        f = getattr(load(name), symbol)
+        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                      + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        _fns[key] = f
     return f

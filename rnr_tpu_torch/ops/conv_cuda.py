@@ -4,7 +4,10 @@ autograd.Function with its plain versions:
 - K3, tap-wise (csrc/conv3x3.cu), its data gradient (K3 with an f32
   output) and K3b, its weight gradient (csrc/conv3x3_wgrad.cu):
   rnr_tpu/ops/conv_pallas.py::conv3x3, as conv_backend "pallas3",
-  "pallas" and "p3s4" call it.
+  "pallas" and "p3s4" call it.  Both run wgmma on TMA-fed bands of the
+  input staged once per tap row (csrc/sm90.cuh); they take C and O in
+  multiples of 8, so the wrappers pad other counts with zero channels
+  (`pad_channels`, `k3_weights`), and K3b's split-K is `k3b_plan`.
 - K8a, the slab formulation (csrc/conv3x3_slab.cu), its data gradient
   (K8a with an f32 output) and K8b, its weight gradient
   (csrc/conv3x3_slab_wgrad.cu): rnr_tpu/ops/conv_pallas.py::conv3x3s, as
@@ -33,11 +36,21 @@ from rnr_tpu_torch.ops import _build
 from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
                                        use_kernel)
 
-# split-K of the weight gradients: csrc/conv3x3_wgrad.cu's BM = BN and
-# csrc/conv3x3_slab_wgrad.cu's BM = NB, and both kernels' pixels per K step
+# split-K of K8b's weight gradient: csrc/conv3x3_slab_wgrad.cu's BM = NB
+# and its pixels per K step
 WGRAD_TILE = 64
 WGRAD_BK = 32
 WGRAD_TARGET_BLOCKS = 1024
+# split-K of K3b (csrc/conv3x3_wgrad.cu): 64 columns of a row per unit,
+# 64 x 64 of dW per block, at most one wave of one block per SM of the
+# H100's 132 (more splits add partials to write and reduce)
+K3B_UNIT = 64
+K3B_CT = 64
+K3B_TARGET_BLOCKS = 132
+# K3's `pad` argument: zero ring, reflect ring, or the reflect data
+# gradient's full correlation (csrc/conv3x3.cu)
+K3_PAD = {"same": 0, "reflect": 1}
+K3_FULL = 2
 
 
 def _check_pad(pad_mode: str) -> None:
@@ -107,8 +120,8 @@ def conv3x3s_torch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _launch(lib: str, symbol: str, counter, x: torch.Tensor,
             w: torch.Tensor, b: torch.Tensor, pad_mode: str,
             out_dtype: torch.dtype) -> torch.Tensor:
-    """One launch of K3 or K8a, `symbol` of csrc/`lib`.cu (`symbol`_f32out
-    for an f32 output); counts in `counter.launches`."""
+    """One launch of K8a, `symbol` of csrc/`lib`.cu (`symbol`_f32out for
+    an f32 output); counts in `counter.launches`."""
     n, h, wd, c = x.shape
     o = w.shape[-1]
     if pad_mode == "reflect" and (h < 2 or wd < 2):
@@ -131,6 +144,104 @@ def _launch(lib: str, symbol: str, counter, x: torch.Tensor,
                    n, h, wd, c, o, int(pad_mode == "reflect"), stream_of(xb)),
                  symbol)
     return y
+
+
+def round8(k: int) -> int:
+    """k rounded up to a multiple of 8: K3 and K3b read activations and
+    weights by TMA, whose rows must be multiples of 16 bytes."""
+    return -(-k // 8) * 8
+
+
+def pad_channels(t: torch.Tensor, k: int) -> torch.Tensor:
+    """t with its last dimension zero-padded to k: t itself when it already
+    has k (no copy), else one padded copy in one pass (K3 / K3b's ragged C
+    or O)."""
+    if t.shape[-1] == k:
+        return t
+    return torch.cat([t, t.new_zeros((*t.shape[:-1], k - t.shape[-1]))], -1)
+
+
+def k3_weights(w: torch.Tensor, c8: int) -> torch.Tensor:
+    """w [3, 3, C, O] (any strides) -> K3's contiguous bf16 [3, 3, c8,
+    round8(O)], zero-padded: one conversion, and a pad only where C or O
+    is ragged."""
+    c, o = w.shape[2], w.shape[3]
+    wb = w.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    if (c8, round8(o)) == (c, o):
+        return wb
+    return F.pad(wb, (0, round8(o) - o, 0, c8 - c))
+
+
+def ring_len(h: int, wd: int) -> int:
+    """Positions of the ring around an H x W image on the (H + 2) x (W + 2)
+    grid of the reflect data gradient: top and bottom rows, then the left
+    and right columns between them (K3's pad-2 side buffer, per image)."""
+    return 2 * (wd + 2) + 2 * h
+
+
+def _launch_k3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+               pad: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of K3 (csrc/conv3x3.cu): x [N, H, W, C] bf16, w
+    [3, 3, C, O], b [O] (None: no bias) -> [N, H, W, O] in `out_dtype`
+    (bf16 or f32); under pad K3_FULL (f32, no bias) a flat buffer whose
+    first N H W rows of O are the reflect dgrad dx, the ring rows after
+    them its scratch.  C % 8 != 0 is padded with zero channels first."""
+    n, h, wd, c = x.shape
+    o = w.shape[-1]
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"conv3x3: output dtype {out_dtype}, the kernel "
+                        "writes bf16 or f32")
+    _require_bf16(x, "x")
+    c8 = round8(c)
+    xb = pad_channels(x.contiguous(), c8)
+    require(xb, "x", torch.bfloat16, (n, h, wd, c8))
+    wb = k3_weights(w, c8)
+    bf = None
+    if b is not None:
+        bf = b.to(torch.float32).contiguous()
+        require(bf, "b", torch.float32, (o,))
+    if pad == K3_FULL:
+        y = torch.empty((n * h * wd + n * ring_len(h, wd)) * o,
+                        dtype=torch.float32, device=x.device)
+    else:
+        y = torch.empty((n, h, wd, o), dtype=out_dtype, device=x.device)
+    symbol = "rnr_conv3x3" + ("_f32out" if out_dtype == torch.float32
+                              else "")
+    f = _build.fn("conv3x3", symbol, 4, 6)
+    conv3x3.launches += 1
+    check_launch(f(xb.data_ptr(), wb.data_ptr(),
+                   None if bf is None else bf.data_ptr(), y.data_ptr(),
+                   n, h, wd, c8, o, pad, stream_of(xb)), symbol)
+    return y
+
+
+def _require_bf16(t: torch.Tensor, name: str) -> None:
+    """K3 and K3b take bf16 activations (checked before any padded copy)."""
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes "
+                        f"{torch.bfloat16}")
+
+
+def _check_reflect(pad_mode: str, h: int, wd: int) -> None:
+    if pad_mode == "reflect" and (h < 2 or wd < 2):
+        raise ValueError("reflect padding needs H, W >= 2")
+
+
+def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                pad_mode: str = "same",
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The tap-wise conv, not differentiable (K3 on CUDA tensors, the
+    plain version on CPU tensors): x [N, H, W, C] (bf16 on the card), w
+    [3, 3, C, O], b [O] -> [N, H, W, O] in `out_dtype` (x's when None;
+    an f32 output is the sums + bias unrounded)."""
+    _check_pad(pad_mode)
+    out_dtype = out_dtype or x.dtype
+    if not use_kernel(x, w, b):
+        wr = w.to(x.dtype).to(torch.float32)
+        return conv3x3_torch(x.to(torch.float32), wr, b, pad_mode).to(
+            out_dtype)
+    _check_reflect(pad_mode, x.shape[1], x.shape[2])
+    return _launch_k3(x, w, b, K3_PAD[pad_mode], out_dtype)
 
 
 def conv3x3s_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -177,13 +288,22 @@ def conv3x3_dgrad_torch(g: torch.Tensor, w: torch.Tensor,
 def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor,
                   pad_mode: str = "same") -> torch.Tensor:
     """Data gradient of conv3x3: g [N, H, W, O] (bf16 on the card), w
-    [3, 3, C, O] -> dx [N, H, W, C] f32; K3 with an f32 output."""
+    [3, 3, C, O] -> dx [N, H, W, C] f32; K3 with an f32 output.  Under
+    reflect padding the one launch computes `_dgrad`'s full correlation,
+    reading g with its zero ring by TMA, writes the interior into dx and
+    the ring beside it, and adds the ring onto dx in `_dgrad`'s order of
+    adds (bitwise the same fold)."""
     if not use_kernel(g, w):
         return conv3x3_dgrad_torch(g, w, pad_mode)
-    zeros = torch.zeros(w.shape[2], dtype=torch.float32, device=g.device)
-    return _dgrad(g, w, pad_mode,
-                  lambda a, k: _launch("conv3x3", "rnr_conv3x3", conv3x3, a,
-                                       k, zeros, "same", torch.float32))
+    _check_pad(pad_mode)
+    n, h, wd, _ = g.shape
+    c = w.shape[2]
+    _check_reflect(pad_mode, h, wd)
+    w_rot = w.flip(0, 1).transpose(2, 3)                  # [3, 3, O, C]
+    if pad_mode == "same":
+        return _launch_k3(g, w_rot, None, K3_PAD["same"], torch.float32)
+    buf = _launch_k3(g, w_rot, None, K3_FULL, torch.float32)
+    return buf[:n * h * wd * c].view(n, h, wd, c)
 
 
 def _slab_dgrad_conv(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -235,8 +355,21 @@ def conv3x3s_wgrad_torch(x: torch.Tensor, g: torch.Tensor,
     return dwcat.reshape(3, c, 3, o).permute(0, 2, 1, 3)
 
 
+def k3b_plan(n: int, h: int, wd: int, c8: int, o8: int) -> tuple[int, int]:
+    """(splits, chunk) of K3b's split-K for x [N, H, W, c8], g [N, H, W,
+    o8] (multiples of 8): the N H ceil(W / 64) units of 64 columns of a
+    row cut into runs of `chunk` / 64 units, at most K3B_TARGET_BLOCKS
+    blocks over the card with a block per 64 x 64 tile of dW.  Fixed by
+    the shapes alone, so a rerun adds in the same order."""
+    tiles = -(-c8 // K3B_CT) * -(-o8 // K3B_CT)
+    units = n * h * -(-wd // K3B_UNIT)
+    want = max(1, min(units, K3B_TARGET_BLOCKS // tiles))
+    per = -(-units // want)
+    return -(-units // per), per * K3B_UNIT
+
+
 def wgrad_splits(n_pix: int, tiles: int) -> tuple[int, int]:
-    """(splits, chunk) of K3b's and K8b's split-K over `n_pix` pixels when
+    """(splits, chunk) of K8b's split-K over `n_pix` pixels when
     one split has `tiles` blocks: about WGRAD_TARGET_BLOCKS blocks over
     the card, each summing `chunk` pixels (a multiple of 32).  Fixed by
     the shapes alone, so a rerun adds in the same order."""
@@ -249,7 +382,7 @@ def wgrad_splits(n_pix: int, tiles: int) -> tuple[int, int]:
 def _launch_wgrad(lib: str, symbol: str, counter, x: torch.Tensor,
                   g: torch.Tensor, pad_mode: str, n_pix: int,
                   tiles: int) -> torch.Tensor:
-    """One launch of K3b or K8b (and its split reduction): x and g bf16,
+    """One launch of K8b (and its split reduction): x and g bf16,
     the kernel's `n_pix` pixels in splits of `tiles` blocks -> dW
     [3, 3, C, O] f32; counts in `counter.launches`."""
     n, h, wd, c = x.shape
@@ -279,14 +412,32 @@ def _tiles(c: int, o: int) -> int:
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
                   pad_mode: str = "same") -> torch.Tensor:
     """Weight gradient of conv3x3: x [N, H, W, C] and g [N, H, W, O], both
-    bf16 on the card -> dW [3, 3, C, O] f32 (K3b, deterministic)."""
+    bf16 on the card -> dW [3, 3, C, O] f32 (K3b, deterministic).  C and O
+    not multiples of 8 are padded with zero channels (a copy of x or g)."""
     if not use_kernel(x, g):
         return conv3x3_wgrad_torch(x, g, pad_mode)
+    _check_pad(pad_mode)
     n, h, wd, c = x.shape
-    # a block per 64 x 64 tile of one tap's dW
-    return _launch_wgrad("conv3x3_wgrad", "rnr_conv3x3_wgrad", conv3x3_wgrad,
-                         x, g, pad_mode, n * h * wd,
-                         9 * _tiles(c, g.shape[-1]))
+    o = g.shape[-1]
+    _check_reflect(pad_mode, h, wd)
+    _require_bf16(x, "x")
+    _require_bf16(g, "g")
+    c8, o8 = round8(c), round8(o)
+    xb = pad_channels(x.contiguous(), c8)
+    gb = pad_channels(g.contiguous(), o8)
+    require(xb, "x", torch.bfloat16, (n, h, wd, c8))
+    require(gb, "g", torch.bfloat16, (n, h, wd, o8))
+    splits, chunk = k3b_plan(n, h, wd, c8, o8)
+    dw = torch.empty((3, 3, c8, o8), dtype=torch.float32, device=x.device)
+    part = (torch.empty(splits * 9 * c8 * o8, dtype=torch.float32,
+                        device=x.device) if splits > 1 else dw)
+    f = _build.fn("conv3x3_wgrad", "rnr_conv3x3_wgrad", 4, 8)
+    conv3x3_wgrad.launches += 1
+    check_launch(f(xb.data_ptr(), gb.data_ptr(), part.data_ptr(),
+                   dw.data_ptr(), n, h, wd, c8, o8,
+                   K3_PAD[pad_mode], splits, chunk, stream_of(xb)),
+                 "rnr_conv3x3_wgrad")
+    return dw if (c8, o8) == (c, o) else dw[:, :, :c, :o].contiguous()
 
 
 def conv3x3s_wgrad(x: torch.Tensor, g: torch.Tensor,
@@ -325,8 +476,7 @@ class Conv3x3Fn(torch.autograd.Function):
         ctx.pad_mode = pad_mode
         ctx.save_for_backward(x, w)
         if use_kernel(x, w, b):
-            return _launch("conv3x3", "rnr_conv3x3", conv3x3, x, w, b,
-                           pad_mode, torch.bfloat16)
+            return conv3x3_fwd(x, w, b, pad_mode, torch.bfloat16)
         return conv3x3_torch(x, w, b, pad_mode)
 
     @staticmethod

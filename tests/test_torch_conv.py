@@ -120,3 +120,98 @@ def test_rendering_net_bf16_close_to_jax():
         got = tn(torch.from_numpy(x), torch.from_numpy(v)).numpy()
     err = np.abs(got - want)
     assert err.max() < 1e-1 and err.mean() < 1e-2, (err.max(), err.mean())
+
+
+# ---- K3 / K3b planning on the host (csrc/conv3x3.cu, conv3x3_wgrad.cu)
+
+from rnr_tpu_torch.ops import conv_cuda as cc  # noqa: E402
+
+
+@pytest.mark.parametrize("n,h,wd,c8,o8", [
+    (1, 512, 512, 64, 64), (1, 512, 512, 112, 64), (1, 512, 512, 128, 80),
+    (2, 256, 256, 128, 640), (1, 32, 32, 512, 512), (2, 7, 9, 8, 16),
+    (1, 63, 62, 48, 80), (2, 1, 1, 8, 8)])
+def test_k3b_plan_covers_every_unit_in_fixed_runs(n, h, wd, c8, o8):
+    splits, chunk = cc.k3b_plan(n, h, wd, c8, o8)
+    units = n * h * -(-wd // cc.K3B_UNIT)
+    assert chunk % cc.K3B_UNIT == 0 and chunk >= cc.K3B_UNIT
+    per = chunk // cc.K3B_UNIT
+    # every unit in exactly one split, no split empty
+    assert splits * per >= units > (splits - 1) * per
+    tiles = -(-c8 // cc.K3B_CT) * -(-o8 // cc.K3B_CT)
+    # at most K3B_TARGET_BLOCKS blocks: the wanted split count, less what
+    # whole runs of units round away (at most half)
+    want = max(1, min(units, cc.K3B_TARGET_BLOCKS // tiles))
+    assert want >= splits >= -(-want // 2)
+    assert splits * tiles <= max(cc.K3B_TARGET_BLOCKS, tiles)
+    assert cc.k3b_plan(n, h, wd, c8, o8) == (splits, chunk)
+
+
+def test_channel_padding_copies_only_ragged_counts():
+    x = torch.randn(1, 3, 4, 64).to(torch.bfloat16)
+    assert cc.pad_channels(x, 64) is x
+    xp = cc.pad_channels(torch.randn(1, 3, 4, 108), cc.round8(108))
+    assert xp.shape[-1] == 112 and bool((xp[..., 108:] == 0).all())
+    assert [cc.round8(k) for k in (5, 8, 45, 77, 78, 108, 640)] == [
+        8, 8, 48, 80, 80, 112, 640]
+
+
+def test_k3_weights_zero_pad_and_round_once():
+    w = torch.randn(3, 3, 45, 77)
+    wb = cc.k3_weights(w, cc.round8(45))
+    assert wb.dtype == torch.bfloat16 and wb.shape == (3, 3, 48, 80)
+    assert wb.is_contiguous()
+    assert torch.equal(wb[:, :, :45, :77], w.to(torch.bfloat16))
+    assert not wb[:, :, 45:].any() and not wb[..., 77:].any()
+
+
+def _fold_like_kernel(dxp: torch.Tensor) -> torch.Tensor:
+    """What K3's pad-2 launch (rnr_conv3x3_f32out) makes of the full
+    correlation dxp [N, H+2, W+2, C]: the interior written to dx, the ring
+    laid out as ring_len describes, then per border-line pixel the
+    additions of its fold_ring_kernel in their order."""
+    n, hp, wp, c = dxp.shape
+    h, wd = hp - 2, wp - 2
+    dx = dxp[:, 1:-1, 1:-1].clone()
+    ring = torch.cat([dxp[:, 0], dxp[:, -1], dxp[:, 1:-1, 0],
+                      dxp[:, 1:-1, -1]], dim=1)
+    assert ring.shape[1] == cc.ring_len(h, wd)
+    top, bot = ring[:, :wd + 2], ring[:, wd + 2:2 * (wd + 2)]
+    left = ring[:, 2 * (wd + 2):2 * (wd + 2) + h]      # i' = 1 .. H
+    right = ring[:, 2 * (wd + 2) + h:]
+    lines = {(a, b) for a in {1, h - 2} for b in range(wd)}
+    lines |= {(a, b) for b in {1, wd - 2} for a in range(h)}
+    for a, b in sorted(lines):
+        v = dx[:, a, b].clone()
+        if a == 1:
+            v = v + top[:, b + 1]
+        if a == h - 2:
+            v = v + bot[:, b + 1]
+        if b == 1:
+            v = v + left[:, a]
+        if b == wd - 2:
+            v = v + right[:, a]
+        if a == 1 and b == 1:
+            v = v + top[:, 0]
+        if a == 1 and b == wd - 2:
+            v = v + top[:, wd + 1]
+        if a == h - 2 and b == 1:
+            v = v + bot[:, 0]
+        if a == h - 2 and b == wd - 2:
+            v = v + bot[:, wd + 1]
+        dx[:, a, b] = v
+    return dx
+
+
+@pytest.mark.parametrize("h,wd", [(2, 2), (3, 3), (3, 5), (4, 4), (7, 9),
+                                  (6, 3)])
+def test_reflect_dgrad_ring_fold_is_dgrads_fold_bitwise(h, wd):
+    """The kernel route's reflect dgrad (interior + ring, then the ring
+    fold) adds in `_dgrad`'s order: bitwise the same dx."""
+    rng = np.random.default_rng(h * 10 + wd)
+    dxp = torch.from_numpy(rng.standard_normal((2, h + 2, wd + 2, 3)).astype(
+        np.float32))
+    g = torch.zeros(2, h, wd, 4)
+    want = cc._dgrad(g, torch.zeros(3, 3, 3, 4), "reflect",
+                     lambda a, k: dxp)
+    assert torch.equal(_fold_like_kernel(dxp), want)

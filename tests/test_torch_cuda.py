@@ -8,7 +8,10 @@ staging paths, ragged tiles, more than four texture levels); the slice
 shapes are checked by chip_smoke.py.  The 4x4 pair of K6 and K8 is run
 at odd channel counts, odd sizes and widths past one tile, with both
 output types (bf16, and f32 as each serves the other's data gradient).
-The 3x3 slab pair (K8a forward and f32 data gradient, K8b weight
+K3 and K3b run at shapes that straddle their tiles (W around the
+tile's 64 positions, odd H, batch 2, ragged and wide C and O, both pad
+modes) and K3's forward and dgrad must be bitwise deterministic.  The
+3x3 slab pair (K8a forward and f32 data gradient, K8b weight
 gradient) runs at odd C, O, H and W under both pad modes, and P1 (the
 GEMM chain) at section A's kinds of shape and odd ones.  The backward
 kernels K1b (SH fan), K5b (SH of materialised rays), K3b and K8b (conv
@@ -277,6 +280,61 @@ def test_conv3x3_wgrad_kernel_deep_split(dev):
     torch.cuda.synchronize()
     assert float((k - t).abs().max()) <= 1e-4 * float(t.abs().max())
     assert torch.equal(k, conv3x3_wgrad(x, g, "reflect"))
+
+
+# (N, H, W, C, O) across K3's and K3b's tiles: 64 or 128 positions of the
+# grid of pitch W + 2 (W + 2 below, at and just above 64), an odd H, batch
+# 2 (tiles never straddle images), ragged and wide C and O (5, 45 / 77,
+# 108 / 78, 640: zero-padded channels, BN 64, 80 and 128, several O tiles)
+K3_TILE_SHAPES = [(2, 7, 9, 5, 77), (1, 63, 62, 45, 78), (2, 5, 63, 108, 45),
+                  (1, 6, 64, 77, 640), (2, 4, 65, 640, 5),
+                  (1, 63, 130, 64, 64), (2, 9, 30, 78, 108)]
+
+
+@pytest.mark.parametrize("n,h,wd,c,o", K3_TILE_SHAPES)
+@pytest.mark.parametrize("pad_mode", ["same", "reflect"])
+def test_conv3x3_kernels_across_tiles(dev, n, h, wd, c, o, pad_mode):
+    rng = np.random.default_rng(n * h * wd + c * o)
+    x = _t(rng.standard_normal((n, h, wd, c)).astype(np.float32), dev,
+           torch.bfloat16)
+    g = _t(rng.standard_normal((n, h, wd, o)).astype(np.float32), dev,
+           torch.bfloat16)
+    w = _t((rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(
+        np.float32), dev)
+    b = _t(rng.standard_normal(o).astype(np.float32), dev)
+    n0, m0 = conv3x3.launches, conv3x3_wgrad.launches
+    k = conv3x3(x, w, b, pad_mode)
+    kd = conv3x3_dgrad(g, w, pad_mode)
+    kw = conv3x3_wgrad(x, g, pad_mode)
+    assert conv3x3.launches == n0 + 2 and conv3x3_wgrad.launches == m0 + 1
+    t = conv3x3_torch(x, w, b, pad_mode)
+    td = conv3x3_dgrad_torch(g, w, pad_mode)
+    tw = conv3x3_wgrad_torch(x, g, pad_mode)
+    torch.cuda.synchronize()
+    assert k.shape == t.shape and kd.shape == td.shape and kw.shape == tw.shape
+    # bf16 output: a rounding step of the largest values; dgrad, wgrad:
+    # bf16 operands multiply exactly, f32 sums in another order
+    assert float((k.float() - t.float()).abs().max()) <= (
+        2 ** -7 * float(t.float().abs().max()))
+    assert float((kd - td).abs().max()) <= 1e-4 * float(td.abs().max())
+    assert float((kw - tw).abs().max()) <= 1e-4 * float(tw.abs().max())
+
+
+@pytest.mark.parametrize("pad_mode", ["same", "reflect"])
+def test_conv3x3_forward_and_dgrad_deterministic(dev, pad_mode):
+    """K3's sums run in a fixed order: two runs are bit-equal (the
+    forward, and the dgrad with its reflect ring fold)."""
+    rng = np.random.default_rng(17)
+    x = _t(rng.standard_normal((2, 96, 96, 64)).astype(np.float32), dev,
+           torch.bfloat16)
+    w = _t((rng.standard_normal((3, 3, 64, 128)) / 24).astype(np.float32),
+           dev)
+    b = _t(rng.standard_normal(128).astype(np.float32), dev)
+    g = _t(rng.standard_normal((2, 96, 96, 128)).astype(np.float32), dev,
+           torch.bfloat16)
+    assert torch.equal(conv3x3(x, w, b, pad_mode), conv3x3(x, w, b, pad_mode))
+    assert torch.equal(conv3x3_dgrad(g, w, pad_mode),
+                       conv3x3_dgrad(g, w, pad_mode))
 
 
 def test_autograd_functions_launch_the_backward_kernels(dev):
