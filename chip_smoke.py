@@ -23,7 +23,15 @@ Phases (each failure raises, so the script exits non-zero):
            work.  K1 and K1b must also give, bit for bit, what they gave
            before their ladder moved into csrc/sh_common.cuh (digests
            K1_DIGESTS).  K1b, K5b and K3b run twice and must agree bit for
-           bit; K2b (f32 atomics) reports its run-to-run difference.  K7 (the
+           bit; K2b (f32 atomics) reports its run-to-run difference and
+           also runs at batch 2, with every pixel on the corner texel and
+           with a uv seam inside its pixel tiles.  K4 runs at V 7500 and C
+           64, 3, 130 and 512: its picks equal the plain version's except
+           at near-ties, where the two picks' scores in double lie within
+           the sum of their f32 rounding bounds (knn_cuda.compare_picks,
+           the counts of exact and near ties printed), two runs bit-equal,
+           and with duplicated vertices every pick is the lower of its
+           pair.  K7 (the
            rasterizer) must equal its plain version bit for bit on UV
            spheres seen from the camera ring at 512^2 (the G-buffer
            phase's mesh; 48,768 faces at 0 and, overflowing the default
@@ -136,8 +144,8 @@ from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,  # noqa: E402
 from rnr_tpu_torch.ops.gemm_chain_cuda import (gemm_chain,  # noqa: E402
                                                gemm_chain_torch)
 from rnr_tpu_torch.ops.interpolate import bilinear_taps  # noqa: E402
-from rnr_tpu_torch.ops.knn_cuda import (stratified_knn,  # noqa: E402
-                                        stratified_knn_torch)
+from rnr_tpu_torch.ops.knn_cuda import (compare_picks,  # noqa: E402
+                                        stratified_knn, stratified_knn_torch)
 from rnr_tpu_torch.ops.rasterize_cuda import (FACE_FLOATS,  # noqa: E402
                                               bin_faces, rasterize_tiles,
                                               rasterize_tiles_torch)
@@ -342,6 +350,11 @@ F32_FLOPS = 67e12
 # the same pipes issuing one operation per lane and clock: the rate of the
 # adds, products and comparisons that are not fused multiply-adds
 F32_OPS = F32_FLOPS / 2
+
+# the GCN forward of the slice phase when K4 was a register-tiled SGEMM
+# on the FMA pipes, measured by this script on an NVIDIA H100 80GB HBM3 at
+# 700 W: the yardstick of K4's tensor-core design
+GCN_MS_FMA_K4 = 26.826
 
 DEV = torch.device("cuda", 0)
 IMG = 512       # the canonical frame's side
@@ -707,7 +720,9 @@ def kernels_shade(rec: dict, b: dict) -> None:
 
 def kernels_texture(rec: dict, b: dict, rng) -> None:
     """K2 and K2b: the G-buffer's uv (about half the frame uncovered, at
-    uv = 0) over 4 levels 512..64 x 24 channels."""
+    uv = 0) over 4 levels 512..64 x 24 channels; K2b also at batch 2, with
+    every pixel on the corner texel and with a uv seam inside the pixel
+    tiles.  K2b's GB/s, queued and host times beside its median."""
     texs = [torch.from_numpy((0.5 + 0.5 * rng.standard_normal(
         (s, s, 24))).astype(np.float32)).to(DEV) for s in TEX_SIZES]
     uv = b["uv_map"]
@@ -730,6 +745,63 @@ def kernels_texture(rec: dict, b: dict, rng) -> None:
 
     g = torch.from_numpy(rng.standard_normal((1, IMG, IMG, 24)).astype(
         np.float32)).to(DEV)
+    err, rerun, taps = scatter_case(uv, g, "G-buffer uv, b1")
+    ms = cuda_ms(lambda: mipmap_scatter(uv, g, TEX_SIZES))
+    work = texture_work(n_pix, 24, TEX_SIZES, taps)
+    rec["mipmap_scatter"] = dict(
+        max_abs_err=err, rerun_max_diff=rerun, ms=ms,
+        queued_ms=queued_ms(lambda: mipmap_scatter(uv, g, TEX_SIZES)),
+        host_us=host_us(lambda: mipmap_scatter(uv, g, TEX_SIZES)),
+        plain_ms=cuda_ms(lambda: mipmap_scatter_torch(uv, g, TEX_SIZES),
+                         iters=3, warmup=1),
+        library_ms=None, **work)
+    log(f"[kernels] mipmap_scatter b1: {ms:.4f} ms, "
+        f"{scatter_bytes(n_pix, 24) / ms / 1e6:.1f} GB/s, queued "
+        f"{rec['mipmap_scatter']['queued_ms']:.4f} ms")
+    # batch 2 (the b2 step's 524,288 pixels), every pixel on the corner
+    # texel, and a uv seam inside the pixel tiles
+    b2 = _gbuffer(IMG, 2)["uv_map"]
+    g2 = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, IMG, IMG, 24)).astype(np.float32)).to(DEV)
+    for tag, u, gg in (("G-buffer uv, b2", b2, g2),
+                       ("every pixel on the corner texel",
+                        torch.zeros_like(uv), g),
+                       ("uv seam 0.02 | 0.98 at column 259", seam_uv(uv), g)):
+        scatter_case(u, gg, tag)
+        ms = cuda_ms(lambda: mipmap_scatter(u, gg, TEX_SIZES))
+        n = u.shape[0] * IMG * IMG
+        log(f"[kernels] mipmap_scatter {tag}: {ms:.4f} ms, "
+            f"{scatter_bytes(n, 24) / ms / 1e6:.1f} GB/s")
+    torch.cuda.synchronize()
+
+
+def scatter_bytes(n_pix: int, ch: int) -> int:
+    """The bytes K2b must move at 512^2 over TEX_SIZES: uv and g read
+    once, every level's gradient written once (texture_work's count)."""
+    return n_pix * (2 * 4 + ch * 4) + sum(s * s * ch * 4 for s in TEX_SIZES)
+
+
+def seam_uv(uv: torch.Tensor) -> torch.Tensor:
+    """The G-buffer's uv with a seam: over the object, u from 0.02 rising
+    left of column 259 and from 0.98 falling right of it, so the pixel
+    tiles across that column (259 is inside an 8-pixel tile) see texels
+    at both ends of every level."""
+    col = torch.arange(uv.shape[2], device=uv.device, dtype=torch.float32)
+    ramp = (col - 259.0).abs() / uv.shape[2] * 0.1
+    u = torch.where(col < 259, 0.02 + ramp, 0.98 - ramp)
+    covered = (uv != 0).any(-1, keepdim=True)
+    return torch.where(covered, torch.stack(
+        [u.expand_as(uv[..., 0]), uv[..., 1]], -1), uv).contiguous()
+
+
+def scatter_case(uv: torch.Tensor, g: torch.Tensor, tag: str):
+    """K2b against its plain version on (uv, g), every level per texel
+    within 1e-5 x the sum of its terms' magnitudes (f32 atomics on both
+    sides: the same products added in another order, so each texel may
+    differ by a rounding of its partial sums; the corner texel of the
+    uncovered pixels sums 131,072 terms), and the run-to-run difference.
+    Returns the max abs error, the run-to-run max difference and the
+    count of taps of nonzero weight (the kernel skips the others)."""
     kg = mipmap_scatter(uv, g, TEX_SIZES)
     kg2 = mipmap_scatter(uv, g, TEX_SIZES)
     tg = mipmap_scatter_torch(uv, g, TEX_SIZES)
@@ -737,30 +809,19 @@ def kernels_texture(rec: dict, b: dict, rng) -> None:
     torch.cuda.synchronize()
     err = rerun = 0.0
     for a, a2, r, m, s in zip(kg, kg2, tg, mag, TEX_SIZES):
-        # f32 atomics on both sides: the same products added in another
-        # order, so each texel may differ by a rounding of its partial
-        # sums; held per texel to 1e-5 x the sum of its terms' magnitudes
-        # (the corner texel of the uncovered pixels sums 131,072 terms)
         excess = float(((a - r).abs() - 1e-5 * m).max())
-        check(f"mipmap_scatter level {s}", excess, 0.0)
+        check(f"mipmap_scatter {tag} level {s}", excess, 0.0)
         err = max(err, float((a - r).abs().max()))
         rerun = max(rerun, float((a - a2).abs().max()))
-    # the kernel skips taps of weight exactly 0: count this uv's others
     taps = 0
     for s in TEX_SIZES:
         x, y = level_coords(uv, s)
         taps += sum(int((w != 0).sum()) for _, w in bilinear_taps(x, y, s, s))
-    log(f"[kernels] mipmap_scatter {IMG}^2 -> 4 levels x 24: max abs err "
-        f"{err:.3g} (tol 1e-5 x max per level); run-to-run max difference "
-        f"{rerun:.3g} (f32 atomics); {taps} nonzero taps of "
-        f"{n_pix * 4 * len(TEX_SIZES)}")
-    rec["mipmap_scatter"] = dict(
-        max_abs_err=err, rerun_max_diff=rerun,
-        ms=cuda_ms(lambda: mipmap_scatter(uv, g, TEX_SIZES)),
-        plain_ms=cuda_ms(lambda: mipmap_scatter_torch(uv, g, TEX_SIZES),
-                         iters=3, warmup=1),
-        library_ms=None, **texture_work(n_pix, 24, TEX_SIZES, taps))
-    torch.cuda.synchronize()
+    log(f"[kernels] mipmap_scatter {tag} -> 4 levels x 24: max abs err "
+        f"{err:.3g} (tol 1e-5 x the sum of each texel's |terms|); "
+        f"run-to-run max difference {rerun:.3g} (f32 atomics); {taps} "
+        f"nonzero taps of {uv.shape[0] * IMG * IMG * 4 * len(TEX_SIZES)}")
+    return err, rerun, taps
 
 
 # the two formulations of the 3x3 conv at reflect padding: forward (bf16),
@@ -1260,38 +1321,79 @@ def kernels_conv4(rec: dict, rng) -> None:
     torch.cuda.synchronize()
 
 
-def kernels_knn(rec: dict, rng) -> None:
-    """K4: V 7500, C 64; indices must agree except at exact score ties."""
-    x = torch.from_numpy(rng.standard_normal((7500, 64)).astype(
-        np.float32)).to(DEV)
+# K4's feature widths in the kernels phase: the GCN's 64 first (its
+# record), then the ragged and the widest the kernel takes
+KNN_C = (64, 3, 130, 512)
+
+
+def knn_case(x: torch.Tensor, tag: str) -> dict:
+    """K4 against its plain version on x: picks equal except at near-ties
+    (compare_picks: the two picks' scores in double within the sum of
+    their f32 rounding bounds), and two runs bit-equal."""
     ki = stratified_knn(x, 16)
+    k2 = stratified_knn(x, 16)
     ti = stratified_knn_torch(x, 16)
     torch.cuda.synchronize()
-    mism = (ki != ti).nonzero()
-    xd = x.to(torch.bfloat16).double()
-    sq = (xd * xd).sum(1)
-    n_tie = 0
-    for i, s in mism.tolist():
-        a, c_ = int(ki[i, s]), int(ti[i, s])
-        sa = 2 * float(xd[i] @ xd[a]) - float(sq[a])
-        sc = 2 * float(xd[i] @ xd[c_]) - float(sq[c_])
-        if sa != sc:
-            raise AssertionError(f"stratified_knn: row {i} stratum {s}: "
-                                 f"kernel {a} (score {sa}) vs twin {c_} "
-                                 f"(score {sc})")
-        n_tie += 1
-    log(f"[kernels] stratified_knn V7500 C64: {ki.numel()} indices, "
-        f"{len(mism)} differ, all at exact score ties ({n_tie})")
-    v, c, ns = 7500, 64, ki.shape[1]
-    rec["stratified_knn"] = dict(
-        max_abs_err=float(len(mism) - n_tie),
-        ms=cuda_ms(lambda: stratified_knn(x, 16)),
-        plain_ms=cuda_ms(lambda: stratified_knn_torch(x, 16)),
-        library_ms=None,
-        # the kernel reads x in bf16 and writes int32 indices; its 2 V^2 C
-        # score operations are bf16 products (exact in f32) with f32 sums,
-        # the work of a bf16 tensor-core GEMM, so bound at that unit's peak
-        **bound(v * c * 2 + v * ns * 4, 2 * v * v * c, BF16_TENSOR_FLOPS))
+    r = compare_picks(x, ki, ti)
+    if r["violations"]:
+        raise AssertionError(f"stratified_knn {tag}: {len(r['violations'])} "
+                             "picks differ from the plain version beyond "
+                             f"f32 rounding, first {r['violations'][:3]}")
+    if not torch.equal(ki, k2):
+        raise AssertionError(f"stratified_knn {tag}: two runs differ")
+    log(f"[kernels] stratified_knn {tag}: {ki.numel()} indices, "
+        f"{r['differ']} differ from the plain version: {r['exact_ties']} "
+        f"exact ties, {r['near_ties']} near-ties, largest gap "
+        f"{r['worst_gap_over_bound']:.3g} of its bound; two runs bit-equal")
+    return r
+
+
+def kernels_knn(rec: dict, rng) -> None:
+    """K4 at V 7500 and C 64 (the GCN's width; x from the phase's random
+    stream), 3, 130 and 512 (each from its own seed), held to its plain
+    version by compare_picks and bitwise across two runs; then duplicated
+    vertices (rows 2m and 2m + 1 equal), where every pick must be the
+    lower of the pair, bit for bit.  TFLOP/s of the 2 V^2 C products, the
+    device time of calls queued back to back and the wrapper's host time
+    per call beside the single-call median."""
+    v = GCN_V
+    x64 = torch.from_numpy(rng.standard_normal((v, 64)).astype(
+        np.float32)).to(DEV)
+    for c in KNN_C:
+        x = x64 if c == 64 else torch.from_numpy(np.random.default_rng(
+            c).standard_normal((v, c)).astype(np.float32)).to(DEV)
+        r = knn_case(x, f"V{v} C{c}")
+        ms = cuda_ms(lambda: stratified_knn(x, 16))
+        q_ms = queued_ms(lambda: stratified_knn(x, 16))
+        log(f"[kernels] stratified_knn V{v} C{c}: {ms:.4f} ms "
+            f"({2 * v * v * c / ms / 1e9:.1f} TFLOP/s), queued "
+            f"{q_ms:.4f} ms ({2 * v * v * c / q_ms / 1e9:.1f} TFLOP/s)")
+        if c != 64:
+            continue
+        ns = -(-v // 16)
+        rec["stratified_knn"] = dict(
+            max_abs_err=float(len(r["violations"])), exact_ties=r["exact_ties"],
+            near_ties=r["near_ties"],
+            worst_gap_over_bound=r["worst_gap_over_bound"], ms=ms,
+            queued_ms=q_ms, host_us=host_us(lambda: stratified_knn(x, 16)),
+            plain_ms=cuda_ms(lambda: stratified_knn_torch(x, 16)),
+            library_ms=None,
+            # the kernel reads x in bf16 and writes int32 indices; its 2
+            # V^2 C score operations are bf16 products (exact in f32) with
+            # f32 sums, the work of a bf16 tensor-core GEMM, so bound at
+            # that unit's peak
+            **bound(v * c * 2 + v * ns * 4, 2 * v * v * c, BF16_TENSOR_FLOPS))
+    half = np.random.default_rng(7).standard_normal((v // 2, 64)).astype(
+        np.float32)
+    xd = torch.from_numpy(np.repeat(half, 2, axis=0)).to(DEV)
+    knn_case(xd, f"V{v} C64 duplicated vertices")
+    kd = stratified_knn(xd, 16)
+    if not bool((kd % 2 == 0).all()):
+        raise AssertionError("stratified_knn: a tie between duplicated "
+                             "vertices did not go to the lower index")
+    plain_even = bool((stratified_knn_torch(xd, 16) % 2 == 0).all())
+    log("[kernels] stratified_knn duplicated vertices: every pick the lower "
+        f"of its pair (the plain version's too: {plain_even})")
     torch.cuda.synchronize()
 
 
@@ -1493,7 +1595,8 @@ def phase_slice(eval_launches: dict) -> dict:
         torch.cuda.synchronize()
         fps = n / (time.perf_counter() - t0)
         frame_ms = cuda_ms(lambda: step(b, v_feature=vf), iters=10)
-    log(f"[slice] GCN forward (v_feature, V 7500, 20 blocks): {gcn_ms:.3f} ms")
+    log(f"[slice] GCN forward (v_feature, V 7500, 20 blocks): {gcn_ms:.3f} ms "
+        f"(with K4's earlier FMA design: {GCN_MS_FMA_K4} ms)")
     log(f"[slice] eval frames/s at {IMG}^2 (cached v_feature): {fps:.3f}; "
         f"frame {frame_ms:.3f} ms by CUDA events")
     return {"model": model, "v_feature": vf, "gcn_pos": b["gcn_pos"],

@@ -19,6 +19,7 @@ from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
 from rnr_tpu_torch.ops.interpolate import bilinear_taps, interpolate_bilinear
 
 LEVELS_PER_LAUNCH = 4   # csrc/mipmap_gather.cu / mipmap_scatter.cu MAX_LEVELS
+SCATTER_MAX_CH = 128    # csrc/mipmap_scatter.cu MAX_CH
 
 
 def level_coords(uv_map: torch.Tensor, size: int):
@@ -88,17 +89,21 @@ def _launch_gather(textures, uv_map):
 def mipmap_scatter(uv_map: torch.Tensor, g: torch.Tensor, sizes):
     """K2b: uv_map [N, H, W, 2] f32, g [N, H, W, Ch] -> the gradient
     [S_l, S_l, Ch] f32 of every level of side `sizes[l]`; the plain
-    version on CPU tensors.  f32 atomics: not bitwise reproducible."""
+    version on CPU tensors.  The kernel pre-reduces each warp's 8 x 4
+    pixel tile per texel in shared memory before its f32 vector atomics
+    (csrc/mipmap_scatter.cu): not bitwise reproducible.  Ch <= 128."""
     if not use_kernel(uv_map, g):
         return mipmap_scatter_torch(uv_map, g, sizes)
     n, h, w, ch = g.shape
+    if ch > SCATTER_MAX_CH:
+        raise ValueError(f"mipmap_scatter kernel: Ch={ch} > {SCATTER_MAX_CH}")
     uv = uv_map.contiguous()
     gf = g.to(torch.float32).contiguous()
     require(uv, "uv_map", torch.float32, (n, h, w, 2))
     require(gf, "g", torch.float32, (n, h, w, ch))
     grads = [torch.zeros((s, s, ch), dtype=torch.float32, device=uv.device)
              for s in sizes]
-    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 7)
+    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 9)
     stream = stream_of(uv)
     for k in range(0, len(grads), LEVELS_PER_LAUNCH):
         grp = grads[k:k + LEVELS_PER_LAUNCH]
@@ -107,7 +112,7 @@ def mipmap_scatter(uv_map: torch.Tensor, g: torch.Tensor, sizes):
         check_launch(f(*[t.data_ptr() for t in grp], *[0] * pad,
                        uv.data_ptr(), gf.data_ptr(),
                        *[t.shape[0] for t in grp], *[0] * pad, len(grp),
-                       n * h * w, ch, stream), "mipmap_scatter")
+                       n, h, w, ch, stream), "mipmap_scatter")
     return grads
 
 

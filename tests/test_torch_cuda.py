@@ -4,8 +4,12 @@ Marked `cuda`: every test skips (and counts as no pass) where
 torch.cuda.is_available() is False, which is decided inside the fixture,
 never at import.  On the GPU machine:  python -m pytest tests/test_torch_cuda.py -q
 Small, odd shapes that the canonical frame does not reach (scalar
-staging paths, ragged tiles, more than four texture levels); the slice
-shapes are checked by chip_smoke.py.  The 4x4 pair of K6 and K8 is run
+staging paths, ragged tiles, more than four texture levels; K2b also at
+batch 2, across a uv seam and past its per-warp box); the slice shapes
+are checked by chip_smoke.py.  K4 runs at V 700, 1000, 333 and 7500 and C
+3, 64, 130 and 512, held to its plain version within f32 rounding
+(knn_cuda.compare_picks) and bitwise across two runs, with ties between
+duplicated vertices or zero rows going to the lower index.  The 4x4 pair of K6 and K8 is run
 at odd channel counts, odd sizes and widths past one tile, with both
 output types (bf16, and f32 as each serves the other's data gradient).
 K3 and K3b run at shapes that straddle their tiles (W around the
@@ -30,7 +34,8 @@ from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,
                                          conv3x3_dgrad_torch, conv3x3_torch,
                                          conv3x3_wgrad, conv3x3_wgrad_torch)
 from rnr_tpu_torch.ops.gemm_chain_cuda import gemm_chain, gemm_chain_torch
-from rnr_tpu_torch.ops.knn_cuda import stratified_knn, stratified_knn_torch
+from rnr_tpu_torch.ops.knn_cuda import (compare_picks, stratified_knn,
+                                        stratified_knn_torch)
 from rnr_tpu_torch.ops.rasterize_cuda import (bin_faces, rasterize_tiled,
                                               rasterize_tiles,
                                               rasterize_tiles_torch)
@@ -137,16 +142,80 @@ def test_conv3x3_kernel_rejects_f32(dev):
                 torch.zeros(8, device=dev))
 
 
-@pytest.mark.parametrize("v,c", [(700, 3), (1000, 64), (333, 130)])
+@pytest.mark.parametrize("c", [3, 64, 130, 512])
+@pytest.mark.parametrize("v", [700, 1000, 333, 7500])
 def test_stratified_knn_kernel(dev, v, c):
-    x = _t(np.random.default_rng(v).standard_normal((v, c)).astype(
+    """V not a multiple of the 128-row or 256-column tiles (all but none),
+    C ragged (3, 130) or up to the widest (512): the picks equal the plain
+    version's except at near-ties, where the two picks' scores in double
+    lie within the sum of their f32 rounding bounds (the kernel sums its
+    products on the tensor cores, the plain version through cuBLAS, each
+    in its own order), and two runs are bit-equal."""
+    x = _t(np.random.default_rng(v + c).standard_normal((v, c)).astype(
         np.float32), dev)
     n0 = stratified_knn.launches
     k = stratified_knn(x, 16)
-    assert stratified_knn.launches == n0 + 1
+    k2 = stratified_knn(x, 16)
+    assert stratified_knn.launches == n0 + 2
     t = stratified_knn_torch(x, 16)
     torch.cuda.synchronize()
-    assert torch.equal(k, t)   # random features: no exact score ties
+    assert k.shape == t.shape and k.dtype == torch.int32
+    r = compare_picks(x, k, t)
+    assert r["violations"] == []
+    assert r["differ"] <= 1e-4 * k.numel()   # near-ties are rare
+    assert torch.equal(k, k2)
+
+
+@pytest.mark.parametrize("v", [1000, 7500])
+def test_stratified_knn_kernel_ties_go_to_the_lower_index(dev, v):
+    """Duplicated vertices (rows 2m and 2m + 1 equal): their scores tie
+    exactly, and every pick is the lower of its pair, bit for bit."""
+    half = np.random.default_rng(v).standard_normal((v // 2, 64)).astype(
+        np.float32)
+    x = _t(np.repeat(half, 2, axis=0), dev)
+    k = stratified_knn(x, 16)
+    torch.cuda.synchronize()
+    assert bool((k % 2 == 0).all())
+    assert compare_picks(x, k, stratified_knn_torch(x, 16))["violations"] == []
+
+
+@pytest.mark.parametrize("c,shift", [(3, 1.0), (64, 3.0)])
+def test_stratified_knn_kernel_relu_collapsed_features(dev, c, shift):
+    """Features that collapse to zero after a ReLU: many all-zero rows,
+    whose scores against any query are exactly 0, so the first of them in
+    a stratum must win where one of them is the pick."""
+    x = np.maximum(np.random.default_rng(c).standard_normal((1000, c))
+                   - shift, 0.0).astype(np.float32)
+    assert (x == 0).all(1).sum() > 100
+    x = _t(x, dev)
+    k = stratified_knn(x, 16)
+    t = stratified_knn_torch(x, 16)
+    torch.cuda.synchronize()
+    r = compare_picks(x, k, t)
+    assert r["violations"] == [] and r["differ"] == r["exact_ties"] + r[
+        "near_ties"]
+    zero = (x == 0).all(1).cpu().numpy()
+    kk = k.cpu().numpy()
+    picked_zero = zero[kk]
+    assert picked_zero.any()
+    for i, s in zip(*np.nonzero(picked_zero)):   # score 0: the first zero row
+        assert kk[i, s] == 16 * s + int(np.argmax(zero[16 * s:16 * s + 16]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_stratified_knn_kernel_input_dtypes(dev, dtype):
+    """Other types go through f32 (exactly): the same picks as the f32
+    input."""
+    x = _t(np.random.default_rng(9).standard_normal((500, 64)).astype(
+        np.float32), dev).to(dtype)
+    k = stratified_knn(x, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(k, stratified_knn(x.float(), 16))
+
+
+def test_stratified_knn_kernel_rejects_wide_features(dev):
+    with pytest.raises(ValueError, match="C=513"):
+        stratified_knn(torch.zeros((64, 513), device=dev), 16)
 
 
 @pytest.mark.parametrize("lmax", [2, 10])
@@ -240,6 +309,60 @@ def test_mipmap_scatter_kernel(dev, ch, sizes, one_texel):
     for a, b in zip(k, t):
         # f32 atomics in another order
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-6
+
+
+def _scatter_check(uv, g, sizes):
+    """K2b against its plain version, every texel within 1e-5 x the sum of
+    its terms' magnitudes (f32 sums in another order)."""
+    n0 = mipmap_scatter.launches
+    k = mipmap_scatter(uv, g, sizes)
+    assert mipmap_scatter.launches == n0 + -(-len(sizes) // 4)
+    t = mipmap_scatter_torch(uv, g, sizes)
+    m = mipmap_scatter_torch(uv, g.abs(), sizes)
+    torch.cuda.synchronize()
+    for a, b, mm in zip(k, t, m):
+        assert bool(((a - b).abs() <= 1e-5 * mm + 1e-7).all())
+
+
+@pytest.mark.parametrize("ch", [24, 5])
+def test_mipmap_scatter_kernel_gbuffer_batch2(dev, ch):
+    """The synthetic G-buffer's uv at batch 2 (half of each frame on the
+    corner texel), 96^2: the pixel tiles of both images."""
+    uv = _t(build_batch(96, 16, 2)["uv_map"], dev)
+    g = _t(np.random.default_rng(ch).standard_normal((2, 96, 96, ch)).astype(
+        np.float32), dev)
+    _scatter_check(uv, g, (128, 64, 32, 16))
+
+
+@pytest.mark.parametrize("col", [3, 8, 13])
+def test_mipmap_scatter_kernel_seam_across_a_pixel_tile(dev, col):
+    """u jumps from about 0.02 to 0.98 at column `col` (inside an 8-pixel
+    tile at 3 and 13, on its edge at 8): a tile across it sees texels at
+    both ends of every level."""
+    rng = np.random.default_rng(col)
+    h, w = 12, 24
+    xs = np.arange(w, dtype=np.float32)
+    u = np.where(xs < col, 0.02 + 0.001 * xs, 0.98 - 0.001 * xs)
+    uv = np.stack([np.broadcast_to(u, (h, w)),
+                   np.broadcast_to(np.linspace(0.1, 0.9, h)[:, None],
+                                   (h, w))], -1)[None].astype(np.float32)
+    g = rng.standard_normal((1, h, w, 24)).astype(np.float32)
+    _scatter_check(_t(uv, dev), _t(g, dev), (256, 64, 16, 4))
+
+
+def test_mipmap_scatter_kernel_window_overflow(dev):
+    """Pixel tiles whose taps spread over more texels than a warp's box
+    holds (u sweeping the whole texture across 8 pixels at 512^2), beside
+    tiles that fit: both routes of the kernel in one launch."""
+    h, w = 8, 32
+    xs = np.arange(w, dtype=np.float32)
+    u = np.where(xs < 16, (xs % 8) / 7.0, 0.5 + 0.002 * xs)
+    uv = np.stack([np.broadcast_to(u, (h, w)),
+                   np.broadcast_to(np.linspace(0.3, 0.31, h)[:, None],
+                                   (h, w))], -1)[None].astype(np.float32)
+    g = np.random.default_rng(0).standard_normal((1, h, w, 24)).astype(
+        np.float32)
+    _scatter_check(_t(uv, dev), _t(g, dev), (512, 256, 128, 64))
 
 
 @pytest.mark.parametrize("c,o", [(5, 12), (64, 78), (108, 64), (24, 640)])

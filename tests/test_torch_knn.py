@@ -15,7 +15,9 @@ from rnr_tpu.ops.knn_pallas import stratified_knn as jax_stratified_knn
 from rnr_tpu_torch.convert import load_jax_variables
 from rnr_tpu_torch.models.gcn import (DenseDeepGCN, GCNConfig, knn_graph,
                                       pairwise_distance, sample_strata)
-from rnr_tpu_torch.ops.knn_cuda import stratified_knn, stratified_knn_torch
+from rnr_tpu_torch.ops.knn_cuda import (compare_picks, knn_work_bytes,
+                                        score_bound, stratified_knn,
+                                        stratified_knn_torch)
 
 torch.set_num_threads(2)
 
@@ -30,6 +32,88 @@ def test_stratified_twin_matches_jax_interpret(v, c):
     assert got.shape == (v, -(-v // 16)) and got.dtype == np.int32
     np.testing.assert_array_equal(got, want)   # exact indices
     assert stratified_knn.launches == 0
+
+
+def _near_tie_pair(seed, c=64):
+    """x [3, c] (bf16 values): row 0 a query, rows 1 and 2 two candidates
+    whose scores differ by 2^-24 exactly (row 2 = row 1 plus 2^-12 in a
+    channel where the query is 0), far inside f32 rounding of scores of
+    magnitude ~c."""
+    x = np.random.default_rng(seed).standard_normal((3, c)).astype(
+        np.float32)
+    x[0, -1] = 0.0
+    x[2] = x[1]
+    x[1, -1] = 0.0
+    x[2, -1] = 2.0 ** -12
+    return torch.from_numpy(x).to(torch.bfloat16).float()
+
+
+def test_score_bound_accepts_a_near_tie():
+    x = _near_tie_pair(0)
+    rows, a, b = torch.tensor([0]), torch.tensor([1]), torch.tensor([2])
+    xd = x.double()
+    gap = abs(float(2 * xd[0] @ xd[1] - xd[1] @ xd[1])
+              - float(2 * xd[0] @ xd[2] - xd[2] @ xd[2]))
+    assert gap == 2.0 ** -24
+    allow = float(score_bound(x, rows, a) + score_bound(x, rows, b))
+    assert 0 < gap <= allow
+    # a kernel that picked 2 where the plain version picked 1: a near-tie
+    got = torch.tensor([[2]], dtype=torch.int32)
+    want = torch.tensor([[1]], dtype=torch.int32)
+    r = compare_picks(x, got, want)
+    assert (r["differ"], r["near_ties"], r["exact_ties"]) == (1, 1, 0)
+    assert r["violations"] == [] and 0 < r["worst_gap_over_bound"] <= 1
+
+
+def test_compare_picks_rejects_the_second_best_pick():
+    """Random features: in every stratum the best and the second best are
+    far apart against f32 rounding, so the second best as the kernel's
+    pick is a violation wherever it differs."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (200, 64)).astype(np.float32))
+    want = stratified_knn_torch(x, 16)
+    xd = x.to(torch.bfloat16).double()
+    score = 2 * xd @ xd.T - (xd * xd).sum(1)[None, :]
+    ns = want.shape[1]
+    pad = ns * 16 - 200
+    score = torch.nn.functional.pad(score, (0, pad), value=float("-inf"))
+    second = torch.topk(score.reshape(200, ns, 16), 2, dim=-1).indices[..., 1]
+    got = (second + 16 * torch.arange(ns)[None, :]).clamp(max=199).to(
+        torch.int32)
+    r = compare_picks(x, got, want)
+    assert r["differ"] > 0.9 * want.numel()
+    assert len(r["violations"]) == r["differ"] - r["exact_ties"] - r[
+        "near_ties"]
+    assert len(r["violations"]) > 0.9 * want.numel()
+    i, s, a, b, gap, allow = r["violations"][0]
+    assert gap > allow > 0 and (a, b) == (int(got[i, s]), int(want[i, s]))
+
+
+def test_compare_picks_identical_columns_tie_exactly():
+    """Duplicated vertices: the two picks' scores are equal in double (a
+    gap of 0, an exact tie), and equal picks differ nowhere."""
+    x = _near_tie_pair(1)
+    x[2] = x[1]
+    got = torch.tensor([[2]], dtype=torch.int32)
+    want = torch.tensor([[1]], dtype=torch.int32)
+    r = compare_picks(x, got, want)
+    assert (r["differ"], r["exact_ties"], r["near_ties"]) == (1, 1, 0)
+    assert r["violations"] == [] and r["worst_gap_over_bound"] == 0.0
+    assert compare_picks(x, want, want)["differ"] == 0
+    assert float(score_bound(x, torch.tensor([0]), torch.tensor([1]))) > 0
+
+
+@pytest.mark.parametrize("v,c,want", [
+    (7500, 64, 7680 * 4 + 7500 * 64 * 2),    # the GCN's
+    (7500, 512, 7680 * 4 + 7500 * 512 * 2),
+    (7500, 3, 7680 * 4 + 7500 * 64 * 2),     # rows padded to 64 channels
+    (333, 130, 512 * 4 + 333 * 192 * 2),
+    (1, 1, 256 * 4 + 64 * 2),
+])
+def test_knn_work_bytes(v, c, want):
+    """The kernel's scratch: |x_j|^2 for every column of its 256-column
+    tiles, then x's rows in bf16 padded to a multiple of 64 channels."""
+    assert knn_work_bytes(v, c) == want
 
 
 def test_sample_strata_matches_jax():
