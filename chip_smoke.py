@@ -20,11 +20,13 @@ Phases (each failure raises, so the script exits non-zero):
            tolerance; the median time of the kernel, of its plain version
            and, where one PyTorch call computes the same function, of that
            call; and the bound: the least time the card could take for the
-           work.  K1 and K1b must also give, bit for bit, what they gave
-           before their ladder moved into csrc/sh_common.cuh (digests
-           K1_DIGESTS).  K1b, K5b and K3b run twice and must agree bit for
-           bit; K2b (f32 atomics) reports its run-to-run difference and
-           also runs at batch 2, with every pixel on the corner texel and
+           work.  K1 and K1b must also give, bit for bit, the outputs
+           pinned in K1_DIGESTS, so that a change to their order of sums
+           shows; K1b also runs at batch 2, and both report queued and
+           host times and f32 T-ops/s beside the median.  K1, K1b, K5b
+           and K3b run twice and must agree bit for bit; K2b (f32
+           atomics) reports its run-to-run difference and also runs at
+           batch 2, with every pixel on the corner texel and
            with a uv seam inside its pixel tiles.  K4 runs at V 7500 and C
            64, 3, 130 and 512: its picks equal the plain version's except
            at near-ties, where the two picks' scores in double lie within
@@ -280,14 +282,14 @@ ROUTE_FRAME_LAUNCHES = {
 AT_LEAST_ONE = ("mipmap_gather", "mipmap_scatter")
 
 # K1 and K1b at the kernels phase's inputs, sha256 of their outputs' bytes
-# (spec, diff; d rays_lt, d coeff) as built from csrc/sh_fan.cu before its
-# ladder moved into csrc/sh_common.cuh (nvcc 12.9, NVIDIA H100 80GB HBM3);
-# the shared header left both unchanged, bit for bit
+# (spec, diff; d rays_lt, d coeff) from csrc/sh_fan.cu's scaled ladder with
+# the orders split between warps (nvcc 12.9, NVIDIA H100 80GB HBM3): a
+# refactor that keeps the arithmetic keeps them
 K1_DIGESTS = {
     "sh_shade_fan":
-        "d5236b3679b4494db2bc0d7f0fc7096674d26117a29a04117ac51b2468c0984a",
+        "b7a5a1eea63605cbc8eab9a9e71b4cc624248d94e522443b4b12df4cd11864d7",
     "sh_shade_fan_bwd":
-        "7911b0ac4e0da69cae5359c9c22be25429968eefed8c81de9c5ddc75ec8d779b",
+        "3cdb0e69cad0b27d8dbd2bb4e1509f0a411442c8b6a9ca0795a62648531f1e5d",
 }
 
 # the relighting routes of rnr_tpu's test_rnr: (model variant, SH fit,
@@ -472,8 +474,7 @@ def digest(*ts: torch.Tensor) -> str:
 def check_digest(name: str, got: str) -> None:
     if got != K1_DIGESTS[name]:
         raise AssertionError(f"{name}: output digest {got} differs from "
-                             f"{K1_DIGESTS[name]}, the kernel's before the "
-                             "ladder moved into sh_common.cuh")
+                             f"{K1_DIGESTS[name]}, the pinned one")
 
 
 def texture_work(n_pix: int, ch: int, sizes, taps: int):
@@ -575,7 +576,10 @@ def _gbuffer(img: int, batch: int = 1):
 
 
 def kernels_sh(rec: dict, b: dict, rng) -> None:
-    """K1 and K1b: 512^2, lmax 10, 13 + 13 rays, bf16 rays_lt."""
+    """K1 and K1b: 512^2, lmax 10, 13 + 13 rays, bf16 rays_lt; K1b also at
+    batch 2 (its own seed).  Single-call medians, calls queued back to
+    back, the wrappers' host time, and f32 T-ops/s: sh_work's operations
+    over the queued time."""
     from rnr_tpu_torch.models.rays import RaySampler
     spec, diff = RaySampler(6, 2, 5.0, "reflect"), RaySampler(6, 2, 10.0,
                                                               "diffuse")
@@ -590,24 +594,27 @@ def kernels_sh(rec: dict, b: dict, rng) -> None:
             piv, 10, 13)
     n_pix = IMG * IMG
     ks, kd = sh_shade_fan(*args)
+    ks2, kd2 = sh_shade_fan(*args)
     ts, td = sh_shade_fan_torch(*args)
     torch.cuda.synchronize()
+    if not (torch.equal(ks, ks2) and torch.equal(kd, kd2)):
+        raise AssertionError("sh_shade_fan: two runs differ")
     scale = max(float(ts.abs().max()), float(td.abs().max()))
     err = max(float((ks - ts).abs().max()), float((kd - td).abs().max()))
     tol = 1e-4 * scale + 1e-5   # f32 both sides; FMA and sum order differ
     log(f"[kernels] sh_shade_fan {IMG}^2 lmax10 R26 bf16: max abs err "
         f"{err:.3g}, rel {err / scale:.3g} (max |ref| {scale:.3g}, "
-        f"tol {tol:.3g})")
+        f"tol {tol:.3g}); two runs bitwise equal")
     check("sh_shade_fan", err, tol)
     check_digest("sh_shade_fan", digest(ks, kd))
-    log("[kernels] sh_shade_fan: output bit-equal to the kernel's before "
-        "the shared ladder header (digest)")
-    rec["sh_shade_fan"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: sh_shade_fan(*args)),
+    log("[kernels] sh_shade_fan: output bit-equal to the pinned digest")
+    rec["sh_shade_fan"] = sh_times(
+        lambda: sh_shade_fan(*args), sh_work(n_pix, 26, 10, 2, False),
+        max_abs_err=err, bitwise_reproducible=True,
         plain_ms=cuda_ms(lambda: sh_shade_fan_torch(*args), iters=3,
-                         warmup=1),
-        library_ms=None, **sh_work(n_pix, 26, 10, 2, False))
-    del ks, kd, ts, td
+                         warmup=1), library_ms=None)
+    log_sh_times("sh_shade_fan", rec["sh_shade_fan"])
+    del ks, kd, ks2, kd2, ts, td
 
     # K1b: the output gradients of both means
     gs = torch.from_numpy(rng.standard_normal((1, IMG, IMG, 3)).astype(
@@ -615,36 +622,75 @@ def kernels_sh(rec: dict, b: dict, rng) -> None:
     gd = torch.from_numpy(rng.standard_normal((1, IMG, IMG, 3)).astype(
         np.float32)).to(DEV)
     bargs = (*args[:6], gs, gd, 10, 13)
+    kl, kc, err_c, err_l = sh_bwd_case(bargs, "b1")
+    check_digest("sh_shade_fan_bwd", digest(kl, kc))
+    log("[kernels] sh_shade_fan_bwd: output bit-equal to the pinned digest")
+    rec["sh_shade_fan_bwd"] = sh_times(
+        lambda: sh_shade_fan_bwd(*bargs), sh_work(n_pix, 26, 10, 2, True),
+        max_abs_err=max(err_c, err_l), dcoeff_max_abs_err=err_c,
+        dlt_max_abs_err=err_l, bitwise_reproducible=True,
+        plain_ms=cuda_ms(lambda: sh_shade_fan_bwd_torch(*bargs), iters=3,
+                         warmup=1), library_ms=None)
+    log_sh_times("sh_shade_fan_bwd", rec["sh_shade_fan_bwd"])
+    del kl, kc, lt
+
+    # K1b at batch 2: the b2 step's 524,288 pixels, its own seed
+    r2 = np.random.default_rng(9)
+    b2 = _gbuffer(IMG, 2)
+    lt2 = torch.from_numpy(r2.uniform(0, 2, (2, IMG, IMG, 26, 3)).astype(
+        np.float32)).to(DEV, torch.bfloat16)
+    g2 = [torch.from_numpy(r2.standard_normal((2, IMG, IMG, 3)).astype(
+        np.float32)).to(DEV) for _ in range(2)]
+    bargs2 = (b2["TBN_map"], b2["view_dir_map_tangent"], b2["alpha_map"],
+              lt2, cf, piv, *g2, 10, 13)
+    _, _, err_c2, err_l2 = sh_bwd_case(bargs2, "b2")
+    b2_rec = sh_times(lambda: sh_shade_fan_bwd(*bargs2),
+                      sh_work(2 * n_pix, 26, 10, 2, True),
+                      dcoeff_max_abs_err=err_c2, dlt_max_abs_err=err_l2)
+    log_sh_times("sh_shade_fan_bwd b2", b2_rec)
+    rec["sh_shade_fan_bwd"]["b2"] = b2_rec
+    del lt2, g2, b2, bargs2
+    torch.cuda.synchronize()
+
+
+def sh_bwd_case(bargs, tag: str):
+    """K1b twice (bit-equal) against its plain version: d coeff within
+    1e-4 x its max, d rays_lt within 2^-7 x its max."""
     kl, kc = sh_shade_fan_bwd(*bargs)
     kl2, kc2 = sh_shade_fan_bwd(*bargs)
     tl, tc = sh_shade_fan_bwd_torch(*bargs)
     torch.cuda.synchronize()
     if not (torch.equal(kc, kc2) and torch.equal(kl, kl2)):
-        raise AssertionError("sh_shade_fan_bwd: two runs differ")
-    check_digest("sh_shade_fan_bwd", digest(kl, kc))
+        raise AssertionError(f"sh_shade_fan_bwd {tag}: two runs differ")
     err_c = float((kc - tc).abs().max())
     scale_c = float(tc.abs().max())
-    # d coeff: f32 sums over 6.8M pixel-rays in another order
-    check("sh_shade_fan_bwd d coeff", err_c, 1e-4 * scale_c)
+    # d coeff: f32 sums over 6.8M pixel-rays (b1) in another order
+    check(f"sh_shade_fan_bwd {tag} d coeff", err_c, 1e-4 * scale_c)
     err_l = float((kl.float() - tl.float()).abs().max())
     scale_l = float(tl.float().abs().max())
     # d rays_lt: f32 radiance (FMA contraction), then one bf16 rounding,
     # which may land one step (2^-8 relative) the other way
-    check("sh_shade_fan_bwd d rays_lt", err_l, 2 ** -7 * scale_l)
-    log(f"[kernels] sh_shade_fan_bwd: d coeff max abs err {err_c:.3g} "
+    check(f"sh_shade_fan_bwd {tag} d rays_lt", err_l, 2 ** -7 * scale_l)
+    log(f"[kernels] sh_shade_fan_bwd {tag}: d coeff max abs err {err_c:.3g} "
         f"(rel {err_c / scale_c:.3g}, tol 1e-4 x max), d rays_lt max abs "
         f"err {err_l:.3g} (rel {err_l / scale_l:.3g}, tol 2^-7 x max); "
-        f"two runs bitwise equal, and equal to the kernel's before the "
-        f"shared ladder header (digest)")
-    rec["sh_shade_fan_bwd"] = dict(
-        max_abs_err=max(err_c, err_l), dcoeff_max_abs_err=err_c,
-        dlt_max_abs_err=err_l, bitwise_reproducible=True,
-        ms=cuda_ms(lambda: sh_shade_fan_bwd(*bargs)),
-        plain_ms=cuda_ms(lambda: sh_shade_fan_bwd_torch(*bargs), iters=3,
-                         warmup=1),
-        library_ms=None, **sh_work(n_pix, 26, 10, 2, True))
-    del kl, kc, kl2, kc2, tl, tc, lt
-    torch.cuda.synchronize()
+        f"two runs bitwise equal")
+    return kl, kc, err_c, err_l
+
+
+def sh_times(fn, work: dict, **extra) -> dict:
+    """A K1 / K1b record: the single-call median, the queued time, the
+    host time, the bound (sh_work) and the f32 rate it implies: sh_work's
+    operations over the queued time."""
+    ms, q_ms = cuda_ms(fn), queued_ms(fn)
+    return dict(extra, ms=ms, queued_ms=q_ms, host_us=host_us(fn),
+                f32_tops=work["bound_ms"] / q_ms * F32_FLOPS / 1e12, **work)
+
+
+def log_sh_times(name: str, r: dict) -> None:
+    log(f"[kernels] {name}: {r['ms']:.4f} ms single, {r['queued_ms']:.4f} "
+        f"ms queued ({r['f32_tops']:.1f} f32 T-ops/s of sh_work's count), "
+        f"host {r['host_us']:.1f} us, bound {r['bound_ms']:.4f} ms")
 
 
 def kernels_shade(rec: dict, b: dict) -> None:

@@ -1,8 +1,9 @@
-"""Time K4 (csrc/stratified_knn.cu) and K2b (csrc/mipmap_scatter.cu) on
-one NVIDIA GPU with parts of each kernel switched off, to see which part
-bounds it.
+"""Time K4 (csrc/stratified_knn.cu), K2b (csrc/mipmap_scatter.cu), K1 and
+K1b (csrc/sh_fan.cu) on one NVIDIA GPU with parts of each kernel switched
+off, to see which part bounds it.
 
     python3 chip_variants.py
+    python3 chip_variants.py --kernels K1b --variants real,staging
 
 Each variant is the real source with one textual switch applied, written
 to build/rnr_tpu_torch/variants/ and built with the flags of
@@ -24,14 +25,52 @@ K2b: real; no_atomics (every reduction into the gradient skipped);
      taps: no group summed first); no_sums (the per-tap work gone: no
      sort, no sums, no reductions);
      staging (the g rows and uv read, no level processed).
+K1:  real; ladder_only (the radiance fold and the means gone: the
+     ladder values summed into one register); no_lt_loads (a constant
+     in place of every rays_lt value); literals (the ladder constants of
+     lmax 10 written into the source instead of read from constant
+     memory; the thread-per-pixel design) or coeff_literals (the
+     coefficients written into the source: what their constant-memory
+     loads cost; the design after it); one_pixel (one pixel per thread
+     instead of two).  At 512^2, lmax 10, 13 + 13 rays, bf16 rays_lt, on
+     the synthetic G-buffer of chip_smoke.py.
+K1b: real; no_dcoeff (the d coeff contraction gone); no_dlt_stores;
+     forward_only (both gone: the ray fan, the ladder and the radiance
+     remain); in the design after the thread-per-pixel one also staging
+     (the walks gone: the rays, the barriers, the radiance parts' sum and
+     the copies remain), skeleton (staging without the rays built after
+     the first chunk's, the radiance parts' sums and the rays_lt and
+     d rays_lt copies), two_rays (two pixel-rays per lane in a walk
+     instead of one), four_blocks (registers capped for four blocks an SM
+     instead of three), six_warps (the orders split six ways, in chunks
+     of 3 rays), dc_immediate (each d coeff FMA's rays_lt * gsel factor
+     a literal: two register operands instead of three) and
+     dc_one_channel (the d coeff FMAs of one channel of three),
+     no_reduce (no block reduction of d coeff into the partials),
+     no_partials_sum (no second kernel) and px128 (blocks of 128 pixels
+     in chunks of 2 rays), at b1 and b2.  occupancy (K1 and K1b) times
+     nothing: it prints the blocks an SM of the lmax-10 bf16 kernel.
+The SH variants are built for lmax 10 alone, and the switches follow the
+design of csrc/sh_fan.cu that they find (one thread per pixel with the
+backward's d coeff contracted through shared memory, or the orders split
+between warps with d coeff in registers), so that
+
+    python3 chip_variants.py --kernels K1,K1b --csrc OLD/rnr_tpu_torch/csrc
+
+times a parent checkout's kernels beside this one's; each SH build also
+prints its registers and spills (ptxas) and its static SASS instruction
+count by opcode (cuobjdump).
 Prints one line per (kernel, case, variant) and the card's name and
 power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -44,8 +83,11 @@ import torch  # noqa: E402
 
 from rnr_tpu_torch.ops import _build  # noqa: E402
 from rnr_tpu_torch.ops.knn_cuda import knn_work_bytes  # noqa: E402
+from rnr_tpu_torch.ops.sh import ladder_constants  # noqa: E402
+from rnr_tpu_torch.ops.sh_cuda import fan_basis_scale  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "rnr_tpu_torch", "variants")
+SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 K4_VARIANTS = {
     "real": [],
@@ -80,26 +122,251 @@ K2B_VARIANTS = {
 }
 
 
-def build(src: str, name: str, switches) -> ctypes.CDLL:
-    text = open(os.path.join(_build.CSRC, f"{src}.cu")).read()
+# The SH sources, built for lmax 10 alone (the shared header inlined).
+SH_COMMON = [("CASE(1) CASE(2) CASE(3) CASE(4) CASE(5)", ""),
+             ("CASE(6) CASE(7) CASE(8) CASE(9) CASE(10)", "CASE(10)")]
+
+
+def _literal_ladder() -> str:
+    """The lmax-10 ladder table as an initialised device array: read at
+    the compile-time offsets of the unrolled ladder, its loads fold into
+    literals."""
+    vals = ", ".join(f"{float(np.float32(v))!r}f"
+                     for v in ladder_constants(10))
+    return f"__device__ const float c_ladder_lit[] = {{{vals}}};\n"
+
+
+# appended to a build of the design after the thread-per-pixel one: the
+# blocks of each lmax-10 bf16 kernel that fit on an SM, as the runtime
+# computes them for the launch's block and shared-memory sizes
+OCCUPANCY = """
+extern "C" int rnr_sh_fan_blocks_per_sm(int bwd, int r_total) {
+  int n = -1;
+  const int lt = (int)sizeof(__nv_bfloat16);
+  if (bwd) {
+    const int smem = BwdSmem(10, r_total, lt).total_bytes;
+    set_smem((const void*)sh_fan_bwd_kernel<10, __nv_bfloat16>, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, sh_fan_bwd_kernel<10, __nv_bfloat16>, FAN_BWD_THREADS, smem);
+  } else {
+    const int smem = FWD_PIXELS * r_total * 3 * lt;
+    set_smem((const void*)sh_fan_kernel<10, __nv_bfloat16>, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, sh_fan_kernel<10, __nv_bfloat16>, FWD_THREADS, smem);
+  }
+  return n;
+}
+"""
+
+
+# per design of csrc/sh_fan.cu (told apart by a line only it has):
+# {variant: switches} for K1 and K1b
+SH_DESIGNS = {
+    "thread per pixel, d coeff through shared memory": (
+        "dot_basis_rows<NB>(bs, lg, tid, acc0, acc1);",
+        {"real": [],
+         "ladder_only": [
+             ("""      fold_radiance(l, m, q, cm, sm, rad);
+    });""", """      rad[0] += q;
+    });"""),
+             ("""      const float contrib = load_lt(lt + r * 3 + c) * (rad[c] * al);
+      if (r < r_spec) acc_s[c] += contrib * inv_spec;
+      else acc_d[c] += contrib * inv_diff;""",
+              "      if (c == 0) acc_s[0] += rad[0];")],
+         "no_lt_loads": [
+             ("const float contrib = load_lt(lt + r * 3 + c) * (rad[c] * al);",
+              "const float contrib = 1.5f * (rad[c] * al);")],
+         "literals": "LITERALS"},
+        {"real": [],
+         "no_dcoeff": [
+             ("fold_radiance(l, m, q, cm, sm, rad, bs, tid);",
+              "fold_radiance(l, m, q, cm, sm, rad);"),
+             ("""    lg[tid] = make_float4(ltg[0], ltg[1], ltg[2], 0.f);
+    __syncthreads();
+    dot_basis_rows<NB>(bs, lg, tid, acc0, acc1);
+    __syncthreads();""", "    acc0[0] += ltg[0] + ltg[1] + ltg[2];")],
+         "no_dlt_stores": [
+             ("store_lt(dl + r * 3 + c, rad[c] * gsel);",
+              "if (rad[c] == 1.2345e-30f) store_lt(dl + r * 3 + c, rad[c] * gsel);")],
+         "forward_only": [
+             ("fold_radiance(l, m, q, cm, sm, rad, bs, tid);",
+              "fold_radiance(l, m, q, cm, sm, rad);"),
+             ("""    lg[tid] = make_float4(ltg[0], ltg[1], ltg[2], 0.f);
+    __syncthreads();
+    dot_basis_rows<NB>(bs, lg, tid, acc0, acc1);
+    __syncthreads();""", "    acc0[0] += ltg[0] + ltg[1] + ltg[2];"),
+             ("store_lt(dl + r * 3 + c, rad[c] * gsel);",
+              "if (rad[c] == 1.2345e-30f) store_lt(dl + r * 3 + c, rad[c] * gsel);")]},
+        [("c_ladder[k++]", "c_ladder_lit[k++]"),
+         ("template <int LMAX, typename Put>\n__device__ __forceinline__ void sh_ladder(",
+          "LADDER_LIT\ntemplate <int LMAX, typename Put>\n"
+          "__device__ __forceinline__ void sh_ladder(")],
+        {}),
+    "orders split between warps, d coeff in registers": (
+        "owned_orders<LMAX, decltype(wc)::value>(ct, t1c, t1s, ltg, tpow, j,",
+        {"real": [],
+         "ladder_only": [
+             ("""          a[i][c] = fmaf(cf<l, m>(c), r[i], a[i][c]);
+          if constexpr (m > 0) b[i][c] = fmaf(cf<l, -m>(c), r[i], b[i][c]);""",
+              "          if (c == 0) a[i][0] += r[i];"),
+             ("""        a[i][c] = cf<m, m>(c);
+        if constexpr (m > 0) b[i][c] = cf<m, -m>(c);""",
+              "        a[i][c] = 0.f;"),
+             ("        else rad[i][c] = fmaf(tc[i], a[i][c], fmaf(ts[i], b[i][c], "
+              "rad[i][c]));",
+              "        else if (c == 0) rad[i][0] += a[i][0] + tc[i] + ts[i];"),
+             ("""        const float v = load_lt(lt[i] + r * 3 + c) * rad[i][c];
+        if (is_spec) acc_s[i][c] += v;
+        else acc_d[i][c] += v;""", "        acc_s[i][c] += rad[i][c];")],
+         "no_lt_loads": [
+             ("""  copy_rows(lts, rays_lt + (size_t)p0 * row, np * row * (int)sizeof(LT),
+            threadIdx.x, FWD_THREADS);""", ""),
+             ("const float v = load_lt(lt[i] + r * 3 + c) * rad[i][c];",
+              "const float v = 1.5f * rad[i][c];")],
+         "coeff_literals": [
+             ("  return c_coeff[(L * L + L + M) * 3 + c];",
+              "  return 0.01f * (float)(((L * L + L + M) * 3 + c) % 7 + 1);")],
+         "occupancy": "OCCUPANCY",
+         "one_pixel": [
+             ("constexpr int FWD_NP = 2; ", "constexpr int FWD_NP = 1; "),
+             ("constexpr int FWD_THREADS = 64;",
+              "constexpr int FWD_THREADS = 128;")]},
+        {"real": [],
+         "no_dcoeff": "NO_DCOEFF",
+         "no_dlt_stores": "NO_DLT",
+         "forward_only": "NO_DCOEFF+NO_DLT",
+         "staging": "STAGING",
+         "two_rays": [("constexpr int FAN_BWD_NP = 1; ",
+                       "constexpr int FAN_BWD_NP = 2; ")],
+         "four_blocks": [
+             ("__launch_bounds__(FAN_BWD_THREADS, 3)",
+              "__launch_bounds__(FAN_BWD_THREADS, 4)")],
+         "dc_immediate": [
+             ("            dc[s][c] = fmaf(r[i], cl[i][c], dc[s][c]);",
+              "            dc[s][c] = fmaf(r[i], 1.5f, dc[s][c]);"),
+             ("              dc[s + 1][c] = fmaf(r[i], sl[i][c], dc[s + 1][c]);",
+              "              dc[s + 1][c] = fmaf(r[i], 2.5f, dc[s + 1][c]);")],
+         "dc_one_channel": [
+             ("            dc[s][c] = fmaf(r[i], cl[i][c], dc[s][c]);",
+              "            if (c == 0) dc[s][c] = fmaf(r[i], cl[i][c], dc[s][c]);"),
+             ("              dc[s + 1][c] = fmaf(r[i], sl[i][c], dc[s + 1][c]);",
+              "              if (c == 0) dc[s + 1][c] = fmaf(r[i], sl[i][c], "
+              "dc[s + 1][c]);")],
+         "skeleton": "STAGING+NO_BUILD+NO_SUM+NO_IO",
+         "occupancy": "OCCUPANCY",
+         "no_reduce": [("  for_warp(warp, [&](auto wc) {\n    owned_rows_out<",
+                        "  if (np == -7) for_warp(warp, [&](auto wc) {\n    owned_rows_out<")],
+         "no_partials_sum": [("  sum_fan_partials<<<", "  if (n_pix == -7) sum_fan_partials<<<")],
+         "px128": [("constexpr int FAN_BWD_PIXELS = 64; ",
+                    "constexpr int FAN_BWD_PIXELS = 128; "),
+                   ("constexpr int FAN_CHUNK_RAYS = 4; ",
+                    "constexpr int FAN_CHUNK_RAYS = 2; ")],
+         "six_warps": [("constexpr int FAN_WARPS = 4; ",
+                        "constexpr int FAN_WARPS = 6; "),
+                       ("constexpr int FAN_CHUNK_RAYS = 4; ",
+                        "constexpr int FAN_CHUNK_RAYS = 3; ")]},
+        [],
+        {"OCCUPANCY": [('extern "C" int rnr_sh_shade_fan_bwd_partials(',
+                        OCCUPANCY
+                        + 'extern "C" int rnr_sh_shade_fan_bwd_partials(')],
+         "STAGING": [
+            ("""owned_orders<LMAX, decltype(wc)::value>(ct, t1c, t1s, ltg, tpow, j,
+                                                dc, rad);""",
+             "rad[0][0] = ct[0] + t1c[0] + t1s[0] + ltg[0][1] + tpow[j].x;")],
+         "NO_BUILD": [("    if (k + 1 < n_chunks)\n      build_rays<LMAX>(",
+                       "    if (k + 1 < -7)\n      build_rays<LMAX>(")],
+         "NO_SUM": [("    if (k > 0)\n      sum_radiance(",
+                     "    if (k < -7)\n      sum_radiance(")],
+         "NO_IO": [
+             ("  copy_rows(rows, rays_lt + (size_t)p0 * row, row_bytes, tid, "
+              "FAN_BWD_THREADS);", ""),
+             ("  copy_rows(dlt + (size_t)p0 * row, rows, row_bytes, tid,",
+              "  if (row_bytes == -7) copy_rows(dlt + (size_t)p0 * row, rows, "
+              "row_bytes, tid,")],
+         "NO_DCOEFF": [
+            ("          dc[s0][c] += cl[i][c];\n", ""),
+            ("            dc[s0 + 1][c] += sl[i][c];\n", ""),
+            ("            dc[s][c] = fmaf(r[i], cl[i][c], dc[s][c]);\n", ""),
+            ("              dc[s + 1][c] = fmaf(r[i], sl[i][c], dc[s + 1][c]);\n",
+             "")],
+         "NO_DLT": [
+             ("  copy_rows(dlt + (size_t)p0 * row, rows, row_bytes, tid,",
+              "  if (row_bytes == -7) copy_rows(dlt + (size_t)p0 * row, rows, "
+              "row_bytes, tid,")]}),
+}
+
+
+def sh_variants(csrc: str):
+    """(K1 variants, K1b variants) of the design found in csrc."""
+    text = open(os.path.join(csrc, "sh_fan.cu")).read()
+    for design, (marker, k1, k1b, literals, parts) in SH_DESIGNS.items():
+        if marker in text:
+            parts = dict(parts, LITERALS=[
+                (o, n.replace("LADDER_LIT", _literal_ladder()))
+                for o, n in literals])
+
+            def expand(v):   # a list of switches, or names of parts
+                if isinstance(v, list):
+                    return v
+                return [sw for name in v.split("+") for sw in parts[name]]
+            return (design, {k: expand(v) for k, v in k1.items()},
+                    {k: expand(v) for k, v in k1b.items()})
+    raise RuntimeError(f"{csrc}/sh_fan.cu: no known design")
+
+
+def build(src: str, name: str, switches, csrc: str = str(_build.CSRC),
+          tag: str = "") -> ctypes.CDLL:
+    text = open(os.path.join(csrc, f"{src}.cu")).read()
+    if src == "sh_fan":
+        header = open(os.path.join(csrc, "sh_common.cuh")).read()
+        text = text.replace('#include "sh_common.cuh"', header)
+        switches = SH_COMMON + list(switches)
     for old, new in switches:
         if old not in text:
             raise RuntimeError(f"{src} {name}: switch not found: {old!r}")
         text = text.replace(old, new)
     os.makedirs(OUT, exist_ok=True)
-    path = os.path.join(OUT, f"{src}_{name}.cu")
+    path = os.path.join(OUT, f"{src}{tag}_{name}.cu")
     with open(path, "w") as f:
         f.write(text)
     so = path[:-3] + ".so"
     res = subprocess.run([_build._nvcc(), *_build._flags(src), "-I",
-                          str(_build.CSRC), "-o", so, path],
+                          csrc, "-o", so, path],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc {src} {name}:\n{res.stderr}")
     for ln in res.stderr.splitlines():
         if "registers" in ln or "spill" in ln:
-            print(f"[build] {src} {name}: {ln.strip()}", flush=True)
+            print(f"[build] {src}{tag} {name}: {ln.strip()}", flush=True)
     return ctypes.CDLL(so)
+
+
+def sass_counts(so: str, match: str) -> dict:
+    """Static SASS instructions of each kernel in `so` whose name holds
+    `match`, by opcode (cuobjdump -sass), for the loop bodies' sizes."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", so], capture_output=True,
+                         text=True).stdout
+    counts: dict = {}
+    cur = None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            cur = counts.setdefault(name, {}) if match in name else None
+            continue
+        mt = SASS_OP.search(ln)
+        if cur is not None and mt:
+            op = mt.group(2).split(".")[0]
+            cur[op] = cur.get(op, 0) + 1
+    return counts
+
+
+def print_sass(so: str, tag: str) -> None:
+    for fn_name, ops in sass_counts(so, "nv_bfloat16").items():
+        kern = "bwd" if "bwd" in fn_name else "fwd"
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+        print(f"[sass] {tag} {kern}: {sum(ops.values())} instructions: "
+              + ", ".join(f"{k} {v}" for k, v in top), flush=True)
 
 
 def entry(lib, symbol: str, n_ptr: int, n_int: int):
@@ -126,27 +393,26 @@ def device_us(call, n: int = 20) -> float:
     return a.elapsed_time(b) / n * 1e3
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_variants: needs an NVIDIA GPU")
-    dev = torch.device("cuda", 0)
-    stream = torch.cuda.current_stream().cuda_stream
+def time_k4(dev, stream) -> None:
     v = 7500
+    libs = build_all("stratified_knn", K4_VARIANTS)
     for c in (64, 512):
         x = torch.from_numpy(np.random.default_rng(c).standard_normal(
             (v, c)).astype(np.float32)).to(dev)
         out = torch.empty((v, -(-v // 16)), dtype=torch.int32, device=dev)
         work = torch.empty(knn_work_bytes(v, c), dtype=torch.uint8,
                            device=dev)
-        for name, switches in K4_VARIANTS.items():
-            f = entry(build("stratified_knn", name, switches),
-                      "rnr_stratified_knn", 3, 2)
+        for name, lib in libs.items():
+            f = entry(lib, "rnr_stratified_knn", 3, 2)
             us = device_us(lambda: f(x.data_ptr(), out.data_ptr(),
                                      work.data_ptr(), v, c, stream))
             print(f"K4 V{v} C{c} {name}: {us:.2f} us per call "
                   f"({2 * v * v * c / us / 1e6:.1f} TFLOP/s)", flush=True)
 
+
+def time_k2b(dev, stream) -> None:
     from rnr_tpu_torch.synthetic import build_batch
+    libs = build_all("mipmap_scatter", K2B_VARIANTS)
     uv = torch.from_numpy(build_batch(512, 16, 1)["uv_map"]).to(dev)
     covered = (uv != 0).any(-1, keepdim=True)
     cases = {"G-buffer uv": uv,
@@ -157,15 +423,127 @@ def main() -> None:
         (1, 512, 512, 24)).astype(np.float32)).to(dev)
     sizes = (512, 256, 128, 64)
     grads = [torch.zeros((s, s, 24), device=dev) for s in sizes]
-    for name, switches in K2B_VARIANTS.items():
-        f = entry(build("mipmap_scatter", name, switches),
-                  "rnr_mipmap_scatter", 6, 9)
+    for name, lib in libs.items():
+        f = entry(lib, "rnr_mipmap_scatter", 6, 9)
         for tag, u in cases.items():
             us = device_us(lambda: f(*[t.data_ptr() for t in grads],
                                      u.data_ptr(), g.data_ptr(), *sizes, 4,
                                      1, 512, 512, 24, stream))
             print(f"K2b 512^2 x 4 levels x 24, {tag}, {name}: {us:.2f} us "
                   "per call", flush=True)
+
+
+def sh_inputs(dev, batch: int) -> tuple:
+    """The kernels phase's K1 / K1b operands at 512^2 and `batch`: the
+    synthetic G-buffer, 13 + 13 pivots, bf16 rays_lt, coeff of lmax 10,
+    the ladder table, two output gradients."""
+    from rnr_tpu_torch.models.rays import RaySampler
+    from rnr_tpu_torch.synthetic import build_batch
+    b = build_batch(512, 16, batch)
+    rng = np.random.default_rng(batch)
+    piv = np.concatenate([RaySampler(6, 2, 5.0, "reflect").pivots_dir.T,
+                          RaySampler(6, 2, 10.0, "diffuse").pivots_dir.T])
+    t = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+         for a in (b["TBN_map"], b["view_dir_map_tangent"], b["alpha_map"],
+                   rng.uniform(0, 2, (batch, 512, 512, 26, 3)),
+                   0.3 * rng.standard_normal((121, 3)), piv,
+                   ladder_constants(10),
+                   rng.standard_normal((batch, 512, 512, 3)),
+                   rng.standard_normal((batch, 512, 512, 3)))]
+    t[3] = t[3].to(torch.bfloat16)
+    return tuple(t)
+
+
+def time_sh(dev, stream, csrc: str, which, only=None) -> None:
+    design, k1, k1b = sh_variants(csrc)
+    if only:
+        k1 = {k: v for k, v in k1.items() if k in only}
+        k1b = {k: v for k, v in k1b.items() if k in only}
+    tag = "" if csrc == str(_build.CSRC) else "_other"
+    print(f"SH kernels of {csrc}: {design}", flush=True)
+    for kname, table in (("K1", k1), ("K1b", k1b)):
+        if kname not in which:
+            continue
+        libs = build_all("sh_fan", table, csrc, tag)
+        for name in table:
+            print_sass(os.path.join(OUT, f"sh_fan{tag}_{name}.so"),
+                       f"{kname} {name}")
+        for batch in ((1,) if kname == "K1" else (1, 2)):
+            tb, vd, al, lt, cf, pv, lad, gs, gd = sh_inputs(dev, batch)
+            n_pix = batch * 512 * 512
+            spec = torch.empty((n_pix, 3), device=dev)
+            diff = torch.empty_like(spec)
+            dlt = torch.empty_like(lt)
+            dcf = torch.empty_like(cf)
+            # scratch for any backward block of 32 pixels or more
+            part = torch.empty((-(-n_pix // 32), cf.numel()), device=dev)
+            old = design.startswith("thread per pixel")
+            scale = torch.tensor(fan_basis_scale(10), device=dev)
+            cfs = cf * scale[:, None]
+            for name, lib in libs.items():
+                if hasattr(lib, "rnr_sh_fan_blocks_per_sm"):
+                    q = lib.rnr_sh_fan_blocks_per_sm
+                    q.argtypes, q.restype = [ctypes.c_int] * 2, ctypes.c_int
+                    print(f"{kname} {name}: {q(int(kname == 'K1b'), 26)} "
+                          "blocks an SM (cudaOccupancyMaxActiveBlocks"
+                          "PerMultiprocessor, R 26)", flush=True)
+                    continue
+                if kname == "K1" and old:
+                    f = entry(lib, "rnr_sh_shade_fan", 9, 6)
+                    args = (tb, vd, al, lt, cf, pv, lad, spec, diff)
+                    ints = (10, lad.numel(), n_pix, 26, 13, 1)
+                elif kname == "K1":
+                    f = entry(lib, "rnr_sh_shade_fan", 8, 5)
+                    args = (tb, vd, al, lt, cfs, pv, spec, diff)
+                    ints = (10, n_pix, 26, 13, 1)
+                elif old:
+                    f = entry(lib, "rnr_sh_shade_fan_bwd", 12, 6)
+                    args = (tb, vd, al, lt, cf, pv, lad, gs, gd, dlt, part,
+                            dcf)
+                    ints = (10, lad.numel(), n_pix, 26, 13, 1)
+                else:
+                    f = entry(lib, "rnr_sh_shade_fan_bwd", 12, 6)
+                    args = (tb, vd, al, lt, cfs, pv, scale, gs, gd, dlt,
+                            part, dcf)
+                    ints = (10, n_pix, 26, 13, 1, part.numel())
+                ptrs = [a.data_ptr() for a in args]
+                us = device_us(lambda: f(*ptrs, *ints, stream))
+                print(f"{kname} b{batch} 512^2 lmax10 R26 bf16 {name}: "
+                      f"{us:.2f} us per call", flush=True)
+            del tb, vd, al, lt, gs, gd, dlt, part
+
+
+def build_all(src: str, table: dict, csrc: str = str(_build.CSRC),
+              tag: str = "") -> dict:
+    """Every variant of one source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(table)) as pool:
+        futs = {name: pool.submit(build, src, name, sw, csrc, tag)
+                for name, sw in table.items()}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", default="K4,K2b,K1,K1b",
+                    help="comma-separated subset of K4,K2b,K1,K1b")
+    ap.add_argument("--csrc", default=str(_build.CSRC),
+                    help="the csrc directory whose SH kernels are timed")
+    ap.add_argument("--variants", default="",
+                    help="comma-separated SH variants to time (default all)")
+    args = ap.parse_args()
+    which = set(args.kernels.split(","))
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_variants: needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    if "K4" in which:
+        time_k4(dev, stream)
+    if "K2b" in which:
+        time_k2b(dev, stream)
+    if which & {"K1", "K1b"}:
+        time_sh(dev, stream, os.path.abspath(args.csrc), which,
+                set(filter(None, args.variants.split(","))))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

@@ -1,11 +1,12 @@
-// The parts that the SH shading kernels share: K1 / K1b (sh_fan.cu, the
-// ray fan built in the kernel) and K5 / K5b (sh_shade.cu, the rays read
-// from a materialised rays_dir).  The real-SH ladder of rnr_tpu's
+// The parts of the SH shading kernels K5 / K5b (sh_shade.cu, the rays
+// read from a materialised rays_dir): the real-SH ladder of rnr_tpu's
 // _emit_basis (rnr_tpu/ops/sh_pallas.py:42; the orthonormal, csphase=1
 // basis of rnr_tpu/ops/sh.py, index l*l + l + m), the coefficients and
 // ladder constants in constant memory, the radiance fold, rays_lt loads
 // and stores in bf16 or f32, and the fixed-order sum of the backward's
-// per-block d coeff partials.
+// per-block d coeff partials.  K1 / K1b (sh_fan.cu) take from it only the
+// rays_lt loads and stores, the coefficient bank, MAX_RAYS and the lmax
+// switch; their ladder is their own.
 //
 // Each .cu that includes this header is its own library, with its own
 // copy of the constant banks.

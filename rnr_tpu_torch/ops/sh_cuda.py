@@ -15,6 +15,8 @@ for them).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from rnr_tpu_torch.ops import _build
@@ -24,8 +26,10 @@ from rnr_tpu_torch.ops.sh import evaluate_sh_basis, ladder_constants
 
 MAX_LMAX = 10   # csrc/sh_common.cuh: the kernels instantiate lmax 1..10
 MAX_RAYS = 64
-BWD_PIXELS = 64   # csrc/sh_common.cuh BWD_THREADS: pixels per backward block
-_LADDER: dict = {}   # (lmax, device) -> the kernel's ladder constants
+BWD_PIXELS = 64   # csrc/sh_common.cuh BWD_THREADS: pixels per K5b block
+FAN_BWD_PIXELS = 64   # csrc/sh_fan.cu FAN_BWD_PIXELS: pixels per K1b block
+_LADDER: dict = {}   # (lmax, device) -> K5 / K5b's ladder constants
+_FAN_SCALE: dict = {}   # (lmax, device) -> fan_basis_scale as f32
 
 
 def _ladder(lmax: int, device) -> torch.Tensor:
@@ -35,6 +39,49 @@ def _ladder(lmax: int, device) -> torch.Tensor:
         ladder = _LADDER[key] = torch.tensor(
             ladder_constants(lmax), dtype=torch.float32, device=device)
     return ladder
+
+
+def fan_basis_scale(lmax: int) -> list[float]:
+    """Per basis index l*l + l +- m, the factor s(l, m) between the basis
+    value and r(l, m) T_m of K1 / K1b's scaled ladder (csrc/sh_fan.cu):
+    K_m S(l, m), times sqrt 2 for m != 0, where K_m = (1 / sqrt(4 pi))
+    prod_{j<=m} sqrt((2j + 1) / 2j) is the diagonal's constant and S(l, m)
+    = prod_{m<j<=l} a(j, m) the product of the ladder's a factors
+    (ops/sh.py ladder_constants).  In double; rounded to f32 on use."""
+    out = [0.0] * (lmax + 1) ** 2
+    k_m = 1.0 / math.sqrt(4.0 * math.pi)
+    for m in range(lmax + 1):
+        if m > 0:
+            k_m *= math.sqrt((2.0 * m + 1.0) / (2.0 * m))
+        s = k_m * (math.sqrt(2.0) if m > 0 else 1.0)
+        for l in range(m, lmax + 1):
+            if l > m:
+                s *= math.sqrt((4.0 * l * l - 1.0) / (l * l - m * m))
+            out[l * l + l + m] = out[l * l + l - m] = s
+    return out
+
+
+def _fan_scale(lmax: int, device) -> torch.Tensor:
+    key = (lmax, device)
+    scale = _FAN_SCALE.get(key)
+    if scale is None:
+        scale = _FAN_SCALE[key] = torch.tensor(
+            fan_basis_scale(lmax), dtype=torch.float32, device=device)
+    return scale
+
+
+def fan_coeff(coeff: torch.Tensor, lmax: int) -> torch.Tensor:
+    """The coefficients K1 / K1b fold the ladder into: coeff [B, C] times
+    the basis scale of each row, f32, on coeff's device."""
+    scale = _fan_scale(lmax, coeff.device)
+    return (coeff.to(torch.float32) * scale[:, None]).contiguous()
+
+
+def fan_bwd_partials(n_pix: int, lmax: int) -> int:
+    """Floats of K1b's per-block d coeff partials: one row of the
+    (lmax+1)^2 * 3 entries per block of FAN_BWD_PIXELS pixels (the C
+    entry refuses less: rnr_sh_shade_fan_bwd_partials)."""
+    return -(-n_pix // FAN_BWD_PIXELS) * (lmax + 1) ** 2 * 3
 
 
 def sh_shade_torch(rays_dir, rays_lt, alpha_map, coeff, lmax: int,
@@ -113,7 +160,8 @@ def sh_shade_fan_bwd_torch(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
 
 def _check(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots, lmax,
            r_spec):
-    """The contiguous f32 operands and the ladder table the kernels take."""
+    """The contiguous f32 operands the kernels take, the coefficients
+    scaled (fan_coeff), and the basis scale."""
     n, h, w, r_total, c = rays_lt.shape
     if not 1 <= lmax <= MAX_LMAX:
         raise ValueError(f"sh_shade_fan kernel: lmax {lmax} not in 1..{MAX_LMAX}")
@@ -134,24 +182,23 @@ def _check(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots, lmax,
     require(pv, "pivots", f32, (r_total, 3))
     if lt.dtype not in (torch.bfloat16, f32):
         raise TypeError(f"rays_lt: dtype {lt.dtype}, kernel takes bf16 or f32")
-    return tb, vd, al, lt, cf, pv, _ladder(lmax, lt.device)
+    return tb, vd, al, lt, fan_coeff(cf, lmax), pv, _fan_scale(lmax, lt.device)
 
 
 def _launch_fwd(tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots,
                 lmax, r_spec):
-    tb, vd, al, lt, cf, pv, ladder = _check(
+    tb, vd, al, lt, cf, pv, _ = _check(
         tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots, lmax, r_spec)
     n, h, w, r_total, _ = lt.shape
     spec = torch.empty((n, h, w, 3), dtype=torch.float32, device=lt.device)
     diff = torch.empty_like(spec)
-    fn = _build.fn("sh_fan", "rnr_sh_shade_fan", 9, 6)
+    fn = _build.fn("sh_fan", "rnr_sh_shade_fan", 8, 5)
     sh_shade_fan.launches += 1
     check_launch(fn(tb.data_ptr(), vd.data_ptr(), al.data_ptr(),
                     lt.data_ptr(), cf.data_ptr(), pv.data_ptr(),
-                    ladder.data_ptr(), spec.data_ptr(), diff.data_ptr(),
-                    lmax, ladder.numel(), n * h * w, r_total, r_spec,
-                    int(lt.dtype == torch.bfloat16), stream_of(lt)),
-                 "sh_shade_fan")
+                    spec.data_ptr(), diff.data_ptr(), lmax, n * h * w,
+                    r_total, r_spec, int(lt.dtype == torch.bfloat16),
+                    stream_of(lt)), "sh_shade_fan")
     return spec, diff
 
 
@@ -164,7 +211,7 @@ def sh_shade_fan_bwd(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
         return sh_shade_fan_bwd_torch(tbn, view_dir_tangent, alpha_map,
                                       rays_lt, coeff, pivots, gs, gd, lmax,
                                       r_spec)
-    tb, vd, al, lt, cf, pv, ladder = _check(
+    tb, vd, al, lt, cf, pv, scale = _check(
         tbn, view_dir_tangent, alpha_map, rays_lt, coeff, pivots, lmax, r_spec)
     n, h, w, r_total, c = lt.shape
     gsf = gs.to(torch.float32).contiguous()
@@ -174,17 +221,17 @@ def sh_shade_fan_bwd(tbn, view_dir_tangent, alpha_map, rays_lt, coeff,
     n_pix = n * h * w
     dlt = torch.empty_like(lt)
     dcoeff = torch.empty_like(cf)
-    part = torch.empty((-(-n_pix // BWD_PIXELS), cf.numel()),
-                       dtype=torch.float32, device=lt.device)
+    part = torch.empty(fan_bwd_partials(n_pix, lmax), dtype=torch.float32,
+                       device=lt.device)
     fn = _build.fn("sh_fan", "rnr_sh_shade_fan_bwd", 12, 6)
     sh_shade_fan_bwd.launches += 1
     check_launch(fn(tb.data_ptr(), vd.data_ptr(), al.data_ptr(),
                     lt.data_ptr(), cf.data_ptr(), pv.data_ptr(),
-                    ladder.data_ptr(), gsf.data_ptr(), gdf.data_ptr(),
+                    scale.data_ptr(), gsf.data_ptr(), gdf.data_ptr(),
                     dlt.data_ptr(), part.data_ptr(), dcoeff.data_ptr(),
-                    lmax, ladder.numel(), n_pix, r_total, r_spec,
-                    int(lt.dtype == torch.bfloat16), stream_of(lt)),
-                 "sh_shade_fan_bwd")
+                    lmax, n_pix, r_total, r_spec,
+                    int(lt.dtype == torch.bfloat16), part.numel(),
+                    stream_of(lt)), "sh_shade_fan_bwd")
     return dlt, dcoeff
 
 

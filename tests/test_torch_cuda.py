@@ -17,17 +17,22 @@ tile's 64 positions, odd H, batch 2, ragged and wide C and O, both pad
 modes) and K3's forward and dgrad must be bitwise deterministic.  The
 3x3 slab pair (K8a forward and f32 data gradient, K8b weight
 gradient) runs at odd C, O, H and W under both pad modes, and P1 (the
-GEMM chain) at section A's kinds of shape and odd ones.  The backward
-kernels K1b (SH fan), K5b (SH of materialised rays), K3b and K8b (conv
-weight gradients) must also be bitwise deterministic, and the rasterizer
-K7 bitwise equal to its plain version.
+GEMM chain) at section A's kinds of shape and odd ones.  K1 and K1b (SH
+fan) run at batch 2 with a pixel count no block divides, at 64 rays, with
+no diffuse ray and at lmax 1, 2 and 10.  K1, the backward kernels K1b,
+K5b (SH of materialised rays), K3b and K8b (conv weight gradients) must
+also be bitwise deterministic, and the rasterizer K7 bitwise equal to its
+plain version.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
 from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
+from rnr_tpu_torch.ops import _build
 from rnr_tpu_torch.ops import conv4_cuda as c4
 from rnr_tpu_torch.ops import conv_cuda as cc
 from rnr_tpu_torch.ops.conv_cuda import (conv3x3, conv3x3_dgrad,
@@ -39,7 +44,8 @@ from rnr_tpu_torch.ops.knn_cuda import (compare_picks, stratified_knn,
 from rnr_tpu_torch.ops.rasterize_cuda import (bin_faces, rasterize_tiled,
                                               rasterize_tiles,
                                               rasterize_tiles_torch)
-from rnr_tpu_torch.ops.sh_cuda import (sh_shade, sh_shade_bwd,
+from rnr_tpu_torch.ops.sh_cuda import (fan_bwd_partials, sh_shade,
+                                       sh_shade_bwd,
                                        sh_shade_bwd_torch, sh_shade_fan,
                                        sh_shade_fan_bwd,
                                        sh_shade_fan_bwd_torch,
@@ -84,19 +90,62 @@ def _sh_args(dev, lmax, lt_dtype, seed):
             _t(rng.standard_normal((1, 24, 24, 3)).astype(np.float32), dev))
 
 
-@pytest.mark.parametrize("lmax", [2, 10])
+# K1 / K1b shapes: (N, H, W, R, r_spec); 24^2 is 576 pixels and 2 x 13 x 11
+# is 286, which neither the forward's 128-pixel nor the backward's
+# 64-pixel blocks divide; R = 64 (MAX_RAYS) on random pivots; r_spec = R
+# (no diffuse ray, the divisor max(R - r_spec, 1))
+FAN_CASES = {"24sq": (1, 24, 24, 10, 5), "n2_ragged": (2, 13, 11, 10, 5),
+             "r64": (1, 24, 24, 64, 32), "all_spec": (1, 24, 24, 10, 10)}
+
+
+def _fan_args(dev, case, lmax, lt_dtype, seed):
+    """tbn, vdt, alpha (0 on the G-buffer's background), rays_lt, coeff,
+    pivots, gs, gd of one FAN_CASES shape."""
+    n, h, w, r_total, r_spec = FAN_CASES[case]
+    rng = np.random.default_rng(seed)
+    b = build_batch(max(h, w), 64, n)
+    if r_total == 10:
+        spec, diff = RaySampler(2, 2, 5.0, "reflect"), RaySampler(
+            2, 2, 10.0, "diffuse")
+        piv = np.concatenate([spec.pivots_dir.T, diff.pivots_dir.T])
+    else:
+        piv = rng.standard_normal((r_total, 3))
+        piv[:, 2] = np.abs(piv[:, 2])
+        piv /= np.linalg.norm(piv, axis=-1, keepdims=True)
+    vdt = rng.standard_normal((n, h, w, 3)).astype(np.float32)
+    vdt /= np.linalg.norm(vdt, axis=-1, keepdims=True)
+    alpha = b["alpha_map"][:, :h, :w]
+    assert (alpha == 0).any() and (alpha == 1).any()
+    args = (_t(b["TBN_map"][:, :h, :w], dev), _t(vdt, dev), _t(alpha, dev),
+            _t(rng.uniform(0, 2, (n, h, w, r_total, 3)).astype(np.float32),
+               dev, lt_dtype),
+            _t((0.5 * rng.standard_normal(((lmax + 1) ** 2, 3))).astype(
+                np.float32), dev), _t(piv.astype(np.float32), dev),
+            _t(rng.standard_normal((n, h, w, 3)).astype(np.float32), dev),
+            _t(rng.standard_normal((n, h, w, 3)).astype(np.float32), dev))
+    return args, r_spec
+
+
+@pytest.mark.parametrize("case", list(FAN_CASES))
+@pytest.mark.parametrize("lmax", [1, 2, 10])
 @pytest.mark.parametrize("lt_dtype", [torch.float32, torch.bfloat16])
-def test_sh_shade_fan_kernel(dev, lmax, lt_dtype):
-    args = (*_sh_args(dev, lmax, lt_dtype, lmax)[:6], lmax, 5)
+def test_sh_shade_fan_kernel(dev, case, lmax, lt_dtype):
+    fan, r_spec = _fan_args(dev, case, lmax, lt_dtype, lmax)
+    args = (*fan[:6], lmax, r_spec)
     n0 = sh_shade_fan.launches
     ks, kd = sh_shade_fan(*args)
-    assert sh_shade_fan.launches == n0 + 1
+    ks2, kd2 = sh_shade_fan(*args)
+    assert sh_shade_fan.launches == n0 + 2
     ts, td = sh_shade_fan_torch(*args)
     torch.cuda.synchronize()
     # f32 on both sides; FMA contraction and sum order differ
     for k, t in ((ks, ts), (kd, td)):
         tol = 1e-4 * float(t.abs().max()) + 1e-6
         assert float((k - t).abs().max()) <= tol
+    # each pixel's sums in ray order, no atomics: bitwise reproducible
+    assert torch.equal(ks, ks2) and torch.equal(kd, kd2)
+    if r_spec == fan[3].shape[3]:
+        assert not bool(kd.any())   # no diffuse ray: the diffuse mean is 0
 
 
 @pytest.mark.parametrize("ch,sizes", [(24, (64, 32, 16, 8)), (5, (16, 8)),
@@ -218,18 +267,19 @@ def test_stratified_knn_kernel_rejects_wide_features(dev):
         stratified_knn(torch.zeros((64, 513), device=dev), 16)
 
 
-@pytest.mark.parametrize("lmax", [2, 10])
+@pytest.mark.parametrize("case", list(FAN_CASES))
+@pytest.mark.parametrize("lmax", [1, 2, 10])
 @pytest.mark.parametrize("lt_dtype", [torch.float32, torch.bfloat16])
-def test_sh_shade_fan_bwd_kernel(dev, lmax, lt_dtype):
-    args = _sh_args(dev, lmax, lt_dtype, lmax + 1)
+def test_sh_shade_fan_bwd_kernel(dev, case, lmax, lt_dtype):
+    args, r_spec = _fan_args(dev, case, lmax, lt_dtype, lmax + 1)
     n0 = sh_shade_fan_bwd.launches
-    kl, kc = sh_shade_fan_bwd(*args, lmax, 5)
-    kl2, kc2 = sh_shade_fan_bwd(*args, lmax, 5)
+    kl, kc = sh_shade_fan_bwd(*args, lmax, r_spec)
+    kl2, kc2 = sh_shade_fan_bwd(*args, lmax, r_spec)
     assert sh_shade_fan_bwd.launches == n0 + 2
-    tl, tc = sh_shade_fan_bwd_torch(*args, lmax, 5)
+    tl, tc = sh_shade_fan_bwd_torch(*args, lmax, r_spec)
     torch.cuda.synchronize()
     assert kl.dtype == lt_dtype and kc.dtype == torch.float32
-    # d coeff: f32 sums over 5760 pixel-rays in another order
+    # d coeff: f32 sums over the pixel-rays in another order
     assert float((kc - tc).abs().max()) <= 1e-4 * float(tc.abs().max())
     # d rays_lt: f32 radiance (FMA contraction), then the lt dtype
     tol = 1e-5 if lt_dtype == torch.float32 else 2 ** -7
@@ -237,6 +287,17 @@ def test_sh_shade_fan_bwd_kernel(dev, lmax, lt_dtype):
         tol * float(tl.float().abs().max()))
     # per-block partials summed in a fixed order: bitwise reproducible
     assert torch.equal(kc, kc2) and torch.equal(kl, kl2)
+
+
+@pytest.mark.parametrize("n_pix,lmax", [(576, 2), (286, 1), (262144, 10),
+                                        (524288, 10), (1, 10)])
+def test_fan_bwd_partials_matches_kernel(dev, n_pix, lmax):
+    """The wrapper's partials size (fan_bwd_partials) is the one the
+    kernel's C side computes from its block size, so the wrapper never
+    hands K1b a buffer it refuses."""
+    f = _build.load("sh_fan").rnr_sh_shade_fan_bwd_partials
+    f.argtypes, f.restype = [ctypes.c_int] * 2, ctypes.c_int
+    assert fan_bwd_partials(n_pix, lmax) == f(n_pix, lmax)
 
 
 def _shade_args(dev, lmax, dtype, seed):

@@ -17,7 +17,10 @@ from rnr_tpu.ops.sh import evaluate_sh_basis as jax_basis
 from rnr_tpu.ops.sh_pallas import sh_shade_fan as jax_sh_shade_fan
 from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
 from rnr_tpu_torch.ops.sh import evaluate_sh_basis, ladder_constants
-from rnr_tpu_torch.ops.sh_cuda import sh_shade_fan, sh_shade_fan_torch
+from rnr_tpu_torch.ops.sh_cuda import (fan_basis_scale, fan_bwd_partials,
+                                       fan_coeff, sh_shade_fan,
+                                       sh_shade_fan_bwd_torch,
+                                       sh_shade_fan_torch)
 from rnr_tpu_torch.synthetic import build_batch
 
 torch.set_num_threads(2)
@@ -41,8 +44,8 @@ def test_evaluate_sh_basis_lmax10_matches_jax():
 
 
 def _kernel_ladder(lmax, d):
-    """The CUDA kernel's ladder walk (csrc/sh_fan.cu), in NumPy f32: it
-    consumes `ladder_constants` in order and advances the azimuth with m."""
+    """K5's ladder walk (csrc/sh_common.cuh), in NumPy f32: it consumes
+    `ladder_constants` in order and advances the azimuth with m."""
     f = np.float32
     lad = [f(v) for v in ladder_constants(lmax)]
     x, y, z = (d[..., i].astype(f) for i in range(3))
@@ -157,3 +160,179 @@ def test_twin_equals_wrapper_on_cpu():
     b = sh_shade_fan_torch(*args, 4, 3)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ------------------------------------ K1 / K1b's scaled ladder (csrc/sh_fan.cu)
+
+
+def _rec_k(l, m):
+    """k(l, m) of the kernels' scaled recurrence, rounded to f32."""
+    return np.float32(((l - 1) ** 2 - m * m) / (4 * (l - 1) ** 2 - 1))
+
+
+def _scaled_orders(lmax, d):
+    """The kernels' walk of direction d [..., 3] (f32 torch): per order m
+    the powers (Tc_m, Ts_m) and the scaled ladder values r(l, m) for l =
+    m..lmax, in their order of operations."""
+    x, y, z = d.unbind(-1)
+    ct = z.clamp(-1.0, 1.0)
+    st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+    r2 = x * x + y * y
+    inv = torch.where(r2 > 0, torch.rsqrt(torch.where(r2 > 0, r2, 1.0)), 0.0)
+    t1c = torch.where(r2 > 0, st * (x * inv), st)
+    t1s = st * (y * inv)
+    tc, ts = torch.ones_like(ct), torch.zeros_like(ct)
+    for m in range(lmax + 1):
+        if m == 1:
+            tc, ts = t1c, t1s
+        elif m > 1:
+            tc, ts = tc * t1c - ts * t1s, tc * t1s + ts * t1c
+        rs = [torch.ones_like(ct)]
+        if m < lmax:
+            rs.append(ct)
+        for l in range(m + 2, lmax + 1):
+            rs.append(ct * rs[-1] - _rec_k(l, m) * rs[-2])
+        yield m, tc, ts, rs
+
+
+def _scaled_basis(lmax, d):
+    """basis[b] = scale[b] * r(l, m) * T_m, as K1b sums it into d coeff."""
+    scale = torch.tensor(fan_basis_scale(lmax), dtype=torch.float32)
+    out = torch.zeros(d.shape[:-1] + ((lmax + 1) ** 2,))
+    for m, tc, ts, rs in _scaled_orders(lmax, d):
+        for i, r in enumerate(rs):
+            l = m + i
+            out[..., l * l + l + m] = r * tc
+            if m > 0:
+                out[..., l * l + l - m] = r * ts
+    return out * scale
+
+
+def _scaled_radiance(lmax, d, cf_s):
+    """rad = sum over m of Tc_m A_m + Ts_m B_m, A_m = sum_l coeff'(l, m)
+    r(l, m) (B_m: the -m rows), with the scaled coefficients cf_s."""
+    rad = None
+    for m, tc, ts, rs in _scaled_orders(lmax, d):
+        a = sum(r[..., None] * cf_s[(m + i) ** 2 + m + i + m]
+                for i, r in enumerate(rs))
+        if m == 0:
+            rad = a
+            continue
+        b = sum(r[..., None] * cf_s[(m + i) ** 2 + m + i - m]
+                for i, r in enumerate(rs))
+        rad = rad + tc[..., None] * a + ts[..., None] * b
+    return rad
+
+
+def _sh_fan_args(rng, size, lmax, n=1):
+    """Fan inputs at n x size^2, R = 5 + 3 rays, alpha 0 on the
+    G-buffer's background, and two output gradients."""
+    b = build_batch(size, 64, n)
+    vdt = _unit(rng, (n, size, size))
+    spec, diff = RaySampler(2, 2, 5.0, "reflect"), RaySampler(2, 1, 10.0,
+                                                              "diffuse")
+    pivots = np.concatenate([spec.pivots_dir.T, diff.pivots_dir.T]
+                            ).astype(np.float32)         # R = 5 + 3
+    lt = rng.uniform(0, 2, (n, size, size, 8, 3)).astype(np.float32)
+    coeff = (0.5 * rng.standard_normal(((lmax + 1) ** 2, 3))).astype(
+        np.float32)
+    g = rng.standard_normal((2, n, size, size, 3)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (b["TBN_map"], vdt, b["alpha_map"],
+                                          lt, coeff, pivots, g[0], g[1])]
+
+
+@pytest.mark.parametrize("lmax", [1, 2, 10])
+def test_fan_scaled_basis_matches_basis(lmax):
+    """scale * r(l, m) * T_m is the basis, the zero vector (ct 0, st 1,
+    azimuth (1, 0)) and the poles included (f32, 2e-6)."""
+    d = _unit(np.random.default_rng(lmax), (400,))
+    d[:4] = [[0, 0, 0], [0, 0, 1], [0, 0, -1], [1, 0, 0]]
+    d = torch.from_numpy(d)
+    want = evaluate_sh_basis(lmax, d)
+    got = _scaled_basis(lmax, d)
+    assert float(want[0].abs().max()) > 0.1   # the zero vector's values
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("lmax", [2, 10])
+def test_fan_scaled_forward_reproduces_plain(lmax):
+    """fan_coeff's scaled coefficients folded per order (K1's order of
+    operations) give sh_shade_fan_torch within K1's unit-test tolerance,
+    1e-4 x max + 1e-6 (f32; another order of sums)."""
+    tbn, vdt, al, lt, coeff, pivots, _, _ = _sh_fan_args(
+        np.random.default_rng(10 + lmax), 12, lmax)
+    r_spec = 5
+    rays = build_fan_channels(tbn, vdt, al, pivots, r_spec)[1]
+    cf_s = fan_coeff(coeff, lmax)
+    acc_s = acc_d = 0.0
+    for r in range(rays.shape[-1]):
+        v = lt[..., r, :] * _scaled_radiance(lmax, rays[..., r], cf_s)
+        if r < r_spec:
+            acc_s = acc_s + v
+        else:
+            acc_d = acc_d + v
+    got_s, got_d = acc_s * (al / r_spec), acc_d * (al / 3)
+    want_s, want_d = sh_shade_fan_torch(tbn, vdt, al, lt, coeff, pivots,
+                                        lmax, r_spec)
+    for got, want in ((got_s, want_s), (got_d, want_d)):
+        tol = 1e-4 * float(want.abs().max()) + 1e-6
+        assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("lmax", [2, 10])
+def test_fan_scaled_backward_reproduces_plain(lmax):
+    """K1b's order: d rays_lt = rad * gsel from the per-order fold, d coeff
+    = scale * sum of r(l, m) * T_m * rays_lt * gsel; against
+    sh_shade_fan_bwd_torch within K1b's tolerances (d coeff 1e-4 x max,
+    f32 d rays_lt 1e-5 x max)."""
+    tbn, vdt, al, lt, coeff, pivots, gs, gd = _sh_fan_args(
+        np.random.default_rng(20 + lmax), 12, lmax, n=2)
+    r_spec = 5
+    rays = build_fan_channels(tbn, vdt, al, pivots, r_spec)[1]
+    cf_s = fan_coeff(coeff, lmax)
+    scale = torch.tensor(fan_basis_scale(lmax), dtype=torch.float32)
+    ws, wd = al / r_spec, al / 3
+    dlt = torch.empty_like(lt)
+    dcs = torch.zeros_like(coeff)
+    for r in range(rays.shape[-1]):
+        gsel = gs * ws if r < r_spec else gd * wd
+        d = rays[..., r]
+        dlt[..., r, :] = _scaled_radiance(lmax, d, cf_s) * gsel
+        ltg = lt[..., r, :] * gsel
+        dcs += torch.einsum("nhwb,nhwc->bc", _scaled_basis(lmax, d) / scale,
+                            ltg)
+    dcoeff = dcs * scale[:, None]
+    want_l, want_c = sh_shade_fan_bwd_torch(tbn, vdt, al, lt, coeff, pivots,
+                                            gs, gd, lmax, r_spec)
+    assert float((dcoeff - want_c).abs().max()) <= 1e-4 * float(
+        want_c.abs().max())
+    assert float((dlt - want_l).abs().max()) <= 1e-5 * float(
+        want_l.abs().max())
+
+
+@pytest.mark.parametrize("n_pix,lmax", [(576, 2), (1152, 10), (262144, 10),
+                                        (524288, 10), (1, 1)])
+def test_fan_bwd_partials_one_row_per_block(n_pix, lmax):
+    """K1b's partials: (lmax+1)^2 * 3 floats per block of 64 pixels, the
+    last block ragged."""
+    blocks = (n_pix + 63) // 64
+    assert fan_bwd_partials(n_pix, lmax) == blocks * 3 * (lmax + 1) ** 2
+
+
+def test_fan_coeff_scales_rows():
+    """fan_coeff: coeff rows times fan_basis_scale, f32; the scale of
+    (0, 0) is 1 / sqrt(4 pi) and of (1, +-1) sqrt(2) * sqrt(3/2) / sqrt(4
+    pi), the diagonal's constant and sqrt 2."""
+    coeff = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (121, 3)).astype(np.float32))
+    scale = fan_basis_scale(10)
+    k0 = 1 / math.sqrt(4 * math.pi)
+    assert math.isclose(scale[0], k0, rel_tol=1e-15)
+    assert math.isclose(scale[1], math.sqrt(3.0) * k0, rel_tol=1e-15)
+    assert math.isclose(scale[3], math.sqrt(3.0) * k0, rel_tol=1e-15)
+    assert math.isclose(scale[2], math.sqrt(3.0) * k0, rel_tol=1e-15)
+    got = fan_coeff(coeff, 10)
+    assert got.dtype == torch.float32 and got.shape == (121, 3)
+    torch.testing.assert_close(
+        got, coeff * torch.tensor(scale, dtype=torch.float32)[:, None],
+        rtol=0, atol=0)
