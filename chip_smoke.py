@@ -42,7 +42,10 @@ Phases (each failure raises, so the script exits non-zero):
            pair (K6 down4 / convt4, K8 down4s / convt4s) runs at the ten
            4x4 convs of a frame and as each other's f32 data gradient,
            then at odd C and O and an odd H; beside them the pallas3
-           route's own cuDNN 4x4 convs are timed.  The 3x3 slab pair (K8a
+           route's own cuDNN 4x4 convs are timed.  K8's pair is also
+           timed queued (beside cuDNN queued), with its wrapper's host
+           time and TFLOP/s per shape, and must be bit-equal over two
+           runs at one large and one split-K shape of each.  The 3x3 slab pair (K8a
            forward and f32 data gradient, K8b weight gradient) runs on K3's
            inputs at the 14 3x3 convs of a frame, K8a's forward within a
            rounding step of K3's, K8b twice and bit-equal, then at odd C
@@ -495,16 +498,21 @@ def conv_work(kind: str, n_pix: int, c: int, o: int):
     return bound(nbytes, flops, BF16_TENSOR_FLOPS)
 
 
+def conv4_flops(down: bool, c: int, o: int, h: int) -> int:
+    """16 useful taps of depth c per output pixel of the down conv, as
+    many per input pixel of the transpose conv (4 per output pixel), on
+    a [1, h, h, c] input."""
+    return 2 * 16 * c * o * ((h // 2) ** 2 if down else h * h)
+
+
 def conv4_work(down: bool, c: int, o: int, h: int, out_item: int):
     """A 4x4 stride-2 conv (down) or transpose conv on a [1, h, h, c] bf16
-    input: 16 useful taps of depth c per output pixel of the down conv,
-    as many per input pixel of the transpose conv (4 per output pixel);
-    x and w read once in bf16, y written once in bf16 or f32."""
+    input: conv4_flops' operations; x and w read once in bf16, y written
+    once in bf16 or f32."""
     pix_in = h * h
     pix_out = (h // 2) ** 2 if down else 4 * pix_in
-    flops = 2 * 16 * c * o * (pix_out if down else pix_in)
     nbytes = pix_in * c * 2 + 16 * c * o * 2 + pix_out * o * out_item
-    return bound(nbytes, flops, BF16_TENSOR_FLOPS)
+    return bound(nbytes, conv4_flops(down, c, o, h), BF16_TENSOR_FLOPS)
 
 
 def raster_work(counts: torch.Tensor, idx: torch.Tensor, tile_h: int,
@@ -1213,8 +1221,12 @@ def kernels_conv4(rec: dict, rng) -> None:
     version and one cuDNN call of the same function (F.conv2d at stride 2
     on the reflect-padded channels-last input; F.conv_transpose2d at
     stride 2, padding 1; for the dgrad use F.conv2d with padding 1), and
-    the bound.  Then the pallas3 route's own 4x4 convs (the U-Net's Conv
-    and ConvTranspose modules as the shipped step runs them)."""
+    the bound; for K8's pair (down4s, convt4s) also 20 calls queued back
+    to back, beside cuDNN's queued likewise, the wrapper's host time and
+    the TFLOP/s of conv4_flops' count per shape and in total, and each
+    bitwise equal over two runs at one large and one split-K shape.
+    Then the pallas3 route's own 4x4 convs (the U-Net's Conv and
+    ConvTranspose modules as the shipped step runs them)."""
     from rnr_tpu_torch.models.unet import Conv, ConvTranspose
     fwds = {"down4": down4_fwd, "down4s": down4s_fwd, "convt4": convt4_fwd,
             "convt4s": convt4s_fwd}
@@ -1223,6 +1235,23 @@ def kernels_conv4(rec: dict, rng) -> None:
     acc = {n: dict({k: 0.0 for k in keys}, errs=[], dgrad_errs=[], works=[],
                    dgrad_works=[]) for n in fwds}
     shipped = {"down": 0.0, "up": 0.0}
+    k8 = {n: dict(queued_ms=0.0, library_queued_ms=0.0, flops=0, host=[],
+                  shapes=[]) for n in ("down4s", "convt4s")}
+
+    def k8_times(name, use, c, o, h, fn, lib_fn, flops):
+        """K8's queued, host and TFLOP/s at one shape, cuDNN queued beside
+        it; returns the log's words."""
+        q, lq, hu = queued_ms(fn), queued_ms(lib_fn), host_us(fn)
+        r = k8[name]
+        r["queued_ms"] += q
+        r["library_queued_ms"] += lq
+        r["flops"] += flops
+        r["host"].append(hu)
+        r["shapes"].append(dict(use=use, c=c, o=o, h=h, queued_ms=q,
+                                library_queued_ms=lq, host_us=hu,
+                                tflops=flops / q / 1e9))
+        return (f"queued {q:.4f} ms ({flops / q / 1e9:.1f} TFLOP/s; cuDNN "
+                f"{lq:.4f}), host {hu:.1f} us")
 
     def add(name, part, err, ms, pms, lms, work):
         a = acc[name]
@@ -1248,6 +1277,12 @@ def kernels_conv4(rec: dict, rng) -> None:
             ms = cuda_ms(lambda: fwds[name](x, w, "reflect"))
             add(name, "fwd", e, ms, pms, lms, conv4_work(True, c, o, h, 2))
             line.append(f"{name} {ms:.4f} ms (err {e:.3g})")
+            if name == "down4s":
+                line.append(k8_times(
+                    name, "fwd", c, o, h,
+                    lambda: down4s_fwd(x, w, "reflect"),
+                    lambda: F.conv2d(xp, wn, stride=2),
+                    conv4_flops(True, c, o, h)))
         mod = Conv(c, o, 4, 2, use_bias=False, dtype=torch.bfloat16,
                    pad_mode="reflect", backend="pallas3").to(DEV)
         with torch.no_grad():
@@ -1283,6 +1318,11 @@ def kernels_conv4(rec: dict, rng) -> None:
             ms = cuda_ms(lambda: fwds[name](x, w))
             add(name, "fwd", e, ms, pms, lms, conv4_work(False, c, o, h, 2))
             line.append(f"{name} {ms:.4f} ms (err {e:.3g})")
+            if name == "convt4s":
+                line.append(k8_times(
+                    name, "fwd", c, o, h, lambda: convt4s_fwd(x, w),
+                    lambda: F.conv_transpose2d(xn, kn, stride=2, padding=1),
+                    conv4_flops(False, c, o, h)))
         mod = ConvTranspose(c, o, use_bias=False, dtype=torch.bfloat16,
                             backend="pallas3").to(DEV)
         with torch.no_grad():
@@ -1308,6 +1348,12 @@ def kernels_conv4(rec: dict, rng) -> None:
             add(name, "dgrad", e, ms, dpms, dlms,
                 conv4_work(True, o, c, 2 * h, 4))
             line.append(f"{name} f32 dgrad {ms:.4f} ms (err {e:.3g})")
+            if name == "down4s":
+                line.append(k8_times(
+                    name, "dgrad", o, c, 2 * h,
+                    lambda: down4s_fwd(g, wd, "same", torch.float32),
+                    lambda: F.conv2d(gn, wdn, stride=2, padding=1),
+                    conv4_flops(True, o, c, 2 * h)))
         wk = conv4_work(False, c, o, h, 2)
         log(f"[kernels] 4x4 transpose {c}->{o} @{h}: " + ", ".join(line)
             + f"; bound {wk['bound_ms']:.4f} ({wk['bound_by']}), cuDNN "
@@ -1338,6 +1384,7 @@ def kernels_conv4(rec: dict, rng) -> None:
     torch.cuda.synchronize()
     log(f"[kernels] 4x4 odd shapes {CONV4_ODD}: all four kernels agree "
         "(bf16 within 2^-7 of max, f32 within 1e-4), both pad modes")
+    k8_bitwise()
 
     for name, a in acc.items():
         parts = a["works"] + a["dgrad_works"]
@@ -1355,6 +1402,17 @@ def kernels_conv4(rec: dict, rng) -> None:
                      dgrad_max_abs_err=max(a["dgrad_errs"]))
         if "same_dgrad_errs" in a:
             r["same_dgrad_max_abs_err"] = max(a["same_dgrad_errs"])
+        if name in k8:
+            q = k8[name]
+            r.update(queued_ms=q["queued_ms"],
+                     library_queued_ms=q["library_queued_ms"],
+                     host_us=float(np.mean(q["host"])),
+                     tflops=q["flops"] / q["queued_ms"] / 1e9,
+                     shapes=q["shapes"])
+            log(f"[kernels] {name}, {len(parts)} launches queued: "
+                f"{q['queued_ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), "
+                f"cuDNN queued {q['library_queued_ms']:.4f} ms, host "
+                f"{r['host_us']:.1f} us a call")
         rec[name] = r
         log(f"[kernels] {name}, {len(parts)} launches of a b1 train step: "
             f"kernel {r['ms']:.3f} ms (forward {r['fwd_ms']:.3f}), bound "
@@ -1365,6 +1423,28 @@ def kernels_conv4(rec: dict, rng) -> None:
         f"the U-Net's modules, reflect pad included): downs "
         f"{shipped['down']:.3f} ms, transpose convs {shipped['up']:.3f} ms")
     torch.cuda.synchronize()
+
+
+def k8_bitwise() -> None:
+    """K8's pair twice on the same inputs, bf16 and f32 out, at one large
+    and one split-K shape of each (its own seed): bitwise equal."""
+    from rnr_tpu_torch.ops.conv4_cuda import conv4s_plan
+    rng = np.random.default_rng(10)
+    cases = (("down4s", DOWN4_SHAPES[2]), ("down4s", DOWN4_SHAPES[4]),
+             ("convt4s", CONVT4_SHAPES[3]), ("convt4s", CONVT4_SHAPES[0]))
+    for name, (c, o, h) in cases:
+        x, w = _bf16_input(rng, (1, h, h, c)), _conv4_weight(rng, c, o)
+        up = name == "convt4s"
+        fn = ((lambda od: convt4s_fwd(x, w, od)) if up
+              else (lambda od: down4s_fwd(x, w, "reflect", od)))
+        for od in (torch.bfloat16, torch.float32):
+            if not torch.equal(fn(od), fn(od)):
+                raise AssertionError(f"{name} {c}->{o} @{h} {od}: two runs "
+                                     "differ")
+        log(f"[kernels] {name} {c}->{o} @{h}: bitwise equal over two runs, "
+            f"bf16 and f32 out (plan bn, wgs, sw, splits, per = "
+            f"{conv4s_plan(1, h, h, c, o, up)})")
+        del x, w
 
 
 # K4's feature widths in the kernels phase: the GCN's 64 first (its

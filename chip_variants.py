@@ -1,9 +1,10 @@
 """Time K4 (csrc/stratified_knn.cu), K2b (csrc/mipmap_scatter.cu), K1 and
-K1b (csrc/sh_fan.cu) on one NVIDIA GPU with parts of each kernel switched
-off, to see which part bounds it.
+K1b (csrc/sh_fan.cu), K8c and K8d (csrc/conv4x4_slab.cu) on one NVIDIA GPU
+with parts of each kernel switched off, to see which part bounds it.
 
     python3 chip_variants.py
     python3 chip_variants.py --kernels K1b --variants real,staging
+    python3 chip_variants.py --kernels K8 --csrc OLD/rnr_tpu_torch/csrc
 
 Each variant is the real source with one textual switch applied, written
 to build/rnr_tpu_torch/variants/ and built with the flags of
@@ -50,6 +51,15 @@ K1b: real; no_dcoeff (the d coeff contraction gone); no_dlt_stores;
      no_partials_sum (no second kernel) and px128 (blocks of 128 pixels
      in chunks of 2 rays), at b1 and b2.  occupancy (K1 and K1b) times
      nothing: it prints the blocks an SM of the lmax-10 bf16 kernel.
+K8c (down4s: forward at the frame's five down convs under reflect, bf16
+out, and f32 out at the five transpose convs' data gradients, "same")
+and K8d (convt4s at the frame's five transpose convs): real; no_mma
+(the products gone: loads and epilogue only); no_loads (one resident
+ring of stages reused: the loads of the first stages only, products on
+them after); no_epilogue (no output stores).  The switches follow the
+design of csrc/conv4x4_slab.cu that they find (WMMA on bands staged by
+plain loads, or wgmma over TMA bands), so --csrc times a parent's pair
+too; each build prints its registers and spills (ptxas).
 The SH variants are built for lmax 10 alone, and the switches follow the
 design of csrc/sh_fan.cu that they find (one thread per pixel with the
 backward's d coeff contracted through shared memory, or the orders split
@@ -296,6 +306,112 @@ SH_DESIGNS = {
 }
 
 
+# per design of csrc/conv4x4_slab.cu (told apart by a line only it has):
+# {variant: switches}
+K8_DESIGNS = {
+    "WMMA on bands staged by plain loads": (
+        "wmma::mma_sync(acc[i], fa, fb, acc[i]);",
+        {"real": [],
+         "no_mma": [("wmma::mma_sync(acc[i], fa, fb, acc[i]);", "")],
+         "no_loads": [
+             ("""      // ---- stage A: the packed band's [YR, BK] slice ----
+      if (VA) {""", """      // ---- stage A: the packed band's [YR, BK] slice ----
+      if (k0 > 0 || p > 0) {
+      } else if (VA) {"""),
+             ("""      // ---- stage B: the packed weights' [BK, YC] slice ----
+      if (VB) {""", """      // ---- stage B: the packed weights' [BK, YC] slice ----
+      if (k0 > 0 || p > 0) {
+      } else if (VB) {""")],
+         "no_epilogue": [("    store_out(y + dst * o + oc, v);",
+                          "    if (v == 1.2345e-30f) store_out(y + dst * o + oc, v);")]}),
+    "wgmma over TMA bands": (
+        "sm90::wgmma<0, 1>(acc[UP ? i : 0], da, db);",
+        {"real": [],
+         "no_mma": [("          sm90::wgmma<0, 1>(acc[UP ? i : 0], da, db);",
+                     "          (void)da;\n          (void)db;")],
+         "no_loads": [
+             ("        const bool fix = lo == 0 ? left : right;",
+              "        const bool fix = it < g.stages && (lo == 0 ? left : right);"),
+             ("""        if (warp == 0) {
+          if (lane == 0) {
+            const uint32_t bar = fix ? tma_bar + 8 * s : full_bar + 8 * s;""",
+              """        if (warp == 0 && it >= g.stages) {
+          if (lane == 0) sm90::mbar_arrive(full_bar + 8 * s);
+        } else if (warp == 0) {
+          if (lane == 0) {
+            const uint32_t bar = fix ? tma_bar + 8 * s : full_bar + 8 * s;""")],
+         "no_epilogue": [("        if (d < 0 || oc >= g.o) continue;",
+                          "        if (d < 0 || oc >= g.o || d != -7) continue;")]}),
+}
+
+
+def k8_variants(csrc: str):
+    """(design, variants) of the csrc/conv4x4_slab.cu found in csrc."""
+    text = open(os.path.join(csrc, "conv4x4_slab.cu")).read()
+    for design, (marker, table) in K8_DESIGNS.items():
+        if marker in text:
+            return design, table
+    raise RuntimeError(f"{csrc}/conv4x4_slab.cu: no known design")
+
+
+def time_k8(dev, stream, csrc: str, only=None) -> None:
+    """K8c and K8d at the kernels phase's shapes of chip_smoke.py (one
+    random stream of inputs per shape), queued device time per call of
+    each variant, per shape and summed per kernel and use."""
+    from rnr_tpu_torch.ops.conv4_cuda import conv4s_plan
+    design, table = k8_variants(csrc)
+    if only:
+        table = {k: v for k, v in table.items() if k in only}
+    tag = "" if csrc == str(_build.CSRC) else "_other"
+    new = design.startswith("wgmma")
+    print(f"K8 kernels of {csrc}: {design}", flush=True)
+    libs = build_all("conv4x4_slab", table, csrc, tag)
+    down = [(64, 128, 512), (128, 256, 256), (256, 512, 128),
+            (512, 512, 64), (512, 512, 32)]
+    up = [(512, 512, 16), (1024, 512, 32), (1024, 256, 64),
+          (512, 128, 128), (256, 64, 256)]
+    # (kernel, use, x's C, O, x's side, up, reflect, f32 out)
+    cases = ([("K8c", "fwd", c, o, h, False, 1, False) for c, o, h in down]
+             + [("K8c", "dgrad", o, c, 2 * h, False, 0, True)
+                for c, o, h in up]
+             + [("K8d", "fwd", c, o, h, True, 0, False) for c, o, h in up])
+    total: dict = {}
+    for kname, use, c, o, h, is_up, refl, f32 in cases:
+        rng = np.random.default_rng(c + o + h)
+        x = torch.from_numpy(rng.standard_normal((1, h, h, c)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy((rng.standard_normal((4, 4, c, o))
+                              / np.sqrt(16 * c)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        side = 2 * h if is_up else h // 2
+        y = torch.empty((1, side, side, o), device=dev,
+                        dtype=torch.float32 if f32 else torch.bfloat16)
+        sym = ("rnr_convt4s" if is_up else "rnr_down4s") + (
+            "_f32out" if f32 else "")
+        pad = () if is_up else (refl,)
+        if new:
+            plan = conv4s_plan(1, h, h, c, o, is_up)
+            part = torch.empty(max(plan[3], 1) * y.numel(), device=dev)
+            ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                    part.data_ptr())
+            ints = (1, h, h, c, o, *pad, *plan)
+        else:
+            plan = None
+            ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr())
+            ints = (1, h, h, c, o, *pad)
+        flops = 2 * 16 * c * o * (h * h if is_up else (h // 2) ** 2)
+        for name, lib in libs.items():
+            f = entry(lib, sym, len(ptrs), len(ints))
+            us = device_us(lambda: f(*ptrs, *ints, stream))
+            total[(kname, use, name)] = total.get((kname, use, name), 0) + us
+            print(f"{kname} {use} {c}->{o} @{h} {name}: {us:.2f} us per "
+                  f"call ({flops / us / 1e6:.1f} TFLOP/s; plan {plan})",
+                  flush=True)
+        del x, w, y
+    for (kname, use, name), us in total.items():
+        print(f"{kname} {use} five shapes {name}: {us:.2f} us", flush=True)
+
+
 def sh_variants(csrc: str):
     """(K1 variants, K1b variants) of the design found in csrc."""
     text = open(os.path.join(csrc, "sh_fan.cu")).read()
@@ -335,9 +451,14 @@ def build(src: str, name: str, switches, csrc: str = str(_build.CSRC),
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc {src} {name}:\n{res.stderr}")
+    fn_name = ""
     for ln in res.stderr.splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(f"[build] {src}{tag} {name}: {ln.strip()}", flush=True)
+        if "Compiling entry function" in ln:
+            fn_name = ln.split("'")[1] if "'" in ln else ""
+        elif "registers" in ln or "spill" in ln or "C7514" in ln \
+                or "C7515" in ln:
+            print(f"[build] {src}{tag} {name} {fn_name}: {ln.strip()}",
+                  flush=True)
     return ctypes.CDLL(so)
 
 
@@ -525,12 +646,15 @@ def build_all(src: str, table: dict, csrc: str = str(_build.CSRC),
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="K4,K2b,K1,K1b",
-                    help="comma-separated subset of K4,K2b,K1,K1b")
+    ap.add_argument("--kernels", default="K4,K2b,K1,K1b,K8",
+                    help="comma-separated subset of K4,K2b,K1,K1b,K8 (K8: "
+                    "K8c and K8d)")
     ap.add_argument("--csrc", default=str(_build.CSRC),
-                    help="the csrc directory whose SH kernels are timed")
+                    help="the csrc directory whose SH and K8 kernels are "
+                    "timed")
     ap.add_argument("--variants", default="",
-                    help="comma-separated SH variants to time (default all)")
+                    help="comma-separated SH or K8 variants to time "
+                    "(default all)")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -543,6 +667,9 @@ def main() -> None:
         time_k2b(dev, stream)
     if which & {"K1", "K1b"}:
         time_sh(dev, stream, os.path.abspath(args.csrc), which,
+                set(filter(None, args.variants.split(","))))
+    if "K8" in which:
+        time_k8(dev, stream, os.path.abspath(args.csrc),
                 set(filter(None, args.variants.split(","))))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

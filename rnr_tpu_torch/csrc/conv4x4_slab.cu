@@ -1,273 +1,589 @@
 // K8's 4x4 pair: the U-Net's 4x4 stride-2 conv (rnr_down4s) and 4x4
-// stride-2 "SAME" transpose conv (rnr_convt4s) in the slab formulation.
-// The same two functions as K6 (csrc/conv4x4.cu): NHWC bf16 input, HWIO
-// bf16 weights [4, 4, C, O], f32 accumulation, no bias, bf16 output or,
-// for the data-gradient use, f32 output (the *_f32out entry points:
+// stride-2 "SAME" transpose conv (rnr_convt4s), the same two functions as
+// K6 (csrc/conv4x4.cu): NHWC bf16 input (C a multiple of 8: the wrapper
+// pads other counts with zero channels), HWIO bf16 weights [4, 4, C, O8]
+// (O8 = O rounded up to 8, zero-padded), f32 sums, no bias, a bf16 output
+// or, for the data-gradient use, an f32 one (the *_f32out entry points:
 // down4s is convt4s's dgrad, conv_pallas.py:1347-1355).
-//
-// The slab formulation packs rows on the reduction axis and puts the
-// column shift on the output:
-//   down4s: for column parity p, packed depth k = dy*C + c (4C):
-//           Y[u, (q, o)] += sum_k xp[2i + dy, 2(j0 + u) + p, c] w[dy, 2q + p, c, o]
-//           y[i, j0 + u] = Y[u, (0, o)] + Y[u + 1, (1, o)]
-//           (even taps dx 0/2 and odd taps dx 1/3: two depth-4C products
-//           of width 2O, summed in one Y)
-//   convt4s: for output parity (a, b), packed depth k = r*C + c (2C):
-//           Y[u, (q, o)] = sum_k xq[t + a + r, s0 + b + u, c] w[a + 2r, b + 2q, c, o]
-//           y[2t + a, 2(s0 + u) + b] = Y[u, (0, o)] + Y[u + 1, (1, o)]
-//           (wcat_ab[r*C + c, q*O + o] = w[2r + a, 2q + b, c, o], :1300)
-// with xp = x and a ring of 1 (zero or reflect) and xq = x zero-padded by
-// 1, both by index arithmetic: the packed band is built from x while it
-// is staged in shared memory, never materialised in device memory.
+//   down4s:  y[i, j] = sum_{dy, dx < 4} xp[2i + dy, 2j + dx] w[dy, dx]
+//            (xp: x with a ring of 1, zero or reflect) -> [N, H/2, W/2, O]
+//   convt4s: y[2t + a, 2s + b] = sum_{r, q < 2} xq[t + a + r, s + b + q]
+//            w[a + 2r, b + 2q]  (xq: x zero-padded by 1) -> [N, 2H, 2W, O]
 //
 // Replaces: rnr_tpu/ops/conv_pallas.py  _down4s_fwd_impl (:1138) /
 //   _down4s_kernel (:1122) and _convt4s_fwd_impl (:1276) /
 //   _convt4s_kernel (:1255), the 4x4 pair under conv_backend=p3s4 (and
-//   slab).  There XLA builds the slab [N, HO, W+2, 4C] (two [.., 2C]
-//   slabs for convt4s) in HBM, splits it into column-parity planes, pads
-//   to 8 x 128 and the kernel writes four parity outputs that XLA
-//   interleaves; past a VMEM budget it falls back to the tap-wise kernel.
-//   Here the band is staged from x, the interleaved output is written
-//   directly, and every shape is taken (any C, O >= 1), no fallback.
+//   slab).  There XLA builds the slab of packed rows in HBM and the
+//   kernel puts the column shift on its output, which gave the TPU wide
+//   dots.  Here the taps are descriptor moves over bands of the input
+//   staged in shared memory: no slab, no shifted output, no wasted rows.
 //
-// Bound on the H100: tensor-core throughput (as K6).
-// Design: a block owns R consecutive grid rows x a segment of `seg`
-//   output columns (seg = min(width, 64), R = the rows that fit 64
-//   outputs and 80 Y rows), x 64 output channels (x one parity for
-//   convt4s).  It computes Y [80 (R (seg + 1) used), 128 = (q, o)] with
-//   WMMA bf16 fragments, walking the packed depth in steps of 32: each
-//   step stages the packed band's [80, 32] slice (the rows' seg + 1
-//   columns, with padding applied) and the packed weights' [32, 128]
-//   slice in shared memory; 8 warps each own one 16-wide column strip of
-//   Y (5 fragments).  The epilogue stores Y to shared memory and adds
-//   each output's two shifted halves, coalesced along O.
+// Bound on the H100: tensor-core operations.  The five down convs of a
+//   512^2 frame are 62 GFLOP (0.064 ms at 989 TFLOP/s), their f32 dgrads
+//   and the five transpose convs 123 GFLOP each, against a few hundred
+//   MB of activations (tens of microseconds at 3.35 TB/s).  Measured on
+//   the H100 (chip_variants.py, the kernels phase's 15 shapes), no one
+//   part holds this design: with the products, the loads after the first
+//   ring or the output stores switched off it takes 76-82%, 84-87% and
+//   89-91% of its time.  One or two consumer warpgroups an SM wait for
+//   each unit's loads and then for its products, so the three add up.
+//
+// Design: implicit GEMM on wgmma, fed by TMA, as K3 (csrc/conv3x3.cu).
+//   GEMM rows are output positions (down4s) or input positions s
+//   (convt4s: each gives the two outputs 2s and 2s + 1 of one output
+//   row, in two accumulators b = 0, 1), N is output channels (BN 64 or
+//   128), and the reduction runs over units of (64 channels, two taps).
+//   A unit's two taps read one input row at two column offsets that
+//   differ by one position:
+//   - down4s, unit (dy, p): taps dx = p and p + 2.  Column 2j + dx - 1
+//     of input row 2i + dy - 1 is, for p = 1, the even column j or j + 1
+//     and, for p = 0, the odd column j - 1 or j.  Two tensor maps over x
+//     with the column stride doubled (the odd one based one position
+//     in) give each parity as a dense row of positions.
+//   - convt4s, unit (r, q) for output row parity a: taps (a + 2r, 2q +
+//     b), b = 0, 1: input row t + a + r - 1, column s + q + b - 1.
+//   The weight map views HWIO as [tap row * 2 + kx / 2][kx % 2][C][O8],
+//   so one box brings a unit's two taps for 64 outputs.
+//   A tile is BM = 64 or 128 GEMM rows: R = BM / SW row segments of SW
+//   positions.  A segment of 64 or 128 positions is one TMA box of SW + 1
+//   (tap 1 is the band's descriptor moved down one row); where a row has
+//   at most 32 positions (the 16^2 and 32^2 levels), SW = 16 or 32 and a
+//   segment takes a box of SW positions per tap.  TMA writes zeros
+//   outside the tensor: the zero ring, the positions past a row's end and
+//   the channels past C cost nothing.
+//   Reflect (down4s only) takes the input row by index, and a patch warp
+//   copies column 1 into column -1 (the odd band's first position) and,
+//   at even W, column W - 2 into column W (the even band's last) in
+//   shared memory.  Warp-specialised and persistent: as many blocks as
+//   fit on the card walk the tiles; in each, one producer warpgroup (a
+//   TMA thread and the patch warp) keeps a ring of up to 4 stages full
+//   through full / empty mbarriers, running on into the next tile while
+//   the consumers store this one's outputs; 1 or 2 consumer warpgroups
+//   each issue 8 m64nBNk16 wgmma per unit, f32 sums in registers, and
+//   wait for them before releasing the stage (waiting for the last but
+//   one unit let ptxas serialise the products, C7515, and measured
+//   slower); convt4s's two warpgroups take the producer's registers
+//   (setmaxnreg 56 / 224) for their 128 accumulators a thread.
+//   Epilogue, one accumulator at a time: registers -> a shared f32
+//   buffer apart from the ring -> 16-byte stores along O (elementwise
+//   where O's rows are not 16-byte multiples); convt4s's b = 0, 1 go to
+//   neighbouring positions of one output row.
+//   Split-K where the tiles fill less than a wave (the plan is the
+//   wrapper's, ops/conv4_cuda.py::conv4s_plan): each split writes an f32
+//   partial of the whole output and sum_splits adds them in split order,
+//   launched by the same C call.  Every sum runs in a fixed order, no
+//   atomics: bitwise equal results from run to run.
+//
+// What ragged cases cost: C % 8 != 0 is padded by the wrapper (a copy of
+//   x); C % 64 != 0 multiplies zeros in the last channel unit; O % 64 !=
+//   0 wastes BN - O columns of the last output tile; a row of W not a
+//   multiple of the tile wastes the last tile's positions; the 16^2 and
+//   32^2 levels split K (partials of the whole output in f32).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
+#include "sm90.cuh"
+
 namespace {
 
-using namespace nvcuda;
+using bf16 = __nv_bfloat16;
 
-constexpr int SEG = 64;      // output columns of one block's row segment
-constexpr int YR = 80;       // Y rows: R (seg + 1) <= 80, 5 fragments
-constexpr int NB = 64;       // output channels per block
-constexpr int YC = 2 * NB;   // Y columns: (q, o)
-constexpr int BK = 32;       // packed channels per K step
-constexpr int LDA = BK + 8;  // bf16 elements; multiple of 8 for WMMA
-constexpr int LDB = YC + 8;
-constexpr int LDY = YC + 4;  // f32 elements; multiple of 4 for WMMA
+constexpr int KC = 64;                 // input channels per unit: one row
+constexpr int MAX_STAGES = 4;
+constexpr int SMEM_LIMIT = 232448;     // a block's shared memory on sm_90
+constexpr int B_ATOM = 2 * KC * 128;   // a unit's two taps, 64 outputs
 
-constexpr int SMEM_AB = (YR * LDA + BK * LDB) * 2;
-constexpr int SMEM_Y = YR * LDY * 4;
-constexpr int SMEM = SMEM_AB > SMEM_Y ? SMEM_AB : SMEM_Y;
+// Per launch: the GEMM's geometry and the plan.
+struct Geo {
+  int n, h, wd, c, o;   // input [n, h, wd, c] (c % 8 == 0), o outputs
+  int gh, gw;           // GEMM rows per image, positions per row
+  int sw, rows;         // positions of a row segment, segments of a tile
+  int segr;             // shared rows of a segment's band (sw >= 64)
+  int reflect;
+  int units, per;       // reduction units, per split
+  int stages, stage_bytes;
+  long long gx, gy;     // tiles: row tiles (x 2 parities), column tiles x splits
+  long long tiles;      // gx gy output tiles
+  long long out_elems;  // elements of one output (of one f32 partial)
+};
 
-__device__ __forceinline__ int pad_index(int i, int n, bool reflect) {
-  // -1 -> 1 and n -> n-2 under reflect (jnp.pad mode="reflect");
-  // -1 for "outside" under zero padding
-  if (i >= 0 && i < n) return i;
-  if (!reflect) return -1;
-  return i < 0 ? -i : 2 * n - 2 - i;
+template <bool UP, int BN, int WGS>
+struct Cfg {
+  static constexpr int BM = 64 * WGS;
+  static constexpr int THREADS = 128 * (WGS + 1);   // + the producer
+  static constexpr int NA = BN / 64;                // weight boxes a unit
+  static constexpr int ACCS = UP ? 2 : 1;
+  static constexpr int ROWS = ACCS * BM;            // output rows of a tile
+  static constexpr int LDC = BN + 4;                // f32 epilogue row
+  // the epilogue's staging (one accumulator at a time) and its rows'
+  // destinations, apart from the ring, so the ring runs on meanwhile
+  static constexpr int EPI = BM * LDC * 4 + ROWS * 8;
+  static constexpr int TAIL = EPI + 3 * MAX_STAGES * 8 + 1024;
+};
+
+// One tile of the walk: output row parity a (convt4s), first GEMM row,
+// first position, first output, its split's units and partial.
+struct Tile {
+  int a, j0, o0, u0, u1, split;
+  long long row0;
+};
+
+template <bool UP>
+__device__ __forceinline__ Tile tile_of(long long t, const Geo& g, int bn) {
+  Tile tl;
+  const long long tx = t % g.gx, tyz = t / g.gx;
+  const int ty = (int)(tyz % g.gy);
+  const int col_tiles = (g.gw + g.sw - 1) / g.sw;
+  tl.a = UP ? (int)(tx & 1) : 0;
+  tl.row0 = (UP ? tx >> 1 : tx) * g.rows;
+  tl.split = ty / col_tiles;
+  tl.j0 = (ty - tl.split * col_tiles) * g.sw;
+  tl.o0 = (int)(tyz / g.gy) * bn;
+  tl.u0 = tl.split * g.per;
+  tl.u1 = tl.u0 + g.per < g.units ? tl.u0 + g.per : g.units;
+  return tl;
 }
 
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+// the output row (of O values) of tile row mm, or -1: down4s row m is
+// position m, convt4s row 2 m + b is output 2 (j0 + m) + b
+template <bool UP>
+__device__ __forceinline__ long long dest_row(const Geo& g, const Tile& tl,
+                                              int mm) {
+  const int m = UP ? mm >> 1 : mm;
+  const int k = m / g.sw, jj = m - k * g.sw;
+  const long long r = tl.row0 + k;
+  const int j = tl.j0 + jj;
+  if (r >= (long long)g.n * g.gh || j >= g.gw) return -1;
+  if (!UP) return r * g.gw + j;
+  const long long img = r / g.h;
+  const int t = (int)(r - img * g.h);
+  return (img * 2 * g.h + 2 * t + tl.a) * 2 * g.wd + 2 * j + (mm & 1);
 }
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 
-// UP = false: down4s over the output grid [N, H/2, W/2]; UP = true:
-// convt4s over the input grid [N, H, W] for parity (blockIdx.z & 3) = 2a+b.
-template <bool UP, bool VA, bool VB, typename OutT>
-__global__ void __launch_bounds__(256)
-conv4s_kernel(const __nv_bfloat16* __restrict__ x,
-              const __nv_bfloat16* __restrict__ w, OutT* __restrict__ y,
-              int n, int h, int wd, int c, int o, int reflect, int seg,
-              int rows) {
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + YR * LDA;
-  float* Ys = reinterpret_cast<float*>(smem);
+__device__ __forceinline__ int reflect_row(int i, int n) {
+  // i in [-1, n]: -1 -> 1, n -> n - 2 (jnp.pad mode="reflect")
+  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+}
 
-  const int gh = UP ? h : h / 2;
-  const int gw = UP ? wd : wd / 2;
-  const long long g_rows = (long long)n * gh;
-  const int par = UP ? (int)(blockIdx.z & 3) : 0;
-  const int a = par >> 1, b = par & 1;
-  const int o0 = (UP ? (int)(blockIdx.z >> 2) : (int)blockIdx.z) * NB;
-  const int col0 = blockIdx.x * seg;
-  const long long row0 = (long long)blockIdx.y * rows;
-  const int kp = (UP ? 2 : 4) * c;        // packed depth of one product
-  const int used = rows * (seg + 1);      // Y rows that feed an output
+__device__ __forceinline__ void store_vec(bf16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_one(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+
+// shared-memory row (of 128 bytes, from the band's start) that tap i
+// reads for tile position m: segments of 64 positions or more share one
+// band of sw + 1 (tap 1 is one row down), in slots of segr rows; shorter
+// ones have a block of BM rows a tap
+__device__ __forceinline__ int band_row(int i, int m, const Geo& g, int bm) {
+  if (g.sw < 64) return i * bm + m;
+  const int k = m / g.sw;
+  return k * g.segr + (m - k * g.sw) + i;
+}
+
+// xmap0 / xmap1: down4s, x's even / odd columns as rows of positions;
+// convt4s, x itself (xmap1 unused).  Boxes (64 channels, BM + 1 or SW
+// positions, 1, 1), 128-byte swizzle.  wmap: w as [8][2][C][O8], boxes
+// (64 outputs, 64 channels, 1, 2) for down4s, (.., 2, 1) for convt4s.
+// Persistent: block b walks tiles b, b + gridDim.x, ..; tile t is (row
+// tile [x 2 parities a for convt4s], column tile + split * column tiles,
+// output tile), the first fastest.  y: the output, or the f32 partials.
+template <bool UP, int BN, int WGS, typename OutT>
+__global__ void __launch_bounds__(128 * (WGS + 1), 1)
+conv4s_kernel(const __grid_constant__ CUtensorMap xmap0,
+              const __grid_constant__ CUtensorMap xmap1,
+              const __grid_constant__ CUtensorMap wmap,
+              OutT* __restrict__ y, const Geo g) {
+  using K = Cfg<UP, BN, WGS>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  // full[s]: stage s landed (the TMA thread's arrival with its bytes and
+  // the patch warp's); tma[s]: the bytes of a band the patch warp fixes;
+  // empty[s]: the consumers are done with it
+  float* es = reinterpret_cast<float*>(smem + g.stages * g.stage_bytes);
+  long long* dest = reinterpret_cast<long long*>(es + K::BM * K::LDC);
+  const uint32_t full_bar = sm90::smem_addr(smem + g.stages * g.stage_bytes +
+                                            K::EPI);
+  const uint32_t tma_bar = full_bar + 8 * MAX_STAGES;
+  const uint32_t empty_bar = tma_bar + 8 * MAX_STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;              // Y columns warp*16 .. +16
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[YR / 16];
-#pragma unroll
-  for (int i = 0; i < YR / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
-
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  // x offset of packed channel k at Y row m (-1: padding or unused row)
-  auto a_src = [&](int m, int k, int p) -> long long {
-    if (m >= used || k >= kp) return -1;
-    const int r = m / (seg + 1), u = m % (seg + 1);
-    const long long grow = row0 + r;
-    if (grow >= g_rows) return -1;
-    const int pn = (int)(grow / gh), pi = (int)(grow % gh);
-    const int band = k / c, ch = k % c;   // dy (down) or r (up), channel
-    int hs, ws;
-    if (UP) {
-      hs = pad_index(pi + a + band - 1, h, false);
-      ws = pad_index(col0 + u + b - 1, wd, false);
-    } else {
-      hs = pad_index(2 * pi + band - 1, h, reflect);
-      ws = pad_index(2 * (col0 + u) + p - 1, wd, reflect);
+  if (tid == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      sm90::mbar_init(full_bar + 8 * s, 2);
+      sm90::mbar_init(tma_bar + 8 * s, 1);
+      sm90::mbar_init(empty_bar + 8 * s, 128 * WGS);
     }
-    if (hs < 0 || ws < 0) return -1;
-    return (((long long)pn * h + hs) * wd + ws) * c + ch;
-  };
-  // weight offset of packed channel k, Y column (q, oo) (-1: zero)
-  auto b_src = [&](int k, int q, int oc, int p) -> long long {
-    if (k >= kp || oc >= o) return -1;
-    const int band = k / c, ch = k % c;
-    const int ky = UP ? a + 2 * band : band;
-    const int kx = UP ? b + 2 * q : 2 * q + p;
-    return ((long long)(ky * 4 + kx) * c + ch) * o + oc;
-  };
-
-  for (int p = 0; p < (UP ? 1 : 2); ++p) {
-    for (int k0 = 0; k0 < kp; k0 += BK) {
-      // ---- stage A: the packed band's [YR, BK] slice ----
-      if (VA) {   // C % 8 == 0: 8 packed channels lie in one band row
-        for (int e = tid; e < YR * (BK / 8); e += 256) {
-          const int m = e / (BK / 8), kg = (e % (BK / 8)) * 8;
-          const long long s = a_src(m, k0 + kg, p);
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (s >= 0) v = __ldg(reinterpret_cast<const uint4*>(x + s));
-          *reinterpret_cast<uint4*>(As + m * LDA + kg) = v;
-        }
-      } else {
-        for (int e = tid; e < YR * BK; e += 256) {
-          const int m = e / BK, kk = e % BK;
-          const long long s = a_src(m, k0 + kk, p);
-          As[m * LDA + kk] = s >= 0 ? x[s] : zero;
-        }
-      }
-      // ---- stage B: the packed weights' [BK, YC] slice ----
-      if (VB) {   // O % 8 == 0: 8 output channels are contiguous
-        for (int e = tid; e < BK * (YC / 8); e += 256) {
-          const int kk = e / (YC / 8), col = (e % (YC / 8)) * 8;
-          const long long s = b_src(k0 + kk, col / NB, o0 + col % NB, p);
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (s >= 0) v = __ldg(reinterpret_cast<const uint4*>(w + s));
-          *reinterpret_cast<uint4*>(Bs + kk * LDB + col) = v;
-        }
-      } else {
-        for (int e = tid; e < BK * YC; e += 256) {
-          const int kk = e / YC, col = e % YC;
-          const long long s = b_src(k0 + kk, col / NB, o0 + col % NB, p);
-          Bs[kk * LDB + col] = s >= 0 ? w[s] : zero;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, Bs + kk * LDB + warp * 16, LDB);
-#pragma unroll
-        for (int i = 0; i < YR / 16; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, As + i * 16 * LDA + kk, LDA);
-          wmma::mma_sync(acc[i], fa, fb, acc[i]);
-        }
-      }
-      __syncthreads();
-    }
+    sm90::mbar_init_fence();
   }
-
-  // ---- epilogue: Y -> shared; each output adds its two shifted halves ----
-#pragma unroll
-  for (int i = 0; i < YR / 16; ++i)
-    wmma::store_matrix_sync(Ys + i * 16 * LDY + warp * 16, acc[i], LDY,
-                            wmma::mem_row_major);
   __syncthreads();
-  for (int e = tid; e < rows * seg * NB; e += 256) {
-    const int oo = e % NB, ru = e / NB;
-    const int r = ru / seg, u = ru % seg;
-    const long long grow = row0 + r;
-    const int cu = col0 + u, oc = o0 + oo;
-    if (grow >= g_rows || cu >= gw || oc >= o) continue;
-    const int m = r * (seg + 1) + u;
-    const float v = Ys[m * LDY + oo] + Ys[(m + 1) * LDY + NB + oo];
-    long long dst;
-    if (UP) {   // pixel (2t + a, 2s + b) of [N, 2H, 2W]
-      const long long pn = grow / gh;
-      const int t = (int)(grow % gh);
-      dst = (pn * 2 * h + 2 * t + a) * 2 * wd + 2 * cu + b;
-    } else {
-      dst = grow * gw + cu;
+
+  const int bm = K::BM;
+  const int wg = tid / 128;
+  constexpr int T = UP ? 4 : 8;        // units of one channel chunk
+  if (wg == WGS) {
+    // ---- producer: warp 0 issues the TMA loads, warp 1 patches; the
+    // ring runs on across tiles, so the next tile's loads fly while the
+    // consumers store this one's outputs ----
+    if constexpr (UP && WGS == 2) sm90::setmaxnreg_dec<56>();
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    if (warp >= 2) return;
+    const uint32_t a_bytes = g.sw >= 64 ? (uint32_t)(g.rows * (g.sw + 1) * 128)
+                                        : (uint32_t)(2 * bm * 128);
+    uint32_t tphase = 0;
+    int it = 0;                        // units issued, over every tile
+#pragma unroll 1
+    for (long long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+      const Tile tl = tile_of<UP>(t, g, BN);
+      // reflect's columns: -1 is column 1 (the odd band's first position
+      // := its second); at even W, column W is W - 2 (the even band's
+      // position for column W := the one before), on a row's last tile
+      const int p_right = g.gw - 1 - tl.j0;
+      const bool left = !UP && g.reflect && tl.j0 == 0;
+      const bool right =
+          !UP && g.reflect && (g.wd % 2 == 0) && p_right < g.sw;
+#pragma unroll 1
+      for (int u = tl.u0; u < tl.u1; ++u, ++it) {
+        const int s = it % g.stages;
+        if (it >= g.stages)
+          sm90::mbar_wait(empty_bar + 8 * s, (it / g.stages - 1) & 1);
+        const int c0 = (u / T) * KC, hi = (u % T) >> 1, lo = u & 1;
+        const bool fix = lo == 0 ? left : right;
+        unsigned char* st = smem + s * g.stage_bytes;
+        const uint32_t sa = sm90::smem_addr(st);
+        const uint32_t band = sa + K::NA * B_ATOM;
+        if (warp == 0) {
+          if (lane == 0) {
+            const uint32_t bar = fix ? tma_bar + 8 * s : full_bar + 8 * s;
+            sm90::mbar_arrive_tx(bar, K::NA * B_ATOM + a_bytes);
+            // down4s: taps (hi, lo), (hi, lo + 2); convt4s: (a + 2 hi,
+            // 2 lo), (a + 2 hi, 2 lo + 1)
+            const int d2 = UP ? 0 : lo;
+            const int d3 = UP ? 2 * (tl.a + 2 * hi) + lo : 2 * hi;
+            for (int na = 0; na < K::NA; ++na)
+              sm90::tma_load_4d(sa + na * B_ATOM, &wmap, tl.o0 + 64 * na, c0,
+                                d2, d3, bar);
+            const CUtensorMap* xm = (!UP && lo == 0) ? &xmap1 : &xmap0;
+            const int col = UP ? tl.j0 - 1 + lo : (lo == 0 ? tl.j0 - 1 : tl.j0);
+            for (int k = 0; k < g.rows; ++k) {
+              const long long r = tl.row0 + k;
+              const int img = (int)(r / g.gh);
+              const int i = (int)(r - (long long)img * g.gh);
+              int xr = UP ? i + tl.a + hi - 1 : 2 * i + hi - 1;
+              if (!UP && g.reflect) xr = reflect_row(xr, g.h);
+              if (g.sw >= 64) {
+                sm90::tma_load_4d(band + k * g.segr * 128, xm, c0, col, xr,
+                                  img, bar);
+              } else {
+                sm90::tma_load_4d(band + k * g.sw * 128, xm, c0, col, xr, img,
+                                  bar);
+                sm90::tma_load_4d(band + (bm + k * g.sw) * 128, xm, c0,
+                                  col + 1, xr, img, bar);
+              }
+            }
+            if (fix) sm90::mbar_arrive(full_bar + 8 * s);
+          }
+        } else {
+          if (fix) {
+            sm90::mbar_wait(tma_bar + 8 * s, (tphase >> s) & 1);
+            tphase ^= 1u << s;
+            unsigned char* bp = st + K::NA * B_ATOM;
+            for (int e = lane; e < g.rows * 8; e += 32) {
+              const int m = (e / 8) * g.sw, chunk = e % 8;
+              if (lo == 0)
+                sm90::sw128_copy_chunk(bp, band_row(0, m, g, bm),
+                                       band_row(1, m, g, bm), chunk);
+              else
+                sm90::sw128_copy_chunk(bp, band_row(1, m + p_right, g, bm),
+                                       band_row(0, m + p_right, g, bm),
+                                       chunk);
+            }
+            sm90::fence_async_shared();
+            __syncwarp();
+          }
+          if (lane == 0) sm90::mbar_arrive(full_bar + 8 * s);
+        }
+      }
     }
-    store_out(y + dst * o + oc, v);
+    return;
   }
+
+  // ---- consumer warpgroups: 64 tile rows each ----
+  if constexpr (UP && WGS == 2) sm90::setmaxnreg_inc<224>();
+  const int lane = tid % 32;
+  const int rbase = wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  float acc[K::ACCS][BN / 2];
+  int it = 0;
+#pragma unroll 1
+  for (long long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+    const Tile tl = tile_of<UP>(t, g, BN);
+#pragma unroll
+    for (int b = 0; b < K::ACCS; ++b)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[b][i] = 0.f;
+#pragma unroll 1
+    for (int u = tl.u0; u < tl.u1; ++u, ++it) {
+      const int s = it % g.stages;
+      sm90::mbar_wait(full_bar + 8 * s, (it / g.stages) & 1);
+      const uint32_t sa = sm90::smem_addr(smem + s * g.stage_bytes);
+      const uint32_t band = sa + K::NA * B_ATOM;
+#pragma unroll
+      for (int b = 0; b < K::ACCS; ++b) sm90::fence_regs(acc[b]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t arow = band + band_row(i, wg * 64, g, bm) * 128;
+#pragma unroll
+        for (int ks = 0; ks < KC / 16; ++ks) {
+          // A: tile rows wg 64 .. of tap i, 16 channels from 16 ks
+          // (K-major); B: tap i's [KC, BN] rows 16 ks .. (MN-major)
+          const uint64_t da = sm90::desc_sw128(arow + ks * 32, 16, 1024);
+          const uint64_t db =
+              sm90::desc_sw128(sa + i * KC * 128 + ks * 16 * 128, B_ATOM, 1024);
+          sm90::wgmma<0, 1>(acc[UP ? i : 0], da, db);
+        }
+      }
+      sm90::wgmma_commit();
+      // all of this unit's products before the stage is released: waiting
+      // for the last but one lets ptxas serialise them (C7515)
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < K::ACCS; ++b) sm90::fence_regs(acc[b]);
+      sm90::mbar_arrive(empty_bar + 8 * s);
+    }
+
+    // ---- epilogue, one accumulator at a time: registers -> shared (f32)
+    // -> 16-byte stores along O; the producer loads the next tile ----
+    OutT* yb = y + (size_t)tl.split * (size_t)g.out_elems;
+    sm90::bar_sync(1, 128 * WGS);    // the last tile's stores read es
+    for (int mm = tid; mm < K::ROWS; mm += 128 * WGS)
+      dest[mm] = dest_row<UP>(g, tl, mm);
+#pragma unroll
+    for (int b = 0; b < K::ACCS; ++b) {
+      if (b > 0) sm90::bar_sync(1, 128 * WGS);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(es + rbase * K::LDC + col) =
+            make_float2(acc[b][4 * j], acc[b][4 * j + 1]);
+        *reinterpret_cast<float2*>(es + (rbase + 8) * K::LDC + col) =
+            make_float2(acc[b][4 * j + 2], acc[b][4 * j + 3]);
+      }
+      sm90::bar_sync(1, 128 * WGS);
+      constexpr int V = 16 / sizeof(OutT);
+      const bool vec = (g.o * (int)sizeof(OutT)) % 16 == 0;
+      for (int e = tid; e < K::BM * (BN / V); e += 128 * WGS) {
+        const int m = e / (BN / V), cv = (e % (BN / V)) * V;
+        const long long d = dest[UP ? 2 * m + b : m];
+        const int oc = tl.o0 + cv;
+        if (d < 0 || oc >= g.o) continue;
+        const float* src = es + m * K::LDC + cv;
+        OutT* dst = yb + d * g.o + oc;
+        if (vec) {
+          store_vec(dst, src);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            if (oc + k < g.o) store_one(dst + k, src[k]);
+        }
+      }
+    }
+  }
+}
+
+// y[e] = the sum of the splits' partials of e, in split order
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+sum_splits(const float* __restrict__ part, OutT* __restrict__ y,
+           long long elems, int splits) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < elems; e += stride) {
+    float v = part[e];
+    for (int s = 1; s < splits; ++s) v += part[(size_t)s * elems + e];
+    store_one(y + e, v);
+  }
+}
+
+// x's columns p, p + 2, .. (p = 0 even, 1 odd) as 4 dims (C, W', H, N),
+// boxes (64 channels, `cols`, 1, 1), 128-byte swizzle
+int parity_map(CUtensorMap* map, const void* x, int n, int h, int wd, int c,
+               int p, int cols) {
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)((wd - p + 1) / 2),
+                              (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 4, (cuuint64_t)wd * c * 2,
+                                 (cuuint64_t)h * wd * c * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)cols, 1, 1};
+  return sm90::bf16_map(map, static_cast<const bf16*>(x) + (size_t)p * c, 4,
+                        dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// w [4, 4, C, O8] as 4 dims (O8, C, kx % 2, 2 ky + kx / 2), boxes (64
+// outputs, 64 channels, bp, bt): a unit's two taps for 64 outputs
+int weight_map(CUtensorMap* map, const void* w, int c, int o8, int bp,
+               int bt) {
+  const cuuint64_t dims[4] = {(cuuint64_t)o8, (cuuint64_t)c, 2, 8};
+  const cuuint64_t strides[3] = {(cuuint64_t)o8 * 2, (cuuint64_t)c * o8 * 2,
+                                 (cuuint64_t)c * o8 * 4};
+  const cuuint32_t box[4] = {64, KC, (cuuint32_t)bp, (cuuint32_t)bt};
+  return sm90::bf16_map(map, w, 4, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <bool UP, int BN, int WGS, typename OutT>
+int launch_cfg(const void* x, const void* w, OutT* y, Geo g, int splits,
+               cudaStream_t stream) {
+  using K = Cfg<UP, BN, WGS>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv4s_kernel<UP, BN, WGS, OutT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  g.segr = (g.sw + 1 + 7) / 8 * 8;
+  const int a_bytes = g.sw >= 64
+                          ? (g.rows * g.segr * 128 + 1023) / 1024 * 1024
+                          : 2 * K::BM * 128;
+  g.stage_bytes = K::NA * B_ATOM + a_bytes;
+  g.stages = (SMEM_LIMIT - K::TAIL) / g.stage_bytes;
+  if (g.stages > MAX_STAGES) g.stages = MAX_STAGES;
+  if (g.stages < 2) return (int)cudaErrorInvalidConfiguration;
+  const int smem = g.stages * g.stage_bytes + K::TAIL;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidConfiguration;
+
+  const int cols = g.sw >= 64 ? g.sw + 1 : g.sw;
+  CUtensorMap xmap0, xmap1, wmap;
+  int err;
+  if (UP) {
+    err = sm90::nhwc_map(&xmap0, x, g.n, g.h, g.wd, g.c, cols);
+    xmap1 = xmap0;
+  } else {
+    err = parity_map(&xmap0, x, g.n, g.h, g.wd, g.c, 0, cols);
+    if (err == 0) err = parity_map(&xmap1, x, g.n, g.h, g.wd, g.c, 1, cols);
+  }
+  if (err == 0)
+    err = weight_map(&wmap, w, g.c, (g.o + 7) / 8 * 8, UP ? 2 : 1, UP ? 1 : 2);
+  if (err != 0) return err;
+  const long long row_tiles = ((long long)g.n * g.gh + g.rows - 1) / g.rows;
+  g.gx = row_tiles * (UP ? 2 : 1);
+  g.gy = (long long)((g.gw + g.sw - 1) / g.sw) * splits;
+  g.tiles = g.gx * g.gy * ((g.o + BN - 1) / BN);
+  // persistent: as many blocks as fit on the card at once, at most one
+  // a tile
+  static int sms = 0, per_sm = 0, per_sm_smem = -1;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (per_sm_smem != smem) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, conv4s_kernel<UP, BN, WGS, OutT>, K::THREADS, smem);
+    per_sm_smem = smem;
+  }
+  if (sms < 1 || per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long blocks =
+      g.tiles < (long long)sms * per_sm ? g.tiles : (long long)sms * per_sm;
+  conv4s_kernel<UP, BN, WGS, OutT>
+      <<<(unsigned)blocks, K::THREADS, smem, stream>>>(xmap0, xmap1, wmap, y, g);
+  return (int)cudaGetLastError();
 }
 
 template <bool UP, typename OutT>
-int launch(const void* x, const void* w, void* y, int n, int h, int wd,
-           int c, int o, int reflect, cudaStream_t stream) {
-  const int gh = UP ? h : h / 2, gw = UP ? wd : wd / 2;
-  if (n < 1 || c < 1 || o < 1 || gh < 1 || gw < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int seg = gw < SEG ? gw : SEG;
-  const int r1 = SEG / seg, r2 = YR / (seg + 1);
-  const int rows = r1 < r2 ? r1 : r2;
-  const long long row_blocks = ((long long)n * gh + rows - 1) / rows;
-  const int o_tiles = (o + NB - 1) / NB;
-  if (row_blocks > 65535 || (long long)o_tiles * (UP ? 4 : 1) > 65535)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  dim3 grid((unsigned)((gw + seg - 1) / seg), (unsigned)row_blocks,
-            (unsigned)(o_tiles * (UP ? 4 : 1)));
-  auto* xp = static_cast<const __nv_bfloat16*>(x);
-  auto* wp = static_cast<const __nv_bfloat16*>(w);
-  auto* yp = static_cast<OutT*>(y);
-  // 16-byte staging: 8 packed channels from one band row, 8 output
-  // channels of one weight row
-  const bool va = c % 8 == 0, vb = o % 8 == 0;
-  if (va && vb)
-    conv4s_kernel<UP, true, true, OutT><<<grid, 256, 0, stream>>>(xp, wp, yp, n, h, wd, c, o, reflect, seg, rows);
-  else if (va)
-    conv4s_kernel<UP, true, false, OutT><<<grid, 256, 0, stream>>>(xp, wp, yp, n, h, wd, c, o, reflect, seg, rows);
-  else if (vb)
-    conv4s_kernel<UP, false, true, OutT><<<grid, 256, 0, stream>>>(xp, wp, yp, n, h, wd, c, o, reflect, seg, rows);
-  else
-    conv4s_kernel<UP, false, false, OutT><<<grid, 256, 0, stream>>>(xp, wp, yp, n, h, wd, c, o, reflect, seg, rows);
-  return static_cast<int>(cudaGetLastError());
+int launch_any(const void* x, const void* w, OutT* y, const Geo& g, int bn,
+               int wgs, int splits, cudaStream_t stream) {
+#define RNR_K8(BN_, WGS_)                                                    \
+  if (bn == BN_ && wgs == WGS_)                                              \
+    return launch_cfg<UP, BN_, WGS_, OutT>(x, w, y, g, splits, stream);
+  RNR_K8(64, 1) RNR_K8(64, 2) RNR_K8(128, 1) RNR_K8(128, 2)
+#undef RNR_K8
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+// The plan (bn, wgs, sw, splits, per) is ops/conv4_cuda.py::conv4s_plan's;
+// it is checked here, not chosen.
+template <bool UP, typename OutT>
+int launch(const void* x, const void* w, void* y, void* part, int n, int h,
+           int wd, int c, int o, int reflect, int bn, int wgs, int sw,
+           int splits, int per, cudaStream_t stream) {
+  Geo g{};
+  g.n = n; g.h = h; g.wd = wd; g.c = c; g.o = o;
+  g.gh = UP ? h : h / 2;
+  g.gw = UP ? wd : wd / 2;
+  g.reflect = UP ? 0 : reflect;
+  if (n < 1 || c < 8 || c % 8 || o < 1 || g.gh < 1 || g.gw < 1)
+    return (int)cudaErrorInvalidValue;
+  if (g.reflect && (h < 2 || wd < 2)) return (int)cudaErrorInvalidValue;
+  const int bm = 64 * wgs;
+  if ((bn != 64 && bn != 128) || (wgs != 1 && wgs != 2) ||
+      !(sw == 16 || sw == 32 || (sw % 64 == 0 && sw <= bm)))
+    return (int)cudaErrorInvalidValue;
+  g.sw = sw;
+  g.rows = bm / sw;
+  g.units = (UP ? 4 : 8) * ((c + KC - 1) / KC);
+  g.per = per;
+  if (splits < 1 || per < 1 || (long long)splits * per < g.units ||
+      (long long)(splits - 1) * per >= g.units || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  g.out_elems = (long long)n * (UP ? 4LL * h * wd : (long long)g.gh * g.gw) * o;
+  if (splits == 1)
+    return launch_any<UP, OutT>(x, w, static_cast<OutT*>(y), g, bn, wgs, 1,
+                                stream);
+  float* pp = static_cast<float*>(part);
+  const int e = launch_any<UP, float>(x, w, pp, g, bn, wgs, splits, stream);
+  if (e != 0) return e;
+  long long blocks = (g.out_elems + 255) / 256;
+  if (blocks > 4 * 132) blocks = 4 * 132;
+  sum_splits<OutT><<<(unsigned)blocks, 256, 0, stream>>>(
+      pp, static_cast<OutT*>(y), g.out_elems, splits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int rnr_down4s(const void* x, const void* w, void* y, int n, int h,
-                          int wd, int c, int o, int reflect,
+extern "C" int rnr_down4s(const void* x, const void* w, void* y, void* part,
+                          int n, int h, int wd, int c, int o, int reflect,
+                          int bn, int wgs, int sw, int splits, int per,
                           cudaStream_t stream) {
-  return launch<false, __nv_bfloat16>(x, w, y, n, h, wd, c, o, reflect, stream);
+  return launch<false, bf16>(x, w, y, part, n, h, wd, c, o, reflect, bn, wgs,
+                             sw, splits, per, stream);
 }
 
 // down4s with an f32 output: convt4s's data gradient (zero padding).
 extern "C" int rnr_down4s_f32out(const void* x, const void* w, void* y,
-                                 int n, int h, int wd, int c, int o,
-                                 int reflect, cudaStream_t stream) {
-  return launch<false, float>(x, w, y, n, h, wd, c, o, reflect, stream);
+                                 void* part, int n, int h, int wd, int c,
+                                 int o, int reflect, int bn, int wgs, int sw,
+                                 int splits, int per, cudaStream_t stream) {
+  return launch<false, float>(x, w, y, part, n, h, wd, c, o, reflect, bn, wgs,
+                              sw, splits, per, stream);
 }
 
-extern "C" int rnr_convt4s(const void* x, const void* w, void* y, int n,
-                           int h, int wd, int c, int o, cudaStream_t stream) {
-  return launch<true, __nv_bfloat16>(x, w, y, n, h, wd, c, o, 0, stream);
+extern "C" int rnr_convt4s(const void* x, const void* w, void* y, void* part,
+                           int n, int h, int wd, int c, int o, int bn,
+                           int wgs, int sw, int splits, int per,
+                           cudaStream_t stream) {
+  return launch<true, bf16>(x, w, y, part, n, h, wd, c, o, 0, bn, wgs, sw,
+                            splits, per, stream);
 }
 
 extern "C" int rnr_convt4s_f32out(const void* x, const void* w, void* y,
-                                  int n, int h, int wd, int c, int o,
-                                  cudaStream_t stream) {
-  return launch<true, float>(x, w, y, n, h, wd, c, o, 0, stream);
+                                  void* part, int n, int h, int wd, int c,
+                                  int o, int bn, int wgs, int sw, int splits,
+                                  int per, cudaStream_t stream) {
+  return launch<true, float>(x, w, y, part, n, h, wd, c, o, 0, bn, wgs, sw,
+                             splits, per, stream);
 }

@@ -1,7 +1,8 @@
 """K6: the 4x4 stride-2 conv `down4` and transpose conv `convt4`
-(csrc/conv4x4.cu); K8's 4x4 pair, the same two functions in the slab
-formulation, `down4s` and `convt4s` (csrc/conv4x4_slab.cu); their plain
-versions, and the four autograd.Functions with rnr_tpu's VJPs.
+(csrc/conv4x4.cu); K8's 4x4 pair `down4s` and `convt4s`, the same two
+functions as implicit GEMMs on wgmma over TMA bands
+(csrc/conv4x4_slab.cu, planned by `conv4s_plan`); their plain versions,
+and the four autograd.Functions with rnr_tpu's VJPs.
 
 Replaces rnr_tpu/ops/conv_pallas.py::down4 / convt4 / down4s / convt4s
 (:747, :787, :1207, :1338), as the U-Net calls them under conv_backend
@@ -36,6 +37,14 @@ import torch.nn.functional as F
 from rnr_tpu_torch.ops import _build
 from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
                                        use_kernel)
+from rnr_tpu_torch.ops.conv_cuda import k3_weights, pad_channels, round8
+
+# K8's tiling (csrc/conv4x4_slab.cu): input channels per reduction unit,
+# the blocks of one wave on the H100 (132 SMs), the fewest units a split
+# of K takes
+K8_UNIT = 64
+K8_TARGET_BLOCKS = 132
+K8_MIN_UNITS = 4
 
 _conv_bwd = torch.ops.aten.convolution_backward
 
@@ -82,48 +91,114 @@ def convt4_torch(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 2, 3, 1).to(out_dtype or dt)
 
 
-def _launch(lib: str, symbol: str, counter, x: torch.Tensor,
-            w: torch.Tensor, out_shape: tuple, out_dtype, pad: tuple = ()
-            ) -> torch.Tensor:
-    """One launch of a 4x4 kernel (bf16 or f32 output); counts in
-    `counter.launches`.  `pad` is (reflect,) for the down convs."""
-    n, h, wd, c = x.shape
-    o = w.shape[-1]
+def _check_down(x: torch.Tensor, pad_mode: str) -> None:
+    _check_pad(pad_mode)
+    if pad_mode == "reflect" and min(x.shape[1:3]) < 2:
+        raise ValueError("reflect padding needs H, W >= 2")
+
+
+def _output(symbol: str, x: torch.Tensor, w: torch.Tensor, up: bool,
+            out_dtype) -> torch.Tensor:
+    """The empty output of a 4x4 kernel: [N, 2H, 2W, O] (up) or [N, H//2,
+    W//2, O], bf16 or f32 (x's dtype when None)."""
+    n, h, wd, _ = x.shape
     out_dtype = out_dtype or x.dtype
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{symbol}: output dtype {out_dtype}, the kernel "
                         "writes bf16 or f32")
-    if min(out_shape) < 1:
-        raise ValueError(f"{symbol}: empty output {out_shape} from x "
+    o = w.shape[-1]
+    shape = (n, 2 * h, 2 * wd, o) if up else (n, h // 2, wd // 2, o)
+    if min(shape) < 1:
+        raise ValueError(f"{symbol}: empty output {shape} from x "
                          f"{tuple(x.shape)}")
+    return torch.empty(shape, dtype=out_dtype, device=x.device)
+
+
+def _launch_k6(symbol: str, counter, x: torch.Tensor, w: torch.Tensor,
+               up: bool, pad: tuple, out_dtype) -> torch.Tensor:
+    """One launch of K6's down4 or convt4 (csrc/conv4x4.cu), bf16 or f32
+    output; counts in `counter.launches`.  `pad` is (reflect,) for
+    down4."""
+    n, h, wd, c = x.shape
+    o = w.shape[-1]
+    y = _output(symbol, x, w, up, out_dtype)
     xb = x.contiguous()
     require(xb, "x", torch.bfloat16, (n, h, wd, c))
     wb = w.to(torch.bfloat16).contiguous()
     require(wb, "w", torch.bfloat16, (4, 4, c, o))
-    y = torch.empty(out_shape, dtype=out_dtype, device=x.device)
-    if out_dtype == torch.float32:
+    if y.dtype == torch.float32:
         symbol += "_f32out"
-    f = _build.fn(lib, symbol, 3, 5 + len(pad))
+    f = _build.fn("conv4x4", symbol, 3, 5 + len(pad))
     counter.launches += 1
     check_launch(f(xb.data_ptr(), wb.data_ptr(), y.data_ptr(), n, h, wd, c,
                    o, *pad, stream_of(xb)), symbol)
     return y
 
 
-def _launch_down(lib, symbol, counter, x, w, pad_mode, out_dtype):
-    _check_pad(pad_mode)
-    n, h, wd, _ = x.shape
-    if pad_mode == "reflect" and (h < 2 or wd < 2):
-        raise ValueError("reflect padding needs H, W >= 2")
-    return _launch(lib, symbol, counter, x, w,
-                   (n, h // 2, wd // 2, w.shape[-1]), out_dtype,
-                   (int(pad_mode == "reflect"),))
+def conv4s_plan(n: int, h: int, wd: int, c8: int, o: int,
+                up: bool) -> tuple[int, int, int, int, int]:
+    """(bn, wgs, sw, splits, per) of K8's launch for x [N, H, W, c8] (c8 a
+    multiple of 8) and O outputs: down4s (up False) over the [N, H//2,
+    W//2] output grid, convt4s over the [N, H, W] input grid per output
+    row parity.  BN = 64 or 128 outputs a tile; wgs consumer warpgroups of
+    64 GEMM rows each; a tile's 64 wgs rows are row segments of sw
+    positions: sw = 16 or 32 where a row has at most 32 positions (then
+    one warpgroup), else 64, or 128 where rows have 128 positions or
+    more.  Two warpgroups where their tiles fill half a wave (rows of 64
+    to 127 positions) or a wave (longer rows).  Where the tiles fill less
+    than a wave, the reduction's units (8 (down4s) or 4 (convt4s) a
+    64-channel chunk) are cut into `splits` runs of `per`, at most
+    K8_TARGET_BLOCKS tiles in all and at least K8_MIN_UNITS units a run.
+    Fixed by the shapes alone, so a rerun adds in the same order."""
+    gh, gw = (h, wd) if up else (h // 2, wd // 2)
+    rows = n * gh
+    bn = 64 if round8(o) <= 64 else 128
+    par = 2 if up else 1
+
+    def tiles(bm: int, sw: int) -> int:
+        return (-(-gw // sw) * -(-rows // (bm // sw)) * -(-o // bn) * par)
+
+    if gw <= 32:
+        wgs, sw = 1, (16 if gw <= 16 else 32)
+    elif gw < 128:
+        wgs = 2 if tiles(128, 64) >= K8_TARGET_BLOCKS // 2 else 1
+        sw = 64
+    else:
+        wgs = 2 if tiles(128, 128) >= K8_TARGET_BLOCKS else 1
+        sw = 64 * wgs
+    units = (4 if up else 8) * -(-c8 // K8_UNIT)
+    want = max(1, min(K8_TARGET_BLOCKS // tiles(64 * wgs, sw),
+                      units // K8_MIN_UNITS))
+    per = -(-units // want)
+    return bn, wgs, sw, -(-units // per), per
 
 
-def _launch_up(lib, symbol, counter, x, w, out_dtype):
-    n, h, wd, _ = x.shape
-    return _launch(lib, symbol, counter, x, w,
-                   (n, 2 * h, 2 * wd, w.shape[-1]), out_dtype)
+def _launch_k8(symbol: str, counter, x: torch.Tensor, w: torch.Tensor,
+               up: bool, pad: tuple, out_dtype) -> torch.Tensor:
+    """One launch of K8's down4s or convt4s (csrc/conv4x4_slab.cu), bf16
+    or f32 output, its split-K sum included; counts in
+    `counter.launches`.  C % 8 != 0 is padded with zero channels first,
+    O with zero weights.  `pad` is (reflect,) for down4s."""
+    n, h, wd, c = x.shape
+    o = w.shape[-1]
+    y = _output(symbol, x, w, up, out_dtype)
+    xc = x.contiguous()
+    require(xc, "x", torch.bfloat16, (n, h, wd, c))
+    c8 = round8(c)
+    xb = pad_channels(xc, c8)
+    wb = k3_weights(w, c8)
+    require(wb, "w", torch.bfloat16, (4, 4, c8, round8(o)))
+    bn, wgs, sw, splits, per = conv4s_plan(n, h, wd, c8, o, up)
+    part = (torch.empty(splits * y.numel(), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    if y.dtype == torch.float32:
+        symbol += "_f32out"
+    f = _build.fn("conv4x4_slab", symbol, 4, 10 + len(pad))
+    counter.launches += 1
+    check_launch(f(xb.data_ptr(), wb.data_ptr(), y.data_ptr(),
+                   None if part is None else part.data_ptr(), n, h, wd, c8,
+                   o, *pad, bn, wgs, sw, splits, per, stream_of(xb)), symbol)
+    return y
 
 
 def down4_fwd(x: torch.Tensor, w: torch.Tensor, pad_mode: str = "same",
@@ -133,8 +208,9 @@ def down4_fwd(x: torch.Tensor, w: torch.Tensor, pad_mode: str = "same",
     the card), w [4, 4, C, O] -> [N, H//2, W//2, O] in `out_dtype`."""
     if not use_kernel(x, w):
         return down4_torch(x, w, pad_mode, out_dtype)
-    return _launch_down("conv4x4", "rnr_down4", down4, x, w, pad_mode,
-                        out_dtype)
+    _check_down(x, pad_mode)
+    return _launch_k6("rnr_down4", down4, x, w, False,
+                      (int(pad_mode == "reflect"),), out_dtype)
 
 
 def convt4_fwd(x: torch.Tensor, w: torch.Tensor,
@@ -144,25 +220,27 @@ def convt4_fwd(x: torch.Tensor, w: torch.Tensor,
     x [N, H, W, C], w [4, 4, C, O] -> [N, 2H, 2W, O] in `out_dtype`."""
     if not use_kernel(x, w):
         return convt4_torch(x, w, out_dtype)
-    return _launch_up("conv4x4", "rnr_convt4", convt4, x, w, out_dtype)
+    return _launch_k6("rnr_convt4", convt4, x, w, True, (), out_dtype)
 
 
 def down4s_fwd(x: torch.Tensor, w: torch.Tensor, pad_mode: str = "same",
                out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """down4_fwd in the slab formulation (K8's down4s on CUDA tensors)."""
+    """down4_fwd through K8's down4s on CUDA tensors (the plain version
+    on CPU tensors)."""
     if not use_kernel(x, w):
         return down4_torch(x, w, pad_mode, out_dtype)
-    return _launch_down("conv4x4_slab", "rnr_down4s", down4s, x, w,
-                        pad_mode, out_dtype)
+    _check_down(x, pad_mode)
+    return _launch_k8("rnr_down4s", down4s, x, w, False,
+                      (int(pad_mode == "reflect"),), out_dtype)
 
 
 def convt4s_fwd(x: torch.Tensor, w: torch.Tensor,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """convt4_fwd in the slab formulation (K8's convt4s on CUDA tensors)."""
+    """convt4_fwd through K8's convt4s on CUDA tensors (the plain version
+    on CPU tensors)."""
     if not use_kernel(x, w):
         return convt4_torch(x, w, out_dtype)
-    return _launch_up("conv4x4_slab", "rnr_convt4s", convt4s, x, w,
-                      out_dtype)
+    return _launch_k8("rnr_convt4s", convt4s, x, w, True, (), out_dtype)
 
 
 # ------------------------------------------------------------- gradients
@@ -293,7 +371,7 @@ def down4(x: torch.Tensor, w: torch.Tensor,
 
 def down4s(x: torch.Tensor, w: torch.Tensor,
            pad_mode: str = "same") -> torch.Tensor:
-    """down4 through K8's slab kernel."""
+    """down4 through K8's down4s kernel."""
     _check_pad(pad_mode)
     return Down4sFn.apply(x, w, pad_mode)
 
@@ -305,7 +383,7 @@ def convt4(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def convt4s(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """convt4 through K8's slab kernel."""
+    """convt4 through K8's convt4s kernel."""
     return Convt4sFn.apply(x, w)
 
 

@@ -162,9 +162,9 @@ def pad_channels(t: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def k3_weights(w: torch.Tensor, c8: int) -> torch.Tensor:
-    """w [3, 3, C, O] (any strides) -> K3's contiguous bf16 [3, 3, c8,
+    """w [kh, kw, C, O] (any strides) -> contiguous bf16 [kh, kw, c8,
     round8(O)], zero-padded: one conversion, and a pad only where C or O
-    is ragged."""
+    is ragged (K3's 3x3 weights, K8's 4x4 ones)."""
     c, o = w.shape[2], w.shape[3]
     wb = w.to(torch.bfloat16, memory_format=torch.contiguous_format)
     if (c8, round8(o)) == (c, o):

@@ -210,3 +210,179 @@ def test_group_norm_matches_flax(dtype, c):
                                atol=1e-5 * float(np.abs(want).max()))
     with pytest.raises(ValueError, match="group size"):
         GroupNorm(c + 8)
+
+
+# ---- K8's plan and tiling on the host (csrc/conv4x4_slab.cu)
+
+# (N, H, W, c8, O, up): the frame's five down convs, their f32 dgrads
+# and five transpose convs at 512^2, then the unit tests' shapes, N = 2
+# with a row count no tile divides, odd W, and a 16-wide C = O = 512
+K8_SHAPES = [
+    (1, 512, 512, 64, 128, False), (1, 256, 256, 128, 256, False),
+    (1, 128, 128, 256, 512, False), (1, 64, 64, 512, 512, False),
+    (1, 32, 32, 512, 512, False), (1, 64, 64, 512, 1024, False),
+    (1, 128, 128, 256, 1024, False), (1, 256, 256, 128, 512, False),
+    (1, 512, 512, 64, 256, False), (1, 16, 16, 512, 512, True),
+    (1, 32, 32, 1024, 512, True), (1, 64, 64, 1024, 256, True),
+    (1, 128, 128, 512, 128, True), (1, 256, 256, 256, 64, True),
+    (2, 10, 12, 8, 7, False), (2, 7, 150, 16, 24, True),
+    (2, 5, 9, 40, 130, False), (2, 18, 34, 64, 72, True),
+    (2, 14, 14, 8, 8, False), (1, 64, 63, 64, 64, False),
+    (1, 45, 77, 64, 64, True), (2, 16, 16, 512, 512, False),
+    (2, 16, 16, 512, 512, True)]
+
+
+def _plan_tiles(n, h, wd, o, up, bn, wgs, sw):
+    gh, gw = (h, wd) if up else (h // 2, wd // 2)
+    rows = 64 * wgs // sw
+    return (-(-gw // sw) * -(-(n * gh) // rows) * -(-o // bn)
+            * (2 if up else 1))
+
+
+@pytest.mark.parametrize("n,h,wd,c8,o,up", K8_SHAPES)
+def test_conv4s_plan_covers_every_unit_in_fixed_runs(n, h, wd, c8, o, up):
+    """Every unit in exactly one split, no split empty, runs of at least
+    K8_MIN_UNITS where there is more than one; at most one wave of tiles
+    where K is split; tiles of 64 rows a warpgroup in whole row segments;
+    the same plan on every call (a rerun adds in one order)."""
+    bn, wgs, sw, splits, per = c4.conv4s_plan(n, h, wd, c8, o, up)
+    assert bn in (64, 128) and wgs in (1, 2)
+    assert bn == 64 or o > 64
+    gw = wd if up else wd // 2
+    units = (4 if up else 8) * -(-c8 // c4.K8_UNIT)
+    assert splits * per >= units > (splits - 1) * per
+    assert splits == 1 or per >= c4.K8_MIN_UNITS
+    tiles = _plan_tiles(n, h, wd, o, up, bn, wgs, sw)
+    assert splits == 1 or tiles * splits <= c4.K8_TARGET_BLOCKS
+    if gw <= 32:     # short rows: 64 / sw whole rows a tile
+        assert wgs == 1 and sw in (16, 32) and sw >= gw and 64 % sw == 0
+    else:            # segments of 64 or 128 positions, 1 or 2 a tile
+        assert sw in (64, 128) and sw <= 64 * wgs and (sw == 64 or gw >= 128)
+    assert c4.conv4s_plan(n, h, wd, c8, o, up) == (bn, wgs, sw, splits, per)
+
+
+def _k8_emulate(x: np.ndarray, w: np.ndarray, up: bool, reflect: bool,
+                plan) -> np.ndarray:
+    """csrc/conv4x4_slab.cu's arithmetic in float64, block by block: each
+    unit's two taps from the weight map's coordinates (w as [8][2][C][O],
+    tap row * 2 + kx // 2, kx % 2), its bands from the tensor maps'
+    (down4s: x's even or odd columns; zeros outside; reflect rows by
+    index and the patched columns), products summed per split and the
+    splits in order."""
+    bn, wgs, sw, splits, per = plan
+    n, h, wd, c = x.shape
+    o = w.shape[-1]
+    c8 = -(-c // 8) * 8
+    c64 = -(-c8 // 64) * 64     # TMA's zeros past C
+    xp = np.zeros((n, h, wd, c64))
+    xp[..., :c] = x
+    wv = np.zeros((4, 4, c64, o))
+    wv[:, :, :c] = w
+    wv = wv.reshape(8, 2, c64, o)
+    gh, gw = (h, wd) if up else (h // 2, wd // 2)
+    bm = 64 * wgs
+    rows = bm // sw
+    t_units = 4 if up else 8
+    units = t_units * -(-c8 // 64)
+    maps = ([xp] if up else [xp[:, :, 0::2], xp[:, :, 1::2]])
+    out_shape = (n, 2 * h, 2 * wd, o) if up else (n, gh, gw, o)
+    parts = np.zeros((splits,) + out_shape)
+
+    wide = sw >= 64    # one band of sw + 1 a segment, else a box a tap
+
+    def band(xm, img, xr, col):   # sw + 1 or sw positions from col
+        cnt = sw + 1 if wide else sw
+        b = np.zeros((cnt, c64))
+        if 0 <= img < n and 0 <= xr < h:
+            for q in range(cnt):
+                if 0 <= col + q < xm.shape[2]:
+                    b[q] = xm[img, xr, col + q]
+        return b
+
+    for a in (0, 1) if up else (0,):
+        for r0 in range(0, n * gh, rows):
+            for j0 in range(0, gw, sw):
+                for s in range(splits):
+                    acc = np.zeros((2 if up else 1, bm, o))
+                    for u in range(s * per, min(s * per + per, units)):
+                        ch, hi, lo = u // t_units, (u % t_units) >> 1, u & 1
+                        cs = slice(64 * ch, 64 * ch + 64)
+                        taps = ([wv[2 * (a + 2 * hi) + lo, i]
+                                 for i in (0, 1)] if up else
+                                [wv[2 * hi + i, lo] for i in (0, 1)])
+                        xm = maps[0] if up or lo == 1 else maps[1]
+                        col = j0 - 1 + lo if up else (j0 - 1 if lo == 0
+                                                      else j0)
+                        tiles = [np.zeros((bm, 64)), np.zeros((bm, 64))]
+                        for k in range(rows):
+                            img, i = divmod(r0 + k, gh)
+                            xr = i + a + hi - 1 if up else 2 * i + hi - 1
+                            if reflect:
+                                xr = -xr if xr < 0 else (
+                                    2 * h - 2 - xr if xr >= h else xr)
+                            if wide:
+                                bd = band(xm, img, xr, col)[:, cs]
+                                tl = [bd[:sw], bd[1:sw + 1]]
+                            else:
+                                tl = [band(xm, img, xr, col + t)[:, cs]
+                                      for t in (0, 1)]
+                            seg = slice(k * sw, k * sw + sw)
+                            for t in (0, 1):
+                                tiles[t][seg] = tl[t]
+                            if reflect and lo == 0 and j0 == 0:
+                                tiles[0][k * sw] = tiles[1][k * sw]
+                            pr = gw - 1 - j0
+                            if reflect and lo == 1 and wd % 2 == 0 \
+                                    and pr < sw:
+                                tiles[1][k * sw + pr] = tiles[0][k * sw + pr]
+                        for t in (0, 1):
+                            acc[t if up else 0] += tiles[t] @ taps[t][cs]
+                    for m in range(bm):
+                        k, jj = divmod(m, sw)
+                        if r0 + k >= n * gh or j0 + jj >= gw:
+                            continue
+                        img, i = divmod(r0 + k, gh)
+                        j = j0 + jj
+                        if up:
+                            for b in (0, 1):
+                                parts[s, img, 2 * i + a, 2 * j + b] = acc[b, m]
+                        else:
+                            parts[s, img, i, j] = acc[0, m]
+    y = parts[0]
+    for s in range(1, splits):
+        y = y + parts[s]
+    return y
+
+
+@pytest.mark.parametrize("n,h,wd,c,o,up,pad_mode,tile", [
+    (2, 10, 12, 5, 7, False, "reflect", None),
+    (2, 10, 12, 5, 7, False, "same", None),
+    (1, 9, 9, 8, 9, False, "reflect", None),
+    (2, 8, 70, 16, 5, False, "reflect", None),
+    (1, 7, 132, 8, 3, False, "reflect", (2, 128)),
+    (1, 5, 260, 8, 3, False, "reflect", (2, 64)),
+    (2, 5, 9, 40, 6, True, None, None), (1, 6, 40, 72, 4, True, None, None),
+    (1, 4, 66, 8, 5, True, None, None), (1, 3, 132, 8, 5, True, None, (2, 64)),
+    (1, 3, 131, 8, 5, True, None, (2, 128))])
+def test_k8_tiling_computes_the_plain_conv(n, h, wd, c, o, up, pad_mode,
+                                           tile):
+    """The kernel's decomposition, emulated in float64 with its plan or
+    the (wgs, sw) given (short-row tiles, one-row and two-row tiles of 64
+    and 128 positions, odd W and H, even W under reflect, split K, ragged
+    C and O), gives the plain
+    version's output within 1e-5 of its max (the plain version sums in
+    float32): a tap, band position or patch out of place moves an output
+    by a product, orders of magnitude more."""
+    rng = np.random.default_rng(h * wd + c)
+    x = rng.standard_normal((n, h, wd, c))
+    w = rng.standard_normal((4, 4, c, o)) / np.sqrt(16 * c)
+    plan = c4.conv4s_plan(n, h, wd, -(-c // 8) * 8, o, up)
+    if tile:
+        plan = (plan[0], *tile) + plan[3:]
+    got = _k8_emulate(x, w, up, pad_mode == "reflect", plan)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    want = (c4.convt4_torch(xt, wt) if up
+            else c4.down4_torch(xt, wt, pad_mode)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())

@@ -625,7 +625,8 @@ CONV4 = {"down4": (c4.down4_fwd, c4.down4, c4.down4_torch, True),
 
 @pytest.mark.parametrize("c,o,h,w", [(5, 7, 10, 12), (8, 16, 16, 16),
                                      (64, 72, 18, 34), (16, 24, 7, 150),
-                                     (40, 130, 5, 9)])
+                                     (40, 130, 5, 9), (512, 512, 16, 16),
+                                     (64, 64, 9, 63), (8, 16, 14, 14)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("pad_mode", ["same", "reflect"])
 @pytest.mark.parametrize("name", sorted(CONV4))
@@ -651,6 +652,30 @@ def test_conv4_kernels(dev, name, pad_mode, out_dtype, c, o, h, w):
     rel = 2 ** -7 if out_dtype == torch.bfloat16 else 1e-4
     err = float((k.float() - t.float()).abs().max())
     assert err <= rel * float(t.float().abs().max()), err
+
+
+@pytest.mark.parametrize("name", ["down4s", "convt4s"])
+@pytest.mark.parametrize("c,o,h", [(256, 512, 128), (512, 512, 32)])
+def test_conv4s_kernels_are_bitwise_reproducible(dev, name, c, o, h):
+    """K8's pair twice on the same inputs, bf16 and f32 out: bitwise
+    equal (a fixed order of sums, split K's partials added in split
+    order at 16^2 and 32^2), and within the plain version's tolerance."""
+    fwd, counter, plain, down = CONV4[name]
+    rng = np.random.default_rng(c + h)
+    x = _t(rng.standard_normal((1, h, h, c)).astype(np.float32), dev,
+           torch.bfloat16)
+    wt = _t((rng.standard_normal((4, 4, c, o)) / np.sqrt(16 * c)).astype(
+        np.float32), dev)
+    args = ("reflect",) if down else ()
+    for out_dtype in (torch.bfloat16, torch.float32):
+        k1 = fwd(x, wt, *args, out_dtype)
+        k2 = fwd(x, wt, *args, out_dtype)
+        t = plain(x, wt, *args, out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, k2)
+        rel = 2 ** -7 if out_dtype == torch.bfloat16 else 1e-4
+        err = float((k1.float() - t.float()).abs().max())
+        assert err <= rel * float(t.float().abs().max()), err
 
 
 def test_conv4_kernels_reject_f32_activations(dev):
