@@ -48,8 +48,12 @@ Phases (each failure raises, so the script exits non-zero):
            runs at one large and one split-K shape of each.  The 3x3 slab pair (K8a
            forward and f32 data gradient, K8b weight gradient) runs on K3's
            inputs at the 14 3x3 convs of a frame, K8a's forward within a
-           rounding step of K3's, K8b twice and bit-equal, then at odd C
-           and O and an odd H under both pad modes.  P1 (the GEMM chain of
+           rounding step of K3's, K8b twice and bit-equal, also timed
+           queued (beside cuDNN queued) with the wrappers' host time and
+           TFLOP/s per shape, then at odd C and O and an odd H under both
+           pad modes; K8a's forward (bf16, f32) and dgrad (both pads) must
+           be bit-equal over two runs at one 512^2 and one 32^2 shape.
+           P1 (the GEMM chain of
            tools/tpu_probe_r5.py) runs at the probe's section A shapes,
            each launch counted, with cuBLAS's one product of the same
            function beside it.
@@ -905,8 +909,11 @@ def kernels_conv(rec: dict, rng) -> None:
     convs of a frame, reflect padding, bf16 activations and gradients;
     K3's forward and K3b twice bit-equal, K8a's forward within one
     rounding step of K3's.  cuDNN computes the same function for both
-    formulations: it is timed once per shape.  Then the slab pair at odd
-    C and O and an odd H, both pad modes (K3's: kernels_conv3_odd)."""
+    formulations: it is timed once per shape.  K8a / K8b also with 20
+    calls queued back to back beside cuDNN's queued likewise, the
+    wrappers' host time and the TFLOP/s per shape and in total.  Then the
+    slab pair at odd C and O and an odd H, both pad modes (K3's:
+    kernels_conv3_odd), and K8a twice bit-equal (k8a_bitwise)."""
     errs = {(f, k): [] for f in CONV3_FORMS for k in ("fwd", "dgrad",
                                                       "wgrad")}
     tot = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
@@ -914,6 +921,9 @@ def kernels_conv(rec: dict, rng) -> None:
     # K3 / K3b and cuDNN with calls queued back to back (queued_ms)
     queued = {k: [0.0, 0.0] for k in ("fwd", "dgrad", "wgrad")}
     works = {k: [] for k in ("fwd", "dgrad", "wgrad")}
+    # K8a / K8b queued, host time and TFLOP/s, per shape and in total
+    k8s = {k: dict(queued_ms=0.0, flops=0, host=[], shapes=[])
+           for k in ("fwd", "dgrad", "wgrad")}
     aten_bwd = torch.ops.aten.convolution_backward
     vs_k3 = []
     for c, o, h in CONV_SHAPES:
@@ -980,10 +990,23 @@ def kernels_conv(rec: dict, rng) -> None:
             lms = cuda_ms(lf)
             queued[kind][0] += queued_ms(
                 lambda: CONV3_FORMS["conv3x3"][kind](*args[kind]))
-            queued[kind][1] += queued_ms(lf)
+            lq = queued_ms(lf)
+            queued[kind][1] += lq
             wk = conv_work(kind, h * h, c, o)
             works[kind].append(wk)
             tflop = 2 * 9 * c * o * h * h / 1e9
+            k8_fn = (lambda: CONV3_FORMS["conv3x3s"][kind](*args[kind]))
+            q, hu = queued_ms(k8_fn), host_us(k8_fn)
+            r = k8s[kind]
+            r["queued_ms"] += q
+            r["flops"] += 2 * 9 * c * o * h * h
+            r["host"].append(hu)
+            r["shapes"].append(dict(c=c, o=o, h=h, queued_ms=q,
+                                    library_queued_ms=lq, host_us=hu,
+                                    tflops=tflop / q))
+            line["conv3x3s"].append(
+                f"{kind} queued {q:.4f} ms ({tflop / q:.1f} TFLOP/s; cuDNN "
+                f"{lq:.4f}), host {hu:.1f} us")
             for form, fs in CONV3_FORMS.items():
                 a = args[kind]
                 ms = cuda_ms(lambda: fs[kind](*a))
@@ -1042,6 +1065,26 @@ def kernels_conv(rec: dict, rng) -> None:
                                            + queued["dgrad"][1])
     rec["conv3x3_wgrad"]["queued_ms"] = queued["wgrad"][0]
     rec["conv3x3_wgrad"]["queued_library_ms"] = queued["wgrad"][1]
+    for kind, r in k8s.items():
+        log(f"[kernels] conv3x3s {kind}, 14 convs, 20 calls queued back to "
+            f"back per shape: {r['queued_ms']:.4f} ms "
+            f"({r['flops'] / r['queued_ms'] / 1e9:.1f} TFLOP/s), cuDNN "
+            f"queued {queued[kind][1]:.4f} ms "
+            f"({r['queued_ms'] / queued[kind][1]:.2f}x), host "
+            f"{np.mean(r['host']):.1f} us a call")
+    f_, d_, w_ = k8s["fwd"], k8s["dgrad"], k8s["wgrad"]
+    rec["conv3x3s"].update(
+        queued_ms=f_["queued_ms"] + d_["queued_ms"],
+        queued_library_ms=queued["fwd"][1] + queued["dgrad"][1],
+        fwd_queued_ms=f_["queued_ms"], dgrad_queued_ms=d_["queued_ms"],
+        host_us=float(np.mean(f_["host"] + d_["host"])),
+        tflops=(f_["flops"] + d_["flops"])
+        / (f_["queued_ms"] + d_["queued_ms"]) / 1e9,
+        shapes=dict(fwd=f_["shapes"], dgrad=d_["shapes"]))
+    rec["conv3x3s_wgrad"].update(
+        queued_ms=w_["queued_ms"], queued_library_ms=queued["wgrad"][1],
+        host_us=float(np.mean(w_["host"])),
+        tflops=w_["flops"] / w_["queued_ms"] / 1e9, shapes=w_["shapes"])
     for form in CONV3_FORMS:
         f_, d_ = tot[(form, "fwd")], tot[(form, "dgrad")]
         ms, lms = f_["ms"] + d_["ms"], f_["library_ms"] + d_["library_ms"]
@@ -1074,6 +1117,34 @@ def kernels_conv(rec: dict, rng) -> None:
     log(f"[kernels] 3x3 slab odd shapes {CONV3_ODD}: K8a (bf16 within 2^-7 "
         "of max, f32 and dgrad within 1e-4) and K8b (within 1e-4, twice "
         "bit-equal) agree, both pad modes")
+    k8a_bitwise()
+
+
+def k8a_bitwise() -> None:
+    """K8a twice on the same inputs (its own seed) at one 512^2 and one
+    32^2 shape of the frame: the forward (bf16 and f32 out) and the f32
+    data gradient under both pads, bitwise equal."""
+    from rnr_tpu_torch.ops.conv_cuda import k8a_plan
+    rng = np.random.default_rng(11)
+    for c, o, h in (CONV_SHAPES[1], CONV_SHAPES[7]):
+        x, g = _bf16_input(rng, (1, h, h, c)), _bf16_input(rng, (1, h, h, o))
+        w = _bf16_input(rng, (3, 3, c, o), 1 / math.sqrt(9 * c)).float()
+        bias = torch.from_numpy(rng.standard_normal(o).astype(
+            np.float32)).to(DEV)
+        runs = {"fwd bf16": lambda: conv3x3s_fwd(x, w, bias, "reflect"),
+                "fwd f32": lambda: conv3x3s_fwd(x, w, bias, "reflect",
+                                                torch.float32),
+                "dgrad reflect": lambda: conv3x3s_dgrad(g, w, "reflect"),
+                "dgrad same": lambda: conv3x3s_dgrad(g, w, "same")}
+        for what, fn in runs.items():
+            if not torch.equal(fn(), fn()):
+                raise AssertionError(f"conv3x3s {what} {c}->{o} @{h}: two "
+                                     "runs differ")
+        log(f"[kernels] conv3x3s {c}->{o} @{h}: forward (bf16, f32) and "
+            "dgrad (reflect, same) bitwise equal over two runs (plans "
+            f"fwd {k8a_plan(1, h, h, o, False)}, reflect dgrad "
+            f"{k8a_plan(1, h, h, c, True)})")
+        del x, g, w
 
 
 # (K, N, T) of tools/tpu_probe_r5.py's section A (:108-146); M is 16 tiles

@@ -1,10 +1,12 @@
 """Time K4 (csrc/stratified_knn.cu), K2b (csrc/mipmap_scatter.cu), K1 and
-K1b (csrc/sh_fan.cu), K8c and K8d (csrc/conv4x4_slab.cu) on one NVIDIA GPU
-with parts of each kernel switched off, to see which part bounds it.
+K1b (csrc/sh_fan.cu), K8c and K8d (csrc/conv4x4_slab.cu), K8a and K8b
+(csrc/conv3x3_slab.cu, conv3x3_slab_wgrad.cu) on one NVIDIA GPU with
+parts of each kernel switched off, to see which part bounds it.
 
     python3 chip_variants.py
     python3 chip_variants.py --kernels K1b --variants real,staging
     python3 chip_variants.py --kernels K8 --csrc OLD/rnr_tpu_torch/csrc
+    python3 chip_variants.py --kernels K8s --csrc OLD/rnr_tpu_torch/csrc
 
 Each variant is the real source with one textual switch applied, written
 to build/rnr_tpu_torch/variants/ and built with the flags of
@@ -60,6 +62,15 @@ them after); no_epilogue (no output stores).  The switches follow the
 design of csrc/conv4x4_slab.cu that they find (WMMA on bands staged by
 plain loads, or wgmma over TMA bands), so --csrc times a parent's pair
 too; each build prints its registers and spills (ptxas).
+K8a (the 3x3 slab conv: forward under reflect, bf16 out, and the f32
+data gradient under reflect and "same") and K8b (its weight gradient,
+reflect) at the frame's 14 3x3 convs: real; no_mma; no_loads; no_epilogue
+(K8a: the staged rows' global stores gone; K8b: the partials' stores);
+for K8b also no_reduce (no split reduction), for K8a's wgmma design also
+no_ring (the reflect dgrad's ring-column tiles skipped) and no_fold (no
+ring fold).  The switches follow the design found (WMMA on staged slab
+tiles, or wgmma over TMA bands with three dx accumulators), so --csrc
+times a parent's pair too; each build prints its registers and spills.
 The SH variants are built for lmax 10 alone, and the switches follow the
 design of csrc/sh_fan.cu that they find (one thread per pixel with the
 backward's d coeff contracted through shared memory, or the orders split
@@ -90,6 +101,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from rnr_tpu_torch.ops import _build  # noqa: E402
 from rnr_tpu_torch.ops.knn_cuda import knn_work_bytes  # noqa: E402
@@ -412,6 +424,200 @@ def time_k8(dev, stream, csrc: str, only=None) -> None:
         print(f"{kname} {use} five shapes {name}: {us:.2f} us", flush=True)
 
 
+# per design of csrc/conv3x3_slab.cu (K8a) and conv3x3_slab_wgrad.cu (K8b),
+# told apart by a line only the K8a source of that design has:
+# {variant: switches} of each source
+_SKIP_MMA = ("#include \"sm90.cuh\"\n", "#include \"sm90.cuh\"\n"
+             "template <typename A>\n__device__ __forceinline__ void "
+             "skip_mma(A&, uint64_t, uint64_t) {}\n")
+K8S_DESIGNS = {
+    "WMMA on staged slab tiles": (
+        "wmma::mma_sync(acc[i], fa, fb, acc[i]);",
+        {"real": [],
+         "no_mma": [("wmma::mma_sync(acc[i], fa, fb, acc[i]);", "")],
+         "no_loads": [
+             ("      // ---- stage A: band dy's [YR, BK] slice ----\n"
+              "      if (tid < GROUPS) {",
+              "      // ---- stage A: band dy's [YR, BK] slice ----\n"
+              "      if (tid < GROUPS && dy + c0 == 0) {"),
+             ("      for (int e = tid; e < BK * (YC / 8); e += THREADS) {",
+              "      for (int e = dy + c0 == 0 ? tid : BK * (YC / 8); "
+              "e < BK * (YC / 8); e += THREADS) {")],
+         "no_epilogue": [
+             ("      store_out(y + (grow * wd + cu) * o + oc, v + bias[oc]);",
+              "      if (v == 1.2345e-30f) store_out(y + (grow * wd + cu) * o"
+              " + oc, v + bias[oc]);")]},
+        {"real": [],
+         "no_mma": [("        for (int i = 0; i < 2; ++i) wmma::mma_sync("
+                     "acc[i][j], fa[i], fb, acc[i][j]);", "        (void)fb;")],
+         "no_loads": [
+             ("    // ---- stage A: xp's band-dy row at 32 slab pixels, 64 "
+              "channels ----\n    {",
+              "    // ---- stage A: xp's band-dy row at 32 slab pixels, 64 "
+              "channels ----\n    if (p0 == p_begin) {"),
+             ("    for (int e = tid; e < GR * (NB / 8); e += THREADS) {",
+              "    for (int e = p0 == p_begin ? tid : GR * (NB / 8); "
+              "e < GR * (NB / 8); e += THREADS) {")],
+         "no_epilogue": [
+             ("      if (ci < c && oc < o) tap[(size_t)ci * o + oc] = "
+              "Cs[r * LDC + col];",
+              "      if (ci < c && oc < o && ci < 0) tap[(size_t)ci * o + oc]"
+              " = Cs[r * LDC + col];")],
+         "no_reduce": [
+             ("  if (e != cudaSuccess || splits == 1) return (int)e;",
+              "  if (e != cudaSuccess || splits >= 1) return (int)e;")]}),
+    "wgmma over TMA bands, three dx accumulators": (
+        "  const int tiles = g.row_tiles + (RING ? 2 * g.strips * g.n * "
+        "g.o_tiles : 0);",
+        {"real": [],
+         "no_mma": [_SKIP_MMA, ("sm90::wgmma<0, 1>(", "skip_mma(")],
+         "no_loads": [
+             ("        const bool patch = fix;",
+              "        const bool patch = fix && it < K::STAGES;"),
+             ("            const uint32_t bar = patch ? tma_bar + 8 * s : "
+              "full_bar + 8 * s;",
+              "            if (it >= K::STAGES) {\n"
+              "              sm90::mbar_arrive(full_bar + 8 * s);\n"
+              "              continue;\n            }\n"
+              "            const uint32_t bar = patch ? tma_bar + 8 * s : "
+              "full_bar + 8 * s;")],
+         "no_epilogue": [("      if (d < 0 || oc >= g.o) continue;",
+                          "      if (d < 0 || oc >= g.o || d != -7) continue;")],
+         "no_ring": [
+             ("  const int tiles = g.row_tiles + (RING ? 2 * g.strips * g.n * "
+              "g.o_tiles : 0);", "  const int tiles = g.row_tiles;")],
+         "no_fold": [
+             ("  return conv3::fold_ring(static_cast<float*>(y), n, h, wd, o, "
+              "stream);", "  return 0;")]},
+        {"real": [],
+         "no_mma": [("        sm90::wgmma<1, 1>(acc[dx], da, db);",
+                     "        (void)da;\n        (void)db;")],
+         "no_loads": [
+             ("    if (tid == 0 && u + STAGES < units) load(u + STAGES);",
+              "    if (tid == 0 && u + STAGES < units)\n"
+              "      sm90::mbar_arrive(full_bar + 8 * s);")],
+         "no_epilogue": [("        if (ci < c && oc < o)\n",
+                          "        if (ci < c && oc < o && ci < 0)\n")],
+         "no_reduce": [("  if (e != 0 || splits == 1) return e;",
+                        "  if (e != 0 || splits >= 1) return e;")]}),
+}
+# the variants that only one side of a design has (the rest time both)
+K8S_ONLY = {"no_ring": "K8a", "no_fold": "K8a", "no_reduce": "K8b"}
+
+
+def k8s_variants(csrc: str):
+    """(design, K8a variants, K8b variants) of the slab sources in csrc."""
+    text = open(os.path.join(csrc, "conv3x3_slab.cu")).read()
+    for design, (marker, k8a, k8b) in K8S_DESIGNS.items():
+        if marker in text:
+            return design, k8a, k8b
+    raise RuntimeError(f"{csrc}/conv3x3_slab.cu: no known design")
+
+
+def _wmma_wgrad_plan(n_pix: int, tiles: int) -> tuple[int, int]:
+    """The WMMA design's split-K (its ops/conv_cuda.py::wgrad_splits):
+    about 1024 blocks, each summing a multiple of 32 slab pixels."""
+    steps = -(-n_pix // 32)
+    want = max(1, min(steps, -(-1024 // tiles)))
+    chunk = -(-steps // want) * 32
+    return -(-n_pix // chunk), chunk
+
+
+def time_k8s(dev, stream, csrc: str, only=None) -> None:
+    """K8a (forward under reflect, bf16 out; its f32 data gradient under
+    reflect and under "same") and K8b (reflect) at the kernels phase's 14
+    3x3 convs of chip_smoke.py, queued device time per call of each
+    variant, per shape and summed per kernel and use.  The WMMA design's
+    reflect dgrad is timed as its C call on g zero-padded by one ring
+    (the padding and the fold were torch ops around it)."""
+    from rnr_tpu_torch.ops import conv_cuda as cc
+    design, ta, tb = k8s_variants(csrc)
+    if only:
+        ta = {k: v for k, v in ta.items() if k in only}
+        tb = {k: v for k, v in tb.items() if k in only}
+    tag = "" if csrc == str(_build.CSRC) else "_other"
+    new = design.startswith("wgmma")
+    print(f"K8s kernels of {csrc}: {design}", flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        fa = pool.submit(build_all, "conv3x3_slab", ta, csrc, tag)
+        fb = pool.submit(build_all, "conv3x3_slab_wgrad", tb, csrc, tag)
+        libs = {"K8a": fa.result(), "K8b": fb.result()}
+    shapes = [(108, 64, 512), (64, 64, 512), (128, 640, 256),
+              (640, 128, 256), (128, 128, 256), (256, 256, 128),
+              (512, 512, 64), (512, 512, 32), (512, 512, 32),
+              (512, 512, 64), (256, 256, 128), (128, 128, 256),
+              (64, 64, 512), (128, 78, 512)]
+    total: dict = {}
+    for c, o, h in shapes:
+        rng = np.random.default_rng(c + o + h)
+        x = torch.from_numpy(rng.standard_normal((1, h, h, c)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        g = torch.from_numpy(rng.standard_normal((1, h, h, o)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy((rng.standard_normal((3, 3, c, o))
+                              / np.sqrt(9 * c)).astype(np.float32)).to(dev)
+        w_rot = w.flip(0, 1).transpose(2, 3)
+        bias = torch.zeros(o, device=dev)
+        flops = 2 * 9 * c * o * h * h
+        calls = {}      # use -> (kernel, symbol, ptrs, ints, keep-alive)
+        if new:
+            c8, o8 = cc.round8(c), cc.round8(o)
+            xb, gb = cc.pad_channels(x, c8), cc.pad_channels(g, o8)
+            wb, wr = cc.k3_weights(w, c8), cc.k3_weights(w_rot, o8)
+            y = torch.empty((1, h, h, o), device=dev, dtype=torch.bfloat16)
+            dx = torch.empty((h * h + cc.ring_len(h, h)) * c, device=dev)
+            calls["fwd"] = ("K8a", "rnr_conv3x3s", (xb, wb, bias, y),
+                            (1, h, h, c8, o, 1, *cc.k8a_plan(1, h, h, o,
+                                                             False)))
+            calls["dgrad"] = ("K8a", "rnr_conv3x3s_f32out", (gb, wr, None, dx),
+                              (1, h, h, o8, c, 2, *cc.k8a_plan(1, h, h, c,
+                                                               True)))
+            calls["dgrad_same"] = ("K8a", "rnr_conv3x3s_f32out",
+                                   (gb, wr, None, dx),
+                                   (1, h, h, o8, c, 0,
+                                    *cc.k8a_plan(1, h, h, c, False)))
+            splits, per = cc.k8b_plan(1, h, h, c8, o8)
+            dw = torch.empty((3, 3, c8, o8), device=dev)
+            part = torch.empty(max(splits, 1) * dw.numel(), device=dev)
+            calls["wgrad"] = ("K8b", "rnr_conv3x3s_wgrad", (xb, gb, part, dw),
+                              (1, h, h, c8, o8, 1, splits, per))
+        else:
+            wb = w.to(torch.bfloat16).contiguous()
+            wr = w_rot.to(torch.bfloat16).contiguous()
+            gp = F.pad(g, (0, 0, 1, 1, 1, 1))
+            y = torch.empty((1, h, h, o), device=dev, dtype=torch.bfloat16)
+            dxp = torch.empty((1, h + 2, h + 2, c), device=dev)
+            zc = torch.zeros(c, device=dev)
+            calls["fwd"] = ("K8a", "rnr_conv3x3s", (x, wb, bias, y),
+                            (1, h, h, c, o, 1))
+            calls["dgrad"] = ("K8a", "rnr_conv3x3s_f32out", (gp, wr, zc, dxp),
+                              (1, h + 2, h + 2, o, c, 0))
+            calls["dgrad_same"] = ("K8a", "rnr_conv3x3s_f32out",
+                                   (g, wr, zc, dxp), (1, h, h, o, c, 0))
+            splits, chunk = _wmma_wgrad_plan(h * (h + 2), 3 * -(-c // 64)
+                                             * -(-o // 64))
+            dw = torch.empty((3, 3, c, o), device=dev)
+            part = torch.empty(max(splits, 1) * dw.numel(), device=dev)
+            calls["wgrad"] = ("K8b", "rnr_conv3x3s_wgrad", (x, g, part, dw),
+                              (1, h, h, c, o, 1, splits, chunk))
+        for use, (kern, sym, ts, ints) in calls.items():
+            ptrs = [None if t is None else t.data_ptr() for t in ts]
+            for name, lib in libs[kern].items():
+                if K8S_ONLY.get(name, kern) != kern:
+                    continue
+                f = entry(lib, sym, len(ptrs), len(ints))
+                us = device_us(lambda: f(*ptrs, *ints, stream))
+                key = (kern, use, name)
+                total[key] = total.get(key, 0) + us
+                print(f"{kern} {use} {c}->{o} @{h} {name}: {us:.2f} us per "
+                      f"call ({flops / us / 1e6:.1f} TFLOP/s; plan "
+                      f"{ints[5 if kern == 'K8a' else 6:]})", flush=True)
+        del x, g, calls
+    for (kern, use, name), us in total.items():
+        print(f"{kern} {use} 14 shapes {name}: {us:.2f} us", flush=True)
+
+
 def sh_variants(csrc: str):
     """(K1 variants, K1b variants) of the design found in csrc."""
     text = open(os.path.join(csrc, "sh_fan.cu")).read()
@@ -646,14 +852,14 @@ def build_all(src: str, table: dict, csrc: str = str(_build.CSRC),
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="K4,K2b,K1,K1b,K8",
-                    help="comma-separated subset of K4,K2b,K1,K1b,K8 (K8: "
-                    "K8c and K8d)")
+    ap.add_argument("--kernels", default="K4,K2b,K1,K1b,K8,K8s",
+                    help="comma-separated subset of K4,K2b,K1,K1b,K8,K8s "
+                    "(K8: K8c and K8d; K8s: K8a and K8b)")
     ap.add_argument("--csrc", default=str(_build.CSRC),
-                    help="the csrc directory whose SH and K8 kernels are "
-                    "timed")
+                    help="the csrc directory whose SH, K8 and K8s kernels "
+                    "are timed")
     ap.add_argument("--variants", default="",
-                    help="comma-separated SH or K8 variants to time "
+                    help="comma-separated SH, K8 or K8s variants to time "
                     "(default all)")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
@@ -671,6 +877,9 @@ def main() -> None:
     if "K8" in which:
         time_k8(dev, stream, os.path.abspath(args.csrc),
                 set(filter(None, args.variants.split(","))))
+    if "K8s" in which:
+        time_k8s(dev, stream, os.path.abspath(args.csrc),
+                 set(filter(None, args.variants.split(","))))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

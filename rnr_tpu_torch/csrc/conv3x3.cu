@@ -46,9 +46,9 @@
 //   correlation of g with a 2-pixel zero ring, (H + 2) x (W + 2) outputs,
 //   read from g by TMA's zeros (no F.pad(g) in device memory); the
 //   interior outputs go straight to dx, the ring to a side buffer that
-//   fold_ring_kernel adds onto dx's border lines with the exact adjoint
-//   of reflect-pad, in ops/conv_cuda.py::_dgrad's order of adds; all
-//   three launched by one call of rnr_conv3x3_f32out.
+//   fold_ring_kernel (conv3x3_common.cuh) adds onto dx's border lines
+//   with the exact adjoint of reflect-pad, in ops/conv_cuda.py::_dgrad's
+//   order of adds; both launched by one call of rnr_conv3x3_f32out.
 //
 // What ragged and reflect cases cost: C % 8 != 0 (C = 108 on the first
 //   conv) is padded to a multiple of 8 by the wrapper (a copy of x); O
@@ -65,17 +65,14 @@
 
 #include <cstdint>
 
+#include "conv3x3_common.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace conv3;   // bf16, PAD_*, reflect, out_row, the stores
 
 constexpr int KC = 64;         // input channels per pipeline unit: one row
-
-// the C entries' `pad`: zero ring, reflect ring, or the dgrad's full
-// correlation (a 2-pixel zero ring, outputs on the (H+2) x (W+2) grid)
-constexpr int PAD_REFLECT = 1, PAD_FULL = 2;
 
 template <int BN, int WGS>
 struct Cfg {
@@ -96,24 +93,6 @@ struct Cfg {
   static constexpr int SMEM = MAIN + BM * 8 + 3 * STAGES * 8 + 1024;
   static_assert(B_ATOM % 1024 == 0 && STAGE % 1024 == 0, "swizzle atoms");
 };
-
-__device__ __forceinline__ int reflect(int i, int n) {
-  // i in [-1, n]: -1 -> 1, n -> n - 2 (jnp.pad mode="reflect")
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
-
-__device__ __forceinline__ void store_vec(bf16* p, const float* v) {
-  uint4 u;
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) q[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store_one(bf16* p, float v) { *p = __float2bfloat16(v); }
-__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 
 // x [N, H, W, C] through xmap (boxes (64 channels, SEG columns, 1, 1)),
 // w [9, C, O8] through wmap (boxes (64 outputs, KC channels, 3 taps)),
@@ -141,31 +120,14 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
 
   const int tid = threadIdx.x;
   const int ext = pad == PAD_FULL ? 1 : 0;
-  const int ho = h + 2 * ext, wo = wd + 2 * ext;
+  const int ho = h + 2 * ext;
   const int img = blockIdx.y / ho, row = blockIdx.y - img * ho;
   const int j0 = blockIdx.x * K::BM;
   const int o0 = blockIdx.z * BN;
 
   // dest[m]: the output row (of O values) of column j0 + m, or -1
-  for (int m = tid; m < K::BM; m += K::THREADS) {
-    const int i = row, j = j0 + m;
-    long long d = -1;
-    if (j < wo) {
-      if (pad != PAD_FULL) {
-        d = ((long long)img * h + i) * wd + j;
-      } else if (i >= 1 && i <= h && j >= 1 && j <= wd) {
-        d = ((long long)img * h + i - 1) * wd + j - 1;
-      } else {
-        const int ring = 2 * (wd + 2) + 2 * h;
-        const int k = i == 0 ? j
-                    : i == h + 1 ? wd + 2 + j
-                    : j == 0 ? 2 * (wd + 2) + i - 1
-                             : 2 * (wd + 2) + h + i - 1;
-        d = (long long)n * h * wd + (long long)img * ring + k;
-      }
-    }
-    dest[m] = d;
-  }
+  for (int m = tid; m < K::BM; m += K::THREADS)
+    dest[m] = out_row(pad, img, row, j0 + m, n, h, wd);
   if (tid == 0) {
     for (int s = 0; s < K::STAGES; ++s) {
       sm90::mbar_init(full_bar + 8 * s, 2);
@@ -363,53 +325,6 @@ int launch(const void* x, const void* w, const void* bias, void* y, int n,
   return (int)cudaErrorInvalidConfiguration;
 }
 
-// dx [N, H, W, C] += the ring of the full correlation, folded by the
-// adjoint of reflect-pad: per element, the additions of
-// ops/conv_cuda.py::_dgrad in its order (top, bottom, left, right, then
-// the four corners).  One thread per channel of each pixel on rows 1 and
-// H - 2 and columns 1 and W - 2.
-__global__ void __launch_bounds__(256)
-fold_ring_kernel(float* __restrict__ dx, const float* __restrict__ ring,
-                 int n, int h, int wd, int c) {
-  const int rlo = h - 2 < 1 ? h - 2 : 1, rhi = h - 2 < 1 ? 1 : h - 2;
-  const int clo = wd - 2 < 1 ? wd - 2 : 1, chi = wd - 2 < 1 ? 1 : wd - 2;
-  const int nr = rlo == rhi ? 1 : 2, nc = clo == chi ? 1 : 2;
-  const long long per = (long long)nr * wd + (long long)nc * (h - nr);
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= per * n * c) return;
-  const int ch = (int)(idx % c);
-  const long long t = idx / c;
-  const int img = (int)(t / per);
-  int l = (int)(t % per), a, b;
-  if (l < nr * wd) {
-    a = l / wd == 0 ? rlo : rhi;
-    b = l % wd;
-  } else {
-    l -= nr * wd;
-    b = l / (h - nr) == 0 ? clo : chi;
-    a = l % (h - nr);     // the a-th row outside {rlo, rhi}
-    if (a >= rlo) ++a;
-    if (nr == 2 && a >= rhi) ++a;
-  }
-  const long long rr = 2LL * (wd + 2) + 2LL * h;
-  const float* rg = ring + (size_t)img * rr * c + ch;
-  const float* top = rg;
-  const float* bot = rg + (size_t)(wd + 2) * c;
-  const float* left = rg + (size_t)(2 * (wd + 2) - 1) * c;       // row i' >= 1
-  const float* right = rg + (size_t)(2 * (wd + 2) + h - 1) * c;
-  float* p = dx + (((size_t)img * h + a) * wd + b) * c + ch;
-  float v = *p;
-  if (a == 1) v = __fadd_rn(v, top[(size_t)(b + 1) * c]);
-  if (a == h - 2) v = __fadd_rn(v, bot[(size_t)(b + 1) * c]);
-  if (b == 1) v = __fadd_rn(v, left[(size_t)(a + 1) * c]);
-  if (b == wd - 2) v = __fadd_rn(v, right[(size_t)(a + 1) * c]);
-  if (a == 1 && b == 1) v = __fadd_rn(v, top[0]);
-  if (a == 1 && b == wd - 2) v = __fadd_rn(v, top[(size_t)(wd + 1) * c]);
-  if (a == h - 2 && b == 1) v = __fadd_rn(v, bot[0]);
-  if (a == h - 2 && b == wd - 2) v = __fadd_rn(v, bot[(size_t)(wd + 1) * c]);
-  *p = v;
-}
-
 }  // namespace
 
 extern "C" int rnr_conv3x3(const void* x, const void* w, const void* bias,
@@ -430,14 +345,7 @@ extern "C" int rnr_conv3x3_f32out(const void* x, const void* w,
                                   cudaStream_t stream) {
   if (pad == PAD_FULL && (bias != nullptr || h < 2 || wd < 2))
     return (int)cudaErrorInvalidValue;    // the reflect dgrad: no bias
-  int e = launch<float>(x, w, bias, y, n, h, wd, c, o, pad, stream);
+  const int e = launch<float>(x, w, bias, y, n, h, wd, c, o, pad, stream);
   if (e != 0 || pad != PAD_FULL) return e;
-  // dx = the first N H W rows of y, += the ring that follows them
-  float* dx = static_cast<float*>(y);
-  const int nr = h == 3 ? 1 : 2, nc = wd == 3 ? 1 : 2;
-  const long long count =
-      ((long long)nr * wd + (long long)nc * (h - nr)) * n * o;
-  fold_ring_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
-      dx, dx + (size_t)n * h * wd * o, n, h, wd, o);
-  return (int)cudaGetLastError();
+  return conv3::fold_ring(static_cast<float*>(y), n, h, wd, o, stream);
 }

@@ -52,11 +52,12 @@
 
 #include <cstdint>
 
+#include "conv3x3_common.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using conv3::bf16;
 
 constexpr int BK = 64;         // output columns of one row per unit
 constexpr int CT = 64;         // input channels per block (dW rows)
@@ -71,11 +72,6 @@ constexpr int G_BYTES = BK * 128;
 constexpr int TX = 3 * SEG * 128 + G_BYTES;        // TMA bytes per unit
 constexpr int STAGE = X_BYTES + G_BYTES;
 constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
-
-__device__ __forceinline__ int reflect_row(int i, int n) {
-  // i in [-1, n]: -1 -> 1, n -> n - 2 (jnp.pad mode="reflect")
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
 
 // x [N, H, W, C] through xmap (boxes (64 channels, 66 columns, 1, 1)), g
 // [N, H, W, O] through gmap (boxes (64 outputs, 64 columns, 1, 1)), both
@@ -126,7 +122,7 @@ wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
     sm90::mbar_arrive_tx(bar, TX);
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
-      const int row = reflect ? reflect_row(i + dy - 1, h) : i + dy - 1;
+      const int row = reflect ? conv3::reflect(i + dy - 1, h) : i + dy - 1;
       sm90::tma_load_4d(st + dy * X_BAND, &xmap, ct0, j0 - 1, row, img, bar);
     }
     sm90::tma_load_4d(st + X_BYTES, &gmap, o0, j0, i, img, bar);
@@ -212,17 +208,6 @@ wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// dw[i] = sum over s of part[s][i], in split order (deterministic).
-__global__ void __launch_bounds__(256)
-reduce_splits(const float* __restrict__ part, float* __restrict__ dw,
-              long long count, int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * count + i];
-  dw[i] = s;
-}
-
 int launch(const bf16* x, const bf16* g, float* dst, int n, int h, int wd,
            int c, int o, int reflect, int splits, int cps,
            cudaStream_t stream) {
@@ -268,8 +253,5 @@ extern "C" int rnr_conv3x3_wgrad(const void* x, const void* g, void* part,
   auto* gp = static_cast<const bf16*>(g);
   const int e = launch(xp, gp, dst, n, h, wd, c, o, reflect, splits, cps, stream);
   if (e != 0 || splits == 1) return e;
-  const long long count = 9LL * c * o;
-  reduce_splits<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw), count, splits);
-  return (int)cudaGetLastError();
+  return conv3::sum_splits(part, dw, 9LL * c * o, splits, stream);
 }

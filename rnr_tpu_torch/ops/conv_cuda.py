@@ -14,7 +14,11 @@ autograd.Function with its plain versions:
   conv_backend "slab3" and "slab" call it.  Its plain versions are
   written in the slab formulation too: the [N, H, W+2, 3C] slab of the
   three padded input rows, one product with the packed [3C, 3O] weights
-  (`_pack_w_slab`, :907), the three column-shifted O-bands summed.
+  (`_pack_w_slab`, :907), the three column-shifted O-bands summed.  The
+  kernels run wgmma on the same TMA bands as K3 / K3b, the slab's column
+  shift a descriptor move (K8a: three accumulators, one per dx band);
+  they take the same padded channels, their plans are `k8a_plan` and
+  `k8b_plan`.
 
 Both with rnr_tpu's custom VJP at fuse_act=False, as the U-Net calls
 them: NHWC activations, HWIO weights cast to the activation dtype, f32
@@ -36,17 +40,18 @@ from rnr_tpu_torch.ops import _build
 from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
                                        use_kernel)
 
-# split-K of K8b's weight gradient: csrc/conv3x3_slab_wgrad.cu's BM = NB
-# and its pixels per K step
-WGRAD_TILE = 64
-WGRAD_BK = 32
-WGRAD_TARGET_BLOCKS = 1024
+# the H100's SMs: K3 / K8a take two consumer warpgroups only where their
+# blocks fill the card
+SMS = 132
 # split-K of K3b (csrc/conv3x3_wgrad.cu): 64 columns of a row per unit,
 # 64 x 64 of dW per block, at most one wave of one block per SM of the
 # H100's 132 (more splits add partials to write and reduce)
 K3B_UNIT = 64
 K3B_CT = 64
-K3B_TARGET_BLOCKS = 132
+K3B_TARGET_BLOCKS = SMS
+# split-K of K8b (csrc/conv3x3_slab_wgrad.cu): the same units; a block per
+# band dy x 64 channels x 64 outputs of each dx band, three blocks an SM
+K8B_TARGET_BLOCKS = 3 * SMS
 # K3's `pad` argument: zero ring, reflect ring, or the reflect data
 # gradient's full correlation (csrc/conv3x3.cu)
 K3_PAD = {"same": 0, "reflect": 1}
@@ -117,35 +122,6 @@ def conv3x3s_torch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (acc + b.to(torch.float32)).to(out_dtype or x.dtype)
 
 
-def _launch(lib: str, symbol: str, counter, x: torch.Tensor,
-            w: torch.Tensor, b: torch.Tensor, pad_mode: str,
-            out_dtype: torch.dtype) -> torch.Tensor:
-    """One launch of K8a, `symbol` of csrc/`lib`.cu (`symbol`_f32out for
-    an f32 output); counts in `counter.launches`."""
-    n, h, wd, c = x.shape
-    o = w.shape[-1]
-    if pad_mode == "reflect" and (h < 2 or wd < 2):
-        raise ValueError("reflect padding needs H, W >= 2")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{symbol}: output dtype {out_dtype}, the kernel "
-                        "writes bf16 or f32")
-    xb = x.contiguous()
-    require(xb, "x", torch.bfloat16, (n, h, wd, c))
-    wb = w.to(torch.bfloat16).contiguous()
-    require(wb, "w", torch.bfloat16, (3, 3, c, o))
-    bf = b.to(torch.float32).contiguous()
-    require(bf, "b", torch.float32, (o,))
-    y = torch.empty((n, h, wd, o), dtype=out_dtype, device=x.device)
-    if out_dtype == torch.float32:
-        symbol += "_f32out"
-    f = _build.fn(lib, symbol, 4, 6)
-    counter.launches += 1
-    check_launch(f(xb.data_ptr(), wb.data_ptr(), bf.data_ptr(), y.data_ptr(),
-                   n, h, wd, c, o, int(pad_mode == "reflect"), stream_of(xb)),
-                 symbol)
-    return y
-
-
 def round8(k: int) -> int:
     """k rounded up to a multiple of 8: K3 and K3b read activations and
     weights by TMA, whose rows must be multiples of 16 bytes."""
@@ -179,9 +155,34 @@ def ring_len(h: int, wd: int) -> int:
     return 2 * (wd + 2) + 2 * h
 
 
-def _launch_k3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-               pad: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """One launch of K3 (csrc/conv3x3.cu): x [N, H, W, C] bf16, w
+def k8a_plan(n: int, h: int, wd: int, o: int,
+             full: bool) -> tuple[int, int, int]:
+    """(bn, wgs, ring) of K8a's launch over the [N, H, W] output grid, or
+    the (H + 2) x (W + 2) grid of the reflect dgrad's full correlation
+    (`full`), with O outputs.  BN = 80 where round8(O) is 72 or 80 (one
+    tile; three accumulators of 40 a thread), else 64.  Two consumer
+    warpgroups (tiles of 128 columns) where a grid row has more than 64
+    columns and its row tiles fill the card's SMs, else one (the 32^2 and
+    64^2 levels).  ring = 1 (full only): the grid's columns 0 and W + 1 go
+    to ring tiles, strips of rows of one column, and the row tiles take
+    columns 1 .. W, where tiles over all W + 2 columns would compute half
+    as many columns again or more (W = 128, 256: measured faster; at W =
+    512 the strips cost more than the fifth tile a row they save)."""
+    bn = 80 if 64 < round8(o) <= 80 else 64
+    ho, wo = (h + 2, wd + 2) if full else (h, wd)
+    blocks = -(-wo // 128) * n * ho * -(-o // bn)
+    wgs = 2 if wo > 64 and blocks >= SMS else 1
+    bm = 64 * wgs
+    ring = int(full and -(-wo // bm) * 2 >= -(-wd // bm) * 3)
+    return bn, wgs, ring
+
+
+def _launch_conv3(lib: str, symbol: str, counter, x: torch.Tensor,
+                  w: torch.Tensor, b: torch.Tensor | None, pad: int,
+                  out_dtype: torch.dtype, plan: tuple = ()) -> torch.Tensor:
+    """One launch of K3 (csrc/conv3x3.cu) or K8a (csrc/conv3x3_slab.cu,
+    with its `plan`), `symbol` of csrc/`lib`.cu (`symbol`_f32out for an
+    f32 output); counts in `counter.launches`: x [N, H, W, C] bf16, w
     [3, 3, C, O], b [O] (None: no bias) -> [N, H, W, O] in `out_dtype`
     (bf16 or f32); under pad K3_FULL (f32, no bias) a flat buffer whose
     first N H W rows of O are the reflect dgrad dx, the ring rows after
@@ -189,7 +190,7 @@ def _launch_k3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     n, h, wd, c = x.shape
     o = w.shape[-1]
     if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"conv3x3: output dtype {out_dtype}, the kernel "
+        raise TypeError(f"{symbol}: output dtype {out_dtype}, the kernel "
                         "writes bf16 or f32")
     _require_bf16(x, "x")
     c8 = round8(c)
@@ -205,18 +206,31 @@ def _launch_k3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
                         dtype=torch.float32, device=x.device)
     else:
         y = torch.empty((n, h, wd, o), dtype=out_dtype, device=x.device)
-    symbol = "rnr_conv3x3" + ("_f32out" if out_dtype == torch.float32
-                              else "")
-    f = _build.fn("conv3x3", symbol, 4, 6)
-    conv3x3.launches += 1
+    if out_dtype == torch.float32:
+        symbol += "_f32out"
+    f = _build.fn(lib, symbol, 4, 6 + len(plan))
+    counter.launches += 1
     check_launch(f(xb.data_ptr(), wb.data_ptr(),
                    None if bf is None else bf.data_ptr(), y.data_ptr(),
-                   n, h, wd, c8, o, pad, stream_of(xb)), symbol)
+                   n, h, wd, c8, o, pad, *plan, stream_of(xb)), symbol)
     return y
 
 
+def _launch_k3(x, w, b, pad, out_dtype) -> torch.Tensor:
+    return _launch_conv3("conv3x3", "rnr_conv3x3", conv3x3, x, w, b, pad,
+                         out_dtype)
+
+
+def _launch_k8a(x, w, b, pad, out_dtype) -> torch.Tensor:
+    n, h, wd, _ = x.shape
+    return _launch_conv3("conv3x3_slab", "rnr_conv3x3s", conv3x3s, x, w, b,
+                         pad, out_dtype,
+                         k8a_plan(n, h, wd, w.shape[-1], pad == K3_FULL))
+
+
 def _require_bf16(t: torch.Tensor, name: str) -> None:
-    """K3 and K3b take bf16 activations (checked before any padded copy)."""
+    """The 3x3 kernels take bf16 activations (checked before any padded
+    copy)."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name}: dtype {t.dtype}, kernel takes "
                         f"{torch.bfloat16}")
@@ -253,8 +267,8 @@ def conv3x3s_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _check_pad(pad_mode)
     if not use_kernel(x, w, b):
         return conv3x3s_torch(x, w, b, pad_mode, out_dtype)
-    return _launch("conv3x3_slab", "rnr_conv3x3s", conv3x3s, x, w, b,
-                   pad_mode, out_dtype or x.dtype)
+    _check_reflect(pad_mode, x.shape[1], x.shape[2])
+    return _launch_k8a(x, w, b, K3_PAD[pad_mode], out_dtype or x.dtype)
 
 
 def _dgrad(g: torch.Tensor, w: torch.Tensor, pad_mode: str, conv):
@@ -295,20 +309,23 @@ def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor,
     adds (bitwise the same fold)."""
     if not use_kernel(g, w):
         return conv3x3_dgrad_torch(g, w, pad_mode)
+    return _dgrad_launch(g, w, pad_mode, _launch_k3)
+
+
+def _dgrad_launch(g: torch.Tensor, w: torch.Tensor, pad_mode: str,
+                  launch) -> torch.Tensor:
+    """dx f32 by one call of `launch` (K3 or K8a with an f32 output) on g
+    with the rotated, io-transposed kernel: zero padding, or the reflect
+    dgrad's full correlation with its ring folded in the same call."""
     _check_pad(pad_mode)
     n, h, wd, _ = g.shape
     c = w.shape[2]
     _check_reflect(pad_mode, h, wd)
     w_rot = w.flip(0, 1).transpose(2, 3)                  # [3, 3, O, C]
     if pad_mode == "same":
-        return _launch_k3(g, w_rot, None, K3_PAD["same"], torch.float32)
-    buf = _launch_k3(g, w_rot, None, K3_FULL, torch.float32)
+        return launch(g, w_rot, None, K3_PAD["same"], torch.float32)
+    buf = launch(g, w_rot, None, K3_FULL, torch.float32)
     return buf[:n * h * wd * c].view(n, h, wd, c)
-
-
-def _slab_dgrad_conv(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    zeros = torch.zeros(k.shape[-1], dtype=torch.float32, device=a.device)
-    return conv3x3s_fwd(a, k, zeros, "same", torch.float32)
 
 
 def conv3x3s_dgrad_torch(g: torch.Tensor, w: torch.Tensor,
@@ -322,10 +339,12 @@ def conv3x3s_dgrad_torch(g: torch.Tensor, w: torch.Tensor,
 def conv3x3s_dgrad(g: torch.Tensor, w: torch.Tensor,
                    pad_mode: str = "same") -> torch.Tensor:
     """Data gradient of conv3x3s: g [N, H, W, O] (bf16 on the card), w
-    [3, 3, C, O] -> dx [N, H, W, C] f32; K8a with an f32 output (through
-    conv3x3s_fwd)."""
-    _check_pad(pad_mode)
-    return _dgrad(g, w, pad_mode, _slab_dgrad_conv)
+    [3, 3, C, O] -> dx [N, H, W, C] f32; K8a with an f32 output, in one
+    call under either padding (the reflect fold as conv3x3_dgrad's)."""
+    if not use_kernel(g, w):
+        _check_pad(pad_mode)
+        return conv3x3s_dgrad_torch(g, w, pad_mode)
+    return _dgrad_launch(g, w, pad_mode, _launch_k8a)
 
 
 def conv3x3_wgrad_torch(x: torch.Tensor, g: torch.Tensor,
@@ -361,52 +380,30 @@ def k3b_plan(n: int, h: int, wd: int, c8: int, o8: int) -> tuple[int, int]:
     row cut into runs of `chunk` / 64 units, at most K3B_TARGET_BLOCKS
     blocks over the card with a block per 64 x 64 tile of dW.  Fixed by
     the shapes alone, so a rerun adds in the same order."""
-    tiles = -(-c8 // K3B_CT) * -(-o8 // K3B_CT)
-    units = n * h * -(-wd // K3B_UNIT)
-    want = max(1, min(units, K3B_TARGET_BLOCKS // tiles))
+    splits, per = _split_units(n * h * -(-wd // K3B_UNIT),
+                               -(-c8 // K3B_CT) * -(-o8 // K3B_CT),
+                               K3B_TARGET_BLOCKS)
+    return splits, per * K3B_UNIT
+
+
+def k8b_plan(n: int, h: int, wd: int, c8: int, o8: int) -> tuple[int, int]:
+    """(splits, per) of K8b's split-K for x [N, H, W, c8], g [N, H, W, o8]
+    (multiples of 8): the N H ceil(W / 64) units of 64 columns of a row
+    (K3b's) cut into runs of `per` units, at most K8B_TARGET_BLOCKS blocks
+    (one wave at three an SM) with a block per band dy x 64 channels x 64
+    outputs.  Fixed by the shapes alone, so a rerun adds in the same
+    order."""
+    return _split_units(n * h * -(-wd // K3B_UNIT),
+                        3 * -(-c8 // K3B_CT) * -(-o8 // K3B_CT),
+                        K8B_TARGET_BLOCKS)
+
+
+def _split_units(units: int, tiles: int, target: int) -> tuple[int, int]:
+    """(splits, per): `units` cut into runs of `per`, as many runs as fit
+    `target` blocks of `tiles` each (at least one), none empty."""
+    want = max(1, min(units, target // tiles))
     per = -(-units // want)
-    return -(-units // per), per * K3B_UNIT
-
-
-def wgrad_splits(n_pix: int, tiles: int) -> tuple[int, int]:
-    """(splits, chunk) of K8b's split-K over `n_pix` pixels when
-    one split has `tiles` blocks: about WGRAD_TARGET_BLOCKS blocks over
-    the card, each summing `chunk` pixels (a multiple of 32).  Fixed by
-    the shapes alone, so a rerun adds in the same order."""
-    steps = -(-n_pix // WGRAD_BK)
-    want = max(1, min(steps, -(-WGRAD_TARGET_BLOCKS // tiles)))
-    chunk = -(-steps // want) * WGRAD_BK
-    return -(-n_pix // chunk), chunk
-
-
-def _launch_wgrad(lib: str, symbol: str, counter, x: torch.Tensor,
-                  g: torch.Tensor, pad_mode: str, n_pix: int,
-                  tiles: int) -> torch.Tensor:
-    """One launch of K8b (and its split reduction): x and g bf16,
-    the kernel's `n_pix` pixels in splits of `tiles` blocks -> dW
-    [3, 3, C, O] f32; counts in `counter.launches`."""
-    n, h, wd, c = x.shape
-    o = g.shape[-1]
-    if pad_mode == "reflect" and (h < 2 or wd < 2):
-        raise ValueError("reflect padding needs H, W >= 2")
-    xb, gb = x.contiguous(), g.contiguous()
-    require(xb, "x", torch.bfloat16, (n, h, wd, c))
-    require(gb, "g", torch.bfloat16, (n, h, wd, o))
-    splits, chunk = wgrad_splits(n_pix, tiles)
-    dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
-    part = (torch.empty(splits * 9 * c * o, dtype=torch.float32,
-                        device=x.device) if splits > 1 else dw)
-    f = _build.fn(lib, symbol, 4, 8)
-    counter.launches += 1
-    check_launch(f(xb.data_ptr(), gb.data_ptr(), part.data_ptr(),
-                   dw.data_ptr(), n, h, wd, c, o,
-                   int(pad_mode == "reflect"), splits, chunk, stream_of(xb)),
-                 symbol)
-    return dw
-
-
-def _tiles(c: int, o: int) -> int:
-    return -(-c // WGRAD_TILE) * -(-o // WGRAD_TILE)
+    return -(-units // per), per
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
@@ -416,6 +413,16 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
     not multiples of 8 are padded with zero channels (a copy of x or g)."""
     if not use_kernel(x, g):
         return conv3x3_wgrad_torch(x, g, pad_mode)
+    return _wgrad_launch("conv3x3_wgrad", "rnr_conv3x3_wgrad", conv3x3_wgrad,
+                         k3b_plan, x, g, pad_mode)
+
+
+def _wgrad_launch(lib: str, symbol: str, counter, plan, x: torch.Tensor,
+                  g: torch.Tensor, pad_mode: str) -> torch.Tensor:
+    """One launch of K3b or K8b (its split sum included), `symbol` of
+    csrc/`lib`.cu with the two ints of `plan`; counts in
+    `counter.launches`.  C and O not multiples of 8 are padded with zero
+    channels (a copy of x or g)."""
     _check_pad(pad_mode)
     n, h, wd, c = x.shape
     o = g.shape[-1]
@@ -427,16 +434,15 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
     gb = pad_channels(g.contiguous(), o8)
     require(xb, "x", torch.bfloat16, (n, h, wd, c8))
     require(gb, "g", torch.bfloat16, (n, h, wd, o8))
-    splits, chunk = k3b_plan(n, h, wd, c8, o8)
+    splits, run = plan(n, h, wd, c8, o8)
     dw = torch.empty((3, 3, c8, o8), dtype=torch.float32, device=x.device)
     part = (torch.empty(splits * 9 * c8 * o8, dtype=torch.float32,
                         device=x.device) if splits > 1 else dw)
-    f = _build.fn("conv3x3_wgrad", "rnr_conv3x3_wgrad", 4, 8)
-    conv3x3_wgrad.launches += 1
+    f = _build.fn(lib, symbol, 4, 8)
+    counter.launches += 1
     check_launch(f(xb.data_ptr(), gb.data_ptr(), part.data_ptr(),
                    dw.data_ptr(), n, h, wd, c8, o8,
-                   K3_PAD[pad_mode], splits, chunk, stream_of(xb)),
-                 "rnr_conv3x3_wgrad")
+                   K3_PAD[pad_mode], splits, run, stream_of(xb)), symbol)
     return dw if (c8, o8) == (c, o) else dw[:, :, :c, :o].contiguous()
 
 
@@ -447,12 +453,8 @@ def conv3x3s_wgrad(x: torch.Tensor, g: torch.Tensor,
     _check_pad(pad_mode)
     if not use_kernel(x, g):
         return conv3x3s_wgrad_torch(x, g, pad_mode)
-    n, h, wd, c = x.shape
-    # over the N H (W + 2) slab pixels, a block per band dy's 64 channels
-    # and all three dx bands of 64 outputs
-    return _launch_wgrad("conv3x3_slab_wgrad", "rnr_conv3x3s_wgrad",
-                         conv3x3s_wgrad, x, g, pad_mode, n * h * (wd + 2),
-                         3 * _tiles(c, g.shape[-1]))
+    return _wgrad_launch("conv3x3_slab_wgrad", "rnr_conv3x3s_wgrad",
+                         conv3x3s_wgrad, k8b_plan, x, g, pad_mode)
 
 
 def _vjp(ctx, g, dgrad, wgrad):

@@ -16,7 +16,8 @@ K3 and K3b run at shapes that straddle their tiles (W around the
 tile's 64 positions, odd H, batch 2, ragged and wide C and O, both pad
 modes) and K3's forward and dgrad must be bitwise deterministic.  The
 3x3 slab pair (K8a forward and f32 data gradient, K8b weight
-gradient) runs at odd C, O, H and W under both pad modes, and P1 (the
+gradient) runs at odd C, O, H and W under both pad modes, at 512 -> 512
+on 32^2 and 64 -> 64 on 128^2, every output twice bitwise equal, and P1 (the
 GEMM chain) at section A's kinds of shape and odd ones.  K1 and K1b (SH
 fan) run at batch 2 with a pixel count no block divides, at 64 rays, with
 no diffuse ray and at lmax 1, 2 and 10.  K1, the backward kernels K1b,
@@ -724,14 +725,16 @@ def test_conv4_autograd_launches_their_dgrad_kernels(dev, pad_mode):
 
 @pytest.mark.parametrize("c,o,h,w", [(5, 12, 7, 9), (64, 78, 9, 70),
                                      (108, 64, 2, 33), (24, 640, 6, 16),
-                                     (45, 77, 5, 130)])
+                                     (45, 77, 5, 130), (512, 512, 32, 32),
+                                     (64, 64, 128, 128)])
 @pytest.mark.parametrize("pad_mode", ["same", "reflect"])
 def test_conv3x3s_kernels(dev, c, o, h, w, pad_mode):
     """K8a (bf16 output within one rounding step of max; f32 output and the
     f32 data gradient within 1e-4 of max: bf16 products are exact, f32
-    sums in another order) and K8b (within 1e-4 of max, twice, bitwise
-    equal) against their plain versions; K8a's forward within one
-    rounding step of K3's."""
+    sums in another order) and K8b (within 1e-4 of max) against their
+    plain versions, each twice bitwise equal; K8a's forward within one
+    rounding step of K3's.  512 -> 512 at 32^2 takes K8a's short-row plan
+    (one warpgroup), 64 -> 64 at 128^2 K8b's deep split."""
     rng = np.random.default_rng(c + o + h + w)
     x = _t(rng.standard_normal((2, h, w, c)).astype(np.float32), dev,
            torch.bfloat16)
@@ -748,6 +751,11 @@ def test_conv3x3s_kernels(dev, c, o, h, w, pad_mode):
     kw2 = cc.conv3x3s_wgrad(x, g, pad_mode)
     assert cc.conv3x3s.launches == n0 + 3
     assert cc.conv3x3s_wgrad.launches == m0 + 2
+    # fixed orders of sums: a second run is bit-equal
+    assert torch.equal(ky, cc.conv3x3s_fwd(x, wt, b, pad_mode))
+    assert torch.equal(k32, cc.conv3x3s_fwd(x, wt, b, pad_mode,
+                                            torch.float32))
+    assert torch.equal(kd, cc.conv3x3s_dgrad(g, wt, pad_mode))
     k3 = conv3x3(x, wt, b, pad_mode)
     ty = cc.conv3x3s_torch(x, wt, b, pad_mode)
     t32 = cc.conv3x3s_torch(x, wt, b, pad_mode, torch.float32)

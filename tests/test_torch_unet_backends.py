@@ -11,8 +11,8 @@ autograd.Functions, whose wrappers take the plain versions on CPU
 tensors.  Which wrapper ran is counted by patching the four `*_fwd`
 functions of ops/conv4_cuda.py, through which every forward and every
 data gradient of the 4x4 pair goes, and the slab conv's `conv3x3s_fwd`
-(its forward and data gradient) and `conv3x3s_wgrad` in
-ops/conv_cuda.py.
+(its forward), `conv3x3s_dgrad` (its data gradient) and
+`conv3x3s_wgrad` in ops/conv_cuda.py.
 """
 
 import collections
@@ -36,7 +36,7 @@ from test_torch_conv import _perturb
 torch.set_num_threads(2)
 
 FWDS = ("down4_fwd", "convt4_fwd", "down4s_fwd", "convt4s_fwd")
-SLAB = ("conv3x3s_fwd", "conv3x3s_wgrad")
+SLAB = ("conv3x3s_fwd", "conv3x3s_dgrad", "conv3x3s_wgrad")
 # the port's selector -> rnr_tpu's, run on the CPU
 JAX_BACKEND = {"xla": "xla", "pallas3": "xla", "pallas": "pallas_interpret",
                "p3s4": "p3s4", "slab3": "slab3", "slab": "slab"}
@@ -47,8 +47,8 @@ FORCED_INTERPRET = ("p3s4", "slab3", "slab")
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Counts of the four 4x4 wrappers' and the two slab wrappers' calls,
-    by name."""
+    """Counts of the four 4x4 wrappers' and the three slab wrappers'
+    calls, by name."""
     seen = collections.Counter()
     for mod, names in ((c4, FWDS), (cc, SLAB)):
         for name in names:
@@ -178,7 +178,7 @@ def _want_calls(backend, pad_mode, nd, input_grad=True):
     want = {}
     if backend in ("slab3", "slab"):
         n3 = _n3x3(nd)
-        want = {"conv3x3s_fwd": 2 * n3 - (not input_grad),
+        want = {"conv3x3s_fwd": n3, "conv3x3s_dgrad": n3 - (not input_grad),
                 "conv3x3s_wgrad": n3}
     if backend == "pallas":
         return {"down4_fwd": 2 * nd, "convt4_fwd": nd + nd * (
