@@ -1292,9 +1292,9 @@ def kernels_conv4(rec: dict, rng) -> None:
     version and one cuDNN call of the same function (F.conv2d at stride 2
     on the reflect-padded channels-last input; F.conv_transpose2d at
     stride 2, padding 1; for the dgrad use F.conv2d with padding 1), and
-    the bound; for K8's pair (down4s, convt4s) also 20 calls queued back
-    to back, beside cuDNN's queued likewise, the wrapper's host time and
-    the TFLOP/s of conv4_flops' count per shape and in total, and each
+    the bound; for each of the four also 20 calls queued back to back,
+    beside cuDNN's queued likewise, the wrapper's host time and the
+    TFLOP/s of conv4_flops' count per shape and in total, and each
     bitwise equal over two runs at one large and one split-K shape.
     Then the pallas3 route's own 4x4 convs (the U-Net's Conv and
     ConvTranspose modules as the shipped step runs them)."""
@@ -1306,14 +1306,14 @@ def kernels_conv4(rec: dict, rng) -> None:
     acc = {n: dict({k: 0.0 for k in keys}, errs=[], dgrad_errs=[], works=[],
                    dgrad_works=[]) for n in fwds}
     shipped = {"down": 0.0, "up": 0.0}
-    k8 = {n: dict(queued_ms=0.0, library_queued_ms=0.0, flops=0, host=[],
-                  shapes=[]) for n in ("down4s", "convt4s")}
+    queued = {n: dict(queued_ms=0.0, library_queued_ms=0.0, flops=0,
+                      host=[], shapes=[]) for n in fwds}
 
-    def k8_times(name, use, c, o, h, fn, lib_fn, flops):
-        """K8's queued, host and TFLOP/s at one shape, cuDNN queued beside
-        it; returns the log's words."""
+    def queued_times(name, use, c, o, h, fn, lib_fn, flops):
+        """A kernel's queued, host and TFLOP/s at one shape, cuDNN queued
+        beside it; returns the log's words."""
         q, lq, hu = queued_ms(fn), queued_ms(lib_fn), host_us(fn)
-        r = k8[name]
+        r = queued[name]
         r["queued_ms"] += q
         r["library_queued_ms"] += lq
         r["flops"] += flops
@@ -1348,12 +1348,11 @@ def kernels_conv4(rec: dict, rng) -> None:
             ms = cuda_ms(lambda: fwds[name](x, w, "reflect"))
             add(name, "fwd", e, ms, pms, lms, conv4_work(True, c, o, h, 2))
             line.append(f"{name} {ms:.4f} ms (err {e:.3g})")
-            if name == "down4s":
-                line.append(k8_times(
-                    name, "fwd", c, o, h,
-                    lambda: down4s_fwd(x, w, "reflect"),
-                    lambda: F.conv2d(xp, wn, stride=2),
-                    conv4_flops(True, c, o, h)))
+            line.append(queued_times(
+                name, "fwd", c, o, h,
+                lambda: fwds[name](x, w, "reflect"),
+                lambda: F.conv2d(xp, wn, stride=2),
+                conv4_flops(True, c, o, h)))
         mod = Conv(c, o, 4, 2, use_bias=False, dtype=torch.bfloat16,
                    pad_mode="reflect", backend="pallas3").to(DEV)
         with torch.no_grad():
@@ -1389,11 +1388,10 @@ def kernels_conv4(rec: dict, rng) -> None:
             ms = cuda_ms(lambda: fwds[name](x, w))
             add(name, "fwd", e, ms, pms, lms, conv4_work(False, c, o, h, 2))
             line.append(f"{name} {ms:.4f} ms (err {e:.3g})")
-            if name == "convt4s":
-                line.append(k8_times(
-                    name, "fwd", c, o, h, lambda: convt4s_fwd(x, w),
-                    lambda: F.conv_transpose2d(xn, kn, stride=2, padding=1),
-                    conv4_flops(False, c, o, h)))
+            line.append(queued_times(
+                name, "fwd", c, o, h, lambda: fwds[name](x, w),
+                lambda: F.conv_transpose2d(xn, kn, stride=2, padding=1),
+                conv4_flops(False, c, o, h)))
         mod = ConvTranspose(c, o, use_bias=False, dtype=torch.bfloat16,
                             backend="pallas3").to(DEV)
         with torch.no_grad():
@@ -1419,12 +1417,11 @@ def kernels_conv4(rec: dict, rng) -> None:
             add(name, "dgrad", e, ms, dpms, dlms,
                 conv4_work(True, o, c, 2 * h, 4))
             line.append(f"{name} f32 dgrad {ms:.4f} ms (err {e:.3g})")
-            if name == "down4s":
-                line.append(k8_times(
-                    name, "dgrad", o, c, 2 * h,
-                    lambda: down4s_fwd(g, wd, "same", torch.float32),
-                    lambda: F.conv2d(gn, wdn, stride=2, padding=1),
-                    conv4_flops(True, o, c, 2 * h)))
+            line.append(queued_times(
+                name, "dgrad", o, c, 2 * h,
+                lambda: fwds[name](g, wd, "same", torch.float32),
+                lambda: F.conv2d(gn, wdn, stride=2, padding=1),
+                conv4_flops(True, o, c, 2 * h)))
         wk = conv4_work(False, c, o, h, 2)
         log(f"[kernels] 4x4 transpose {c}->{o} @{h}: " + ", ".join(line)
             + f"; bound {wk['bound_ms']:.4f} ({wk['bound_by']}), cuDNN "
@@ -1455,7 +1452,7 @@ def kernels_conv4(rec: dict, rng) -> None:
     torch.cuda.synchronize()
     log(f"[kernels] 4x4 odd shapes {CONV4_ODD}: all four kernels agree "
         "(bf16 within 2^-7 of max, f32 within 1e-4), both pad modes")
-    k8_bitwise()
+    conv4_bitwise()
 
     for name, a in acc.items():
         parts = a["works"] + a["dgrad_works"]
@@ -1473,8 +1470,8 @@ def kernels_conv4(rec: dict, rng) -> None:
                      dgrad_max_abs_err=max(a["dgrad_errs"]))
         if "same_dgrad_errs" in a:
             r["same_dgrad_max_abs_err"] = max(a["same_dgrad_errs"])
-        if name in k8:
-            q = k8[name]
+        if name in queued:
+            q = queued[name]
             r.update(queued_ms=q["queued_ms"],
                      library_queued_ms=q["library_queued_ms"],
                      host_us=float(np.mean(q["host"])),
@@ -1496,25 +1493,32 @@ def kernels_conv4(rec: dict, rng) -> None:
     torch.cuda.synchronize()
 
 
-def k8_bitwise() -> None:
-    """K8's pair twice on the same inputs, bf16 and f32 out, at one large
-    and one split-K shape of each (its own seed): bitwise equal."""
-    from rnr_tpu_torch.ops.conv4_cuda import conv4s_plan
+def conv4_bitwise() -> None:
+    """K8's pair, then K6, twice on the same inputs, bf16 and f32 out, at
+    one large and one split-K shape of each (their own seed): bitwise
+    equal."""
+    from rnr_tpu_torch.ops.conv4_cuda import conv4_plan, conv4s_plan
     rng = np.random.default_rng(10)
     cases = (("down4s", DOWN4_SHAPES[2]), ("down4s", DOWN4_SHAPES[4]),
-             ("convt4s", CONVT4_SHAPES[3]), ("convt4s", CONVT4_SHAPES[0]))
+             ("convt4s", CONVT4_SHAPES[3]), ("convt4s", CONVT4_SHAPES[0]),
+             ("down4", DOWN4_SHAPES[2]), ("down4", DOWN4_SHAPES[4]),
+             ("convt4", CONVT4_SHAPES[3]), ("convt4", CONVT4_SHAPES[0]))
+    fwds = {"down4s": down4s_fwd, "convt4s": convt4s_fwd, "down4": down4_fwd,
+            "convt4": convt4_fwd}
     for name, (c, o, h) in cases:
         x, w = _bf16_input(rng, (1, h, h, c)), _conv4_weight(rng, c, o)
-        up = name == "convt4s"
-        fn = ((lambda od: convt4s_fwd(x, w, od)) if up
-              else (lambda od: down4s_fwd(x, w, "reflect", od)))
+        up = name.startswith("convt4")
+        fwd = fwds[name]
+        fn = ((lambda od: fwd(x, w, od)) if up
+              else (lambda od: fwd(x, w, "reflect", od)))
         for od in (torch.bfloat16, torch.float32):
             if not torch.equal(fn(od), fn(od)):
                 raise AssertionError(f"{name} {c}->{o} @{h} {od}: two runs "
                                      "differ")
+        plan = conv4s_plan if name.endswith("s") else conv4_plan
         log(f"[kernels] {name} {c}->{o} @{h}: bitwise equal over two runs, "
             f"bf16 and f32 out (plan bn, wgs, sw, splits, per = "
-            f"{conv4s_plan(1, h, h, c, o, up)})")
+            f"{plan(1, h, h, c, o, up)})")
         del x, w
 
 

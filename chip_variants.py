@@ -1,11 +1,12 @@
 """Time K4 (csrc/stratified_knn.cu), K2b (csrc/mipmap_scatter.cu), K1 and
-K1b (csrc/sh_fan.cu), K8c and K8d (csrc/conv4x4_slab.cu), K8a and K8b
-(csrc/conv3x3_slab.cu, conv3x3_slab_wgrad.cu) on one NVIDIA GPU with
-parts of each kernel switched off, to see which part bounds it.
+K1b (csrc/sh_fan.cu), K6a and K6b (csrc/conv4x4.cu), K8c and K8d
+(csrc/conv4x4_slab.cu), K8a and K8b (csrc/conv3x3_slab.cu,
+conv3x3_slab_wgrad.cu) on one NVIDIA GPU with parts of each kernel
+switched off, to see which part bounds it.
 
     python3 chip_variants.py
     python3 chip_variants.py --kernels K1b --variants real,staging
-    python3 chip_variants.py --kernels K8 --csrc OLD/rnr_tpu_torch/csrc
+    python3 chip_variants.py --kernels K6,K8 --csrc OLD/rnr_tpu_torch/csrc
     python3 chip_variants.py --kernels K8s --csrc OLD/rnr_tpu_torch/csrc
 
 Each variant is the real source with one textual switch applied, written
@@ -60,8 +61,16 @@ and K8d (convt4s at the frame's five transpose convs): real; no_mma
 ring of stages reused: the loads of the first stages only, products on
 them after); no_epilogue (no output stores).  The switches follow the
 design of csrc/conv4x4_slab.cu that they find (WMMA on bands staged by
-plain loads, or wgmma over TMA bands), so --csrc times a parent's pair
-too; each build prints its registers and spills (ptxas).
+plain loads, or wgmma over TMA bands, with or without the epilogue of
+csrc/conv4x4_common.cuh), so --csrc times a parent's pair too; each
+build prints its registers and spills (ptxas).
+K6a (down4) and K6b (convt4) at the same uses, and K6b also f32 out at
+the five down convs' data gradients ("same"): real; no_mma; no_loads;
+no_epilogue; for the wgmma design also no_split (no split-K sum).  The
+switches follow the design of csrc/conv4x4.cu found (one-stage WMMA with
+a gather per tap, or wgmma over TMA-staged parity-plane bands).  The
+real builds of K6 and K8 print a digest of each case's output, so two
+checkouts' kernels can be held to each other bit for bit.
 K8a (the 3x3 slab conv: forward under reflect, bf16 out, and the f32
 data gradient under reflect and "same") and K8b (its weight gradient,
 reflect) at the frame's 14 3x3 convs: real; no_mma; no_loads; no_epilogue
@@ -89,6 +98,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import os
 import re
 import shutil
@@ -318,9 +328,27 @@ SH_DESIGNS = {
 }
 
 
-# per design of csrc/conv4x4_slab.cu (told apart by a line only it has):
-# {variant: switches}
+# per design of csrc/conv4x4_slab.cu (told apart by a line only it has,
+# the first match counting): {variant: switches}
 K8_DESIGNS = {
+    "wgmma over TMA bands, epilogue of conv4x4_common.cuh": (
+        '#include "conv4x4_common.cuh"',
+        {"real": [],
+         "no_mma": [("          sm90::wgmma<0, 1>(acc[UP ? i : 0], da, db);",
+                     "          (void)da;\n          (void)db;")],
+         "no_loads": [
+             ("        const bool fix = lo == 0 ? left : right;",
+              "        const bool fix = it < g.stages && (lo == 0 ? left : right);"),
+             ("""        if (warp == 0) {
+          if (lane == 0) {
+            const uint32_t bar = fix ? tma_bar + 8 * s : full_bar + 8 * s;""",
+              """        if (warp == 0 && it >= g.stages) {
+          if (lane == 0) sm90::mbar_arrive(full_bar + 8 * s);
+        } else if (warp == 0) {
+          if (lane == 0) {
+            const uint32_t bar = fix ? tma_bar + 8 * s : full_bar + 8 * s;""")],
+         "no_epilogue": [("    if (d < 0 || oc >= o) continue;",
+                          "    if (d < 0 || oc >= o || d != -7) continue;")]}),
     "WMMA on bands staged by plain loads": (
         "wmma::mma_sync(acc[i], fa, fb, acc[i]);",
         {"real": [],
@@ -357,36 +385,92 @@ K8_DESIGNS = {
 }
 
 
-def k8_variants(csrc: str):
-    """(design, variants) of the csrc/conv4x4_slab.cu found in csrc."""
-    text = open(os.path.join(csrc, "conv4x4_slab.cu")).read()
-    for design, (marker, table) in K8_DESIGNS.items():
+_SKIP_MMA_K6 = ("namespace {\n\nusing namespace conv4;\n",
+                "namespace {\n\nusing namespace conv4;\ntemplate <typename A>\n"
+                "__device__ __forceinline__ void skip_mma(A&, uint64_t, "
+                "uint64_t) {}\n")
+# per design of csrc/conv4x4.cu: (marker, {variant: switches})
+K6_DESIGNS = {
+    "one-stage WMMA, a gather per tap": (
+        "wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);",
+        {"real": [],
+         "no_mma": [("wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);",
+                     "(void)fb[j];")],
+         "no_loads": [
+             ("      if (VA && src >= 0 && cb + 16 <= c) {",
+              "      if (tap > 0 || c0 > 0) {\n"
+              "      } else if (VA && src >= 0 && cb + 16 <= c) {"),
+             ("        if (VB && ci < c && oc + 8 <= o) {",
+              "        if (tap > 0 || c0 > 0) {\n"
+              "        } else if (VB && ci < c && oc + 8 <= o) {")],
+         "no_epilogue": [
+             ("    store_out(y + dst * o + oc, Cs[r * LDC + col]);",
+              "    if (Cs[r * LDC + col] == 1.2345e-30f)\n"
+              "      store_out(y + dst * o + oc, Cs[r * LDC + col]);")]}),
+    "wgmma over TMA-staged parity-plane bands": (
+        "convt_products(acc[2 * a], acc[2 * a + 1], sa, band, k, pos, g);",
+        {"real": [],
+         "no_mma": [_SKIP_MMA_K6, ("sm90::wgmma<0, 1>(", "skip_mma(")],
+         "no_loads": [
+             ("        const bool fix = pc == 0 ? left : right;",
+              "        const bool fix = it < g.stages && (pc == 0 ? left : right);"),
+             ("""        if (warp == 0) {
+          if (lane == 0) {
+            const uint32_t bar = fix ? tma_bar + 8 * s : full_bar + 8 * s;""",
+              """        if (warp == 0 && it >= g.stages) {
+          if (lane == 0) sm90::mbar_arrive(full_bar + 8 * s);
+        } else if (warp == 0) {
+          if (lane == 0) {
+            const uint32_t bar = fix ? tma_bar + 8 * s : full_bar + 8 * s;""")],
+         "no_epilogue": [("    if (d < 0 || oc >= o) continue;",
+                          "    if (d < 0 || oc >= o || d != -7) continue;")],
+         "no_split": [
+             ("  return launch_sum_splits(pp, static_cast<OutT*>(y), "
+              "g.out_elems, splits,\n                           stream);",
+              "  return 0;")]}),
+}
+# the frame's 4x4 convs (C, O, x's side): five down, five transpose
+CONV4_DOWN = [(64, 128, 512), (128, 256, 256), (256, 512, 128),
+              (512, 512, 64), (512, 512, 32)]
+CONV4_UP = [(512, 512, 16), (1024, 512, 32), (1024, 256, 64),
+            (512, 128, 128), (256, 64, 256)]
+
+
+def conv4_variants(src: str, designs: dict, csrc: str):
+    """(design, variants) of csrc/<src>.cu found in csrc."""
+    text = open(os.path.join(csrc, f"{src}.cu")).read()
+    for design, (marker, table) in designs.items():
         if marker in text:
             return design, table
-    raise RuntimeError(f"{csrc}/conv4x4_slab.cu: no known design")
+    raise RuntimeError(f"{csrc}/{src}.cu: no known design")
 
 
-def time_k8(dev, stream, csrc: str, only=None) -> None:
-    """K8c and K8d at the kernels phase's shapes of chip_smoke.py (one
-    random stream of inputs per shape), queued device time per call of
-    each variant, per shape and summed per kernel and use."""
-    from rnr_tpu_torch.ops.conv4_cuda import conv4s_plan
-    design, table = k8_variants(csrc)
+def time_conv4(dev, stream, csrc: str, pair: str, only=None) -> None:
+    """K6 (pair "K6") or K8c / K8d ("K8") at the kernels phase's shapes of
+    chip_smoke.py (one random stream of inputs per shape), queued device
+    time per call of each variant, per shape and summed per kernel and
+    use; the real build's output digest per case."""
+    from rnr_tpu_torch.ops.conv4_cuda import conv4_plan, conv4s_plan
+    src, designs, plan_of = (("conv4x4", K6_DESIGNS, conv4_plan)
+                             if pair == "K6" else
+                             ("conv4x4_slab", K8_DESIGNS, conv4s_plan))
+    design, table = conv4_variants(src, designs, csrc)
     if only:
         table = {k: v for k, v in table.items() if k in only}
     tag = "" if csrc == str(_build.CSRC) else "_other"
     new = design.startswith("wgmma")
-    print(f"K8 kernels of {csrc}: {design}", flush=True)
-    libs = build_all("conv4x4_slab", table, csrc, tag)
-    down = [(64, 128, 512), (128, 256, 256), (256, 512, 128),
-            (512, 512, 64), (512, 512, 32)]
-    up = [(512, 512, 16), (1024, 512, 32), (1024, 256, 64),
-          (512, 128, 128), (256, 64, 256)]
+    print(f"{pair} kernels of {csrc}: {design}", flush=True)
+    libs = build_all(src, table, csrc, tag)
+    down_k, up_k = ("K6a", "K6b") if pair == "K6" else ("K8c", "K8d")
     # (kernel, use, x's C, O, x's side, up, reflect, f32 out)
-    cases = ([("K8c", "fwd", c, o, h, False, 1, False) for c, o, h in down]
-             + [("K8c", "dgrad", o, c, 2 * h, False, 0, True)
-                for c, o, h in up]
-             + [("K8d", "fwd", c, o, h, True, 0, False) for c, o, h in up])
+    cases = ([(down_k, "fwd", c, o, h, False, 1, False)
+              for c, o, h in CONV4_DOWN]
+             + [(down_k, "dgrad", o, c, 2 * h, False, 0, True)
+                for c, o, h in CONV4_UP]
+             + [(up_k, "fwd", c, o, h, True, 0, False) for c, o, h in CONV4_UP])
+    if pair == "K6":   # convt4 f32 as the down convs' "same" dgrad
+        cases += [(up_k, "dgrad", o, c, h // 2, True, 0, True)
+                  for c, o, h in CONV4_DOWN]
     total: dict = {}
     for kname, use, c, o, h, is_up, refl, f32 in cases:
         rng = np.random.default_rng(c + o + h)
@@ -398,11 +482,11 @@ def time_k8(dev, stream, csrc: str, only=None) -> None:
         side = 2 * h if is_up else h // 2
         y = torch.empty((1, side, side, o), device=dev,
                         dtype=torch.float32 if f32 else torch.bfloat16)
-        sym = ("rnr_convt4s" if is_up else "rnr_down4s") + (
-            "_f32out" if f32 else "")
+        sym = ("rnr_convt4" if is_up else "rnr_down4") + (
+            "s" if pair == "K8" else "") + ("_f32out" if f32 else "")
         pad = () if is_up else (refl,)
         if new:
-            plan = conv4s_plan(1, h, h, c, o, is_up)
+            plan = plan_of(1, h, h, c, o, is_up)
             part = torch.empty(max(plan[3], 1) * y.numel(), device=dev)
             ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr(),
                     part.data_ptr())
@@ -416,12 +500,20 @@ def time_k8(dev, stream, csrc: str, only=None) -> None:
             f = entry(lib, sym, len(ptrs), len(ints))
             us = device_us(lambda: f(*ptrs, *ints, stream))
             total[(kname, use, name)] = total.get((kname, use, name), 0) + us
+            torch.cuda.synchronize()
+            dig = (f"; digest {digest(y)}" if name == "real" else "")
             print(f"{kname} {use} {c}->{o} @{h} {name}: {us:.2f} us per "
-                  f"call ({flops / us / 1e6:.1f} TFLOP/s; plan {plan})",
+                  f"call ({flops / us / 1e6:.1f} TFLOP/s; plan {plan}{dig})",
                   flush=True)
         del x, w, y
     for (kname, use, name), us in total.items():
         print(f"{kname} {use} five shapes {name}: {us:.2f} us", flush=True)
+
+
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of sha256 of the tensor's bytes."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
 
 
 # per design of csrc/conv3x3_slab.cu (K8a) and conv3x3_slab_wgrad.cu (K8b),
@@ -643,6 +735,10 @@ def build(src: str, name: str, switches, csrc: str = str(_build.CSRC),
         header = open(os.path.join(csrc, "sh_common.cuh")).read()
         text = text.replace('#include "sh_common.cuh"', header)
         switches = SH_COMMON + list(switches)
+    common = os.path.join(csrc, "conv4x4_common.cuh")
+    if '#include "conv4x4_common.cuh"' in text:   # its switches apply too
+        text = text.replace('#include "conv4x4_common.cuh"',
+                            open(common).read())
     for old, new in switches:
         if old not in text:
             raise RuntimeError(f"{src} {name}: switch not found: {old!r}")
@@ -852,15 +948,15 @@ def build_all(src: str, table: dict, csrc: str = str(_build.CSRC),
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="K4,K2b,K1,K1b,K8,K8s",
-                    help="comma-separated subset of K4,K2b,K1,K1b,K8,K8s "
-                    "(K8: K8c and K8d; K8s: K8a and K8b)")
+    ap.add_argument("--kernels", default="K4,K2b,K1,K1b,K6,K8,K8s",
+                    help="comma-separated subset of K4,K2b,K1,K1b,K6,K8,K8s "
+                    "(K6: K6a and K6b; K8: K8c and K8d; K8s: K8a and K8b)")
     ap.add_argument("--csrc", default=str(_build.CSRC),
-                    help="the csrc directory whose SH, K8 and K8s kernels "
-                    "are timed")
+                    help="the csrc directory whose SH, K6, K8 and K8s "
+                    "kernels are timed")
     ap.add_argument("--variants", default="",
-                    help="comma-separated SH, K8 or K8s variants to time "
-                    "(default all)")
+                    help="comma-separated SH, K6, K8 or K8s variants to "
+                    "time (default all)")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -874,9 +970,10 @@ def main() -> None:
     if which & {"K1", "K1b"}:
         time_sh(dev, stream, os.path.abspath(args.csrc), which,
                 set(filter(None, args.variants.split(","))))
-    if "K8" in which:
-        time_k8(dev, stream, os.path.abspath(args.csrc),
-                set(filter(None, args.variants.split(","))))
+    for pair in ("K6", "K8"):
+        if pair in which:
+            time_conv4(dev, stream, os.path.abspath(args.csrc), pair,
+                       set(filter(None, args.variants.split(","))))
     if "K8s" in which:
         time_k8s(dev, stream, os.path.abspath(args.csrc),
                  set(filter(None, args.variants.split(","))))

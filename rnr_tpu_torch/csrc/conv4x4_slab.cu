@@ -72,7 +72,9 @@
 //   wrapper's, ops/conv4_cuda.py::conv4s_plan): each split writes an f32
 //   partial of the whole output and sum_splits adds them in split order,
 //   launched by the same C call.  Every sum runs in a fixed order, no
-//   atomics: bitwise equal results from run to run.
+//   atomics: bitwise equal results from run to run.  The tensor maps, the
+//   epilogue's staging and stores, the split sum and the persistent
+//   grid's size are K6's too (csrc/conv4x4_common.cuh).
 //
 // What ragged cases cost: C % 8 != 0 is padded by the wrapper (a copy of
 //   x); C % 64 != 0 multiplies zeros in the last channel unit; O % 64 !=
@@ -86,15 +88,14 @@
 
 #include <cstdint>
 
+#include "conv4x4_common.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace conv4;
 
-constexpr int KC = 64;                 // input channels per unit: one row
 constexpr int MAX_STAGES = 4;
-constexpr int SMEM_LIMIT = 232448;     // a block's shared memory on sm_90
 constexpr int B_ATOM = 2 * KC * 128;   // a unit's two taps, 64 outputs
 
 // Per launch: the GEMM's geometry and the plan.
@@ -163,24 +164,6 @@ __device__ __forceinline__ long long dest_row(const Geo& g, const Tile& tl,
   const int t = (int)(r - img * g.h);
   return (img * 2 * g.h + 2 * t + tl.a) * 2 * g.wd + 2 * j + (mm & 1);
 }
-
-__device__ __forceinline__ int reflect_row(int i, int n) {
-  // i in [-1, n]: -1 -> 1, n -> n - 2 (jnp.pad mode="reflect")
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
-
-__device__ __forceinline__ void store_vec(bf16* p, const float* v) {
-  uint4 u;
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) q[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store_one(bf16* p, float v) { *p = __float2bfloat16(v); }
-__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 
 // shared-memory row (of 128 bytes, from the band's start) that tap i
 // reads for tile position m: segments of 64 positions or more share one
@@ -373,73 +356,12 @@ conv4s_kernel(const __grid_constant__ CUtensorMap xmap0,
 #pragma unroll
     for (int b = 0; b < K::ACCS; ++b) {
       if (b > 0) sm90::bar_sync(1, 128 * WGS);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = 8 * j + 2 * (lane % 4);
-        *reinterpret_cast<float2*>(es + rbase * K::LDC + col) =
-            make_float2(acc[b][4 * j], acc[b][4 * j + 1]);
-        *reinterpret_cast<float2*>(es + (rbase + 8) * K::LDC + col) =
-            make_float2(acc[b][4 * j + 2], acc[b][4 * j + 3]);
-      }
+      stage_frag<BN, K::LDC>(es, acc[b], 0, rbase, lane);
       sm90::bar_sync(1, 128 * WGS);
-      constexpr int V = 16 / sizeof(OutT);
-      const bool vec = (g.o * (int)sizeof(OutT)) % 16 == 0;
-      for (int e = tid; e < K::BM * (BN / V); e += 128 * WGS) {
-        const int m = e / (BN / V), cv = (e % (BN / V)) * V;
-        const long long d = dest[UP ? 2 * m + b : m];
-        const int oc = tl.o0 + cv;
-        if (d < 0 || oc >= g.o) continue;
-        const float* src = es + m * K::LDC + cv;
-        OutT* dst = yb + d * g.o + oc;
-        if (vec) {
-          store_vec(dst, src);
-        } else {
-#pragma unroll
-          for (int k = 0; k < V; ++k)
-            if (oc + k < g.o) store_one(dst + k, src[k]);
-        }
-      }
+      store_rows<OutT, BN, K::LDC>(es, dest, K::ACCS, b, yb, g.o, tl.o0,
+                                   K::BM, tid, 128 * WGS);
     }
   }
-}
-
-// y[e] = the sum of the splits' partials of e, in split order
-template <typename OutT>
-__global__ void __launch_bounds__(256)
-sum_splits(const float* __restrict__ part, OutT* __restrict__ y,
-           long long elems, int splits) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < elems; e += stride) {
-    float v = part[e];
-    for (int s = 1; s < splits; ++s) v += part[(size_t)s * elems + e];
-    store_one(y + e, v);
-  }
-}
-
-// x's columns p, p + 2, .. (p = 0 even, 1 odd) as 4 dims (C, W', H, N),
-// boxes (64 channels, `cols`, 1, 1), 128-byte swizzle
-int parity_map(CUtensorMap* map, const void* x, int n, int h, int wd, int c,
-               int p, int cols) {
-  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)((wd - p + 1) / 2),
-                              (cuuint64_t)h, (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)c * 4, (cuuint64_t)wd * c * 2,
-                                 (cuuint64_t)h * wd * c * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)cols, 1, 1};
-  return sm90::bf16_map(map, static_cast<const bf16*>(x) + (size_t)p * c, 4,
-                        dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-// w [4, 4, C, O8] as 4 dims (O8, C, kx % 2, 2 ky + kx / 2), boxes (64
-// outputs, 64 channels, bp, bt): a unit's two taps for 64 outputs
-int weight_map(CUtensorMap* map, const void* w, int c, int o8, int bp,
-               int bt) {
-  const cuuint64_t dims[4] = {(cuuint64_t)o8, (cuuint64_t)c, 2, 8};
-  const cuuint64_t strides[3] = {(cuuint64_t)o8 * 2, (cuuint64_t)c * o8 * 2,
-                                 (cuuint64_t)c * o8 * 4};
-  const cuuint32_t box[4] = {64, KC, (cuuint32_t)bp, (cuuint32_t)bt};
-  return sm90::bf16_map(map, w, 4, dims, strides, box,
-                        CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <bool UP, int BN, int WGS, typename OutT>
@@ -472,8 +394,9 @@ int launch_cfg(const void* x, const void* w, OutT* y, Geo g, int splits,
     err = sm90::nhwc_map(&xmap0, x, g.n, g.h, g.wd, g.c, cols);
     xmap1 = xmap0;
   } else {
-    err = parity_map(&xmap0, x, g.n, g.h, g.wd, g.c, 0, cols);
-    if (err == 0) err = parity_map(&xmap1, x, g.n, g.h, g.wd, g.c, 1, cols);
+    err = parity_map(&xmap0, x, g.n, g.h, g.wd, g.c, 1, 0, 0, cols);
+    if (err == 0)
+      err = parity_map(&xmap1, x, g.n, g.h, g.wd, g.c, 1, 0, 1, cols);
   }
   if (err == 0)
     err = weight_map(&wmap, w, g.c, (g.o + 7) / 8 * 8, UP ? 2 : 1, UP ? 1 : 2);
@@ -482,22 +405,11 @@ int launch_cfg(const void* x, const void* w, OutT* y, Geo g, int splits,
   g.gx = row_tiles * (UP ? 2 : 1);
   g.gy = (long long)((g.gw + g.sw - 1) / g.sw) * splits;
   g.tiles = g.gx * g.gy * ((g.o + BN - 1) / BN);
-  // persistent: as many blocks as fit on the card at once, at most one
-  // a tile
-  static int sms = 0, per_sm = 0, per_sm_smem = -1;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (per_sm_smem != smem) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, conv4s_kernel<UP, BN, WGS, OutT>, K::THREADS, smem);
-    per_sm_smem = smem;
-  }
-  if (sms < 1 || per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  static int per_sm = 0, per_sm_smem = -1;
   const long long blocks =
-      g.tiles < (long long)sms * per_sm ? g.tiles : (long long)sms * per_sm;
+      wave_blocks(conv4s_kernel<UP, BN, WGS, OutT>, K::THREADS, smem, g.tiles,
+                  per_sm, per_sm_smem);
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
   conv4s_kernel<UP, BN, WGS, OutT>
       <<<(unsigned)blocks, K::THREADS, smem, stream>>>(xmap0, xmap1, wmap, y, g);
   return (int)cudaGetLastError();
@@ -546,11 +458,8 @@ int launch(const void* x, const void* w, void* y, void* part, int n, int h,
   float* pp = static_cast<float*>(part);
   const int e = launch_any<UP, float>(x, w, pp, g, bn, wgs, splits, stream);
   if (e != 0) return e;
-  long long blocks = (g.out_elems + 255) / 256;
-  if (blocks > 4 * 132) blocks = 4 * 132;
-  sum_splits<OutT><<<(unsigned)blocks, 256, 0, stream>>>(
-      pp, static_cast<OutT*>(y), g.out_elems, splits);
-  return (int)cudaGetLastError();
+  return launch_sum_splits(pp, static_cast<OutT*>(y), g.out_elems, splits,
+                           stream);
 }
 
 }  // namespace

@@ -1,8 +1,10 @@
 """K6: the 4x4 stride-2 conv `down4` and transpose conv `convt4`
-(csrc/conv4x4.cu); K8's 4x4 pair `down4s` and `convt4s`, the same two
-functions as implicit GEMMs on wgmma over TMA bands
-(csrc/conv4x4_slab.cu, planned by `conv4s_plan`); their plain versions,
-and the four autograd.Functions with rnr_tpu's VJPs.
+(csrc/conv4x4.cu, planned by `conv4_plan`); K8's 4x4 pair `down4s` and
+`convt4s` (csrc/conv4x4_slab.cu, planned by `conv4s_plan`): the same two
+functions as implicit GEMMs on wgmma over TMA bands, K6 with units of a
+parity plane's four taps (down4) or an output row parity's eight
+(convt4), K8 with units of two taps of one input row; their plain
+versions, and the four autograd.Functions with rnr_tpu's VJPs.
 
 Replaces rnr_tpu/ops/conv_pallas.py::down4 / convt4 / down4s / convt4s
 (:747, :787, :1207, :1338), as the U-Net calls them under conv_backend
@@ -41,10 +43,12 @@ from rnr_tpu_torch.ops.conv_cuda import k3_weights, pad_channels, round8
 
 # K8's tiling (csrc/conv4x4_slab.cu): input channels per reduction unit,
 # the blocks of one wave on the H100 (132 SMs), the fewest units a split
-# of K takes
+# of K takes; K6's (csrc/conv4x4.cu) has the same channels and wave and
+# units of four (down4) or eight (convt4) taps, so fewer a split
 K8_UNIT = 64
 K8_TARGET_BLOCKS = 132
 K8_MIN_UNITS = 4
+K6_MIN_UNITS = 2
 
 _conv_bwd = torch.ops.aten.convolution_backward
 
@@ -114,27 +118,6 @@ def _output(symbol: str, x: torch.Tensor, w: torch.Tensor, up: bool,
     return torch.empty(shape, dtype=out_dtype, device=x.device)
 
 
-def _launch_k6(symbol: str, counter, x: torch.Tensor, w: torch.Tensor,
-               up: bool, pad: tuple, out_dtype) -> torch.Tensor:
-    """One launch of K6's down4 or convt4 (csrc/conv4x4.cu), bf16 or f32
-    output; counts in `counter.launches`.  `pad` is (reflect,) for
-    down4."""
-    n, h, wd, c = x.shape
-    o = w.shape[-1]
-    y = _output(symbol, x, w, up, out_dtype)
-    xb = x.contiguous()
-    require(xb, "x", torch.bfloat16, (n, h, wd, c))
-    wb = w.to(torch.bfloat16).contiguous()
-    require(wb, "w", torch.bfloat16, (4, 4, c, o))
-    if y.dtype == torch.float32:
-        symbol += "_f32out"
-    f = _build.fn("conv4x4", symbol, 3, 5 + len(pad))
-    counter.launches += 1
-    check_launch(f(xb.data_ptr(), wb.data_ptr(), y.data_ptr(), n, h, wd, c,
-                   o, *pad, stream_of(xb)), symbol)
-    return y
-
-
 def conv4s_plan(n: int, h: int, wd: int, c8: int, o: int,
                 up: bool) -> tuple[int, int, int, int, int]:
     """(bn, wgs, sw, splits, per) of K8's launch for x [N, H, W, c8] (c8 a
@@ -173,12 +156,52 @@ def conv4s_plan(n: int, h: int, wd: int, c8: int, o: int,
     return bn, wgs, sw, -(-units // per), per
 
 
-def _launch_k8(symbol: str, counter, x: torch.Tensor, w: torch.Tensor,
-               up: bool, pad: tuple, out_dtype) -> torch.Tensor:
-    """One launch of K8's down4s or convt4s (csrc/conv4x4_slab.cu), bf16
-    or f32 output, its split-K sum included; counts in
-    `counter.launches`.  C % 8 != 0 is padded with zero channels first,
-    O with zero weights.  `pad` is (reflect,) for down4s."""
+def conv4_plan(n: int, h: int, wd: int, c8: int, o: int,
+               up: bool) -> tuple[int, int, int, int, int]:
+    """(bn, wgs, sw, splits, per) of K6's launch for x [N, H, W, c8] (c8 a
+    multiple of 8) and O outputs: down4 (up False) over the [N, H//2,
+    W//2] output grid, convt4 over the [N, H, W] input grid, all four
+    output parities in one tile.  BN = 64 outputs a tile, or 128 for
+    down4 where O > 64 (convt4's four accumulators take BN 64); wgs
+    consumer warpgroups of 64 GEMM rows each; a tile's 64 wgs rows are
+    64 wgs / sw row segments of sw positions of one image: sw = 16 or 32
+    where a row has at most 32 positions (then one warpgroup), else 64.
+    Two warpgroups where their tiles fill half a wave.  Where the tiles
+    fill less than a wave, the reduction's units (4 (down4: the parity
+    planes) or 2 (convt4: the output row parities) a 64-channel chunk)
+    are cut into `splits` runs of `per`, at most K8_TARGET_BLOCKS tiles
+    in all and at least K6_MIN_UNITS units a run; convt4's runs are whole
+    chunks (per even), so the kernel takes both parities a in turn.
+    Fixed by the shapes alone, so a rerun adds in the same order."""
+    gh, gw = (h, wd) if up else (h // 2, wd // 2)
+    bn = 64 if up or round8(o) <= 64 else 128
+
+    def tiles(wgs: int, sw: int) -> int:
+        rows = 64 * wgs // sw
+        return n * -(-gh // rows) * -(-gw // sw) * -(-o // bn)
+
+    if gw <= 32:
+        wgs, sw = 1, (16 if gw <= 16 else 32)
+    else:
+        sw = 64
+        wgs = 2 if tiles(2, sw) >= K8_TARGET_BLOCKS // 2 else 1
+    units = (2 if up else 4) * -(-c8 // K8_UNIT)
+    want = max(1, min(K8_TARGET_BLOCKS // tiles(wgs, sw),
+                      units // K6_MIN_UNITS))
+    per = -(-units // want)
+    if up:
+        per += per % 2
+    return bn, wgs, sw, -(-units // per), per
+
+
+def _launch(lib: str, plan, symbol: str, counter, x: torch.Tensor,
+            w: torch.Tensor, up: bool, pad: tuple,
+            out_dtype) -> torch.Tensor:
+    """One launch of a 4x4 kernel of `lib` (K6's csrc/conv4x4.cu planned
+    by conv4_plan, or K8's csrc/conv4x4_slab.cu by conv4s_plan), bf16 or
+    f32 output, its split-K sum included; counts in `counter.launches`.
+    C % 8 != 0 is padded with zero channels first, O with zero weights.
+    `pad` is (reflect,) for the down convs."""
     n, h, wd, c = x.shape
     o = w.shape[-1]
     y = _output(symbol, x, w, up, out_dtype)
@@ -188,12 +211,12 @@ def _launch_k8(symbol: str, counter, x: torch.Tensor, w: torch.Tensor,
     xb = pad_channels(xc, c8)
     wb = k3_weights(w, c8)
     require(wb, "w", torch.bfloat16, (4, 4, c8, round8(o)))
-    bn, wgs, sw, splits, per = conv4s_plan(n, h, wd, c8, o, up)
+    bn, wgs, sw, splits, per = plan(n, h, wd, c8, o, up)
     part = (torch.empty(splits * y.numel(), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
     if y.dtype == torch.float32:
         symbol += "_f32out"
-    f = _build.fn("conv4x4_slab", symbol, 4, 10 + len(pad))
+    f = _build.fn(lib, symbol, 4, 10 + len(pad))
     counter.launches += 1
     check_launch(f(xb.data_ptr(), wb.data_ptr(), y.data_ptr(),
                    None if part is None else part.data_ptr(), n, h, wd, c8,
@@ -203,14 +226,15 @@ def _launch_k8(symbol: str, counter, x: torch.Tensor, w: torch.Tensor,
 
 def down4_fwd(x: torch.Tensor, w: torch.Tensor, pad_mode: str = "same",
               out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The 4x4 stride-2 conv, tap-wise (K6 on CUDA tensors, the plain
-    version on CPU tensors), not differentiable: x [N, H, W, C] (bf16 on
-    the card), w [4, 4, C, O] -> [N, H//2, W//2, O] in `out_dtype`."""
+    """The 4x4 stride-2 conv by parity plane (K6 on CUDA tensors, the
+    plain version on CPU tensors), not differentiable: x [N, H, W, C]
+    (bf16 on the card), w [4, 4, C, O] -> [N, H//2, W//2, O] in
+    `out_dtype`."""
     if not use_kernel(x, w):
         return down4_torch(x, w, pad_mode, out_dtype)
     _check_down(x, pad_mode)
-    return _launch_k6("rnr_down4", down4, x, w, False,
-                      (int(pad_mode == "reflect"),), out_dtype)
+    return _launch("conv4x4", conv4_plan, "rnr_down4", down4, x, w, False,
+                   (int(pad_mode == "reflect"),), out_dtype)
 
 
 def convt4_fwd(x: torch.Tensor, w: torch.Tensor,
@@ -220,7 +244,8 @@ def convt4_fwd(x: torch.Tensor, w: torch.Tensor,
     x [N, H, W, C], w [4, 4, C, O] -> [N, 2H, 2W, O] in `out_dtype`."""
     if not use_kernel(x, w):
         return convt4_torch(x, w, out_dtype)
-    return _launch_k6("rnr_convt4", convt4, x, w, True, (), out_dtype)
+    return _launch("conv4x4", conv4_plan, "rnr_convt4", convt4, x, w, True,
+                   (), out_dtype)
 
 
 def down4s_fwd(x: torch.Tensor, w: torch.Tensor, pad_mode: str = "same",
@@ -230,8 +255,8 @@ def down4s_fwd(x: torch.Tensor, w: torch.Tensor, pad_mode: str = "same",
     if not use_kernel(x, w):
         return down4_torch(x, w, pad_mode, out_dtype)
     _check_down(x, pad_mode)
-    return _launch_k8("rnr_down4s", down4s, x, w, False,
-                      (int(pad_mode == "reflect"),), out_dtype)
+    return _launch("conv4x4_slab", conv4s_plan, "rnr_down4s", down4s, x, w,
+                   False, (int(pad_mode == "reflect"),), out_dtype)
 
 
 def convt4s_fwd(x: torch.Tensor, w: torch.Tensor,
@@ -240,7 +265,8 @@ def convt4s_fwd(x: torch.Tensor, w: torch.Tensor,
     on CPU tensors)."""
     if not use_kernel(x, w):
         return convt4_torch(x, w, out_dtype)
-    return _launch_k8("rnr_convt4s", convt4s, x, w, True, (), out_dtype)
+    return _launch("conv4x4_slab", conv4s_plan, "rnr_convt4s", convt4s, x,
+                   w, True, (), out_dtype)
 
 
 # ------------------------------------------------------------- gradients

@@ -386,3 +386,194 @@ def test_k8_tiling_computes_the_plain_conv(n, h, wd, c, o, up, pad_mode,
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+# ---- K6's plan and tiling on the host (csrc/conv4x4.cu)
+
+
+@pytest.mark.parametrize("n,h,wd,c8,o,up", K8_SHAPES)
+def test_conv4_plan_covers_every_unit_in_fixed_runs(n, h, wd, c8, o, up):
+    """Every unit (a parity plane's or an output row parity's 64 channels)
+    in exactly one split, no split empty, runs of at least K6_MIN_UNITS
+    where there is more than one, convt4's of whole 64-channel chunks (both
+    output row parities); at most one wave of tiles where K is
+    split; tiles of 64 rows a warpgroup in whole row segments of one
+    image; BN 64 for convt4 (four accumulators); the same plan on every
+    call (a rerun adds in one order)."""
+    bn, wgs, sw, splits, per = c4.conv4_plan(n, h, wd, c8, o, up)
+    assert bn in (64, 128) and wgs in (1, 2)
+    assert bn == 64 or (not up and o > 64)
+    gh, gw = (h, wd) if up else (h // 2, wd // 2)
+    units = (2 if up else 4) * -(-c8 // c4.K8_UNIT)
+    assert splits * per >= units > (splits - 1) * per
+    assert splits == 1 or per >= c4.K6_MIN_UNITS
+    assert not up or per % 2 == 0     # convt4: whole chunks a run
+    rows = 64 * wgs // sw
+    assert rows * sw == 64 * wgs
+    tiles = n * -(-gh // rows) * -(-gw // sw) * -(-o // bn)
+    assert splits == 1 or tiles * splits <= c4.K8_TARGET_BLOCKS
+    if gw <= 32:     # short rows: 64 / sw whole rows a tile
+        assert wgs == 1 and sw in (16, 32) and sw >= gw
+    else:            # segments of 64 positions, 1 or 2 a tile
+        assert sw == 64
+    assert c4.conv4_plan(n, h, wd, c8, o, up) == (bn, wgs, sw, splits, per)
+
+
+def _k6_emulate(x: np.ndarray, w: np.ndarray, up: bool, reflect: bool,
+                plan) -> np.ndarray:
+    """csrc/conv4x4.cu's arithmetic in float64, tile by tile: each unit's
+    taps from the weight map's boxes (w as [8][2][C][O], 2 ky + kx // 2,
+    kx % 2: down4 boxes (pc, 2 ky .. + 1), convt4 (0 .. 1, 2 ky .. + 1)),
+    its band of R + 1 rows from the tensor maps (down4: x's rows and
+    columns of parity (1 - pr, 1 - pc), row by index, reflected; zeros
+    outside; the patched columns), each tap's 64 rows at its band
+    position, products summed per split and the splits in order."""
+    bn, wgs, sw, splits, per = plan
+    n, h, wd, c = x.shape
+    o = w.shape[-1]
+    c8 = -(-c // 8) * 8
+    c64 = -(-c8 // 64) * 64     # TMA's zeros past C
+    xp = np.zeros((n, h, wd, c64))
+    xp[..., :c] = x
+    wm = np.zeros((4, 4, c64, o))
+    wm[:, :, :c] = w
+    wm = wm.reshape(8, 2, c64, o)
+    gh, gw = (h, wd) if up else (h // 2, wd // 2)
+    bm = 64 * wgs
+    rows = bm // sw
+    e_ = 2 if up else 1         # a band row's extra positions
+    upc = 2 if up else 4        # units of a chunk
+    units = upc * (c64 // 64)
+    wide = sw >= 64
+    segr = -(-(sw + e_) // 8) * 8
+    maps = ([xp] if up else
+            [xp[:, q // 2::2, q % 2::2] for q in range(4)])
+    out_shape = (n, 2 * h, 2 * wd, o) if up else (n, gh, gw, o)
+    parts = np.zeros((splits,) + out_shape)
+
+    def box(xm, img, row, col, cnt):   # cnt positions from col, zeros out
+        b = np.zeros((cnt, c64))
+        if 0 <= row < xm.shape[1]:
+            for q in range(cnt):
+                if 0 <= col + q < xm.shape[2]:
+                    b[q] = xm[img, row, col + q]
+        return b
+
+    def band_pos(cb, kk, pos):
+        if wide:
+            return kk * segr + pos + cb
+        return (cb * (rows + 1) + kk) * sw + pos
+
+    nband = (rows + 1) * segr if wide else (e_ + 1) * (rows + 1) * sw
+    for img in range(n):
+        for i0 in range(0, gh, rows):
+            for j0 in range(0, gw, sw):
+                for s in range(splits):
+                    acc = np.zeros((4 if up else 1, bm, o))
+                    for u in range(s * per, min(s * per + per, units)):
+                        ch, sub = divmod(u, upc)
+                        cs = slice(64 * ch, 64 * ch + 64)
+                        pr, pc = sub >> 1, sub & 1
+                        if up:   # slot 4 r + kx: tap (sub + 2 r, kx)
+                            taps = [wm[2 * (sub + 2 * (sl >> 2))
+                                       + (sl & 3) // 2, (sl & 3) % 2, cs]
+                                    for sl in range(8)]
+                        else:    # slot 2 a + b: tap (pr + 2 a, pc + 2 b)
+                            taps = [wm[2 * (pr + 2 * (sl >> 1)) + (sl & 1),
+                                       pc, cs] for sl in range(4)]
+                        xm = maps[0] if up else maps[(1 - pr) * 2 + 1 - pc]
+                        col = j0 - 1 if up else j0 + pc - 1
+                        band = np.zeros((nband, c64))
+                        for kk in range(rows + 1):
+                            if up:
+                                xr = i0 + kk + sub - 1
+                            else:
+                                r = 2 * (i0 + kk) + pr - 1
+                                if reflect:
+                                    r = -r if r < 0 else (
+                                        2 * h - 2 - r if r >= h else r)
+                                xr = (r - (1 - pr)) // 2
+                            if wide:
+                                p0 = band_pos(0, kk, 0)
+                                band[p0:p0 + sw + e_] = box(
+                                    xm, img, xr, col, sw + e_)
+                            else:
+                                for cb in range(e_ + 1):
+                                    p0 = band_pos(cb, kk, 0)
+                                    band[p0:p0 + sw] = box(
+                                        xm, img, xr, col + cb, sw)
+                        pright = gw - 1 - j0
+                        for kk in range(rows + 1):
+                            if reflect and not up and pc == 0 and j0 == 0:
+                                band[band_pos(0, kk, 0)] = \
+                                    band[band_pos(1, kk, 0)]
+                            if (reflect and not up and pc == 1
+                                    and wd % 2 == 0 and pright < sw):
+                                band[band_pos(1, kk, pright)] = \
+                                    band[band_pos(0, kk, pright)]
+                        band = band[:, cs]
+                        for wg in range(wgs):
+                            k, pos = divmod(64 * wg, sw)
+                            rs = slice(64 * wg, 64 * wg + 64)
+                            for sl, tap in enumerate(taps):
+                                if up:
+                                    r, kx = sl >> 2, sl & 3
+                                    a0 = band_pos((kx & 1) + (kx >> 1),
+                                                  k + r, pos)
+                                    p = 2 * sub + (kx & 1)
+                                else:
+                                    a0 = band_pos(sl & 1, k + (sl >> 1), pos)
+                                    p = 0
+                                acc[p, rs] += band[a0:a0 + 64] @ tap
+                    for m in range(bm):
+                        k, jj = divmod(m, sw)
+                        i, j = i0 + k, j0 + jj
+                        if i >= gh or j >= gw:
+                            continue
+                        if up:
+                            for p in range(4):
+                                parts[s, img, 2 * i + p // 2,
+                                      2 * j + p % 2] = acc[p, m]
+                        else:
+                            parts[s, img, i, j] = acc[0, m]
+    y = parts[0]
+    for s in range(1, splits):
+        y = y + parts[s]
+    return y
+
+
+@pytest.mark.parametrize("n,h,wd,c,o,up,pad_mode,tile", [
+    (2, 10, 12, 5, 7, False, "reflect", None),
+    (2, 10, 12, 5, 7, False, "same", None),
+    (1, 9, 9, 8, 9, False, "reflect", None),
+    (1, 9, 11, 8, 9, False, "same", None),
+    (2, 8, 70, 16, 5, False, "reflect", None),
+    (1, 7, 132, 8, 3, False, "reflect", (2, 64)),
+    (1, 8, 8, 136, 9, False, "reflect", None),
+    (1, 6, 10, 24, 130, False, "same", None),
+    (2, 5, 9, 40, 6, True, None, None), (1, 6, 40, 72, 4, True, None, None),
+    (1, 4, 66, 8, 5, True, None, None), (1, 3, 131, 8, 5, True, None, (2, 64)),
+    (1, 6, 12, 200, 4, True, None, None)])
+def test_k6_tiling_computes_the_plain_conv(n, h, wd, c, o, up, pad_mode,
+                                           tile):
+    """K6's decomposition, emulated in float64 with its plan or the (wgs,
+    sw) given (the four parity-plane maps and their offsets, the four
+    taps a down4 band serves, the reflect rows by index and the patched
+    columns, convt4's four parities from one band, short-row tiles and
+    two-row tiles of 64 positions, split K, ragged C and O, odd H and W),
+    gives the plain version's output within 1e-5 of its max (the plain
+    version sums in float32): a tap, band position or patch out of place
+    moves an output by a product, orders of magnitude more."""
+    rng = np.random.default_rng(h * wd + c)
+    x = rng.standard_normal((n, h, wd, c))
+    w = rng.standard_normal((4, 4, c, o)) / np.sqrt(16 * c)
+    plan = c4.conv4_plan(n, h, wd, -(-c // 8) * 8, o, up)
+    if tile:
+        plan = (plan[0], *tile) + plan[3:]
+    got = _k6_emulate(x, w, up, pad_mode == "reflect", plan)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    want = (c4.convt4_torch(xt, wt) if up
+            else c4.down4_torch(xt, wt, pad_mode)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())

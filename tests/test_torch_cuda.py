@@ -627,7 +627,8 @@ CONV4 = {"down4": (c4.down4_fwd, c4.down4, c4.down4_torch, True),
 @pytest.mark.parametrize("c,o,h,w", [(5, 7, 10, 12), (8, 16, 16, 16),
                                      (64, 72, 18, 34), (16, 24, 7, 150),
                                      (40, 130, 5, 9), (512, 512, 16, 16),
-                                     (64, 64, 9, 63), (8, 16, 14, 14)])
+                                     (64, 64, 9, 63), (8, 16, 14, 14),
+                                     (256, 64, 32, 32), (64, 128, 256, 128)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("pad_mode", ["same", "reflect"])
 @pytest.mark.parametrize("name", sorted(CONV4))
@@ -635,7 +636,9 @@ def test_conv4_kernels(dev, name, pad_mode, out_dtype, c, o, h, w):
     """Each 4x4 kernel against its plain version: bf16 output within one
     rounding step of the largest values (2^-7 of max), f32 output within
     1e-4 of max (bf16 products are exact, f32 sums in another order).
-    The transpose convs have no padding mode."""
+    The transpose convs have no padding mode.  512 -> 512 @16 and 256 ->
+    64 @32 split K in every kernel; 64 -> 128 at 256 x 128 takes two
+    consumer warpgroups."""
     fwd, counter, plain, down = CONV4[name]
     rng = np.random.default_rng(c + o + h + w)
     x = _t(rng.standard_normal((2, h, w, c)).astype(np.float32), dev,
@@ -655,12 +658,13 @@ def test_conv4_kernels(dev, name, pad_mode, out_dtype, c, o, h, w):
     assert err <= rel * float(t.float().abs().max()), err
 
 
-@pytest.mark.parametrize("name", ["down4s", "convt4s"])
+@pytest.mark.parametrize("name", ["down4s", "convt4s", "down4", "convt4"])
 @pytest.mark.parametrize("c,o,h", [(256, 512, 128), (512, 512, 32)])
 def test_conv4s_kernels_are_bitwise_reproducible(dev, name, c, o, h):
-    """K8's pair twice on the same inputs, bf16 and f32 out: bitwise
-    equal (a fixed order of sums, split K's partials added in split
-    order at 16^2 and 32^2), and within the plain version's tolerance."""
+    """K8's pair and K6 twice on the same inputs, bf16 and f32 out:
+    bitwise equal (a fixed order of sums, split K's partials added in
+    split order at 16^2 and 32^2), and within the plain version's
+    tolerance."""
     fwd, counter, plain, down = CONV4[name]
     rng = np.random.default_rng(c + h)
     x = _t(rng.standard_normal((1, h, h, c)).astype(np.float32), dev,
