@@ -22,9 +22,10 @@ Phases (each failure raises, so the script exits non-zero):
            call; and the bound: the least time the card could take for the
            work.  K1 and K1b must also give, bit for bit, the outputs
            pinned in K1_DIGESTS, so that a change to their order of sums
-           shows; K1b also runs at batch 2, and both report queued and
-           host times and f32 T-ops/s beside the median.  K1, K1b, K5b
-           and K3b run twice and must agree bit for bit; K2b (f32
+           shows, and K5b the output pinned in K5B_DIGEST; K1b also runs
+           at batch 2, and K1, K1b and K5 report queued and host times and
+           f32 T-ops/s beside the median.  K1, K1b, K5, K5b, K3b and P1
+           run twice and must agree bit for bit; K2b (f32
            atomics) reports its run-to-run difference and also runs at
            batch 2, with every pixel on the corner texel and
            with a uv seam inside its pixel tiles.  K4 runs at V 7500 and C
@@ -56,7 +57,8 @@ Phases (each failure raises, so the script exits non-zero):
            P1 (the GEMM chain of
            tools/tpu_probe_r5.py) runs at the probe's section A shapes,
            each launch counted, with cuBLAS's one product of the same
-           function beside it.
+           function beside it, single and queued, with its wrapper's host
+           time and TFLOP/s per shape.
   slice    the canonical model (512^2, texture 512^2 x 24, lmax 10, 13+13
            rays, U-Net nf0 64 / 5 downs / dense fusion, GCN 20 blocks k=16
            on 7500 vertices; bf16 rays, fan-fused K1, K3 for every 3x3)
@@ -298,6 +300,14 @@ K1_DIGESTS = {
     "sh_shade_fan_bwd":
         "3cdb0e69cad0b27d8dbd2bb4e1509f0a411442c8b6a9ca0795a62648531f1e5d",
 }
+
+# K5b at kernels_shade's inputs, sha256 of its outputs' bytes (d rays_lt,
+# d coeff) from csrc/sh_shade.cu's backward on the unscaled ladder, read on
+# an NVIDIA H100 80GB HBM3 before K5 moved to the scaled ladder (the same
+# as `chip_variants.py --kernels K5` prints for a checkout's K5b), so that
+# a change to the shared constant bank or header that moves K5b shows
+K5B_DIGEST = (
+    "b8483ca5397748e71fbba80e51f5767634ef43ee694b24d257475337ee89dfee")
 
 # the relighting routes of rnr_tpu's test_rnr: (model variant, SH fit,
 # launches per frame); the variant's rays overrides of the config
@@ -726,8 +736,11 @@ def kernels_shade(rec: dict, b: dict) -> None:
     args = (rd, lt, al, cf, 10, 13)
     n_pix = IMG * IMG
     ks, kd = sh_shade(*args)
+    ks2, kd2 = sh_shade(*args)
     ts, td = sh_shade_torch(*args)
     torch.cuda.synchronize()
+    if not (torch.equal(ks, ks2) and torch.equal(kd, kd2)):
+        raise AssertionError("sh_shade: two runs differ")
     masked = al[..., 0] == 0
     if not (bool((ks[masked] == 0).all()) and bool((kd[masked] == 0).all())):
         raise AssertionError("sh_shade: masked pixels not exactly 0")
@@ -736,13 +749,16 @@ def kernels_shade(rec: dict, b: dict) -> None:
     tol = 1e-4 * scale + 1e-5   # f32 both sides; FMA and sum order differ
     log(f"[kernels] sh_shade {IMG}^2 lmax10 R26 bf16 rays: max abs err "
         f"{err:.3g}, rel {err / scale:.3g} (max |ref| {scale:.3g}, tol "
-        f"{tol:.3g}); {int(masked.sum())} masked pixels exactly 0")
+        f"{tol:.3g}); {int(masked.sum())} masked pixels exactly 0; two runs "
+        f"bitwise equal")
     check("sh_shade", err, tol)
-    rec["sh_shade"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: sh_shade(*args)),
+    rec["sh_shade"] = sh_times(
+        lambda: sh_shade(*args), sh_work(n_pix, 26, 10, 2, False, fan=False),
+        max_abs_err=err, bitwise_reproducible=True,
         plain_ms=cuda_ms(lambda: sh_shade_torch(*args), iters=3, warmup=1),
-        library_ms=None, **sh_work(n_pix, 26, 10, 2, False, fan=False))
-    del ks, kd, ts, td
+        library_ms=None)
+    log_sh_times("sh_shade", rec["sh_shade"])
+    del ks, kd, ks2, kd2, ts, td
 
     gs = torch.from_numpy(rng.standard_normal((1, IMG, IMG, 3)).astype(
         np.float32)).to(DEV)
@@ -765,6 +781,11 @@ def kernels_shade(rec: dict, b: dict) -> None:
         f"{err_c / scale_c:.3g}, tol 1e-4 x max), d rays_lt max abs err "
         f"{err_l:.3g} (rel {err_l / scale_l:.3g}, tol 2^-7 x max); two runs "
         f"bitwise equal")
+    got = digest(kl, kc)
+    if got != K5B_DIGEST:
+        raise AssertionError(f"sh_shade_bwd: output digest {got} differs "
+                             f"from {K5B_DIGEST}, the pinned one")
+    log("[kernels] sh_shade_bwd: output bit-equal to the pinned digest")
     rec["sh_shade_bwd"] = dict(
         max_abs_err=max(err_c, err_l), dcoeff_max_abs_err=err_c,
         dlt_max_abs_err=err_l, bitwise_reproducible=True,
@@ -1213,12 +1234,17 @@ def gemm_rows(k: int, n: int, taps: int) -> int:
 def kernels_gemm_chain(rec: dict, launches: dict, rng) -> None:
     """P1 at section A's eight shapes: one launch per shape, counted (the
     kernel lies on no path of the package), against its plain version
-    (bf16 within 2^-7 of max); the median ms of the kernel, its plain
-    version and cuBLAS's one product of x repeated T times along K [M, T K]
-    with w as [T K, N] (the same function, summed in another order; its
-    inputs built before the timing), and the bound."""
-    parts, errs = [], []
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    (bf16 within 2^-7 of max) and twice bit-equal (no split K); the median
+    ms of the kernel, its plain version and cuBLAS's one product of x
+    repeated T times along K [M, T K] with w as [T K, N] (the same
+    function, summed in another order; its inputs built before the
+    timing), and the bound; per shape also 20 calls queued back to back
+    beside cuBLAS queued, the wrapper's host time and the TFLOP/s of the
+    queued time."""
+    from rnr_tpu_torch.ops.gemm_chain_cuda import gemm_chain_plan
+    parts, errs, shapes, host = [], [], [], []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "queued_ms": 0.0,
+           "library_queued_ms": 0.0, "flops": 0.0}
     inputs = []
     for k, n, taps in GEMM_SHAPES:
         m = gemm_rows(k, n, taps)
@@ -1236,24 +1262,48 @@ def kernels_gemm_chain(rec: dict, launches: dict, rng) -> None:
         tag = f"M {m} K {k} N {n} T {taps}"
         e = _conv4_check(f"gemm_chain {tag}", y, gemm_chain_torch(x, w),
                          2 ** -7)
+        if not torch.equal(y, gemm_chain(x, w)):
+            raise AssertionError(f"gemm_chain {tag}: two runs differ")
         errs.append(e)
         xr = x.repeat(1, taps)                 # [M, T K]
         wr = w.reshape(taps * k, n)            # [T K, N]
         ms = cuda_ms(lambda: gemm_chain(x, w))
         pms = cuda_ms(lambda: gemm_chain_torch(x, w), iters=3, warmup=1)
         lms = cuda_ms(lambda: torch.matmul(xr, wr))
-        work = bound(2 * (m * k + taps * k * n + m * n),
-                     2.0 * m * k * n * taps, BF16_TENSOR_FLOPS)
+        q, lq = queued_ms(lambda: gemm_chain(x, w)), queued_ms(
+            lambda: torch.matmul(xr, wr))
+        hu = host_us(lambda: gemm_chain(x, w))
+        flops = 2.0 * m * k * n * taps
+        work = bound(2 * (m * k + taps * k * n + m * n), flops,
+                     BF16_TENSOR_FLOPS)
         parts.append(work)
-        tot["ms"] += ms
-        tot["plain_ms"] += pms
-        tot["library_ms"] += lms
-        log(f"[kernels] gemm_chain {tag}: err {e:.3g}; kernel {ms:.4f} ms "
-            f"({2 * m * k * n * taps / ms / 1e9:.1f} TFLOP/s), bound "
-            f"{work['bound_ms']:.4f} ({work['bound_by']}), cuBLAS {lms:.4f}, "
-            f"plain {pms:.3f}")
+        host.append(hu)
+        plan = gemm_chain_plan(m, k, n, taps)
+        shapes.append(dict(m=m, k=k, n=n, t=taps, ms=ms, library_ms=lms,
+                           queued_ms=q, library_queued_ms=lq, host_us=hu,
+                           tflops=flops / q / 1e9, plan=list(plan), **work))
+        for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                       ("queued_ms", q), ("library_queued_ms", lq),
+                       ("flops", flops)):
+            tot[key] += v
+        log(f"[kernels] gemm_chain {tag}: err {e:.3g}, two runs bitwise "
+            f"equal; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"queued {q:.4f} ms ({flops / q / 1e9:.1f} TFLOP/s), host "
+            f"{hu:.1f} us; bound {work['bound_ms']:.4f} "
+            f"({work['bound_by']}); cuBLAS {lms:.4f}, queued {lq:.4f}; "
+            f"plain {pms:.3f}; plan (bn, mw, res, xst, wst, grid) {plan}")
         del xr, wr
-    rec["gemm_chain"] = dict(max_abs_err=max(errs), **tot, **add_bounds(parts))
+    flops = tot.pop("flops")
+    rec["gemm_chain"] = dict(max_abs_err=max(errs), bitwise_reproducible=True,
+                             **tot, host_us=float(np.mean(host)),
+                             tflops=flops / tot["queued_ms"] / 1e9,
+                             shapes=shapes, **add_bounds(parts))
+    log(f"[kernels] gemm_chain, {len(GEMM_SHAPES)} shapes: {tot['ms']:.4f} "
+        f"ms single ({tot['ms'] / tot['library_ms']:.2f}x cuBLAS "
+        f"{tot['library_ms']:.4f}), {tot['queued_ms']:.4f} ms queued "
+        f"({rec['gemm_chain']['tflops']:.1f} TFLOP/s; cuBLAS queued "
+        f"{tot['library_queued_ms']:.4f}), host "
+        f"{rec['gemm_chain']['host_us']:.1f} us a call")
     torch.cuda.synchronize()
 
 

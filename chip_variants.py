@@ -710,6 +710,237 @@ def time_k8s(dev, stream, csrc: str, only=None) -> None:
         print(f"{kern} {use} 14 shapes {name}: {us:.2f} us", flush=True)
 
 
+# per design of csrc/gemm_chain.cu (P1), told apart by a line only it
+# has: {variant: switches}
+P1_DESIGNS = {
+    "persistent wgmma over TMA, x shared by the T products": (
+        "template <int BN, int MW, bool RES>\n__global__ void",
+        {"real": [],
+         "no_mma": [_SKIP_MMA, ("sm90::wgmma<0, 1>(", "skip_mma(")],
+         "no_loads": [
+             ("""        sm90::mbar_arrive_tx(xfull + 8 * xs, K::X_STAGE);
+        sm90::tma_load_2d(xring + xs * K::X_STAGE, &xmap, c * KC, m0,
+                          xfull + 8 * xs);""",
+              """        if (xi >= g.xst) {
+          sm90::mbar_arrive(xfull + 8 * xs);
+        } else {
+          sm90::mbar_arrive_tx(xfull + 8 * xs, K::X_STAGE);
+          sm90::tma_load_2d(xring + xs * K::X_STAGE, &xmap, c * KC, m0,
+                            xfull + 8 * xs);
+        }"""),
+             ("            sm90::mbar_arrive_tx(wfull + 8 * ws, K::W_UNIT);",
+              "            if (wi >= g.wst) {\n"
+              "              sm90::mbar_arrive(wfull + 8 * ws);\n"
+              "              continue;\n            }\n"
+              "            sm90::mbar_arrive_tx(wfull + 8 * ws, K::W_UNIT);")],
+         "no_epilogue": [("        if (row >= g.m || oc >= g.n) continue;",
+                          "        if (row >= g.m || oc >= g.n || row != -7) "
+                          "continue;")]}),
+    "WMMA, single-buffered thread loads": (
+        "wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);",
+        {"real": [],
+         "no_mma": [("wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);",
+                     "(void)fb[j];")],
+         "no_loads": [
+             ("    for (int e = tid; e < BM * (BK / 8); e += THREADS) {",
+              "    for (int e = k0 > 0 ? BM * (BK / 8) : tid; e < BM * (BK / 8);"
+              " e += THREADS) {"),
+             ("      {\n        const int r = tid / (BN / 8), col = (tid % "
+              "(BN / 8)) * 8;",
+              "      if (k0 == 0 && t == 0) {\n        const int r = tid / "
+              "(BN / 8), col = (tid % (BN / 8)) * 8;")],
+         "no_epilogue": [
+             ("    if (row < m && oc < n) y[row * n + oc] =",
+              "    if (row < 0 && oc < n) y[row * n + oc] =")]}),
+}
+# section A's (K, N, T) as chip_smoke.py runs them (M from its gemm_rows)
+P1_SHAPES = [(64, 64, 9), (128, 64, 9), (192, 64, 9), (64, 128, 9),
+             (128, 128, 9), (192, 128, 9), (256, 256, 9), (512, 512, 4)]
+
+
+def _gemm_rows(k: int, n: int, taps: int) -> int:
+    rows = 8320
+    while (2 * rows * k * 2 + taps * k * n * 2 + rows * n * 4
+           + 2 * rows * n * 2) > 13 * 1024 * 1024:
+        rows //= 2
+    return 16 * rows
+
+
+def time_p1(dev, stream, csrc: str, only=None) -> None:
+    """P1 at section A's eight shapes, queued device time per call of each
+    variant, per shape and summed; the current design also with w
+    streamed where its plan keeps w resident (w_streamed: the real build,
+    residency turned off in the plan)."""
+    from rnr_tpu_torch.ops.gemm_chain_cuda import gemm_chain_plan
+    text = open(os.path.join(csrc, "gemm_chain.cu")).read()
+    design, table = next((d, t) for d, (mk, t) in P1_DESIGNS.items()
+                         if mk in text)
+    if only:
+        table = {k: v for k, v in table.items() if k in only}
+    tag = "" if csrc == str(_build.CSRC) else "_other"
+    new = design.startswith("persistent")
+    print(f"P1 kernels of {csrc}: {design}", flush=True)
+    libs = build_all("gemm_chain", table, csrc, tag)
+    total: dict = {}
+    for k, n, t in P1_SHAPES:
+        m = _gemm_rows(k, n, t)
+        rng = np.random.default_rng(k + n + t)
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy((rng.standard_normal((t, k, n)) / np.sqrt(
+            k * t)).astype(np.float32)).to(dev, torch.bfloat16)
+        y = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
+        flops = 2.0 * m * k * n * t
+        runs = []      # (variant name, lib, ints)
+        for name, lib in libs.items():
+            if new:
+                plan = gemm_chain_plan(m, k, n, t)
+                runs.append((name, lib, (m, k, n, t, *plan)))
+                if name == "real" and plan[2] == 1 and (
+                        not only or "w_streamed" in only):
+                    runs.append(("w_streamed", lib,
+                                 (m, k, n, t,
+                                  *gemm_chain_plan(m, k, n, t, False))))
+            else:
+                runs.append((name, lib, (m, k, n, t)))
+        for name, lib, ints in runs:
+            f = entry(lib, "rnr_gemm_chain", 3, len(ints))
+            us = device_us(lambda: f(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                     *ints, stream))
+            total[name] = total.get(name, 0) + us
+            print(f"P1 M {m} K {k} N {n} T {t} {name}: {us:.2f} us per call "
+                  f"({flops / us / 1e6:.1f} TFLOP/s; plan {ints[4:]})",
+                  flush=True)
+        del x, w, y
+    for name, us in total.items():
+        print(f"P1 eight shapes {name}: {us:.2f} us", flush=True)
+
+
+# per design of csrc/sh_shade.cu's forward (K5), told apart by a line only
+# it has: {variant: switches}.  The scaled design's ladder_only takes K1's
+# switches of the same radiance and accumulation code.
+K5_DESIGNS = {
+    "scaled ladder, two pixels a thread, staged rows": (
+        "    radiance<LMAX>(x, y, z, rad);\n",
+        {"real": [],
+         "ladder_only": "K1_LADDER_ONLY",
+         "no_lt_loads": [
+             ("  copy_rows(lts, rays_lt + (size_t)p0 * row, bytes, threadIdx.x,\n"
+              "            SHADE_THREADS);\n", ""),
+             ("const float v = load_lt(lt[i] + r * 3 + c) * rad[i][c];",
+              "const float v = 1.5f * rad[i][c];")],
+         "no_staging": [
+             ("  copy_rows(rds, rays_dir + (size_t)p0 * row, bytes, threadIdx.x,\n"
+              "            SHADE_THREADS);\n"
+              "  copy_rows(lts, rays_lt + (size_t)p0 * row, bytes, threadIdx.x,\n"
+              "            SHADE_THREADS);\n", ""),
+             ("    rd[i] = rds + q * row;\n    lt[i] = lts + q * row;",
+              "    rd[i] = rays_dir + (size_t)(p0 + q) * row;\n"
+              "    lt[i] = rays_lt + (size_t)(p0 + q) * row;")],
+         "one_pixel": [
+             ("constexpr int SHADE_NP = 2; ", "constexpr int SHADE_NP = 1; "),
+             ("constexpr int SHADE_THREADS = 64;",
+              "constexpr int SHADE_THREADS = 128;")]}),
+    "unscaled ladder, one pixel a thread": (
+        "      fold_radiance(l, m, q, cm, sm, rad);\n    });",
+        {"real": [],
+         "ladder_only": [
+             ("      fold_radiance(l, m, q, cm, sm, rad);\n    });",
+              "      rad[0] += q;\n    });"),
+             ("""      const float contrib = load_lt(lt + r * 3 + c) * (rad[c] * al);
+      if (r < r_spec) acc_s[c] += contrib * inv_spec;
+      else acc_d[c] += contrib * inv_diff;""",
+              "      if (c == 0) acc_s[0] += rad[0];")],
+         "no_lt_loads": [
+             ("const float contrib = load_lt(lt + r * 3 + c) * (rad[c] * al);",
+              "const float contrib = 1.5f * (rad[c] * al);")]}),
+}
+
+
+def time_k5(dev, stream, csrc: str, only=None) -> None:
+    """K5 at chip_smoke.py's kernels_shade case (512^2, lmax 10, 13 + 13
+    rays from the fan of the synthetic G-buffer, bf16 rays_dir and
+    rays_lt), queued device time per call of each variant, and the SASS
+    instruction count of each lmax-10 forward; the real build's output
+    digest.  The real build's K5b too (the same library; its entry is
+    the same in both designs): queued time and the sha256 of its outputs
+    as chip_smoke.py's K5B_DIGEST takes it, so that two checkouts' K5b
+    can be held to each other bit for bit."""
+    from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
+    from rnr_tpu_torch.ops.sh_cuda import fan_coeff
+    from rnr_tpu_torch.synthetic import build_batch
+    text = open(os.path.join(csrc, "sh_shade.cu")).read()
+    design, table = next((d, t) for d, (mk, t) in K5_DESIGNS.items()
+                         if mk in text)
+    if only:
+        table = {k: v for k, v in table.items() if k in only}
+    k1_ladder = SH_DESIGNS["orders split between warps, d coeff in "
+                           "registers"][1]["ladder_only"]
+    table = {k: (k1_ladder if v == "K1_LADDER_ONLY" else v)
+             for k, v in table.items()}
+    tag = "" if csrc == str(_build.CSRC) else "_other"
+    new = design.startswith("scaled")
+    print(f"K5 kernels of {csrc}: {design}", flush=True)
+    libs = build_all("sh_shade", table, csrc, tag)
+    for name in table:
+        print_sass(os.path.join(OUT, f"sh_shade{tag}_{name}.so"),
+                   f"K5 {name}", skip="bwd")
+    b = build_batch(512, 7500, 1)
+    piv = np.concatenate([RaySampler(6, 2, 5.0, "reflect").pivots_dir.T,
+                          RaySampler(6, 2, 10.0, "diffuse").pivots_dir.T])
+    g = {k: torch.from_numpy(np.ascontiguousarray(b[k], np.float32)).to(dev)
+         for k in ("TBN_map", "view_dir_map_tangent", "alpha_map")}
+    rd = build_fan_channels(g["TBN_map"], g["view_dir_map_tangent"],
+                            g["alpha_map"], torch.from_numpy(
+                                piv.astype(np.float32)).to(dev),
+                            13)[1].to(torch.bfloat16).contiguous()
+    rng = np.random.default_rng(5)
+    lt = torch.from_numpy(rng.uniform(0, 2, (1, 512, 512, 26, 3)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    cf = torch.from_numpy((0.3 * rng.standard_normal((121, 3))).astype(
+        np.float32)).to(dev)
+    lad = torch.tensor(ladder_constants(10), device=dev)
+    al = g["alpha_map"]
+    n_pix = 512 * 512
+    spec = torch.empty((n_pix, 3), device=dev)
+    diff = torch.empty_like(spec)
+    cfs = fan_coeff(cf, 10)
+    for name, lib in libs.items():
+        if new:
+            f = entry(lib, "rnr_sh_shade", 6, 5)
+            ptrs = [t.data_ptr() for t in (rd, al, lt, cfs, spec, diff)]
+            ints = (10, n_pix, 26, 13, 1)
+        else:
+            f = entry(lib, "rnr_sh_shade", 7, 6)
+            ptrs = [t.data_ptr() for t in (rd, al, lt, cf, lad, spec, diff)]
+            ints = (10, lad.numel(), n_pix, 26, 13, 1)
+        us = device_us(lambda: f(*ptrs, *ints, stream))
+        torch.cuda.synchronize()
+        dig = f"; digest {digest(torch.cat([spec, diff]))}" if name == "real" \
+            else ""
+        print(f"K5 512^2 lmax10 R26 bf16 {name}: {us:.2f} us per call{dig}",
+              flush=True)
+    if "real" not in libs:
+        return
+    gs, gd = (torch.from_numpy(rng.standard_normal((1, 512, 512, 3)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    dlt = torch.empty_like(lt)
+    dcf = torch.empty_like(cf)
+    part = torch.empty((-(-n_pix // 64), cf.numel()), device=dev)
+    f = entry(libs["real"], "rnr_sh_shade_bwd", 10, 6)
+    ptrs = [t.data_ptr() for t in (rd, al, lt, cf, lad, gs, gd, dlt, part,
+                                   dcf)]
+    ints = (10, lad.numel(), n_pix, 26, 13, 1)
+    us = device_us(lambda: f(*ptrs, *ints, stream))
+    f(*ptrs, *ints, stream)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in (dlt, dcf):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    print(f"K5b 512^2 lmax10 R26 bf16 real: {us:.2f} us per call; sha256 of "
+          f"(d rays_lt, d coeff) {h.hexdigest()}", flush=True)
+
+
 def sh_variants(csrc: str):
     """(K1 variants, K1b variants) of the design found in csrc."""
     text = open(os.path.join(csrc, "sh_fan.cu")).read()
@@ -731,7 +962,7 @@ def sh_variants(csrc: str):
 def build(src: str, name: str, switches, csrc: str = str(_build.CSRC),
           tag: str = "") -> ctypes.CDLL:
     text = open(os.path.join(csrc, f"{src}.cu")).read()
-    if src == "sh_fan":
+    if src in ("sh_fan", "sh_shade"):
         header = open(os.path.join(csrc, "sh_common.cuh")).read()
         text = text.replace('#include "sh_common.cuh"', header)
         switches = SH_COMMON + list(switches)
@@ -758,7 +989,7 @@ def build(src: str, name: str, switches, csrc: str = str(_build.CSRC),
         if "Compiling entry function" in ln:
             fn_name = ln.split("'")[1] if "'" in ln else ""
         elif "registers" in ln or "spill" in ln or "C7514" in ln \
-                or "C7515" in ln:
+                or "C7515" in ln or "C7520" in ln:
             print(f"[build] {src}{tag} {name} {fn_name}: {ln.strip()}",
                   flush=True)
     return ctypes.CDLL(so)
@@ -784,9 +1015,11 @@ def sass_counts(so: str, match: str) -> dict:
     return counts
 
 
-def print_sass(so: str, tag: str) -> None:
+def print_sass(so: str, tag: str, skip: str = "") -> None:
     for fn_name, ops in sass_counts(so, "nv_bfloat16").items():
         kern = "bwd" if "bwd" in fn_name else "fwd"
+        if skip and skip in fn_name:
+            continue
         top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
         print(f"[sass] {tag} {kern}: {sum(ops.values())} instructions: "
               + ", ".join(f"{k} {v}" for k, v in top), flush=True)
@@ -948,14 +1181,15 @@ def build_all(src: str, table: dict, csrc: str = str(_build.CSRC),
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="K4,K2b,K1,K1b,K6,K8,K8s",
-                    help="comma-separated subset of K4,K2b,K1,K1b,K6,K8,K8s "
-                    "(K6: K6a and K6b; K8: K8c and K8d; K8s: K8a and K8b)")
+    ap.add_argument("--kernels", default="K4,K2b,K1,K1b,K5,K6,K8,K8s,P1",
+                    help="comma-separated subset of K4,K2b,K1,K1b,K5,K6,K8,"
+                    "K8s,P1 (K6: K6a and K6b; K8: K8c and K8d; K8s: K8a and "
+                    "K8b)")
     ap.add_argument("--csrc", default=str(_build.CSRC),
-                    help="the csrc directory whose SH, K6, K8 and K8s "
+                    help="the csrc directory whose SH, K6, K8, K8s and P1 "
                     "kernels are timed")
     ap.add_argument("--variants", default="",
-                    help="comma-separated SH, K6, K8 or K8s variants to "
+                    help="comma-separated SH, K6, K8, K8s or P1 variants to "
                     "time (default all)")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
@@ -977,6 +1211,12 @@ def main() -> None:
     if "K8s" in which:
         time_k8s(dev, stream, os.path.abspath(args.csrc),
                  set(filter(None, args.variants.split(","))))
+    if "K5" in which:
+        time_k5(dev, stream, os.path.abspath(args.csrc),
+                set(filter(None, args.variants.split(","))))
+    if "P1" in which:
+        time_p1(dev, stream, os.path.abspath(args.csrc),
+                set(filter(None, args.variants.split(","))))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

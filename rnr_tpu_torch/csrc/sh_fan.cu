@@ -25,17 +25,8 @@
 //   instructions (the backward about twice as many), against about 60 MB
 //   of operands (the backward also writes d rays_lt, about 100 MB).
 //
-// The basis, as both kernels evaluate it.  For order m the ladder value
-//   q(l, m) is K_m st^m S(l, m) r(l, m), with r(m, m) = 1, r(m+1, m) = ct
-//   and r(l, m) = ct r(l-1, m) - k(l, m) r(l-2, m), k = ((l-1)^2 - m^2) /
-//   (4 (l-1)^2 - 1): a rational literal, so one step is an FMUL and an
-//   FFMA.  The factors K_m S(l, m) (and sqrt 2 for m > 0) are folded into
-//   the coefficients on the host (ops/sh_cuda.py fan_basis_scale), and
-//   st^m (cos m phi, sin m phi) = T_m is the m-th complex power of T_1 =
-//   st (cos phi, sin phi).  The zero vector (a masked pixel's reflected
-//   ray) takes ct = 0, st = 1 and the azimuth (1, 0), as rnr_tpu does.
-//   The radiance is folded per order: A_m = sum_l coeff'(l, m) r(l, m),
-//   B_m likewise for -m, then rad += Tc_m A_m + Ts_m B_m.
+// The basis: the scaled ladder of sh_common.cuh (shared with K5), folded
+//   per order into the scaled coefficients.
 // Design, forward (K1): a block of 128 pixels, two pixels per thread.
 //   The block first copies its rays_lt rows to shared memory with 16-byte
 //   loads (one coalesced pass); each thread then loops over the rays and
@@ -63,8 +54,6 @@
 //   fixed tree) and applies the basis scale, so d coeff is bitwise the
 //   same from run to run (no atomics).
 
-#include <stdint.h>
-
 #include "sh_common.cuh"
 
 namespace {
@@ -90,80 +79,6 @@ static_assert(FAN_BWD_PIXELS % (32 * FAN_BWD_NP) == 0 &&
 // (c_coeff holds the scaled coefficients coeff'[b][c]).
 __constant__ float c_pivots[MAX_RAYS * 3];
 
-template <int V>
-struct IC {
-  static constexpr int value = V;
-};
-
-// f(IC<B>), f(IC<B+1>), ..., f(IC<E-1>): l and m as compile-time constants.
-template <int B, int E, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (B < E) {
-    f(IC<B>{});
-    static_for<B + 1, E>(f);
-  }
-}
-
-// k(l, m) of the scaled recurrence
-__host__ __device__ constexpr float rec_k(int l, int m) {
-  return (float)((double)((l - 1) * (l - 1) - m * m) /
-                 (double)(4 * (l - 1) * (l - 1) - 1));
-}
-
-// The scaled coefficient of basis (l, m) (m < 0: the sine row), channel c.
-template <int L, int M>
-__device__ __forceinline__ float cf(int c) {
-  return c_coeff[(L * L + L + M) * 3 + c];
-}
-
-// The ladder of order M past its diagonal for NP directions at once:
-// visit(IC<l>, r(l, M)[NP]) for l = M+1..LMAX (r(M, M) = 1 is the
-// caller's).  The NP walks share every coefficient the visit reads.
-template <int LMAX, int M, int NP, typename Visit>
-__device__ __forceinline__ void order_walk(const float (&ct)[NP],
-                                           Visit&& visit) {
-  if constexpr (M < LMAX) {
-    visit(IC<M + 1>{}, ct);
-    float r0[NP], r1[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      r0[i] = 1.f;
-      r1[i] = ct[i];
-    }
-    static_for<M + 2, LMAX + 1>([&](auto lc) {
-      constexpr float k = rec_k(decltype(lc)::value, M);
-      float rn[NP];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        rn[i] = fmaf(ct[i], r1[i], -k * r0[i]);
-        r0[i] = r1[i];
-        r1[i] = rn[i];
-      }
-      visit(lc, rn);
-    });
-  }
-}
-
-// ct and T_1 = st (cos phi, sin phi) of direction (x, y, z); at the zero
-// vector ct = 0 and T_1 = (1, 0).
-__device__ __forceinline__ void azimuth(float x, float y, float z, float& ct,
-                                        float& t1c, float& t1s) {
-  ct = fminf(fmaxf(z, -1.f), 1.f);
-  const float st = sqrtf(fmaxf(1.f - ct * ct, 0.f));
-  const float r2 = x * x + y * y;
-  const float inv = r2 > 0.f ? rsqrtf(r2) : 0.f;
-  t1c = r2 > 0.f ? st * (x * inv) : st;
-  t1s = st * (y * inv);
-}
-
-// T_m from T_{m-1} and T_1
-__device__ __forceinline__ void next_power(float& tc, float& ts, float t1c,
-                                           float t1s) {
-  const float c = tc * t1c - ts * t1s;
-  ts = tc * t1s + ts * t1c;
-  tc = c;
-}
-
 // The fan ray r of a pixel in world space (_fan_ray), normalised.
 __device__ __forceinline__ void fan_ray(const float* tb, float vx, float vy,
                                         float vz, float al, int r, bool spec,
@@ -184,76 +99,6 @@ __device__ __forceinline__ void fan_ray(const float* tb, float vx, float vy,
   z = tb[6] * tx + tb[7] * ty + tb[8] * tz;
   const float inv_w = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-24f));
   x *= inv_w; y *= inv_w; z *= inv_w;
-}
-
-// rad[i] = coeff'^T (r T) of direction i, the whole ladder, for NP
-// directions at once.
-template <int LMAX, int NP>
-__device__ __forceinline__ void radiance(const float (&x)[NP],
-                                         const float (&y)[NP],
-                                         const float (&z)[NP],
-                                         float (&rad)[NP][3]) {
-  float ct[NP], t1c[NP], t1s[NP], tc[NP], ts[NP];
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    azimuth(x[i], y[i], z[i], ct[i], t1c[i], t1s[i]);
-    tc[i] = 1.f;
-    ts[i] = 0.f;
-  }
-  static_for<0, LMAX + 1>([&](auto mc) {
-    constexpr int m = decltype(mc)::value;
-    float a[NP][3], b[NP][3];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      if constexpr (m == 1) {
-        tc[i] = t1c[i]; ts[i] = t1s[i];
-      } else if constexpr (m > 1) {
-        next_power(tc[i], ts[i], t1c[i], t1s[i]);
-      }
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        a[i][c] = cf<m, m>(c);
-        if constexpr (m > 0) b[i][c] = cf<m, -m>(c);
-      }
-    }
-    order_walk<LMAX, m>(ct, [&](auto lc, const float (&r)[NP]) {
-      constexpr int l = decltype(lc)::value;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-#pragma unroll
-        for (int i = 0; i < NP; ++i) {
-          a[i][c] = fmaf(cf<l, m>(c), r[i], a[i][c]);
-          if constexpr (m > 0) b[i][c] = fmaf(cf<l, -m>(c), r[i], b[i][c]);
-        }
-      }
-    });
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        if constexpr (m == 0) rad[i][c] = a[i][c];
-        else rad[i][c] = fmaf(tc[i], a[i][c], fmaf(ts[i], b[i][c], rad[i][c]));
-      }
-    }
-  });
-}
-
-// Copy `bytes` (even) between global and shared memory: 16 bytes a
-// thread where both ends are 16-byte aligned, 2 bytes for the rest.
-__device__ __forceinline__ void copy_rows(void* dst, const void* src,
-                                          int bytes, int tid, int nthr) {
-  int done = 0;
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
-       15) == 0) {
-    const int n16 = bytes >> 4;
-    const int4* s = static_cast<const int4*>(src);
-    int4* d = static_cast<int4*>(dst);
-    for (int i = tid; i < n16; i += nthr) d[i] = s[i];
-    done = n16 << 3;
-  }
-  const unsigned short* s = static_cast<const unsigned short*>(src);
-  unsigned short* d = static_cast<unsigned short*>(dst);
-  for (int i = done + tid; i < (bytes >> 1); i += nthr) d[i] = s[i];
 }
 
 template <int LMAX, typename LT>
@@ -718,12 +563,6 @@ sum_fan_partials(const float* __restrict__ part, int n_part, int n_entry,
   if (lane == 0) out[e] = s * scale[e / 3];
 }
 
-int set_smem(const void* kernel, int bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <typename LT>
 int launch(int lmax, const float* tbn, const float* vdt, const float* alpha,
            const LT* lt, int n_pix, int r_total, int r_spec, float* spec,
@@ -782,11 +621,6 @@ int copy_constants(const void* coeff, const void* pivots, int lmax,
   return 0;
 }
 
-bool bad_fan_args(int lmax, int r_total, int r_spec) {
-  return lmax < 1 || lmax > 10 || r_total > MAX_RAYS || r_spec < 1 ||
-         r_spec > r_total;
-}
-
 }  // namespace
 
 // Floats of the backward's partials scratch for n_pix pixels at lmax: one
@@ -807,7 +641,7 @@ extern "C" int rnr_sh_shade_fan(const void* tbn, const void* vdt,
                                 void* spec, void* diff, int lmax, int n_pix,
                                 int r_total, int r_spec, int lt_bf16,
                                 cudaStream_t stream) {
-  if (bad_fan_args(lmax, r_total, r_spec)) return (int)cudaErrorInvalidValue;
+  if (bad_ray_args(lmax, r_total, r_spec)) return (int)cudaErrorInvalidValue;
   if (int e = copy_constants(coeff, pivots, lmax, r_total, stream)) return e;
   auto f = [](const void* q) { return static_cast<const float*>(q); };
   if (lt_bf16)
@@ -832,7 +666,7 @@ extern "C" int rnr_sh_shade_fan_bwd(const void* tbn, const void* vdt,
                                     void* dcoeff, int lmax, int n_pix,
                                     int r_total, int r_spec, int lt_bf16,
                                     int n_part, cudaStream_t stream) {
-  if (bad_fan_args(lmax, r_total, r_spec) ||
+  if (bad_ray_args(lmax, r_total, r_spec) ||
       n_part < rnr_sh_shade_fan_bwd_partials(n_pix, lmax))
     return (int)cudaErrorInvalidValue;
   if (int e = copy_constants(coeff, pivots, lmax, r_total, stream)) return e;

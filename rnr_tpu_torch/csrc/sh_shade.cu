@@ -17,15 +17,25 @@
 //   transpose per tensor in the wrapper) so that a row tile is (rows, W),
 //   and contract a VMEM stack of 121 basis planes with coeff on the MXU.
 //   Here the NHWC tensors go in as they are: [N, H, W, 3, R] rays_dir and
-//   [N, H, W, R, C] rays_lt, one thread per pixel reading its own rays.
+//   [N, H, W, R, C] rays_lt, a block's pixels staged row by row.
 //
-// Bound on the H100: FP32 ALU, as K1 (sh_fan.cu).  At 512^2, lmax 10 and
-//   26 rays the ladder and radiance are about 9 GFLOP against about 89 MB
-//   read (rays_dir and rays_lt in bf16, alpha) and 6 MB written.
-// Design: K1 without the fan construction.  Forward: one thread per
-//   pixel walks its rays, reads each ray's 3 components (stride R apart)
-//   and folds the unrolled ladder into three radiance registers with
-//   coeff in constant memory.  Backward: blocks of 64 pixels, each ray's
+// Bound on the H100: FP32 issue, as K1 (sh_fan.cu).  At 512^2, lmax 10
+//   and 26 rays the ladder and radiance are about 9 GFLOP against about
+//   89 MB read (rays_dir and rays_lt in bf16, alpha) and 6 MB written.
+// Design, forward (K5): K1's forward on materialised rays.  A block of
+//   128 pixels first copies its rays_dir and rays_lt rows to shared
+//   memory with 16-byte loads, one coalesced pass each (a pixel's
+//   rays_dir row is 3 R values, 156 bytes in bf16 at R = 26, in general
+//   not 16-byte aligned; a block's rows are); then each thread
+//   shades two pixels ray by ray on the scaled ladder of sh_common.cuh,
+//   folded per order into the scaled coefficients (ops/sh_cuda.py
+//   fan_coeff) in constant memory, so each coefficient load serves both
+//   pixels' FMAs.  Measured at 512^2 (chip_variants.py, NVIDIA H100
+//   80GB HBM3, 700 W): the ladder alone takes 55% of the kernel's time,
+//   without rays_lt's loads 92%, with one pixel a thread 102%, and each
+//   thread reading its rays from device memory (2-byte loads 156 bytes
+//   apart across a warp) instead of the staged rows 146%.
+// Design, backward (K5b): blocks of 64 pixels, each ray's
 //   121 basis values of the block in a [121][65] shared tile, two basis
 //   rows per thread dotted with the rays_lt * gsel column, per-block
 //   [121, 3] partials summed by a second kernel in block order: d coeff
@@ -36,41 +46,84 @@
 
 namespace {
 
+constexpr int SHADE_NP = 2;             // pixels per forward thread
+constexpr int SHADE_THREADS = 64;
+constexpr int SHADE_PIXELS = SHADE_THREADS * SHADE_NP;   // pixels per block
+
+// Shared memory of a forward block: its rays_dir rows, then its rays_lt
+// rows (both 3 R values a pixel).
+__host__ __device__ constexpr int shade_smem(int r_total, int item) {
+  return 2 * SHADE_PIXELS * 3 * r_total * item;
+}
+
 template <int LMAX, typename RT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(SHADE_THREADS)
 sh_shade_kernel(const RT* __restrict__ rays_dir,
                 const float* __restrict__ alpha,
                 const RT* __restrict__ rays_lt, int n_pix, int r_total,
                 int r_spec, float* __restrict__ spec,
                 float* __restrict__ diff) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_pix) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row = 3 * r_total;   // values per pixel in either tensor
+  RT* rds = reinterpret_cast<RT*>(smem);
+  RT* lts = rds + SHADE_PIXELS * row;
+  const int p0 = blockIdx.x * SHADE_PIXELS;
+  const int np = min(SHADE_PIXELS, n_pix - p0);
+  const int bytes = np * row * (int)sizeof(RT);
+  copy_rows(rds, rays_dir + (size_t)p0 * row, bytes, threadIdx.x,
+            SHADE_THREADS);
+  copy_rows(lts, rays_lt + (size_t)p0 * row, bytes, threadIdx.x,
+            SHADE_THREADS);
+  __syncthreads();
+  if ((int)threadIdx.x >= np) return;
 
-  const float al = alpha[p];
-  const float inv_spec = 1.f / (float)r_spec;
-  const float inv_diff = 1.f / (float)max(r_total - r_spec, 1);
-  const RT* rd = rays_dir + (size_t)p * 3 * r_total;
-  const RT* lt = rays_lt + (size_t)p * r_total * 3;
-
-  float acc_s[3] = {0.f, 0.f, 0.f}, acc_d[3] = {0.f, 0.f, 0.f};
-  for (int r = 0; r < r_total; ++r) {
-    const float x = load_lt(rd + r), y = load_lt(rd + r_total + r),
-                z = load_lt(rd + 2 * r_total + r);
-    float rad[3] = {0.f, 0.f, 0.f};
-    sh_ladder<LMAX>(x, y, z, [&](int l, int m, float q, float cm, float sm) {
-      fold_radiance(l, m, q, cm, sm, rad);
-    });
+  // pixels threadIdx.x + i * SHADE_THREADS of the block; a dead one
+  // repeats the block's last pixel and is never stored
+  const RT* rd[SHADE_NP];
+  const RT* lt[SHADE_NP];
+  float al[SHADE_NP];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float contrib = load_lt(lt + r * 3 + c) * (rad[c] * al);
-      if (r < r_spec) acc_s[c] += contrib * inv_spec;
-      else acc_d[c] += contrib * inv_diff;
+  for (int i = 0; i < SHADE_NP; ++i) {
+    const int q = min((int)threadIdx.x + i * SHADE_THREADS, np - 1);
+    rd[i] = rds + q * row;
+    lt[i] = lts + q * row;
+    al[i] = alpha[p0 + q];
+  }
+
+  float acc_s[SHADE_NP][3] = {}, acc_d[SHADE_NP][3] = {};
+  for (int r = 0; r < r_total; ++r) {
+    const bool is_spec = r < r_spec;
+    float x[SHADE_NP], y[SHADE_NP], z[SHADE_NP];
+#pragma unroll
+    for (int i = 0; i < SHADE_NP; ++i) {
+      x[i] = load_lt(rd[i] + r);
+      y[i] = load_lt(rd[i] + r_total + r);
+      z[i] = load_lt(rd[i] + 2 * r_total + r);
+    }
+    float rad[SHADE_NP][3];
+    radiance<LMAX>(x, y, z, rad);
+#pragma unroll
+    for (int i = 0; i < SHADE_NP; ++i) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float v = load_lt(lt[i] + r * 3 + c) * rad[i][c];
+        if (is_spec) acc_s[i][c] += v;
+        else acc_d[i][c] += v;
+      }
     }
   }
+  const float is = 1.f / (float)r_spec;
+  const float id = 1.f / (float)max(r_total - r_spec, 1);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    spec[(size_t)p * 3 + c] = acc_s[c];
-    diff[(size_t)p * 3 + c] = acc_d[c];
+  for (int i = 0; i < SHADE_NP; ++i) {
+    const int q = threadIdx.x + i * SHADE_THREADS;
+    if (q >= np) break;
+    const size_t p = p0 + q;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      spec[p * 3 + c] = acc_s[i][c] * (al[i] * is);
+      diff[p * 3 + c] = acc_d[i][c] * (al[i] * id);
+    }
   }
 }
 
@@ -145,11 +198,14 @@ template <typename RT>
 int launch(int lmax, const RT* rd, const float* alpha, const RT* lt,
            int n_pix, int r_total, int r_spec, float* spec, float* diff,
            cudaStream_t stream) {
-  const int blocks = (n_pix + 127) / 128;
+  const int blocks = (n_pix + SHADE_PIXELS - 1) / SHADE_PIXELS;
   if (blocks == 0) return 0;
+  const int smem = shade_smem(r_total, (int)sizeof(RT));
 #define RNR_SH_CASE(L)                                                      \
   case L:                                                                   \
-    sh_shade_kernel<L, RT><<<blocks, 128, 0, stream>>>(                 \
+    if (int e = set_smem((const void*)sh_shade_kernel<L, RT>, smem))       \
+      return e;                                                             \
+    sh_shade_kernel<L, RT><<<blocks, SHADE_THREADS, smem, stream>>>(        \
         rd, alpha, lt, n_pix, r_total, r_spec, spec, diff);                 \
     break;
   RNR_SH_SWITCH(RNR_SH_CASE)
@@ -183,17 +239,19 @@ int launch_bwd(int lmax, const RT* rd, const float* alpha, const RT* lt,
 // rays_dir [n_pix, 3, r_total], alpha [n_pix], rays_lt [n_pix, r_total, 3]
 // -> spec, diff [n_pix, 3] f32.  rays_dir and rays_lt share one storage
 // type, the model's ray dtype (bf16: 1, f32: 0).  coeff [(lmax+1)^2, 3]
-// and ladder [n_ladder] are device pointers, copied to constant memory
-// on `stream`.
+// holds the scaled coefficients coeff * scale (ops/sh_cuda.py
+// fan_coeff): a device pointer, copied to constant memory on `stream`.
 extern "C" int rnr_sh_shade(const void* rays_dir, const void* alpha,
                             const void* rays_lt, const void* coeff,
-                            const void* ladder, void* spec, void* diff,
-                            int lmax, int n_ladder, int n_pix, int r_total,
-                            int r_spec, int rays_bf16, cudaStream_t stream) {
-  if (bad_sh_args(lmax, n_ladder, r_total, r_spec))
-    return (int)cudaErrorInvalidValue;
-  if (int e = copy_coeff_ladder(coeff, ladder, lmax, n_ladder, stream))
-    return e;
+                            void* spec, void* diff, int lmax, int n_pix,
+                            int r_total, int r_spec, int rays_bf16,
+                            cudaStream_t stream) {
+  if (bad_ray_args(lmax, r_total, r_spec)) return (int)cudaErrorInvalidValue;
+  const int nb = (lmax + 1) * (lmax + 1);
+  if (cudaError_t e = cudaMemcpyToSymbolAsync(
+          c_coeff, coeff, nb * 3 * sizeof(float), 0,
+          cudaMemcpyDeviceToDevice, stream))
+    return (int)e;
   const float* al = static_cast<const float*>(alpha);
   float* s = static_cast<float*>(spec);
   float* d = static_cast<float*>(diff);

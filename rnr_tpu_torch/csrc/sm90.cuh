@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the 3x3 conv kernels K3
-// (conv3x3.cu) and K3b (conv3x3_wgrad.cu) and the stratified kNN K4
-// (stratified_knn.cu): TMA loads into shared memory
+// (conv3x3.cu) and K3b (conv3x3_wgrad.cu), the stratified kNN K4
+// (stratified_knn.cu), the 4x4 and slab convs K6 / K8 and the GEMM chain
+// P1 (gemm_chain.cu): TMA loads into shared memory
 // with the 128-byte swizzle, mbarriers, shared-memory matrix descriptors
 // and warpgroup matrix products (wgmma.mma_async, bf16 in, f32 sums).
 //
@@ -341,7 +342,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
   }
 }
 
-// the product by the accumulator count: N = 64, 80, 128
+// the product by the accumulator count: N = 64, 80, 128, 256 (D += A B)
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t a, uint64_t b) {
   wgmma_n64<TA, TB>(d, a, b);
@@ -353,6 +354,10 @@ __device__ __forceinline__ void wgmma(float (&d)[40], uint64_t a, uint64_t b) {
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b) {
   wgmma_n128<TA, TB>(d, a, b);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t a, uint64_t b) {
+  wgmma_n256<TA, TB, 1>(d, a, b);
 }
 
 // ---- host: TMA tensor maps ----

@@ -7,10 +7,11 @@ view direction + pivots in f32, each ray is shaded as coeff^T basis(dir)
 * alpha, and rays_lt * radiance is averaged over the specular and the
 diffuse fan.  K5 / K5b (csrc/sh_shade.cu) replace sh_pallas.py::sh_shade,
 the same shading of a materialised rays_dir [N, H, W, 3, R] (the unfused
-configuration, sh_fan_fuse=False).  Gradients go to rays_lt (in its own
-dtype) and to coeff (f32); the rays, TBN, the view direction, alpha and
-the pivots are G-buffer data and get none (rnr_tpu's VJPs return zeros
-for them).
+configuration, sh_fan_fuse=False); K5 evaluates K1's scaled ladder on
+the same scaled coefficients (fan_coeff), K5b the unscaled ladder.
+Gradients go to rays_lt (in its own dtype) and to coeff (f32); the rays,
+TBN, the view direction, alpha and the pivots are G-buffer data and get
+none (rnr_tpu's VJPs return zeros for them).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ MAX_LMAX = 10   # csrc/sh_common.cuh: the kernels instantiate lmax 1..10
 MAX_RAYS = 64
 BWD_PIXELS = 64   # csrc/sh_common.cuh BWD_THREADS: pixels per K5b block
 FAN_BWD_PIXELS = 64   # csrc/sh_fan.cu FAN_BWD_PIXELS: pixels per K1b block
-_LADDER: dict = {}   # (lmax, device) -> K5 / K5b's ladder constants
+_LADDER: dict = {}   # (lmax, device) -> K5b's ladder constants
 _FAN_SCALE: dict = {}   # (lmax, device) -> fan_basis_scale as f32
 
 
@@ -280,8 +281,9 @@ sh_shade_fan_bwd.launches = 0
 
 
 def _check_rays(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec):
-    """The contiguous operands and the ladder table K5 / K5b take: rays_dir
-    and rays_lt in one storage type (bf16 or f32), alpha and coeff f32."""
+    """The contiguous operands K5 / K5b take and K5b's ladder table:
+    rays_dir and rays_lt in one storage type (bf16 or f32), alpha and
+    coeff f32."""
     n, h, w, r_total, c = rays_lt.shape
     if not 1 <= lmax <= MAX_LMAX:
         raise ValueError(f"sh_shade kernel: lmax {lmax} not in 1..{MAX_LMAX}")
@@ -302,18 +304,19 @@ def _check_rays(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec):
 
 
 def _launch_shade(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec):
-    rd, lt, al, cf, ladder = _check_rays(rays_dir, rays_lt, alpha_map, coeff,
-                                         lmax, r_spec)
+    rd, lt, al, cf, _ = _check_rays(rays_dir, rays_lt, alpha_map, coeff,
+                                    lmax, r_spec)
     n, h, w, r_total, _ = lt.shape
     spec = torch.empty((n, h, w, 3), dtype=torch.float32, device=lt.device)
     diff = torch.empty_like(spec)
-    fn = _build.fn("sh_shade", "rnr_sh_shade", 7, 6)
+    cfs = fan_coeff(cf, lmax)            # K5 folds the scaled ladder (K1's)
+    fn = _build.fn("sh_shade", "rnr_sh_shade", 6, 5)
     sh_shade.launches += 1
     check_launch(fn(rd.data_ptr(), al.data_ptr(), lt.data_ptr(),
-                    cf.data_ptr(), ladder.data_ptr(), spec.data_ptr(),
-                    diff.data_ptr(), lmax, ladder.numel(), n * h * w,
-                    r_total, r_spec, int(lt.dtype == torch.bfloat16),
-                    stream_of(lt)), "sh_shade")
+                    cfs.data_ptr(), spec.data_ptr(), diff.data_ptr(), lmax,
+                    n * h * w, r_total, r_spec,
+                    int(lt.dtype == torch.bfloat16), stream_of(lt)),
+                 "sh_shade")
     return spec, diff
 
 

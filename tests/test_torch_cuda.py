@@ -18,10 +18,14 @@ modes) and K3's forward and dgrad must be bitwise deterministic.  The
 3x3 slab pair (K8a forward and f32 data gradient, K8b weight
 gradient) runs at odd C, O, H and W under both pad modes, at 512 -> 512
 on 32^2 and 64 -> 64 on 128^2, every output twice bitwise equal, and P1 (the
-GEMM chain) at section A's kinds of shape and odd ones.  K1 and K1b (SH
+GEMM chain) at section A's kinds of shape, odd ones and one of each BN
+with w streamed, twice bitwise equal, and with w resident bitwise equal to
+w streamed.  K1 and K1b (SH
 fan) run at batch 2 with a pixel count no block divides, at 64 rays, with
-no diffuse ray and at lmax 1, 2 and 10.  K1, the backward kernels K1b,
-K5b (SH of materialised rays), K3b and K8b (conv weight gradients) must
+no diffuse ray and at lmax 1, 2 and 10; K5 (SH of materialised rays) at
+lmax 2 and 10 in bf16 and f32, and K5, K5b, K5 back to back on one stream
+(their shared constant bank).  K1, K5, the backward kernels K1b,
+K5b, K3b and K8b (conv weight gradients) must
 also be bitwise deterministic, and the rasterizer K7 bitwise equal to its
 plain version.
 """
@@ -318,7 +322,8 @@ def test_sh_shade_kernel(dev, lmax, dtype):
     assert bool(masked.any())
     n0 = sh_shade.launches
     ks, kd = sh_shade(rd, lt, al, cf, lmax, 5)
-    assert sh_shade.launches == n0 + 1
+    ks2, kd2 = sh_shade(rd, lt, al, cf, lmax, 5)
+    assert sh_shade.launches == n0 + 2
     ts, td = sh_shade_torch(rd, lt, al, cf, lmax, 5)
     torch.cuda.synchronize()
     # f32 on both sides from the same stored rays; FMA and sum order differ
@@ -326,6 +331,29 @@ def test_sh_shade_kernel(dev, lmax, dtype):
         tol = 1e-4 * float(t.abs().max()) + 1e-6
         assert float((k - t).abs().max()) <= tol
         assert bool((k[masked] == 0).all())    # finite ladder at (0, 0, 0)
+    assert torch.equal(ks, ks2) and torch.equal(kd, kd2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sh_shade_k5_k5b_interleaved_on_one_stream(dev, dtype):
+    """K5 (scaled coefficients) and K5b (unscaled coefficients and the
+    ladder table) share one constant bank, each copied on the stream
+    before its launch: K5, K5b, K5 queued back to back on one stream each
+    equal their plain versions, and the two K5 runs are bit-equal."""
+    rd, lt, al, cf, gs, gd = _shade_args(dev, 10, dtype, 31)
+    ks, kd = sh_shade(rd, lt, al, cf, 10, 5)
+    kl, kc = sh_shade_bwd(rd, lt, al, cf, gs, gd, 10, 5)
+    ks2, kd2 = sh_shade(rd, lt, al, cf, 10, 5)
+    torch.cuda.synchronize()
+    ts, td = sh_shade_torch(rd, lt, al, cf, 10, 5)
+    tl, tc = sh_shade_bwd_torch(rd, lt, al, cf, gs, gd, 10, 5)
+    for k, t in ((ks, ts), (kd, td)):
+        assert float((k - t).abs().max()) <= 1e-4 * float(t.abs().max()) + 1e-6
+    assert float((kc - tc).abs().max()) <= 1e-4 * float(tc.abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert float((kl.float() - tl.float()).abs().max()) <= (
+        tol * float(tl.float().abs().max()))
+    assert torch.equal(ks, ks2) and torch.equal(kd, kd2)
 
 
 @pytest.mark.parametrize("lmax", [2, 10])
@@ -831,22 +859,62 @@ def test_conv3x3s_kernels_reject_f32_activations(dev):
 # ------------------------------------------------------ P1: the GEMM chain
 
 
-@pytest.mark.parametrize("m,k,n,t", [(1000, 64, 64, 9), (512, 192, 128, 9),
-                                     (300, 512, 512, 4), (77, 13, 11, 2),
-                                     (129, 40, 70, 3)])
-def test_gemm_chain_kernel(dev, m, k, n, t):
-    """P1 against its plain version: bf16 output within one rounding step
-    of max (bf16 products exact, f32 sums in another order)."""
+# (M, K, N, T): section A's kinds of shape at a small M (BN 64 with w
+# resident, BN 128, BN 256 in two n tiles), odd sizes, and one of each BN
+# with w streamed (BN 64 at K 128, BN 128 at N 72, BN 256 at N 256)
+GEMM_CASES = [(1000, 64, 64, 9), (512, 192, 128, 9), (300, 512, 512, 4),
+              (77, 13, 11, 2), (129, 40, 70, 3), (700, 128, 64, 9),
+              (333, 72, 256, 9)]
+
+
+def _gemm_inputs(dev, m, k, n, t):
     rng = np.random.default_rng(m + k + n + t)
     x = _t(rng.standard_normal((m, k)).astype(np.float32), dev,
            torch.bfloat16)
     w = _t((rng.standard_normal((t, k, n)) / np.sqrt(k * t)).astype(
         np.float32), dev, torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize("m,k,n,t", GEMM_CASES)
+def test_gemm_chain_kernel(dev, m, k, n, t):
+    """P1 against its plain version: bf16 output within one rounding step
+    of max (bf16 products exact, f32 sums in another order); two runs
+    bitwise equal (no split K)."""
+    x, w = _gemm_inputs(dev, m, k, n, t)
     n0 = gemm_chain.launches
     y = gemm_chain(x, w)
-    assert gemm_chain.launches == n0 + 1 and y.dtype == torch.bfloat16
+    y2 = gemm_chain(x, w)
+    assert gemm_chain.launches == n0 + 2 and y.dtype == torch.bfloat16
     r = gemm_chain_torch(x, w)
     torch.cuda.synchronize()
     assert y.shape == r.shape == (m, n)
     err = float((y.float() - r.float()).abs().max())
     assert err <= 2 ** -7 * float(r.float().abs().max()), err
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("m,k,n,t", [(1000, 64, 64, 9), (77, 13, 11, 2)])
+def test_gemm_chain_resident_w_is_bitwise_streamed_w(dev, m, k, n, t):
+    """w resident in shared memory or streamed through its ring: the same
+    products in the same order, so the same bits (the C entry called with
+    gemm_chain_plan's plan and with residency forced off)."""
+    from rnr_tpu_torch.ops.gemm_chain_cuda import gemm_chain_plan
+    x, w = _gemm_inputs(dev, m, k, n, t)
+    k8, n8 = cc.round8(k), cc.round8(n)
+    xb = cc.pad_channels(x, k8)
+    wb = torch.zeros((t, k8, n8), dtype=torch.bfloat16, device=dev)
+    wb[:, :k, :n] = w
+    on, off = gemm_chain_plan(m, k, n, t), gemm_chain_plan(m, k, n, t, False)
+    assert on[2] == 1 and off[2] == 0
+    f = _build.fn("gemm_chain", "rnr_gemm_chain", 3, 10)
+    stream = torch.cuda.current_stream().cuda_stream
+    ys = []
+    for plan in (on, off):
+        y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        assert f(xb.data_ptr(), wb.data_ptr(), y.data_ptr(), m, k8, n, t,
+                 *plan, stream) == 0
+        ys.append(y)
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1])
+    assert torch.equal(ys[0], gemm_chain(x, w))

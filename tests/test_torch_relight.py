@@ -376,6 +376,29 @@ def test_sh_shade_plain_matches_jax_interpret(dtype):
         assert np.all(np.abs(got - want) <= 2 ** -7 * np.abs(want) + 1e-30)
 
 
+@pytest.mark.parametrize("lmax", [2, 4, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_scaled_ladder_matches_jax_interpret(lmax, dtype):
+    """K5's arithmetic (the scaled ladder folded per order into
+    fan_coeff's coefficients, test_torch_sh.k5_emulate in f32) on the fan's
+    materialised rays, masked pixels included, against rnr_tpu's sh_shade
+    (Pallas, interpret mode): within 1e-4 x max + 1e-5, as chip_smoke.py
+    holds the kernel to its plain version; masked pixels exactly 0."""
+    from test_torch_sh import k5_emulate
+    rng = np.random.default_rng(20 + lmax)
+    rd, lt, al, cf = _shade_inputs(rng, 16, lmax, dtype)
+    masked = al[..., 0] == 0
+    js, jd = jax_sh_shade(_j(rd), _j(lt), jnp.asarray(al.numpy()),
+                          jnp.asarray(cf.numpy()), lmax, 6, True)
+    for g, w in zip(k5_emulate(rd, lt, al, cf, lmax, 6, torch.float32),
+                    (js, jd)):
+        w = np.asarray(w)
+        assert g.shape == w.shape and _max(w) > 0.1
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-4 * _max(w) + 1e-5)
+        assert bool((g[masked] == 0).all())
+
+
 def test_sh_shade_autograd_runs_the_plain_backward_on_cpu():
     rng = np.random.default_rng(11)
     rd, lt, al, cf = _shade_inputs(rng, 8, 2, torch.bfloat16)

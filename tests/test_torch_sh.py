@@ -20,7 +20,7 @@ from rnr_tpu_torch.ops.sh import evaluate_sh_basis, ladder_constants
 from rnr_tpu_torch.ops.sh_cuda import (fan_basis_scale, fan_bwd_partials,
                                        fan_coeff, sh_shade_fan,
                                        sh_shade_fan_bwd_torch,
-                                       sh_shade_fan_torch)
+                                       sh_shade_fan_torch, sh_shade_torch)
 from rnr_tpu_torch.synthetic import build_batch
 
 torch.set_num_threads(2)
@@ -44,8 +44,9 @@ def test_evaluate_sh_basis_lmax10_matches_jax():
 
 
 def _kernel_ladder(lmax, d):
-    """K5's ladder walk (csrc/sh_common.cuh), in NumPy f32: it consumes
-    `ladder_constants` in order and advances the azimuth with m."""
+    """K5b's ladder walk (csrc/sh_common.cuh's unscaled ladder), in NumPy
+    f32: it consumes `ladder_constants` in order and advances the azimuth
+    with m."""
     f = np.float32
     lad = [f(v) for v in ladder_constants(lmax)]
     x, y, z = (d[..., i].astype(f) for i in range(3))
@@ -336,3 +337,67 @@ def test_fan_coeff_scales_rows():
     torch.testing.assert_close(
         got, coeff * torch.tensor(scale, dtype=torch.float32)[:, None],
         rtol=0, atol=0)
+
+
+# ------------------- K5 on materialised rays: the same ladder (csrc/sh_shade.cu)
+
+
+def k5_emulate(rays_dir, rays_lt, alpha, coeff, lmax, r_spec, dtype):
+    """K5's forward in `dtype`: per ray the direction as stored (widened,
+    not renormalised), the scaled ladder folded per order into fan_coeff's
+    coefficients, rays_lt * radiance summed per fan, then times alpha /
+    r_spec (or / max(R - r_spec, 1)) once per pixel."""
+    r_total = rays_dir.shape[-1]
+    cf_s = fan_coeff(coeff, lmax).to(dtype)
+    acc_s = acc_d = torch.zeros(rays_lt.shape[:-2] + (3,), dtype=dtype)
+    for r in range(r_total):
+        d = rays_dir[..., r].to(dtype)
+        v = rays_lt[..., r, :].to(dtype) * _scaled_radiance(lmax, d, cf_s)
+        if r < r_spec:
+            acc_s = acc_s + v
+        else:
+            acc_d = acc_d + v
+    al = alpha.to(dtype)
+    return acc_s * (al / r_spec), acc_d * (al / max(r_total - r_spec, 1))
+
+
+def _k5_rays(rng, size, r_total):
+    """rays_dir [1, size, size, 3, R] in bf16: unit directions rounded to
+    bf16 (not exactly unit), a quarter of them scaled by 0.9 to 1.1, the
+    poles, and the zero vector at the masked pixels (alpha 0), as the fan
+    builder leaves them; rays_lt in bf16; alpha."""
+    d = _unit(rng, (1, size, size, r_total))
+    d *= rng.choice([1.0, 1.0, 1.0, 0.9, 1.1], d.shape[:-1] + (1,))
+    d[0, 0, 0, :2] = [[0, 0, 1], [0, 0, -1]]
+    alpha = np.ones((1, size, size, 1), np.float32)
+    alpha[0, -2:, :] = 0.0
+    d[0, -2:, :] = 0.0
+    rays_dir = torch.from_numpy(np.moveaxis(d, -1, -2).copy()).to(
+        torch.bfloat16)                                   # [1, s, s, 3, R]
+    lt = torch.from_numpy(rng.uniform(0, 2, (1, size, size, r_total, 3))
+                          .astype(np.float32)).to(torch.bfloat16)
+    return rays_dir, lt, torch.from_numpy(alpha)
+
+
+@pytest.mark.parametrize("lmax", list(range(11)))
+@pytest.mark.parametrize("r_spec", [1, 13, 26])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_scaled_forward_on_materialised_rays(lmax, r_spec, dtype):
+    """K5's order of operations (the scaled ladder, the per-order fold,
+    alpha / r_spec once per pixel) on stored bf16 rays of 13 + 13 rays:
+    non-unit directions, the poles and zero directions at masked pixels;
+    against sh_shade_torch within kernels_shade's tolerance, 1e-4 x max +
+    1e-5; masked pixels exactly 0."""
+    rng = np.random.default_rng(100 * lmax + r_spec)
+    rd, lt, al = _k5_rays(rng, 6, 26)
+    coeff = torch.from_numpy((0.3 * rng.standard_normal(
+        ((lmax + 1) ** 2, 3))).astype(np.float32))
+    got = k5_emulate(rd, lt, al, coeff, lmax, r_spec, dtype)
+    want = sh_shade_torch(rd, lt, al, coeff, lmax, r_spec)
+    masked = al[..., 0] == 0
+    for g, w_ in zip(got, want):
+        g = g.float()
+        assert g.shape == w_.shape
+        assert float((g - w_).abs().max()) <= (
+            1e-4 * float(w_.abs().max()) + 1e-5)
+        assert bool((g[masked] == 0).all())
