@@ -23,9 +23,9 @@ Phases (each failure raises, so the script exits non-zero):
            work.  K1 and K1b must also give, bit for bit, the outputs
            pinned in K1_DIGESTS, so that a change to their order of sums
            shows, and K5b the output pinned in K5B_DIGEST; K1b also runs
-           at batch 2, and K1, K1b and K5 report queued and host times and
-           f32 T-ops/s beside the median.  K1, K1b, K5, K5b, K3b and P1
-           run twice and must agree bit for bit; K2b (f32
+           at batch 2, and K1, K1b, K5 and K5b report queued and host
+           times and f32 T-ops/s beside the median.  K1, K1b, K5, K5b,
+           K3b and P1 run twice and must agree bit for bit; K2b (f32
            atomics) reports its run-to-run difference and also runs at
            batch 2, with every pixel on the corner texel and
            with a uv seam inside its pixel tiles.  K4 runs at V 7500 and C
@@ -38,9 +38,12 @@ Phases (each failure raises, so the script exits non-zero):
            rasterizer) must equal its plain version bit for bit on UV
            spheres seen from the camera ring at 512^2 (the G-buffer
            phase's mesh; 48,768 faces at 0 and, overflowing the default
-           cap, 45 degrees; 12,096 faces at N = 2) and on a 32^2 overflow
-           case, its binning on the card equal to the CPU's.  The 4x4
-           pair (K6 down4 / convt4, K8 down4s / convt4s) runs at the ten
+           cap, 45 degrees; 12,096 faces at N = 2), on a 32^2 overflow
+           case and on faces at the edge of its cull's exactness
+           (synthetic.degenerate_faces at 512^2), its binning on the card
+           equal to the CPU's; each case with single, queued and host
+           times and what its cull leaves (cull_counts).
+           The 4x4 pair (K6 down4 / convt4, K8 down4s / convt4s) runs at the ten
            4x4 convs of a frame and as each other's f32 data gradient,
            then at odd C and O and an odd H; beside them the pallas3
            route's own cuDNN 4x4 convs are timed.  K8's pair is also
@@ -157,9 +160,12 @@ from rnr_tpu_torch.ops.gemm_chain_cuda import (gemm_chain,  # noqa: E402
 from rnr_tpu_torch.ops.interpolate import bilinear_taps  # noqa: E402
 from rnr_tpu_torch.ops.knn_cuda import (compare_picks,  # noqa: E402
                                         stratified_knn, stratified_knn_torch)
-from rnr_tpu_torch.ops.rasterize_cuda import (FACE_FLOATS,  # noqa: E402
-                                              bin_faces, rasterize_tiles,
-                                              rasterize_tiles_torch)
+from rnr_tpu_torch.ops.rasterize_cuda import (BLOCK,  # noqa: E402
+                                              FACE_FLOATS, WARP_W,
+                                              bin_faces, cull_keep,
+                                              rasterize_tiles,
+                                              rasterize_tiles_torch,
+                                              tile_pixels)
 from rnr_tpu_torch.ops.sh_cuda import (sh_shade, sh_shade_bwd,  # noqa: E402
                                        sh_shade_bwd_torch, sh_shade_fan,
                                        sh_shade_fan_bwd,
@@ -302,12 +308,12 @@ K1_DIGESTS = {
 }
 
 # K5b at kernels_shade's inputs, sha256 of its outputs' bytes (d rays_lt,
-# d coeff) from csrc/sh_shade.cu's backward on the unscaled ladder, read on
-# an NVIDIA H100 80GB HBM3 before K5 moved to the scaled ladder (the same
-# as `chip_variants.py --kernels K5` prints for a checkout's K5b), so that
-# a change to the shared constant bank or header that moves K5b shows
+# d coeff) from the order-split backward of csrc/sh_bwd.cuh on the scaled
+# ladder (nvcc 12.9, NVIDIA H100 80GB HBM3; the same as `chip_variants.py
+# --kernels K5b` prints for a checkout's K5b), so that a change to the
+# shared backward, constant bank or header that moves K5b shows
 K5B_DIGEST = (
-    "b8483ca5397748e71fbba80e51f5767634ef43ee694b24d257475337ee89dfee")
+    "d1aeec12f303a4172529a5050f1090754f3d69eb2bcfcb7bfa0484e1d79d91a5")
 
 # the relighting routes of rnr_tpu's test_rnr: (model variant, SH fit,
 # launches per frame); the variant's rays overrides of the config
@@ -348,15 +354,18 @@ N_VIEWS = 20
 MESH_LAT_LON = (96, 144)
 
 # The least f32 work of the rasterizer's z-buffer (csrc/rasterize_tiles.cu)
-# with rnr_tpu's rounding kept.  An edge test (yp - y0) * (x1 - x0) >=
-# (xp - x0) * (y1 - y0) has one side per (row, candidate) and one per
-# (column, candidate), each a subtraction and a product on a per-candidate
-# difference: 1 comparison per (pixel, candidate, edge), 2 operations per
-# (row or column, candidate, edge), 2 differences per (candidate, edge).
-# The weights and the depth matter only where the pixel is inside the
-# face, at least once per covered pixel: 3 clamped weights (2 products,
+# with rnr_tpu's rounding kept.  A (pixel, candidate) pair where the
+# candidate passes the inside test can win the pixel, so no exact cull
+# drops it: its edge tests, 1 comparison per edge once each side is
+# known, are the least work per such pair.  The weights and the depth
+# matter at least once per covered pixel: 3 clamped weights (2 products,
 # 2 sums, 2 comparisons each), their sum and its guard (3), 1/zp (3
-# quotients, 2 sums, 1 quotient, 1 guard, 1 quotient), 3 depth comparisons.
+# quotients, 2 sums, 1 quotient, 1 guard, 1 quotient), 3 depth
+# comparisons.  The bound of the design before the cull charged the
+# comparisons to every (pixel, listed candidate) pair, and each listed
+# candidate its sides per row and column (2 operations per row or column
+# and edge) and its differences (2 per edge); with the cull that count is
+# no floor, and it is kept beside the bound as listed_pairs_bound_ms.
 RASTER_PIXEL_OPS = 3
 RASTER_LINE_OPS = 6
 RASTER_CAND_OPS = 6
@@ -529,20 +538,79 @@ def conv4_work(down: bool, c: int, o: int, h: int, out_item: int):
     return bound(nbytes, conv4_flops(down, c, o, h), BF16_TENSOR_FLOPS)
 
 
-def raster_work(counts: torch.Tensor, idx: torch.Tensor, tile_h: int,
-                tile_w: int, s: int) -> dict:
+def inside_pairs(table: torch.Tensor, ids: torch.Tensor,
+                 counts: torch.Tensor, s: int, tile_h: int, tile_w: int,
+                 chunk: int = 32) -> int:
+    """The (pixel, candidate) pairs of these tile lists where the candidate
+    passes the inside test, with the plain version's expressions."""
+    n, dev = ids.shape[0], table.device
+    _, _, xp, yp = (a[None, :, None, :]
+                    for a in tile_pixels(s, tile_h, tile_w, table.dtype, dev))
+    rows = torch.arange(n, device=dev).reshape(n, 1, 1)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for k0 in range(0, int(counts.max()) if counts.numel() else 0, chunk):
+        cid = ids[:, :, k0:k0 + chunk]
+        live = (torch.arange(k0, k0 + cid.shape[2], device=dev)
+                < counts[..., None]) & (cid >= 0)
+        d = table[rows, torch.clamp(cid, min=0).long()][..., None, :]
+        x0, y0, x1, y1, x2, y2 = (d[..., i] for i in (0, 1, 3, 4, 6, 7))
+        ins = (((yp - y0) * (x1 - x0) >= (xp - x0) * (y1 - y0))
+               & ((yp - y1) * (x2 - x1) >= (xp - x1) * (y2 - y1))
+               & ((yp - y2) * (x0 - x2) >= (xp - x2) * (y0 - y2)))
+        total += (ins & live[..., None]).sum()
+    return int(total)
+
+
+def raster_work(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
+                idx: torch.Tensor, tile_h: int, tile_w: int, s: int) -> dict:
     """K7 on these tile lists: each candidate's id and 18 floats read once,
-    8 B (depth, index) written per pixel; the operations of the RASTER_*
-    counts for the candidates this run has and the pixels its faces cover
-    (idx >= 0), none of them a fused multiply-add."""
+    8 B (depth, index) written per pixel; RASTER_PIXEL_OPS per inside
+    (pixel, candidate) pair and RASTER_COVERED_OPS per covered pixel (idx
+    >= 0), none of them a fused multiply-add.  Also the bound of the
+    design before the cull, which counts every listed pair
+    (listed_pairs_bound_ms), for comparison with the earlier rows."""
     cand = int(counts.sum())
     covered = int((idx >= 0).sum())
+    inside = inside_pairs(table, ids, counts, s, tile_h, tile_w)
     n = counts.shape[0]
     nbytes = cand * (FACE_FLOATS * 4 + 4) + counts.numel() * 4 + n * s * s * 8
-    ops = (cand * (tile_h * tile_w * RASTER_PIXEL_OPS
-                   + (tile_h + tile_w) * RASTER_LINE_OPS + RASTER_CAND_OPS)
-           + covered * RASTER_COVERED_OPS)
-    return bound(nbytes, ops, F32_OPS)
+    listed = bound(nbytes, cand * (tile_h * tile_w * RASTER_PIXEL_OPS
+                                   + (tile_h + tile_w) * RASTER_LINE_OPS
+                                   + RASTER_CAND_OPS)
+                   + covered * RASTER_COVERED_OPS, F32_OPS)
+    return dict(bound(nbytes, inside * RASTER_PIXEL_OPS
+                      + covered * RASTER_COVERED_OPS, F32_OPS),
+                inside_pairs=inside,
+                listed_pairs_bound_ms=listed["bound_ms"],
+                listed_pairs_bound_by=listed["bound_by"])
+
+
+def cull_counts(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
+                s: int, tile_h: int, tile_w: int, block=BLOCK) -> dict:
+    """What K7's cull leaves of these tile lists in blocks of `block`
+    (rows, columns, rows a warp): the candidates listed, the (block,
+    candidate) pairs the blocks keep, the (warp, candidate) pairs the
+    warps walk (kept by their block and by themselves), the (pixel,
+    candidate) pairs those walks test, the longest list and the most
+    survivors of one block."""
+    bh, bw, wh = block
+    kb = cull_keep(table, ids, counts, s, tile_h, tile_w, bh, bw)
+    kw = cull_keep(table, ids, counts, s, tile_h, tile_w, wh, WARP_W)
+    dev = table.device
+    wy = torch.arange(-(-tile_h // wh), device=dev)
+    wx = torch.arange(-(-tile_w // WARP_W), device=dev)
+    # each warp's block, and its pixels in the tile
+    blk = ((wy * wh // bh)[:, None] * -(-tile_w // bw)
+           + (wx * WARP_W // bw)[None, :]).reshape(-1)
+    pix = ((torch.clamp(tile_h - wy * wh, max=wh))[:, None]
+           * torch.clamp(tile_w - wx * WARP_W, max=WARP_W)[None, :]
+           ).reshape(-1)
+    walked = (kw & kb[:, :, blk]).sum(3)                     # [N, T, Rw]
+    return dict(candidates=int(counts.sum()), block_pairs=int(kb.sum()),
+                warp_pairs=int(walked.sum()),
+                pixel_pairs=int((walked * pix).sum()),
+                largest_list=int(counts.max()) if counts.numel() else 0,
+                largest_block=int(kb.sum(3).max()) if kb.numel() else 0)
 
 
 def add_bounds(parts) -> dict:
@@ -597,11 +665,10 @@ def _gbuffer(img: int, batch: int = 1):
     return to_torch(build_batch(img, GCN_V, batch), DEV)
 
 
-def kernels_sh(rec: dict, b: dict, rng) -> None:
-    """K1 and K1b: 512^2, lmax 10, 13 + 13 rays, bf16 rays_lt; K1b also at
-    batch 2 (its own seed).  Single-call medians, calls queued back to
-    back, the wrappers' host time, and f32 T-ops/s: sh_work's operations
-    over the queued time."""
+def k1_inputs(b: dict, rng):
+    """K1's and K1b's operands at 512^2, lmax 10, 13 + 13 rays, bf16
+    rays_lt, from the G-buffer b and four draws of rng: (K1's args,
+    K1b's args)."""
     from rnr_tpu_torch.models.rays import RaySampler
     spec, diff = RaySampler(6, 2, 5.0, "reflect"), RaySampler(6, 2, 10.0,
                                                               "diffuse")
@@ -612,8 +679,20 @@ def kernels_sh(rec: dict, b: dict, rng) -> None:
         np.float32)).to(DEV, torch.bfloat16)
     cf = torch.from_numpy((0.3 * rng.standard_normal((121, 3))).astype(
         np.float32)).to(DEV)
+    gs, gd = (torch.from_numpy(rng.standard_normal((1, IMG, IMG, 3)).astype(
+        np.float32)).to(DEV) for _ in range(2))
     args = (b["TBN_map"], b["view_dir_map_tangent"], b["alpha_map"], lt, cf,
             piv, 10, 13)
+    return args, (*args[:6], gs, gd, 10, 13)
+
+
+def kernels_sh(rec: dict, b: dict, rng) -> None:
+    """K1 and K1b: 512^2, lmax 10, 13 + 13 rays, bf16 rays_lt; K1b also at
+    batch 2 (its own seed).  Single-call medians, calls queued back to
+    back, the wrappers' host time, and f32 T-ops/s: sh_work's operations
+    over the queued time."""
+    args, bargs = k1_inputs(b, rng)
+    lt, cf, piv = args[3], args[4], args[5]
     n_pix = IMG * IMG
     ks, kd = sh_shade_fan(*args)
     ks2, kd2 = sh_shade_fan(*args)
@@ -639,11 +718,6 @@ def kernels_sh(rec: dict, b: dict, rng) -> None:
     del ks, kd, ks2, kd2, ts, td
 
     # K1b: the output gradients of both means
-    gs = torch.from_numpy(rng.standard_normal((1, IMG, IMG, 3)).astype(
-        np.float32)).to(DEV)
-    gd = torch.from_numpy(rng.standard_normal((1, IMG, IMG, 3)).astype(
-        np.float32)).to(DEV)
-    bargs = (*args[:6], gs, gd, 10, 13)
     kl, kc, err_c, err_l = sh_bwd_case(bargs, "b1")
     check_digest("sh_shade_fan_bwd", digest(kl, kc))
     log("[kernels] sh_shade_fan_bwd: output bit-equal to the pinned digest")
@@ -786,13 +860,18 @@ def kernels_shade(rec: dict, b: dict) -> None:
         raise AssertionError(f"sh_shade_bwd: output digest {got} differs "
                              f"from {K5B_DIGEST}, the pinned one")
     log("[kernels] sh_shade_bwd: output bit-equal to the pinned digest")
-    rec["sh_shade_bwd"] = dict(
+    masked_l = kl[masked]
+    if not bool((masked_l == 0).all()):
+        raise AssertionError("sh_shade_bwd: masked pixels' d rays_lt not "
+                             "exactly 0")
+    rec["sh_shade_bwd"] = sh_times(
+        lambda: sh_shade_bwd(*bargs),
+        sh_work(n_pix, 26, 10, 2, True, fan=False),
         max_abs_err=max(err_c, err_l), dcoeff_max_abs_err=err_c,
         dlt_max_abs_err=err_l, bitwise_reproducible=True,
-        ms=cuda_ms(lambda: sh_shade_bwd(*bargs)),
         plain_ms=cuda_ms(lambda: sh_shade_bwd_torch(*bargs), iters=3,
-                         warmup=1),
-        library_ms=None, **sh_work(n_pix, 26, 10, 2, True, fan=False))
+                         warmup=1), library_ms=None)
+    log_sh_times("sh_shade_bwd", rec["sh_shade_bwd"])
     del kl, kc, kl2, kc2, tl, tc, lt, rd
     torch.cuda.synchronize()
 
@@ -1672,6 +1751,16 @@ def overflow_faces() -> torch.Tensor:
     return torch.from_numpy(faces).to(DEV)
 
 
+def degenerate_faces_512() -> torch.Tensor:
+    """synthetic.degenerate_faces at 512^2 among 600 random faces, on the
+    card (its own seed)."""
+    from rnr_tpu_torch.synthetic import degenerate_faces, random_faces
+    rng = np.random.default_rng(14)
+    faces = np.concatenate([degenerate_faces(rng, IMG),
+                            random_faces(rng, 1, 600)], 1)
+    return torch.from_numpy(faces).to(DEV)
+
+
 def kernels_raster(rec: dict) -> None:
     """K7 against its plain version on the card, bit for bit (face index
     and depth), and the card's binning against the CPU's (ids, counts,
@@ -1692,6 +1781,8 @@ def kernels_raster(rec: dict) -> None:
         ("12096 faces, 30 deg, N = 2", ring_faces(64, 96, 30.0, [0, 5], IMG),
          IMG, 2048, "zero"),
         ("8 faces over 32^2, cap 4", overflow_faces(), 32, 4, 4),
+        ("degenerate and random faces at the edge of the cull's "
+         "exactness", degenerate_faces_512(), IMG, 2048, "zero"),
     ]
     for i, (name, faces, s, cap, want_ov) in enumerate(cases):
         th, tw = min(32, s), min(128, s)
@@ -1708,7 +1799,10 @@ def kernels_raster(rec: dict) -> None:
                                  f"indices differ, depth max err {err}")
         for what, a, c in zip(("table", "ids", "counts", "overflow"), binned,
                               cpu):
-            if not torch.equal(a.cpu(), c):
+            # NaN where a vertex is NaN: equal as NaN, whatever its bits
+            a, nan = a.cpu(), c.isnan()
+            if not (torch.equal(a.isnan(), nan)
+                    and torch.equal(a[~nan], c[~nan])):
                 raise AssertionError(f"bin_faces {name}: {what} differs "
                                      "between the card and the CPU")
         ovl = ov.tolist()
@@ -1717,22 +1811,37 @@ def kernels_raster(rec: dict) -> None:
                 or (isinstance(want_ov, int) and ovl != [want_ov])):
             raise AssertionError(f"rasterize_tiles {name}: overflow {ovl}, "
                                  f"expected {want_ov}")
-        ms = cuda_ms(lambda: rasterize_tiles(table, ids, counts, s, th, tw))
+        def k7():
+            return rasterize_tiles(table, ids, counts, s, th, tw)
+        ms, q_ms, h_us = cuda_ms(k7), queued_ms(k7), host_us(k7)
         plain_ms = cuda_ms(lambda: rasterize_tiles_torch(
             table, ids, counts, s, th, tw), iters=3, warmup=1)
         bin_ms = cuda_ms(lambda: bin_faces(faces, s, th, tw, cap), iters=5)
-        work = raster_work(counts, ki, th, tw, s)
+        work = raster_work(table, ids, counts, ki, th, tw, s)
+        cull = cull_counts(table, ids, counts, s, th, tw)
         log(f"[kernels] rasterize_tiles {name}: {s}^2, N {faces.shape[0]}, "
-            f"{int(counts.sum())} candidates (largest tile "
-            f"{int(counts.max())}), overflow {ovl}; bitwise equal to the "
-            f"plain version, binning equal to the CPU's; kernel {ms:.4f} ms, "
-            f"bound {work['bound_ms']:.4f} ({work['bound_by']}), plain "
-            f"{plain_ms:.3f}, binning {bin_ms:.3f} ms")
+            f"{cull['candidates']} candidates (largest tile "
+            f"{cull['largest_list']}), overflow {ovl}; bitwise equal to the "
+            f"plain version, binning equal to the CPU's; kernel {ms:.4f} ms "
+            f"single, {q_ms:.4f} queued, host {h_us:.1f} us, bound "
+            f"{work['bound_ms']:.6f} ({work['bound_by']}; "
+            f"{work['inside_pairs']} inside (pixel, candidate) pairs), "
+            f"bound over every listed pair "
+            f"{work['listed_pairs_bound_ms']:.4f} "
+            f"({work['listed_pairs_bound_by']}; "
+            f"{cull['candidates'] * th * tw} pairs, no floor under the "
+            f"cull), plain {plain_ms:.3f}, binning {bin_ms:.3f} ms")
+        log(f"[kernels] rasterize_tiles {name}: the cull keeps "
+            f"{cull['block_pairs']} (block, candidate) pairs (largest block "
+            f"{cull['largest_block']}), the warps walk "
+            f"{cull['warp_pairs']} (warp, candidate) pairs, "
+            f"{cull['pixel_pairs']} (pixel, candidate) pairs")
         if i == 0:
             rec["rasterize_tiles"] = dict(
-                max_abs_err=err, idx_mismatches=n_idx, ms=ms,
-                plain_ms=plain_ms, library_ms=None, bin_ms=bin_ms,
-                largest_tile=int(counts.max()), **work)
+                max_abs_err=err, idx_mismatches=n_idx, ms=ms, queued_ms=q_ms,
+                host_us=h_us, plain_ms=plain_ms, library_ms=None,
+                bin_ms=bin_ms, largest_tile=cull["largest_list"], cull=cull,
+                **work)
     torch.cuda.synchronize()
 
 

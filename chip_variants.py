@@ -1,13 +1,15 @@
 """Time K4 (csrc/stratified_knn.cu), K2b (csrc/mipmap_scatter.cu), K1 and
-K1b (csrc/sh_fan.cu), K6a and K6b (csrc/conv4x4.cu), K8c and K8d
+K1b (csrc/sh_fan.cu), K5 and K5b (csrc/sh_shade.cu), K6a and K6b
+(csrc/conv4x4.cu), K7 (csrc/rasterize_tiles.cu), K8c and K8d
 (csrc/conv4x4_slab.cu), K8a and K8b (csrc/conv3x3_slab.cu,
-conv3x3_slab_wgrad.cu) on one NVIDIA GPU with parts of each kernel
-switched off, to see which part bounds it.
+conv3x3_slab_wgrad.cu) and P1 (csrc/gemm_chain.cu) on one NVIDIA GPU with
+parts of each kernel switched off, to see which part bounds it.
 
     python3 chip_variants.py
     python3 chip_variants.py --kernels K1b --variants real,staging
     python3 chip_variants.py --kernels K6,K8 --csrc OLD/rnr_tpu_torch/csrc
     python3 chip_variants.py --kernels K8s --csrc OLD/rnr_tpu_torch/csrc
+    python3 chip_variants.py --kernels K5b,K7 --csrc OLD/rnr_tpu_torch/csrc
 
 Each variant is the real source with one textual switch applied, written
 to build/rnr_tpu_torch/variants/ and built with the flags of
@@ -80,6 +82,23 @@ no_ring (the reflect dgrad's ring-column tiles skipped) and no_fold (no
 ring fold).  The switches follow the design found (WMMA on staged slab
 tiles, or wgmma over TMA bands with three dx accumulators), so --csrc
 times a parent's pair too; each build prints its registers and spills.
+K5b (the unfused SH backward) at chip_smoke.py's kernels_shade case:
+real; walk_only (no d rays_lt stores); no_staging (each direction read
+from device memory, not the staged rows); one_warp_orders (every order
+on warp 0: what splitting them buys); all_powers (every even power
+stored per chunk: the block then takes two an SM, not three);
+occupancy.  The first design (the unscaled ladder, one pixel a thread)
+has real and walk_only, called with its own arguments.  Two runs in one
+call (this tree, then --csrc) print the largest differences between the
+two designs' outputs.
+K7 at the G-buffer phase's sphere, the 48,768-face sphere and the
+degenerate faces of chip_smoke.py (512^2): real; no_cull (every
+candidate staged and walked: the walk of the design before);
+no_warp_cull (the blocks' cull only); cull_only (the staging and both
+culls, no per-pixel walk); and a build in every block shape of
+K7_SHAPES (block_HxW_wR), with what the cull leaves in each
+(cull_counts) and a digest of each output.  The first design
+(every block walks its tile's whole list) has real only.
 The SH variants are built for lmax 10 alone, and the switches follow the
 design of csrc/sh_fan.cu that they find (one thread per pixel with the
 backward's d coeff contracted through shared memory, or the orders split
@@ -326,6 +345,30 @@ SH_DESIGNS = {
               "  if (row_bytes == -7) copy_rows(dlt + (size_t)p0 * row, rows, "
               "row_bytes, tid,")]}),
 }
+
+
+# The order-split backward moved to csrc/sh_bwd.cuh, shared with K5b: K1 and
+# K1b take the same switches as in the design before, but for the walk's
+# call (staging), the partials' sum and the occupancy query.
+_SPLIT = SH_DESIGNS["orders split between warps, d coeff in registers"]
+SH_DESIGNS = {
+    "orders split between warps, shared with K5b (sh_bwd.cuh)": (
+        "order_split_bwd<LMAX>(sm, FanRays{", _SPLIT[1], dict(
+            _SPLIT[2], no_partials_sum=[
+                ("  sum_fan_partials<<<",
+                 "  if (blocks == -7) sum_fan_partials<<<")]),
+        _SPLIT[3], dict(
+            _SPLIT[4],
+            OCCUPANCY=[('extern "C" int rnr_sh_shade_fan_bwd_partials(',
+                        OCCUPANCY.replace(
+                            "BwdSmem(10, r_total, lt).total_bytes",
+                            "bwd_smem<FanRays>(10, r_total, lt).total_bytes")
+                        + 'extern "C" int rnr_sh_shade_fan_bwd_partials(')],
+            STAGING=[("""owned_orders<LMAX, decltype(wc)::value, NP, NPOW>(ct, t1c, t1s, ltg,
+                                                          tpow, j, dc, rad);""",
+                      "rad[0][0] = ct[0] + t1c[0] + t1s[0] + ltg[0][1] + "
+                      "tpow[j].x;")])),
+    **SH_DESIGNS}
 
 
 # per design of csrc/conv4x4_slab.cu (told apart by a line only it has,
@@ -862,13 +905,8 @@ def time_k5(dev, stream, csrc: str, only=None) -> None:
     rays from the fan of the synthetic G-buffer, bf16 rays_dir and
     rays_lt), queued device time per call of each variant, and the SASS
     instruction count of each lmax-10 forward; the real build's output
-    digest.  The real build's K5b too (the same library; its entry is
-    the same in both designs): queued time and the sha256 of its outputs
-    as chip_smoke.py's K5B_DIGEST takes it, so that two checkouts' K5b
-    can be held to each other bit for bit."""
-    from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
+    digest."""
     from rnr_tpu_torch.ops.sh_cuda import fan_coeff
-    from rnr_tpu_torch.synthetic import build_batch
     text = open(os.path.join(csrc, "sh_shade.cu")).read()
     design, table = next((d, t) for d, (mk, t) in K5_DESIGNS.items()
                          if mk in text)
@@ -885,22 +923,8 @@ def time_k5(dev, stream, csrc: str, only=None) -> None:
     for name in table:
         print_sass(os.path.join(OUT, f"sh_shade{tag}_{name}.so"),
                    f"K5 {name}", skip="bwd")
-    b = build_batch(512, 7500, 1)
-    piv = np.concatenate([RaySampler(6, 2, 5.0, "reflect").pivots_dir.T,
-                          RaySampler(6, 2, 10.0, "diffuse").pivots_dir.T])
-    g = {k: torch.from_numpy(np.ascontiguousarray(b[k], np.float32)).to(dev)
-         for k in ("TBN_map", "view_dir_map_tangent", "alpha_map")}
-    rd = build_fan_channels(g["TBN_map"], g["view_dir_map_tangent"],
-                            g["alpha_map"], torch.from_numpy(
-                                piv.astype(np.float32)).to(dev),
-                            13)[1].to(torch.bfloat16).contiguous()
-    rng = np.random.default_rng(5)
-    lt = torch.from_numpy(rng.uniform(0, 2, (1, 512, 512, 26, 3)).astype(
-        np.float32)).to(dev, torch.bfloat16)
-    cf = torch.from_numpy((0.3 * rng.standard_normal((121, 3))).astype(
-        np.float32)).to(dev)
+    rd, lt, al, cf, _, _ = k5_inputs(dev)
     lad = torch.tensor(ladder_constants(10), device=dev)
-    al = g["alpha_map"]
     n_pix = 512 * 512
     spec = torch.empty((n_pix, 3), device=dev)
     diff = torch.empty_like(spec)
@@ -920,30 +944,235 @@ def time_k5(dev, stream, csrc: str, only=None) -> None:
             else ""
         print(f"K5 512^2 lmax10 R26 bf16 {name}: {us:.2f} us per call{dig}",
               flush=True)
-    if "real" not in libs:
-        return
+def k5_inputs(dev):
+    """chip_smoke.py's kernels_shade operands: the fan of the synthetic
+    G-buffer at 512^2 as bf16 rays_dir (13 + 13 rays), bf16 rays_lt,
+    alpha, coeff of lmax 10, and the two output gradients, drawn in that
+    script's order."""
+    from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
+    from rnr_tpu_torch.synthetic import build_batch
+    b = build_batch(512, 7500, 1)
+    piv = np.concatenate([RaySampler(6, 2, 5.0, "reflect").pivots_dir.T,
+                          RaySampler(6, 2, 10.0, "diffuse").pivots_dir.T])
+    g = {k: torch.from_numpy(np.ascontiguousarray(b[k], np.float32)).to(dev)
+         for k in ("TBN_map", "view_dir_map_tangent", "alpha_map")}
+    rd = build_fan_channels(g["TBN_map"], g["view_dir_map_tangent"],
+                            g["alpha_map"], torch.from_numpy(
+                                piv.astype(np.float32)).to(dev),
+                            13)[1].to(torch.bfloat16).contiguous()
+    rng = np.random.default_rng(5)
+    lt = torch.from_numpy(rng.uniform(0, 2, (1, 512, 512, 26, 3)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    cf = torch.from_numpy((0.3 * rng.standard_normal((121, 3))).astype(
+        np.float32)).to(dev)
     gs, gd = (torch.from_numpy(rng.standard_normal((1, 512, 512, 3)).astype(
         np.float32)).to(dev) for _ in range(2))
+    return rd, lt, g["alpha_map"], cf, gs, gd
+
+
+# appended to a build of the order-split K5b: the blocks of its lmax-10
+# bf16 kernel that fit on an SM at R 26
+K5B_OCCUPANCY = """
+extern "C" int rnr_sh_shade_bwd_blocks_per_sm() {
+  int n = -1;
+  const int smem = bwd_smem<StoredRays<__nv_bfloat16>>(10, 26, 2).total_bytes;
+  set_smem((const void*)sh_shade_bwd_kernel<10, __nv_bfloat16>, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, sh_shade_bwd_kernel<10, __nv_bfloat16>, FAN_BWD_THREADS, smem);
+  return n;
+}
+"""
+# per design of K5b in csrc/sh_shade.cu (told apart by a line only it
+# has): {variant: switches}, written into the source with its headers
+K5B_DESIGNS = {
+    "order split of sh_bwd.cuh, rays staged": (
+        "order_split_bwd<LMAX>(sm, StoredRays<RT>{",
+        {"real": [],
+         "walk_only": [
+             ("  copy_rows(dlt + (size_t)p0 * row, rows, row_bytes, tid,",
+              "  if (row_bytes == -7) copy_rows(dlt + (size_t)p0 * row, "
+              "rows, row_bytes, tid,")],
+         "no_staging": [
+             ("""    copy_rows(dirs, rays_dir + (size_t)p0 * row, np * row * (int)sizeof(RT),
+              threadIdx.x, FAN_BWD_THREADS);""", ""),
+             ("    return {static_cast<const RT*>(dirs) + p * 3 * r_total, "
+              "p < np};",
+              "    return {rays_dir + ((size_t)blockIdx.x * FAN_BWD_PIXELS + "
+              "p) * 3 * r_total, p < np};")],
+         "one_warp_orders": [("    if (best == m) return w;",
+                              "    if (best == m) return 0;")],
+         "all_powers": [("    return lmax / 2 < 4 ? lmax / 2 : 4;",
+                         "    return lmax / 2;")],
+         "occupancy": [("// The backward: gs, gd [n_pix, 3] f32",
+                        K5B_OCCUPANCY
+                        + "// The backward: gs, gd [n_pix, 3] f32")]}),
+    "unscaled ladder, one pixel a thread": (
+        "sh_ladder<LMAX>(x, y, z, [&](int l, int m, float q, float cm, "
+        "float sm) {",
+        {"real": [],
+         "walk_only": [
+             ("        store_lt(dl + r * 3 + c, rad[c] * gsel);",
+              "        if (rad[c] == 1.2345e-30f) "
+              "store_lt(dl + r * 3 + c, rad[c] * gsel);")]}),
+}
+
+
+def time_k5b(dev, stream, csrc: str, only=None) -> None:
+    """K5b at chip_smoke.py's kernels_shade case: queued device time per
+    call of each variant of the design found in csrc, each entry called
+    with its own design's arguments; the real build's sha256 of (d
+    rays_lt, d coeff) as K5B_DIGEST takes it.  Its outputs are kept under
+    build/, and when the other checkout's run left its own there (one
+    call: this tree, then --csrc), the largest differences between the
+    two designs' outputs are printed."""
+    from rnr_tpu_torch.ops.sh_cuda import fan_coeff, fan_bwd_partials
+    text = sh_source(csrc, "sh_shade")
+    design, table = next((d, t) for d, (mk, t) in K5B_DESIGNS.items()
+                         if mk in text)
+    if only:
+        table = {k: v for k, v in table.items() if k in only}
+    tag = "" if csrc == str(_build.CSRC) else "_other"
+    new = design.startswith("order split")
+    print(f"K5b kernels of {csrc}: {design}", flush=True)
+    libs = build_all("sh_shade", table, csrc, tag + "_k5b")
+    for name in table:
+        print_sass(os.path.join(OUT, f"sh_shade{tag}_k5b_{name}.so"),
+                   f"K5b {name}", skip="sh_shade_kernel")
+    rd, lt, al, cf, gs, gd = k5_inputs(dev)
+    n_pix = 512 * 512
     dlt = torch.empty_like(lt)
     dcf = torch.empty_like(cf)
-    part = torch.empty((-(-n_pix // 64), cf.numel()), device=dev)
-    f = entry(libs["real"], "rnr_sh_shade_bwd", 10, 6)
-    ptrs = [t.data_ptr() for t in (rd, al, lt, cf, lad, gs, gd, dlt, part,
-                                   dcf)]
-    ints = (10, lad.numel(), n_pix, 26, 13, 1)
-    us = device_us(lambda: f(*ptrs, *ints, stream))
-    f(*ptrs, *ints, stream)
-    torch.cuda.synchronize()
-    h = hashlib.sha256()
-    for t in (dlt, dcf):
-        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    print(f"K5b 512^2 lmax10 R26 bf16 real: {us:.2f} us per call; sha256 of "
-          f"(d rays_lt, d coeff) {h.hexdigest()}", flush=True)
+    part = torch.empty(fan_bwd_partials(n_pix, 10), device=dev)
+    scale = torch.tensor(fan_basis_scale(10), device=dev)
+    lad = torch.tensor(ladder_constants(10), device=dev)
+    for name, lib in libs.items():
+        if hasattr(lib, "rnr_sh_shade_bwd_blocks_per_sm"):
+            q = lib.rnr_sh_shade_bwd_blocks_per_sm
+            q.restype = ctypes.c_int
+            print(f"K5b {name}: {q()} blocks an SM (cudaOccupancyMaxActive"
+                  "BlocksPerMultiprocessor, R 26)", flush=True)
+            continue
+        f = entry(lib, "rnr_sh_shade_bwd", 10, 6)
+        if new:
+            ptrs = [t.data_ptr() for t in (rd, al, lt, fan_coeff(cf, 10),
+                                           scale, gs, gd, dlt, part, dcf)]
+            ints = (10, n_pix, 26, 13, 1, part.numel())
+        else:
+            ptrs = [t.data_ptr() for t in (rd, al, lt, cf, lad, gs, gd, dlt,
+                                           part, dcf)]
+            ints = (10, lad.numel(), n_pix, 26, 13, 1)
+        us = device_us(lambda: f(*ptrs, *ints, stream))
+        f(*ptrs, *ints, stream)
+        torch.cuda.synchronize()
+        dig = ""
+        if name == "real":
+            h = hashlib.sha256()
+            for t in (dlt, dcf):
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+            dig = f"; sha256 of (d rays_lt, d coeff) {h.hexdigest()}"
+            torch.save((dlt.cpu(), dcf.cpu()),
+                       os.path.join(OUT, f"k5b_out{tag}.pt"))
+        print(f"K5b 512^2 lmax10 R26 bf16 {name}: {us:.2f} us per call{dig}",
+              flush=True)
+    other = os.path.join(OUT, f"k5b_out{'' if tag else '_other'}.pt")
+    if "real" in libs and os.path.exists(other):
+        ol, oc = torch.load(other)
+        dc_err = float((dcf.cpu() - oc).abs().max())
+        dl_err = float((dlt.cpu().float() - ol.float()).abs().max())
+        print("K5b this design against the other checkout's, same inputs: "
+              f"d coeff max abs diff {dc_err:.4g} (max |d coeff| "
+              f"{float(oc.abs().max()):.4g}), d rays_lt max abs diff "
+              f"{dl_err:.4g} (max |d rays_lt| "
+              f"{float(ol.float().abs().max()):.4g})", flush=True)
+
+
+# the block shapes (rows, columns, rows a warp) K7's design is timed in,
+# each a build with csrc/rasterize_tiles.cu's BH, BW and WH set to it
+K7_SHAPES = ((8, 32, 4), (16, 32, 4), (32, 32, 4), (16, 64, 4),
+             (32, 64, 4), (8, 32, 2), (16, 32, 2), (32, 32, 2), (4, 32, 1),
+             (8, 32, 1), (16, 32, 1))
+_K7_SHAPE = ("constexpr int BH = 8;", "constexpr int BW = 32;",
+             "constexpr int WH = 1;")
+
+
+def _k7_shape(shape) -> list:
+    return [(o, o.rsplit(" ", 1)[0] + f" {v};")
+            for o, v in zip(_K7_SHAPE, shape)]
+
+
+# per design of csrc/rasterize_tiles.cu (told apart by a line only it
+# has): {variant: switches}
+K7_DESIGNS = {
+    "exact per-block and per-warp cull, survivors staged": (
+        "!culled(block_rect,",
+        dict({"real": [],
+              "no_cull": [
+                  ("""    const bool keep =
+        id >= 0 && !culled(block_rect, fd[0], fd[1], fd[3], fd[4], fd[6],
+                           fd[7]);""", "    const bool keep = id >= 0;"),
+                  ("        hit = !culled(warp_rect, d[0], d[1], d[3], d[4], "
+                   "d[6], d[7]);", "        hit = true;")],
+              "no_warp_cull": [
+                  ("        hit = !culled(warp_rect, d[0], d[1], d[3], d[4], "
+                   "d[6], d[7]);", "        hit = true;")],
+              "cull_only": [("      while (todo) {",
+                             "      while (todo && n_keep < 0) {")]},
+             **{"block_{}x{}_w{}".format(*b): _k7_shape(b)
+                for b in K7_SHAPES})),
+    "every block walks its tile's whole list": (
+        "    for (int c = 0; c < m; ++c) {", {"real": []}),
+}
+
+
+def time_k7(dev, stream, csrc: str, only=None) -> None:
+    """K7 at three of chip_smoke.py's kernels_raster cases at 512^2 (the
+    G-buffer phase's sphere, the 48,768-face sphere at 0 degrees, the
+    degenerate faces): queued device time per call of each variant of the
+    design found in csrc, among them a build in each block shape of
+    K7_SHAPES (block_HxW_wR: H x W pixels a block, R rows a warp), with
+    what the cull leaves in each shape (chip_smoke.cull_counts) and a
+    digest of each real or reshaped build's output."""
+    import chip_smoke as cs
+    from rnr_tpu_torch.ops.rasterize_cuda import bin_faces
+    text = open(os.path.join(csrc, "rasterize_tiles.cu")).read()
+    design, table = next(
+        (d, t) for d, (mk, t) in K7_DESIGNS.items() if mk in text)
+    if only:
+        table = {k: v for k, v in table.items() if k in only}
+    tag = "" if csrc == str(_build.CSRC) else "_other"
+    print(f"K7 kernels of {csrc}: {design}", flush=True)
+    libs = build_all("rasterize_tiles", table, csrc, tag)
+    lat, lon = cs.MESH_LAT_LON
+    cases = {"gbuffer": cs.ring_faces(lat, lon, 30.0, [0], 512),
+             "dense0": cs.ring_faces(128, 192, 0.0, [0], 512),
+             "degenerate": cs.degenerate_faces_512()}
+    for cname, faces in cases.items():
+        table_, ids, counts, _ = bin_faces(faces, 512, 32, 128, 2048)
+        n, f = table_.shape[0], table_.shape[1]
+        depth = torch.empty((n, 512, 512), device=dev)
+        idx = torch.empty((n, 512, 512), dtype=torch.int32, device=dev)
+        ptrs = [t.data_ptr() for t in (table_, ids, counts, depth, idx)]
+        if "cull" in design:   # what the cull leaves in each shape
+            for blk in K7_SHAPES:
+                cull = cs.cull_counts(table_, ids, counts, 512, 32, 128, blk)
+                print(f"K7 {cname} cull, block {blk}: {cull}", flush=True)
+        for name, lib in libs.items():
+            fn = entry(lib, "rnr_rasterize_tiles", 5, 7)
+            fn.argtypes = fn.argtypes[:-1] + [ctypes.c_float] * 2 + [
+                ctypes.c_void_p]
+            ints = (n, f, ids.shape[1], ids.shape[2], 512, 32, 128)
+            us = device_us(lambda: fn(*ptrs, *ints, 0.0, 1e5, stream))
+            torch.cuda.synchronize()
+            dig = (f"; digest {digest(idx)} {digest(depth)}"
+                   if name == "real" or name.startswith("block_") else "")
+            print(f"K7 512^2 {cname} {name}: {us:.2f} us per call{dig}",
+                  flush=True)
 
 
 def sh_variants(csrc: str):
     """(K1 variants, K1b variants) of the design found in csrc."""
-    text = open(os.path.join(csrc, "sh_fan.cu")).read()
+    text = sh_source(csrc, "sh_fan")
     for design, (marker, k1, k1b, literals, parts) in SH_DESIGNS.items():
         if marker in text:
             parts = dict(parts, LITERALS=[
@@ -959,12 +1188,22 @@ def sh_variants(csrc: str):
     raise RuntimeError(f"{csrc}/sh_fan.cu: no known design")
 
 
+def sh_source(csrc: str, src: str) -> str:
+    """csrc/<src>.cu with the SH headers it includes (sh_bwd.cuh, then
+    sh_common.cuh, once) written in, so that switches reach them."""
+    text = open(os.path.join(csrc, f"{src}.cu")).read()
+    for hdr in ("sh_bwd.cuh", "sh_common.cuh"):
+        inc = f'#include "{hdr}"'
+        if inc in text:
+            body = open(os.path.join(csrc, hdr)).read()
+            text = text.replace(inc, body, 1).replace(inc, "")
+    return text
+
+
 def build(src: str, name: str, switches, csrc: str = str(_build.CSRC),
           tag: str = "") -> ctypes.CDLL:
-    text = open(os.path.join(csrc, f"{src}.cu")).read()
+    text = sh_source(csrc, src)
     if src in ("sh_fan", "sh_shade"):
-        header = open(os.path.join(csrc, "sh_common.cuh")).read()
-        text = text.replace('#include "sh_common.cuh"', header)
         switches = SH_COMMON + list(switches)
     common = os.path.join(csrc, "conv4x4_common.cuh")
     if '#include "conv4x4_common.cuh"' in text:   # its switches apply too
@@ -1181,16 +1420,17 @@ def build_all(src: str, table: dict, csrc: str = str(_build.CSRC),
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="K4,K2b,K1,K1b,K5,K6,K8,K8s,P1",
-                    help="comma-separated subset of K4,K2b,K1,K1b,K5,K6,K8,"
-                    "K8s,P1 (K6: K6a and K6b; K8: K8c and K8d; K8s: K8a and "
-                    "K8b)")
+    ap.add_argument("--kernels",
+                    default="K4,K2b,K1,K1b,K5,K5b,K6,K7,K8,K8s,P1",
+                    help="comma-separated subset of K4,K2b,K1,K1b,K5,K5b,K6,"
+                    "K7,K8,K8s,P1 (K6: K6a and K6b; K8: K8c and K8d; K8s: "
+                    "K8a and K8b)")
     ap.add_argument("--csrc", default=str(_build.CSRC),
-                    help="the csrc directory whose SH, K6, K8, K8s and P1 "
-                    "kernels are timed")
+                    help="the csrc directory whose SH, K6, K7, K8, K8s and "
+                    "P1 kernels are timed")
     ap.add_argument("--variants", default="",
-                    help="comma-separated SH, K6, K8, K8s or P1 variants to "
-                    "time (default all)")
+                    help="comma-separated SH, K6, K7, K8, K8s or P1 variants "
+                    "to time (default all)")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -1213,6 +1453,12 @@ def main() -> None:
                  set(filter(None, args.variants.split(","))))
     if "K5" in which:
         time_k5(dev, stream, os.path.abspath(args.csrc),
+                set(filter(None, args.variants.split(","))))
+    if "K5b" in which:
+        time_k5b(dev, stream, os.path.abspath(args.csrc),
+                 set(filter(None, args.variants.split(","))))
+    if "K7" in which:
+        time_k7(dev, stream, os.path.abspath(args.csrc),
                 set(filter(None, args.variants.split(","))))
     if "P1" in which:
         time_p1(dev, stream, os.path.abspath(args.csrc),

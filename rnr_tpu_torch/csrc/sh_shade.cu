@@ -35,14 +35,22 @@
 //   without rays_lt's loads 92%, with one pixel a thread 102%, and each
 //   thread reading its rays from device memory (2-byte loads 156 bytes
 //   apart across a warp) instead of the staged rows 146%.
-// Design, backward (K5b): blocks of 64 pixels, each ray's
-//   121 basis values of the block in a [121][65] shared tile, two basis
-//   rows per thread dotted with the rays_lt * gsel column, per-block
-//   [121, 3] partials summed by a second kernel in block order: d coeff
-//   is bitwise the same from run to run, with no atomics (the TPU grid
-//   accumulated in sequence).  The shared parts are in sh_common.cuh.
+// Design, backward (K5b): K1b's backward on materialised rays, the
+//   order-split backward of sh_bwd.cuh (shared with K1b): the orders split
+//   between four warps, each keeping its d coeff sums in registers, chunks
+//   of 4 rays x 64 pixels with one barrier each, d rays_lt staged and
+//   written with 16-byte stores, per-block partials summed in block order
+//   (bitwise the same from run to run, no atomics).  Its build step
+//   (StoredRays) reads each direction from the block's rays_dir rows,
+//   copied to shared memory with 16-byte loads beside its rays_lt rows, as
+//   in K5.  With both tensors' rows and every even power staged, a block
+//   would take 77 KB at bf16 and 13 + 13 rays, over the 75 KB that three
+//   blocks an SM allow, so a chunk stores the even powers up to T_8 and
+//   the walk of order 9 or 10 takes T_m from T_8 by the build's own chain
+//   of complex products: 73 KB, three blocks an SM (f32 rows: two).
 
 #include "sh_common.cuh"
+#include "sh_bwd.cuh"
 
 namespace {
 
@@ -127,8 +135,48 @@ sh_shade_kernel(const RT* __restrict__ rays_dir,
   }
 }
 
+// K5b's build step: each direction as stored in the block's rays_dir rows
+// ([3, R] per pixel, widened, not renormalised); a dead pixel takes the
+// zero vector.
+template <typename RT>
+struct StoredRays {
+  static constexpr int PX_FIELDS = 0;
+  static constexpr bool DIR_ROWS = true;
+  __host__ __device__ static constexpr int powers(int lmax) {
+    return lmax / 2 < 4 ? lmax / 2 : 4;
+  }
+  const RT* rays_dir;
+  int r_total;
+  struct Pixel {
+    const RT* rd;
+    bool live;
+  };
+
+  __device__ __forceinline__ void stage(float*, void* dirs, int p0,
+                                        int np) const {
+    const int row = 3 * r_total;
+    copy_rows(dirs, rays_dir + (size_t)p0 * row, np * row * (int)sizeof(RT),
+              threadIdx.x, FAN_BWD_THREADS);
+  }
+
+  __device__ __forceinline__ Pixel pixel(const float*, const void* dirs,
+                                         int p, int np) const {
+    return {static_cast<const RT*>(dirs) + p * 3 * r_total, p < np};
+  }
+
+  __device__ __forceinline__ void ray(const Pixel& q, int r, bool, float& x,
+                                      float& y, float& z) const {
+    x = y = z = 0.f;
+    if (q.live) {
+      x = load_lt(q.rd + r);
+      y = load_lt(q.rd + r_total + r);
+      z = load_lt(q.rd + 2 * r_total + r);
+    }
+  }
+};
+
 template <int LMAX, typename RT>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(FAN_BWD_THREADS, 3)
 sh_shade_bwd_kernel(const RT* __restrict__ rays_dir,
                     const float* __restrict__ alpha,
                     const RT* __restrict__ rays_lt,
@@ -136,62 +184,9 @@ sh_shade_bwd_kernel(const RT* __restrict__ rays_dir,
                     const float* __restrict__ gd, int n_pix, int r_total,
                     int r_spec, RT* __restrict__ dlt,
                     float* __restrict__ part) {
-  constexpr int NB = (LMAX + 1) * (LMAX + 1);
-  __shared__ float bs[NB * LDS];          // basis [b][pixel]
-  __shared__ float4 lg[BWD_THREADS];      // rays_lt * gsel per pixel
-
-  const int tid = threadIdx.x;
-  const int p = blockIdx.x * BWD_THREADS + tid;
-  const bool live = p < n_pix;
-  // a dead lane shades the direction +z with alpha 0 and contributes zero
-  float al = 0.f;
-  float g_s[3] = {0.f, 0.f, 0.f}, g_d[3] = {0.f, 0.f, 0.f};
-  if (live) {
-    al = alpha[p];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      g_s[c] = gs[(size_t)p * 3 + c];
-      g_d[c] = gd[(size_t)p * 3 + c];
-    }
-  }
-  const float inv_spec = 1.f / (float)r_spec;
-  const float inv_diff = 1.f / (float)max(r_total - r_spec, 1);
-  const RT* rd = rays_dir + (size_t)p * 3 * r_total;
-  const RT* lt = rays_lt + (size_t)p * r_total * 3;
-  RT* dl = dlt + (size_t)p * r_total * 3;
-
-  // this thread's basis rows of d coeff: tid and tid + 64
-  float acc0[3] = {0.f, 0.f, 0.f}, acc1[3] = {0.f, 0.f, 0.f};
-
-  for (int r = 0; r < r_total; ++r) {
-    float x = 0.f, y = 0.f, z = 1.f;
-    if (live) {
-      x = load_lt(rd + r);
-      y = load_lt(rd + r_total + r);
-      z = load_lt(rd + 2 * r_total + r);
-    }
-    float rad[3] = {0.f, 0.f, 0.f};
-    sh_ladder<LMAX>(x, y, z, [&](int l, int m, float q, float cm, float sm) {
-      fold_radiance(l, m, q, cm, sm, rad, bs, tid);
-    });
-    float ltg[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float gsel =
-          (r < r_spec ? g_s[c] * inv_spec : g_d[c] * inv_diff) * al;
-      if (live) {
-        store_lt(dl + r * 3 + c, rad[c] * gsel);
-        ltg[c] = load_lt(lt + r * 3 + c) * gsel;
-      } else {
-        ltg[c] = 0.f;
-      }
-    }
-    lg[tid] = make_float4(ltg[0], ltg[1], ltg[2], 0.f);
-    __syncthreads();
-    dot_basis_rows<NB>(bs, lg, tid, acc0, acc1);
-    __syncthreads();
-  }
-  store_partial<NB>(part, blockIdx.x, tid, acc0, acc1);
+  extern __shared__ __align__(16) float sm[];
+  order_split_bwd<LMAX>(sm, StoredRays<RT>{rays_dir, r_total}, alpha,
+                        rays_lt, gs, gd, n_pix, r_total, r_spec, dlt, part);
 }
 
 template <typename RT>
@@ -216,22 +211,22 @@ int launch(int lmax, const RT* rd, const float* alpha, const RT* lt,
 template <typename RT>
 int launch_bwd(int lmax, const RT* rd, const float* alpha, const RT* lt,
                const float* gs, const float* gd, int n_pix, int r_total,
-               int r_spec, RT* dlt, float* part, float* dcoeff,
-               cudaStream_t stream) {
-  const int blocks = (n_pix + BWD_THREADS - 1) / BWD_THREADS;
+               int r_spec, RT* dlt, float* part, const float* scale,
+               float* dcoeff, cudaStream_t stream) {
+  const int blocks = (n_pix + FAN_BWD_PIXELS - 1) / FAN_BWD_PIXELS;
   if (blocks == 0) return 0;
+  const int smem =
+      bwd_smem<StoredRays<RT>>(lmax, r_total, (int)sizeof(RT)).total_bytes;
 #define RNR_SH_CASE(L)                                                      \
   case L:                                                                   \
-    sh_shade_bwd_kernel<L, RT><<<blocks, BWD_THREADS, 0, stream>>>(     \
+    if (int e = set_smem((const void*)sh_shade_bwd_kernel<L, RT>, smem))   \
+      return e;                                                             \
+    sh_shade_bwd_kernel<L, RT><<<blocks, FAN_BWD_THREADS, smem, stream>>>(  \
         rd, alpha, lt, gs, gd, n_pix, r_total, r_spec, dlt, part);          \
     break;
   RNR_SH_SWITCH(RNR_SH_CASE)
 #undef RNR_SH_CASE
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int n_entry = (lmax + 1) * (lmax + 1) * 3;
-  sum_partials<<<n_entry, 256, 0, stream>>>(part, blocks, n_entry, dcoeff);
-  return (int)cudaGetLastError();
+  return sum_partials_after(blocks, lmax, part, scale, dcoeff, stream);
 }
 
 }  // namespace
@@ -267,31 +262,41 @@ extern "C" int rnr_sh_shade(const void* rays_dir, const void* alpha,
 }
 
 // The backward: gs, gd [n_pix, 3] f32 -> dlt [n_pix, r_total, 3] in the
-// rays_lt type and dcoeff [(lmax+1)^2, 3] f32.  `part` is scratch of
-// ceil(n_pix / 64) * (lmax+1)^2 * 3 floats (the per-block partials).
+// rays_lt type and dcoeff [(lmax+1)^2, 3] f32.  coeff holds the scaled
+// coefficients, as for the forward, and `scale` [(lmax+1)^2] their basis
+// scale; `part` is scratch of n_part floats, at least
+// rnr_sh_shade_fan_bwd_partials(n_pix, lmax) of sh_fan.cu
+// (ops/sh_cuda.py fan_bwd_partials).
 extern "C" int rnr_sh_shade_bwd(const void* rays_dir, const void* alpha,
                                 const void* rays_lt, const void* coeff,
-                                const void* ladder, const void* gs,
+                                const void* scale, const void* gs,
                                 const void* gd, void* dlt, void* part,
-                                void* dcoeff, int lmax, int n_ladder,
-                                int n_pix, int r_total, int r_spec,
-                                int rays_bf16, cudaStream_t stream) {
-  if (bad_sh_args(lmax, n_ladder, r_total, r_spec))
+                                void* dcoeff, int lmax, int n_pix,
+                                int r_total, int r_spec, int rays_bf16,
+                                int n_part, cudaStream_t stream) {
+  if (bad_ray_args(lmax, r_total, r_spec) ||
+      n_part < bwd_partials(n_pix, lmax))
     return (int)cudaErrorInvalidValue;
-  if (int e = copy_coeff_ladder(coeff, ladder, lmax, n_ladder, stream))
-    return e;
+  const int nb = (lmax + 1) * (lmax + 1);
+  if (cudaError_t e = cudaMemcpyToSymbolAsync(
+          c_coeff, coeff, nb * 3 * sizeof(float), 0,
+          cudaMemcpyDeviceToDevice, stream))
+    return (int)e;
   const float* al = static_cast<const float*>(alpha);
   const float* g_s = static_cast<const float*>(gs);
   const float* g_d = static_cast<const float*>(gd);
+  const float* sc = static_cast<const float*>(scale);
   float* pt = static_cast<float*>(part);
   float* dc = static_cast<float*>(dcoeff);
   if (rays_bf16) {
     using bf = __nv_bfloat16;
     return launch_bwd(lmax, static_cast<const bf*>(rays_dir), al,
                       static_cast<const bf*>(rays_lt), g_s, g_d, n_pix,
-                      r_total, r_spec, static_cast<bf*>(dlt), pt, dc, stream);
+                      r_total, r_spec, static_cast<bf*>(dlt), pt, sc, dc,
+                      stream);
   }
   return launch_bwd(lmax, static_cast<const float*>(rays_dir), al,
                     static_cast<const float*>(rays_lt), g_s, g_d, n_pix,
-                    r_total, r_spec, static_cast<float*>(dlt), pt, dc, stream);
+                    r_total, r_spec, static_cast<float*>(dlt), pt, sc, dc,
+                    stream);
 }

@@ -15,7 +15,9 @@ as there:
    order: edge-inclusive inside tests, clamped barycentrics from the
    face's inverse matrix, perspective depth, and a strict z-test, so the
    first face wins a tie.  On a CUDA tensor it launches the kernel, on a
-   CPU tensor it runs `rasterize_tiles_torch`.
+   CPU tensor it runs `rasterize_tiles_torch`.  The kernel culls, exactly,
+   the candidates that can win no pixel of a block's or a warp's
+   rectangle (BLOCK); `cull_keep` computes the same cull in torch.
 
 `rasterize_tiled` chains both and recomputes the winners' weights, as
 rnr_tpu does outside its kernel.
@@ -33,6 +35,12 @@ from rnr_tpu_torch.ops.rasterize import (RasterOutput, _is_backface,
                                          finish_raster, pixel_ndc)
 
 FACE_FLOATS = 18   # xyz of the 3 vertices, then the 3x3 face_inv, row-major
+# K7's block shape (csrc/rasterize_tiles.cu BH, BW, WH): rows and
+# columns of a block, rows of each of its warps; a warp takes WARP_W
+# columns, a lane one column and all the warp's rows.  The fastest of the
+# shapes chip_variants.py times on the G-buffer phase's sphere.
+BLOCK = (8, 32, 1)
+WARP_W = 32
 
 
 def _tile_of(v: torch.Tensor, tile: int, n_tiles: int) -> torch.Tensor:
@@ -195,6 +203,52 @@ def _untile(a: torch.Tensor, s: int, tile_h: int, tile_w: int):
             .reshape(n, s, s))
 
 
+def _region_ndc(s: int, n0: int, size: int, reg: int, dtype, device):
+    """pixel_ndc of the first and last pixel of each region of `reg`
+    pixels along one side of the tiles (tile offsets n0 [T]), the regions
+    clipped to the tile's `size`: ([T, R], [T, R])."""
+    k = torch.arange(-(-size // reg), device=device)
+    first = k * reg
+    last = torch.clamp(first + reg, max=size) - 1
+    nd = pixel_ndc(s, dtype, device)
+    return nd[n0[:, None] + first], nd[n0[:, None] + last]
+
+
+def cull_keep(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
+              image_size: int, tile_h: int, tile_w: int, reg_h: int,
+              reg_w: int) -> torch.Tensor:
+    """K7's cull of each tile's candidates against each rectangle of
+    reg_h x reg_w pixels of the tile (row-major, clipped to the tile): a
+    block's or a warp's (BLOCK, WARP_W).  Returns keep
+    [N, T, R, K] bool over the first max(counts) list slots: the
+    candidate is live and no edge fails at both end rows against both
+    end columns, the kernel's test in its f32 expressions; a dropped one
+    is inside at no pixel of the rectangle."""
+    s = image_size
+    n, n_t, _ = ids.shape
+    dev, dt = table.device, table.dtype
+    k_run = int(counts.max()) if counts.numel() else 0
+    cid = ids[:, :, :k_run]
+    live = (torch.arange(k_run, device=dev) < counts[..., None]) & (cid >= 0)
+    rows = torch.arange(n, device=dev).reshape(n, 1, 1)
+    d = table[rows, torch.clamp(cid, min=0).long()][:, :, None]  # [N,T,1,K,18]
+    n_tx = s // tile_w
+    t = torch.arange(n_t, device=dev)
+    ya, yb = _region_ndc(s, (t // n_tx) * tile_h, tile_h, reg_h, dt, dev)
+    xa, xb = _region_ndc(s, (t % n_tx) * tile_w, tile_w, reg_w, dt, dev)
+    n_rx = xa.shape[1]
+    # [T, R, 1], regions row-major
+    ya, yb = (v.repeat_interleave(n_rx, dim=1)[..., None] for v in (ya, yb))
+    xa, xb = (v.repeat(1, ya.shape[1] // n_rx)[..., None] for v in (xa, xb))
+    keep = live[:, :, None]
+    for a, b in ((0, 3), (3, 6), (6, 0)):
+        xs, ys, xe, ye = d[..., a], d[..., a + 1], d[..., b], d[..., b + 1]
+        la, lb = (ya - ys) * (xe - xs), (yb - ys) * (xe - xs)
+        ra, rb = (xa - xs) * (ye - ys), (xb - xs) * (ye - ys)
+        keep = keep & ~((la < ra) & (la < rb) & (lb < ra) & (lb < rb))
+    return keep
+
+
 def rasterize_tiles(table: torch.Tensor, ids: torch.Tensor,
                     counts: torch.Tensor, image_size: int, tile_h: int,
                     tile_w: int, near: float = 0.0, far: float = 1e5):
@@ -220,7 +274,8 @@ def rasterize_tiles(table: torch.Tensor, ids: torch.Tensor,
     check_launch(fn(table.data_ptr(), ids.data_ptr(), counts.data_ptr(),
                     depth.data_ptr(), idx.data_ptr(), n, f, n_t, k_cap, s,
                     tile_h, tile_w, float(near), float(far),
-                    stream_of(table)), "rasterize_tiles")
+                    stream_of(table)),
+                 "rasterize_tiles")
     return depth, idx
 
 

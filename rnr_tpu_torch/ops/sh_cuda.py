@@ -7,8 +7,9 @@ view direction + pivots in f32, each ray is shaded as coeff^T basis(dir)
 * alpha, and rays_lt * radiance is averaged over the specular and the
 diffuse fan.  K5 / K5b (csrc/sh_shade.cu) replace sh_pallas.py::sh_shade,
 the same shading of a materialised rays_dir [N, H, W, 3, R] (the unfused
-configuration, sh_fan_fuse=False); K5 evaluates K1's scaled ladder on
-the same scaled coefficients (fan_coeff), K5b the unscaled ladder.
+configuration, sh_fan_fuse=False); K5 and K5b evaluate K1's scaled ladder
+on the same scaled coefficients (fan_coeff), and K5b is K1b's backward
+(csrc/sh_bwd.cuh) with the rays read instead of built.
 Gradients go to rays_lt (in its own dtype) and to coeff (f32); the rays,
 TBN, the view direction, alpha and the pivots are G-buffer data and get
 none (rnr_tpu's VJPs return zeros for them).
@@ -23,28 +24,18 @@ import torch
 from rnr_tpu_torch.ops import _build
 from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
                                        use_kernel)
-from rnr_tpu_torch.ops.sh import evaluate_sh_basis, ladder_constants
+from rnr_tpu_torch.ops.sh import evaluate_sh_basis
 
 MAX_LMAX = 10   # csrc/sh_common.cuh: the kernels instantiate lmax 1..10
 MAX_RAYS = 64
-BWD_PIXELS = 64   # csrc/sh_common.cuh BWD_THREADS: pixels per K5b block
-FAN_BWD_PIXELS = 64   # csrc/sh_fan.cu FAN_BWD_PIXELS: pixels per K1b block
-_LADDER: dict = {}   # (lmax, device) -> K5b's ladder constants
+# csrc/sh_bwd.cuh FAN_BWD_PIXELS: pixels per K1b / K5b block
+FAN_BWD_PIXELS = 64
 _FAN_SCALE: dict = {}   # (lmax, device) -> fan_basis_scale as f32
-
-
-def _ladder(lmax: int, device) -> torch.Tensor:
-    key = (lmax, device)
-    ladder = _LADDER.get(key)
-    if ladder is None:
-        ladder = _LADDER[key] = torch.tensor(
-            ladder_constants(lmax), dtype=torch.float32, device=device)
-    return ladder
 
 
 def fan_basis_scale(lmax: int) -> list[float]:
     """Per basis index l*l + l +- m, the factor s(l, m) between the basis
-    value and r(l, m) T_m of K1 / K1b's scaled ladder (csrc/sh_fan.cu):
+    value and r(l, m) T_m of the scaled ladder (csrc/sh_common.cuh):
     K_m S(l, m), times sqrt 2 for m != 0, where K_m = (1 / sqrt(4 pi))
     prod_{j<=m} sqrt((2j + 1) / 2j) is the diagonal's constant and S(l, m)
     = prod_{m<j<=l} a(j, m) the product of the ladder's a factors
@@ -72,16 +63,16 @@ def _fan_scale(lmax: int, device) -> torch.Tensor:
 
 
 def fan_coeff(coeff: torch.Tensor, lmax: int) -> torch.Tensor:
-    """The coefficients K1 / K1b fold the ladder into: coeff [B, C] times
-    the basis scale of each row, f32, on coeff's device."""
+    """The coefficients K1, K1b, K5 and K5b fold the ladder into: coeff
+    [B, C] times the basis scale of each row, f32, on coeff's device."""
     scale = _fan_scale(lmax, coeff.device)
     return (coeff.to(torch.float32) * scale[:, None]).contiguous()
 
 
 def fan_bwd_partials(n_pix: int, lmax: int) -> int:
-    """Floats of K1b's per-block d coeff partials: one row of the
-    (lmax+1)^2 * 3 entries per block of FAN_BWD_PIXELS pixels (the C
-    entry refuses less: rnr_sh_shade_fan_bwd_partials)."""
+    """Floats of K1b's and K5b's per-block d coeff partials: one row of
+    the (lmax+1)^2 * 3 entries per block of FAN_BWD_PIXELS pixels (the C
+    entries refuse less: rnr_sh_shade_fan_bwd_partials)."""
     return -(-n_pix // FAN_BWD_PIXELS) * (lmax + 1) ** 2 * 3
 
 
@@ -281,9 +272,9 @@ sh_shade_fan_bwd.launches = 0
 
 
 def _check_rays(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec):
-    """The contiguous operands K5 / K5b take and K5b's ladder table:
-    rays_dir and rays_lt in one storage type (bf16 or f32), alpha and
-    coeff f32."""
+    """The contiguous operands K5 / K5b take: rays_dir and rays_lt in one
+    storage type (bf16 or f32), alpha f32, and the scaled coefficients
+    (fan_coeff)."""
     n, h, w, r_total, c = rays_lt.shape
     if not 1 <= lmax <= MAX_LMAX:
         raise ValueError(f"sh_shade kernel: lmax {lmax} not in 1..{MAX_LMAX}")
@@ -300,16 +291,15 @@ def _check_rays(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec):
     require(rd, "rays_dir", lt.dtype, (n, h, w, 3, r_total))
     require(al, "alpha_map", f32, (n, h, w, 1))
     require(cf, "coeff", f32, ((lmax + 1) ** 2, 3))
-    return rd, lt, al, cf, _ladder(lmax, lt.device)
+    return rd, lt, al, fan_coeff(cf, lmax)
 
 
 def _launch_shade(rays_dir, rays_lt, alpha_map, coeff, lmax, r_spec):
-    rd, lt, al, cf, _ = _check_rays(rays_dir, rays_lt, alpha_map, coeff,
-                                    lmax, r_spec)
+    rd, lt, al, cfs = _check_rays(rays_dir, rays_lt, alpha_map, coeff, lmax,
+                                  r_spec)
     n, h, w, r_total, _ = lt.shape
     spec = torch.empty((n, h, w, 3), dtype=torch.float32, device=lt.device)
     diff = torch.empty_like(spec)
-    cfs = fan_coeff(cf, lmax)            # K5 folds the scaled ladder (K1's)
     fn = _build.fn("sh_shade", "rnr_sh_shade", 6, 5)
     sh_shade.launches += 1
     check_launch(fn(rd.data_ptr(), al.data_ptr(), lt.data_ptr(),
@@ -327,8 +317,8 @@ def sh_shade_bwd(rays_dir, rays_lt, alpha_map, coeff, gs, gd, lmax: int,
     if not use_kernel(rays_dir, rays_lt, alpha_map, coeff, gs, gd):
         return sh_shade_bwd_torch(rays_dir, rays_lt, alpha_map, coeff, gs,
                                   gd, lmax, r_spec)
-    rd, lt, al, cf, ladder = _check_rays(rays_dir, rays_lt, alpha_map, coeff,
-                                         lmax, r_spec)
+    rd, lt, al, cfs = _check_rays(rays_dir, rays_lt, alpha_map, coeff, lmax,
+                                  r_spec)
     n, h, w, r_total, c = lt.shape
     gsf = gs.to(torch.float32).contiguous()
     gdf = gd.to(torch.float32).contiguous()
@@ -336,17 +326,18 @@ def sh_shade_bwd(rays_dir, rays_lt, alpha_map, coeff, gs, gd, lmax: int,
     require(gdf, "gd", torch.float32, (n, h, w, c))
     n_pix = n * h * w
     dlt = torch.empty_like(lt)
-    dcoeff = torch.empty_like(cf)
-    part = torch.empty((-(-n_pix // BWD_PIXELS), cf.numel()),
-                       dtype=torch.float32, device=lt.device)
+    dcoeff = torch.empty_like(cfs)
+    part = torch.empty(fan_bwd_partials(n_pix, lmax), dtype=torch.float32,
+                       device=lt.device)
+    scale = _fan_scale(lmax, lt.device)
     fn = _build.fn("sh_shade", "rnr_sh_shade_bwd", 10, 6)
     sh_shade_bwd.launches += 1
     check_launch(fn(rd.data_ptr(), al.data_ptr(), lt.data_ptr(),
-                    cf.data_ptr(), ladder.data_ptr(), gsf.data_ptr(),
+                    cfs.data_ptr(), scale.data_ptr(), gsf.data_ptr(),
                     gdf.data_ptr(), dlt.data_ptr(), part.data_ptr(),
-                    dcoeff.data_ptr(), lmax, ladder.numel(), n_pix, r_total,
-                    r_spec, int(lt.dtype == torch.bfloat16), stream_of(lt)),
-                 "sh_shade_bwd")
+                    dcoeff.data_ptr(), lmax, n_pix, r_total, r_spec,
+                    int(lt.dtype == torch.bfloat16), part.numel(),
+                    stream_of(lt)), "sh_shade_bwd")
     return dlt, dcoeff
 
 

@@ -9,6 +9,8 @@ RNRConfig; `init_weights` fills a model from a NumPy seed;
 `make_sphere` / `sphere_mesh` and `camera_ring` give a procedural mesh
 and the views around it for the G-buffer path (mesh + camera -> frame);
 `make_probes` gives procedural equirect light probes for relighting.
+`random_faces` and `degenerate_faces` give projected faces that test the
+rasterizer's exactness (K7 and its cull) beyond what a mesh gives.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from rnr_tpu_torch.config import (GCNTrainConfig, LightingConfig, LossConfig,
 from rnr_tpu_torch.models.lighting import fib_sphere
 
 __all__ = ["build_batch", "build_config", "build_statics", "camera_ring",
-           "fib_sphere", "init_weights", "make_probes", "make_sphere",
-           "sphere_mesh", "to_torch"]
+           "degenerate_faces", "fib_sphere", "init_weights", "make_probes",
+           "make_sphere", "random_faces", "sphere_mesh", "to_torch"]
 
 
 def build_config(img_size: int, tex_size: int, lmax: int, nf0: int,
@@ -261,3 +263,93 @@ def make_probes(n: int = 2, h: int = 256, w: int = 512, seed: int = 0
             img = img + color * np.exp(sharp * (d @ sun - 1.0))[..., None]
         out.append(img)
     return np.stack(out).astype(np.float32)
+
+
+def random_faces(rng, n: int, f: int) -> np.ndarray:
+    """Faces [n, f, 3, 3] in NDC (z camera depth in [1, 3]): partly off
+    screen, both windings, degenerate ones (two corners equal, or three in
+    a line), and every other one small, so that tiles hold many
+    candidates of several sizes."""
+    faces = rng.uniform(-1.2, 1.2, (n, f, 3, 3)).astype(np.float32)
+    faces[..., 2] = rng.uniform(1.0, 3.0, (n, f, 3))
+    faces[:, ::7, 2, :2] = faces[:, ::7, 1, :2]
+    faces[:, 3::11, 2, :2] = 2 * faces[:, 3::11, 1, :2] - faces[:, 3::11, 0, :2]
+    c = rng.uniform(-1, 1, (n, f // 2, 1, 2))
+    faces[:, ::2, :, :2] = c + 0.1 * (faces[:, ::2, :, :2] - c)
+    return faces
+
+
+def degenerate_faces(rng, s: int) -> np.ndarray:
+    """Faces [1, F, 3, 3] in NDC at image side s whose inside tests sit on
+    the edge of exactness: zero-area segments (two equal vertices) lying
+    on a pixel column or row, which pass the edge-inclusive test along
+    that whole line; point faces, which pass it everywhere; slivers of
+    area about 1e-7; triangles with their vertices at pixel centres, so
+    that their edges pass through pixel centres, many on the 8-, 16-, 32-
+    and 64-pixel boundaries of the rasterizer's blocks; faces with a
+    vertex at +-1e12, +-inf or NaN; and repeated faces at equal depth
+    (ties across ids), among random ones.  z in [1, 3]."""
+    from rnr_tpu_torch.ops.rasterize import pixel_ndc
+    nd = pixel_ndc(s, torch.float32, "cpu").numpy()
+    edges = sorted({i for b in (8, 16, 32, 64) for k in range(0, s + 1, b)
+                    for i in (k - 1, k) if 0 <= i < s})
+
+    def px(n):   # pixel indices, half of them on block boundaries
+        return np.where(rng.random(n) < 0.5, rng.choice(edges, n),
+                        rng.integers(0, s, n))
+
+    out = []
+
+    def add(xy):
+        xy = np.asarray(xy, np.float64).reshape(-1, 3, 2)
+        z = rng.uniform(1.0, 3.0, (len(xy), 3, 1))
+        out.append(np.concatenate([xy, z], -1))
+
+    m = 24
+    col, r0, r1 = px(m), px(m), px(m)
+    add(np.stack([np.stack([nd[col], nd[r0]], -1),
+                  np.stack([nd[col], nd[r1]], -1),
+                  np.stack([nd[col], nd[r1]], -1)], 1))        # on a column
+    add(np.stack([np.stack([nd[col], nd[r0]], -1),
+                  np.stack([nd[col], nd[r0]], -1),
+                  np.stack([nd[col], nd[r1]], -1)], 1))
+    row, c0, c1 = px(m), px(m), px(m)
+    add(np.stack([np.stack([nd[c0], nd[row]], -1),
+                  np.stack([nd[c1], nd[row]], -1),
+                  np.stack([nd[c0], nd[row]], -1)], 1))        # on a row
+    pc, pr = px(m), px(m)
+    pts = np.stack([nd[pc], nd[pr]], -1)
+    pts[m // 2:] += rng.uniform(-0.5, 0.5, (m - m // 2, 2)) * 2 / s
+    add(np.repeat(pts[:, None], 3, 1))                          # points
+    a = rng.uniform(-0.9, 0.9, (m, 2))
+    v = rng.uniform(-0.6, 0.6, (m, 2))
+    nrm = np.stack([-v[:, 1], v[:, 0]], -1) / np.linalg.norm(v, axis=1,
+                                                              keepdims=True)
+    h = 2e-7 / np.linalg.norm(v, axis=1, keepdims=True)
+    sl = np.stack([a, a + v, a + 0.5 * v + h * nrm], 1)
+    sl[m // 2:] = sl[m // 2:, [0, 2, 1]]
+    add(sl)                                                     # slivers
+    g = 4 * m
+    gi, gj = px(g), px(g)
+    di, dj = (rng.integers(-s // 4, s // 4 + 1, g) for _ in range(2))
+    i2, j2 = np.clip(gi + di, 0, s - 1), np.clip(gj + dj, 0, s - 1)
+    i3 = np.clip(gi + rng.integers(-s // 8, s // 8 + 1, g), 0, s - 1)
+    add(np.stack([np.stack([nd[gi], nd[gj]], -1),
+                  np.stack([nd[i2], nd[j2]], -1),
+                  np.stack([nd[i3], nd[gj]], -1)], 1))         # grid points
+    far = np.stack([np.stack([nd[px(8)], nd[px(8)]], -1) for _ in range(3)],
+                   1)
+    far[0, 1, 0], far[1, 2, 1], far[2, 0, 0] = 1e12, -1e12, -1e12
+    far[3, 1, 0], far[4, 0, 1], far[5, 2, 0] = np.inf, -np.inf, np.nan
+    far[6, 1, 1], far[7, 0, 0] = np.nan, np.inf
+    add(far)                                                    # far, inf, NaN
+    rnd = rng.uniform(-1.0, 1.0, (m, 3, 2))
+    add(rnd)
+    faces = np.concatenate(out)
+    tie = rng.choice(len(faces), m, replace=False)
+    faces = np.concatenate([faces, faces[tie]])                 # ties
+    flat = faces[-m:].copy()
+    flat[:, :, 2] = flat[:, :1, 2]
+    faces[-m:] = flat
+    faces = np.concatenate([faces, flat])                       # flat ties
+    return faces[None].astype(np.float32)

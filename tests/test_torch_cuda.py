@@ -23,11 +23,13 @@ with w streamed, twice bitwise equal, and with w resident bitwise equal to
 w streamed.  K1 and K1b (SH
 fan) run at batch 2 with a pixel count no block divides, at 64 rays, with
 no diffuse ray and at lmax 1, 2 and 10; K5 (SH of materialised rays) at
-lmax 2 and 10 in bf16 and f32, and K5, K5b, K5 back to back on one stream
-(their shared constant bank).  K1, K5, the backward kernels K1b,
+lmax 2 and 10 in bf16 and f32, and K5, K5b, K5, K5b back to back on one
+stream (their shared constant bank); K1 and K1b keep their pinned digests
+(chip_smoke.py K1_DIGESTS).  K1, K5, the backward kernels K1b,
 K5b, K3b and K8b (conv weight gradients) must
 also be bitwise deterministic, and the rasterizer K7 bitwise equal to its
-plain version.
+plain version, also on faces at the edge of its cull's exactness
+(synthetic.degenerate_faces) at 128^2 and 512^2.
 """
 
 import ctypes
@@ -58,7 +60,8 @@ from rnr_tpu_torch.ops.sh_cuda import (fan_bwd_partials, sh_shade,
 from rnr_tpu_torch.ops.texture_cuda import (mipmap_sample, mipmap_sample_torch,
                                             mipmap_scatter,
                                             mipmap_scatter_torch)
-from rnr_tpu_torch.synthetic import build_batch
+from rnr_tpu_torch.synthetic import (build_batch, degenerate_faces,
+                                     random_faces)
 
 pytestmark = pytest.mark.cuda
 
@@ -336,24 +339,42 @@ def test_sh_shade_kernel(dev, lmax, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sh_shade_k5_k5b_interleaved_on_one_stream(dev, dtype):
-    """K5 (scaled coefficients) and K5b (unscaled coefficients and the
-    ladder table) share one constant bank, each copied on the stream
-    before its launch: K5, K5b, K5 queued back to back on one stream each
-    equal their plain versions, and the two K5 runs are bit-equal."""
+    """K5 and K5b share one constant bank, each copying its coefficients
+    on the stream before its launch: K5, K5b, K5, K5b queued back to back
+    on one stream each equal their plain versions, and the two runs of
+    each are bit-equal."""
     rd, lt, al, cf, gs, gd = _shade_args(dev, 10, dtype, 31)
     ks, kd = sh_shade(rd, lt, al, cf, 10, 5)
     kl, kc = sh_shade_bwd(rd, lt, al, cf, gs, gd, 10, 5)
     ks2, kd2 = sh_shade(rd, lt, al, cf, 10, 5)
+    kl2, kc2 = sh_shade_bwd(rd, lt, al, cf, gs, gd, 10, 5)
     torch.cuda.synchronize()
     ts, td = sh_shade_torch(rd, lt, al, cf, 10, 5)
     tl, tc = sh_shade_bwd_torch(rd, lt, al, cf, gs, gd, 10, 5)
-    for k, t in ((ks, ts), (kd, td)):
+    for k, t in ((ks, ts), (kd, td), (ks2, ts), (kd2, td)):
         assert float((k - t).abs().max()) <= 1e-4 * float(t.abs().max()) + 1e-6
-    assert float((kc - tc).abs().max()) <= 1e-4 * float(tc.abs().max())
     tol = 1e-5 if dtype == torch.float32 else 2 ** -7
-    assert float((kl.float() - tl.float()).abs().max()) <= (
-        tol * float(tl.float().abs().max()))
+    for l_, c_ in ((kl, kc), (kl2, kc2)):
+        assert float((c_ - tc).abs().max()) <= 1e-4 * float(tc.abs().max())
+        assert float((l_.float() - tl.float()).abs().max()) <= (
+            tol * float(tl.float().abs().max()))
     assert torch.equal(ks, ks2) and torch.equal(kd, kd2)
+    assert torch.equal(kl, kl2) and torch.equal(kc, kc2)
+
+
+def test_sh_shade_fan_bwd_kernel_keeps_its_digest(dev):
+    """K1b at chip_smoke.py's kernels-phase case (512^2, lmax 10, 13 + 13
+    rays, bf16) gives, bit for bit, the output pinned in its K1_DIGESTS:
+    sharing its backward with K5b kept K1b's arithmetic."""
+    import chip_smoke as cs
+    args, bargs = cs.k1_inputs(cs._gbuffer(cs.IMG),
+                               np.random.default_rng(0))
+    kl, kc = sh_shade_fan_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert cs.digest(kl, kc) == cs.K1_DIGESTS["sh_shade_fan_bwd"]
+    ks, kd = sh_shade_fan(*args)
+    torch.cuda.synchronize()
+    assert cs.digest(ks, kd) == cs.K1_DIGESTS["sh_shade_fan"]
 
 
 @pytest.mark.parametrize("lmax", [2, 10])
@@ -591,26 +612,13 @@ def test_autograd_functions_launch_the_backward_kernels(dev):
     assert all(t.grad is not None and float(t.grad.sum()) > 0 for t in texs)
 
 
-def _raster_faces(rng, n, f):
-    """Faces partly off screen, both windings, and degenerate ones (two
-    corners equal, or three in a line), z in [1, 3]."""
-    faces = rng.uniform(-1.2, 1.2, (n, f, 3, 3)).astype(np.float32)
-    faces[..., 2] = rng.uniform(1.0, 3.0, (n, f, 3))
-    faces[:, ::7, 2, :2] = faces[:, ::7, 1, :2]
-    faces[:, 3::11, 2, :2] = 2 * faces[:, 3::11, 1, :2] - faces[:, 3::11, 0, :2]
-    # small faces too, so that tiles hold many candidates of several sizes
-    c = rng.uniform(-1, 1, (n, f // 2, 1, 2))
-    faces[:, ::2, :, :2] = c + 0.1 * (faces[:, ::2, :, :2] - c)
-    return faces
-
-
 @pytest.mark.parametrize("s,n,f", [(96, 3, 300), (24, 1, 60), (64, 2, 700),
                                    (128, 1, 2000)])
 def test_rasterize_tiles_kernel(dev, s, n, f):
     """K7 against its plain version on the card, bitwise, at sides that
     are not multiples of 128 (tiles min(32, S) x min(128, S)), N up to 3;
     the card's binning equals the CPU's."""
-    faces = _raster_faces(np.random.default_rng(s + n), n, f)
+    faces = random_faces(np.random.default_rng(s + n), n, f)
     th, tw = min(32, s), min(128, s)
     table, ids, counts, overflow = bin_faces(_t(faces, dev), s, th, tw, 2048)
     n0 = rasterize_tiles.launches
@@ -623,6 +631,29 @@ def test_rasterize_tiles_kernel(dev, s, n, f):
     cpu = bin_faces(torch.from_numpy(faces), s, th, tw, 2048)
     for a, b in zip((table, ids, counts, overflow), cpu):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("s", [128, 512])
+def test_rasterize_tiles_kernel_degenerate_faces(dev, s):
+    """K7 with its cull bitwise equal to its plain
+    version on faces at the edge of exactness (synthetic.degenerate_faces:
+    segments on pixel columns and rows, points, slivers, vertices at pixel
+    centres and block boundaries, at +-1e12, +-inf and NaN, depth ties)
+    among random ones."""
+    rng = np.random.default_rng(s)
+    faces = np.concatenate([degenerate_faces(rng, s),
+                            random_faces(rng, 1, 600)], 1)
+    th, tw = min(32, s), min(128, s)
+    table, ids, counts, _ = bin_faces(_t(faces, dev), s, th, tw, 2048)
+    n0 = rasterize_tiles.launches
+    kd, ki = rasterize_tiles(table, ids, counts, s, th, tw, 0.0, 100.0)
+    kd2, ki2 = rasterize_tiles(table, ids, counts, s, th, tw, 0.0, 100.0)
+    assert rasterize_tiles.launches == n0 + 2
+    td, ti = rasterize_tiles_torch(table, ids, counts, s, th, tw, 0.0, 100.0)
+    torch.cuda.synchronize()
+    assert bool((ki >= 0).any())
+    assert torch.equal(ki, ti) and torch.equal(kd, td)
+    assert torch.equal(ki, ki2) and torch.equal(kd, kd2)
 
 
 def test_rasterize_tiled_kernel_overflow(dev):

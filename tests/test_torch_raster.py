@@ -8,6 +8,8 @@ outputs agree to a few ulps; the winners agree exactly on these inputs,
 which hold no depth tie closer than that.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,10 +20,16 @@ from rnr_tpu.ops.projection import interp_vertex_attr as j_interp
 from rnr_tpu.ops.projection import projection as j_projection
 from rnr_tpu.ops.projection import vertices_to_faces as j_vertices_to_faces
 from rnr_tpu.ops.rasterize_pallas import _bin_faces, rasterize_pallas
+from rnr_tpu_torch.ops import _build
 from rnr_tpu_torch.ops import projection as tproj
 from rnr_tpu_torch.ops import rasterize as tr
-from rnr_tpu_torch.ops.rasterize_cuda import (bin_faces, rasterize_tiled,
-                                              rasterize_tiles_torch)
+from rnr_tpu_torch.ops.rasterize_cuda import (BLOCK, WARP_W, _untile,
+                                              bin_faces, cull_keep,
+                                              rasterize_tiled,
+                                              rasterize_tiles_torch,
+                                              tile_pixels)
+from rnr_tpu_torch.synthetic import degenerate_faces, random_faces
+from chip_variants import K7_SHAPES
 
 torch.set_num_threads(2)
 
@@ -240,3 +248,161 @@ def test_offscreen_and_out_of_int32_faces_bin_as_in_jax():
 def test_tiled_rejects_a_size_the_tiles_do_not_divide():
     with pytest.raises(ValueError):
         rasterize_tiled(torch.zeros((1, 2, 3, 3)), 48, tile_h=32, tile_w=48)
+
+
+# ------------------------------------------------ K7's exact cull, emulated
+#
+# csrc/rasterize_tiles.cu drops a candidate for a block (and then for a
+# warp) when one of its edges fails at both end rows against both end
+# columns of the rectangle.  cull_keep computes that test in torch's f32
+# elementwise operations, which round as the card does under -fmad=false.
+# The walk below takes, per pixel, only the candidates its block and its
+# warp keep, in list order; it must give the plain version's bits, and no
+# dropped candidate may pass the inside test at any pixel of its
+# rectangle, checked pixel by pixel with the plain expressions.
+
+
+def _regions(th, tw, rh, rw):
+    """The rectangle (rh x rw, row-major, clipped) of each pixel of a
+    th x tw tile, pixels row-major."""
+    r = torch.arange(th)[:, None] // rh
+    c = torch.arange(tw)[None, :] // rw
+    return (r * -(-tw // rw) + c).reshape(-1)
+
+
+def _k7_emulate(table, ids, counts, s, th, tw, far, block):
+    """K7 with its cull in blocks of `block` (rows, columns, rows a warp):
+    (depth, idx) as rasterize_tiles_torch gives them, and the block and
+    warp keep masks of cull_keep."""
+    bh, bw, wh = block
+    kb = cull_keep(table, ids, counts, s, th, tw, bh, bw)
+    kw = cull_keep(table, ids, counts, s, th, tw, wh, WARP_W)
+    # [N, T, K, P]: the candidate survives the pixel's block and warp
+    keep = (kb[:, :, _regions(th, tw, bh, bw)]
+            & kw[:, :, _regions(th, tw, wh, WARP_W)]).transpose(2, 3)
+    n, n_t, _ = ids.shape
+    xi, yi, xp, yp = (a[None, :, None, :]
+                      for a in tile_pixels(s, th, tw, table.dtype, "cpu"))
+    rows = torch.arange(n).reshape(n, 1, 1)
+    depth = torch.full((n, n_t, th * tw), far)
+    idx = torch.full((n, n_t, th * tw), -1, dtype=torch.int32)
+    k_run = keep.shape[2]
+    for k0 in range(0, k_run, 16):
+        cid = ids[:, :, k0:min(k0 + 16, k_run)]
+        d = table[rows, torch.clamp(cid, min=0).long()][..., None, :]
+        x0, y0, z0 = d[..., 0], d[..., 1], d[..., 2]
+        x1, y1, z1 = d[..., 3], d[..., 4], d[..., 5]
+        x2, y2, z2 = d[..., 6], d[..., 7], d[..., 8]
+        inside = (((yp - y0) * (x1 - x0) >= (xp - x0) * (y1 - y0))
+                  & ((yp - y1) * (x2 - x1) >= (xp - x1) * (y2 - y1))
+                  & ((yp - y2) * (x0 - x2) >= (xp - x2) * (y0 - y2)))
+        w0 = torch.clamp(d[..., 9] * xi + d[..., 10] * yi + d[..., 11], 0, 1)
+        w1 = torch.clamp(d[..., 12] * xi + d[..., 13] * yi + d[..., 14], 0, 1)
+        w2 = torch.clamp(d[..., 15] * xi + d[..., 16] * yi + d[..., 17], 0, 1)
+        wsum = w0 + w1 + w2
+        wsum = torch.where(wsum == 0.0, 1e-30, wsum)
+        inv_zp = (w0 / z0 + w1 / z1 + w2 / z2) / wsum
+        zp = 1.0 / torch.where(inv_zp == 0.0, 1e-30, inv_zp)
+        ok = (inside & keep[:, :, k0:k0 + 16] & (zp > 0.0) & (zp < far))
+        # candidate by candidate, strict: the first of equal depths wins
+        for c in range(cid.shape[2]):
+            take = ok[:, :, c] & (zp[:, :, c] < depth)
+            depth = torch.where(take, zp[:, :, c], depth)
+            idx = torch.where(take, cid[:, :, c:c + 1], idx)
+    return (_untile(depth, s, th, tw), _untile(idx, s, th, tw)), kb, kw
+
+
+def _inside_any(table, ids, counts, s, th, tw, rh, rw):
+    """[N, T, R, K]: the candidate passes the plain inside test at some
+    pixel of rectangle R (rh x rw) of its tile."""
+    n, n_t, _ = ids.shape
+    k_run = int(counts.max())
+    _, _, xp, yp = (a[None, :, None, :]
+                    for a in tile_pixels(s, th, tw, table.dtype, "cpu"))
+    rows = torch.arange(n).reshape(n, 1, 1)
+    ny, nx = -(-th // rh), -(-tw // rw)
+    out = []
+    for k0 in range(0, k_run, 64):
+        cid = ids[:, :, k0:min(k0 + 64, k_run)]
+        d = table[rows, torch.clamp(cid, min=0).long()][..., None, :]
+        x0, y0, x1, y1, x2, y2 = (d[..., i] for i in (0, 1, 3, 4, 6, 7))
+        ins = (((yp - y0) * (x1 - x0) >= (xp - x0) * (y1 - y0))
+               & ((yp - y1) * (x2 - x1) >= (xp - x1) * (y2 - y1))
+               & ((yp - y2) * (x0 - x2) >= (xp - x2) * (y0 - y2)))
+        c = ins.shape[2]
+        grid = torch.zeros((n, n_t, c, ny * rh, nx * rw), dtype=torch.bool)
+        grid[..., :th, :tw] = ins.reshape(n, n_t, c, th, tw)
+        grid = grid.reshape(n, n_t, c, ny, rh, nx, rw).any(6).any(4)
+        out.append(grid.reshape(n, n_t, c, ny * nx).transpose(2, 3))
+    return torch.cat(out, dim=3)
+
+
+RASTER_CASES = {
+    "random24": (24, lambda r: random_faces(r, 1, 60), 2048),
+    "random64": (64, lambda r: random_faces(r, 2, 700), 2048),
+    "random96": (96, lambda r: random_faces(r, 3, 300), 2048),
+    "random128": (128, lambda r: random_faces(r, 1, 2000), 2048),
+    "degenerate64": (64, lambda r: degenerate_faces(r, 64), 2048),
+    "degenerate128": (128, lambda r: np.concatenate(
+        [degenerate_faces(r, 128), random_faces(r, 1, 400)], 1), 2048),
+    "overflow32": (32, lambda r: np.stack(
+        [np.concatenate([np.array([[-0.9, -0.9], [0.9, -0.9], [0.0, 0.9]]),
+                         np.full((3, 1), z)], 1) for z in np.linspace(1, 2, 8)]
+    )[None].astype(np.float32), 4),
+}
+_BINNED: dict = {}
+
+
+def _binned(case):
+    if case not in _BINNED:
+        s, make, cap = RASTER_CASES[case]
+        faces = make(np.random.default_rng(len(case) + s))
+        th, tw = min(32, s), min(128, s)
+        table, ids, counts, _ = bin_faces(_t(faces), s, th, tw, cap)
+        plain = rasterize_tiles_torch(table, ids, counts, s, th, tw,
+                                      far=100.0)
+        _BINNED[case] = (s, th, tw, table, ids, counts, plain, {})
+    return _BINNED[case]
+
+
+# K7's block shape and the others that chip_variants.py times, each
+# (block rows, block columns, warp rows)
+@pytest.mark.parametrize("block", K7_SHAPES)
+@pytest.mark.parametrize("case", list(RASTER_CASES))
+def test_k7_cull_is_exact(case, block):
+    """K7's cull (cull_keep over the tile's blocks, then the warps'
+    warp_h x 32 rectangles) and its walk over the survivors give the plain
+    version's depth and face index bit for bit, and every (rectangle,
+    candidate) pair it drops fails the inside test at every pixel of the
+    rectangle."""
+    s, th, tw, table, ids, counts, plain, inside = _binned(case)
+    (depth, idx), kb, kw = _k7_emulate(table, ids, counts, s, th, tw, 100.0,
+                                       block)
+    assert torch.equal(idx, plain[1]) and torch.equal(depth, plain[0])
+    assert bool((plain[1] >= 0).any())
+    bh, bw, wh = block
+    for rect in ((bh, bw), (wh, WARP_W)):
+        if rect not in inside:
+            inside[rect] = _inside_any(table, ids, counts, s, th, tw, *rect)
+    kb_any = inside[(bh, bw)]
+    kw_any = inside[(wh, WARP_W)]
+    k_run = int(counts.max())
+    live = ((torch.arange(k_run) < counts[..., None])
+            & (ids[:, :, :k_run] >= 0))[:, :, None]
+    for keep, inside in ((kb, kb_any), (kw, kw_any)):
+        assert not bool((inside & live & ~keep).any())
+    if case != "overflow32":   # not vacuous: the cull drops pairs
+        assert bool((live & ~kw).any())
+        assert bool((live & ~kb).any()) or (bh >= th and bw >= tw)
+
+
+def test_block_is_the_kernels_shape():
+    """BLOCK, the shape the cull's emulation and chip_smoke.py's counts
+    take for K7's, is the one csrc/rasterize_tiles.cu builds, and one of
+    the shapes tested above; every shape is made of whole warps of
+    WARP_W columns, as the kernel's lanes take one column each."""
+    src = (_build.CSRC / "rasterize_tiles.cu").read_text()
+    built = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src)[1])
+                  for k in ("BH", "BW", "WH"))
+    assert built == BLOCK and BLOCK in K7_SHAPES and WARP_W == 32
+    assert all(bh % wh == 0 and bw % WARP_W == 0 for bh, bw, wh in K7_SHAPES)

@@ -399,6 +399,42 @@ def test_k5_scaled_ladder_matches_jax_interpret(lmax, dtype):
         assert bool((g[masked] == 0).all())
 
 
+@pytest.mark.parametrize("lmax", [2, 4, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5b_scaled_backward_matches_jax_interpret(lmax, dtype):
+    """K5b's arithmetic (test_torch_sh.k5b_emulate in f32: the order split,
+    T_9 and T_10 from the stored T_8, the per-order fold and d coeff summed
+    per lane, lane and block) on the fan's materialised rays, masked
+    pixels included, against jax.vjp of rnr_tpu's sh_shade (Pallas,
+    interpret mode): d coeff within 1e-4 x max + 1e-5; d rays_lt in f32
+    within 1e-4 x max + 1e-5 and in bf16 within 2^-7 x max, as
+    chip_smoke.py holds the kernel to its plain version; masked pixels'
+    d rays_lt exactly 0."""
+    from test_torch_sh import k5b_emulate
+    rng = np.random.default_rng(40 + lmax)
+    rd, lt, al, cf = _shade_inputs(rng, 16, lmax, dtype)
+    masked = al[..., 0] == 0
+    assert bool(masked.any())
+    _, jvjp = jax.vjp(
+        lambda lt_, cf_: jax_sh_shade(_j(rd), lt_, jnp.asarray(al.numpy()),
+                                      cf_, lmax, 6, True),
+        _j(lt), jnp.asarray(cf.numpy()))
+    gs, gd = (rng.standard_normal((1, 16, 16, 3)).astype(np.float32)
+              for _ in range(2))
+    jlt, jcf = jvjp((jnp.asarray(gs), jnp.asarray(gd)))
+    tlt, tcf = k5b_emulate(rd, lt, al, cf, torch.from_numpy(gs),
+                           torch.from_numpy(gd), lmax, 6, torch.float32)
+    assert tlt.dtype == dtype and _max(jcf) > 0.1
+    np.testing.assert_allclose(tcf.numpy(), np.asarray(jcf), rtol=0,
+                               atol=1e-4 * _max(jcf) + 1e-5)
+    want = np.asarray(jlt.astype(jnp.float32))
+    got = tlt.float().numpy()
+    tol = 1e-4 * _max(want) + 1e-5 if dtype == torch.float32 else (
+        2 ** -7 * _max(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    assert bool((tlt[masked] == 0).all())
+
+
 def test_sh_shade_autograd_runs_the_plain_backward_on_cpu():
     rng = np.random.default_rng(11)
     rd, lt, al, cf = _shade_inputs(rng, 8, 2, torch.bfloat16)

@@ -16,9 +16,10 @@ from rnr_tpu.models.rays import RaySampler as JaxRaySampler
 from rnr_tpu.ops.sh import evaluate_sh_basis as jax_basis
 from rnr_tpu.ops.sh_pallas import sh_shade_fan as jax_sh_shade_fan
 from rnr_tpu_torch.models.rays import RaySampler, build_fan_channels
-from rnr_tpu_torch.ops.sh import evaluate_sh_basis, ladder_constants
+from rnr_tpu_torch.ops.sh import evaluate_sh_basis
 from rnr_tpu_torch.ops.sh_cuda import (fan_basis_scale, fan_bwd_partials,
                                        fan_coeff, sh_shade_fan,
+                                       sh_shade_bwd_torch,
                                        sh_shade_fan_bwd_torch,
                                        sh_shade_fan_torch, sh_shade_torch)
 from rnr_tpu_torch.synthetic import build_batch
@@ -41,64 +42,6 @@ def test_evaluate_sh_basis_lmax10_matches_jax():
     assert got.shape == (500, 121)
     # same f32 ops in the same order; the lmax-10 values reach ~2
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
-
-
-def _kernel_ladder(lmax, d):
-    """K5b's ladder walk (csrc/sh_common.cuh's unscaled ladder), in NumPy
-    f32: it consumes `ladder_constants` in order and advances the azimuth
-    with m."""
-    f = np.float32
-    lad = [f(v) for v in ladder_constants(lmax)]
-    x, y, z = (d[..., i].astype(f) for i in range(3))
-    ct = np.clip(z, -1, 1)
-    st = np.sqrt(np.maximum(f(1) - ct * ct, 0))
-    r2 = x * x + y * y
-    inv = np.where(r2 > 0, 1 / np.sqrt(np.where(r2 > 0, r2, 1)), 0).astype(f)
-    c1 = np.where(r2 > 0, x * inv, 1).astype(f)
-    s1 = (y * inv).astype(f)
-    out = np.zeros(d.shape[:-1] + ((lmax + 1) ** 2,), f)
-    sqrt2 = f(math.sqrt(2.0))
-
-    def put(l, m, q, cm, sm):
-        if m == 0:
-            out[..., l * l + l] = q
-        else:
-            out[..., l * l + l + m] = sqrt2 * q * cm
-            out[..., l * l + l - m] = sqrt2 * q * sm
-
-    k = 0
-    cm, sm = np.ones_like(x), np.zeros_like(x)
-    q_diag = np.full_like(x, f(1 / math.sqrt(4 * math.pi)))
-    for m in range(lmax + 1):
-        if m == 1:
-            cm, sm = c1, s1
-        elif m > 1:
-            cm, sm = cm * c1 - sm * s1, sm * c1 + cm * s1
-        if m > 0:
-            q_diag = lad[k] * st * q_diag
-            k += 1
-        put(m, m, q_diag, cm, sm)
-        if m < lmax:
-            q_lm1, q_l = q_diag, lad[k] * ct * q_diag
-            k += 1
-            put(m + 1, m, q_l, cm, sm)
-            for l in range(m + 2, lmax + 1):
-                a, b = lad[k], lad[k + 1]
-                k += 2
-                q_l, q_lm1 = a * (ct * q_l - b * q_lm1), q_l
-                put(l, m, q_l, cm, sm)
-    assert k == len(lad)
-    return out
-
-
-@pytest.mark.parametrize("lmax", [4, 10])
-def test_kernel_ladder_table_reproduces_basis(lmax):
-    """The constant table the CUDA kernel reads, walked as the kernel
-    walks it, gives the JAX basis (f32, 2e-6)."""
-    d = _unit(np.random.default_rng(1), (300,))
-    want = np.asarray(jax_basis(lmax, jnp.asarray(d)))
-    np.testing.assert_allclose(_kernel_ladder(lmax, d), want, rtol=0,
-                               atol=2e-6)
 
 
 def _fan_inputs(rng, size):
@@ -198,8 +141,8 @@ def _scaled_orders(lmax, d):
 
 def _scaled_basis(lmax, d):
     """basis[b] = scale[b] * r(l, m) * T_m, as K1b sums it into d coeff."""
-    scale = torch.tensor(fan_basis_scale(lmax), dtype=torch.float32)
-    out = torch.zeros(d.shape[:-1] + ((lmax + 1) ** 2,))
+    scale = torch.tensor(fan_basis_scale(lmax), dtype=d.dtype)
+    out = torch.zeros(d.shape[:-1] + ((lmax + 1) ** 2,), dtype=d.dtype)
     for m, tc, ts, rs in _scaled_orders(lmax, d):
         for i, r in enumerate(rs):
             l = m + i
@@ -401,3 +344,166 @@ def test_k5_scaled_forward_on_materialised_rays(lmax, r_spec, dtype):
         assert float((g - w_).abs().max()) <= (
             1e-4 * float(w_.abs().max()) + 1e-5)
         assert bool((g[masked] == 0).all())
+
+
+# csrc/sh_bwd.cuh: warps a block splits the orders between, pixels a
+# block, even powers a K5b chunk stores at most (T_2 .. T_8)
+K5B_WARPS = 4
+K5B_PIXELS = 64
+K5B_POWERS = 4
+
+
+def _order_owner(lmax):
+    """csrc/sh_bwd.cuh order_owner: the warp of each order, taken by
+    falling cost (the lowest order on a tie), each to the least loaded
+    warp so far (the lowest on a tie)."""
+    def cost(m):
+        return 8 * (lmax + 1) if m == 0 else 14 * (lmax + 1 - m) + 8
+    load, owner = [0] * K5B_WARPS, {}
+    for _ in range(lmax + 1):
+        m = max((o for o in range(lmax + 1) if o not in owner),
+                key=lambda o: (cost(o), -o))
+        w = min(range(K5B_WARPS), key=lambda i: (load[i], i))
+        owner[m] = w
+        load[w] += cost(m)
+    return owner
+
+
+def _next_power(tc, ts, t1c, t1s):
+    return tc * t1c - ts * t1s, tc * t1s + ts * t1c
+
+
+def k5b_emulate(rays_dir, rays_lt, alpha, coeff, gs, gd, lmax, r_spec,
+                dtype):
+    """K5b (csrc/sh_shade.cu on csrc/sh_bwd.cuh) in `dtype`, in its order of
+    operations: (d rays_lt in rays_lt's dtype, d coeff).
+
+    Per pixel gsel = g * (alpha / r_spec) (or / max(R - r_spec, 1)); per
+    ray the direction as stored, ct and T_1, the build's chain of products
+    storing T_2 .. T_2k (k = min(lmax / 2, 4)), and ltg = rays_lt * gsel.
+    Each order m takes T_m from the stored T_2k below it by the same chain
+    (T_9 and T_10 from T_8), walks its ladder r(l, m) with the scaled
+    coefficients and folds its radiance part into its warp's (order_owner:
+    rad = Tc A + (Ts B + rad), orders ascending); d rays_lt = the warps'
+    parts added in warp order, times gsel.  d coeff: each lane of a block
+    of 64 pixels sums r(l, m) * (T_m * ltg) over its pixels lane and lane +
+    32, ray by ray; the 32 lanes are added in lane order into the block's
+    partial; the partials are added per lane over blocks lane, lane + 32,
+    ... and then by an xor tree, as sum_fan_partials does, and scaled."""
+    r_total = rays_dir.shape[-1]
+    n_pix = alpha.numel()
+    blocks = -(-n_pix // K5B_PIXELS)
+    pad = blocks * K5B_PIXELS - n_pix
+
+    def flat(t, tail):   # [n_pix, *tail] in dtype, zero past the pixels
+        t = t.reshape((n_pix,) + tail).to(dtype)
+        return torch.cat([t, t.new_zeros((pad,) + tail)])
+
+    rd = flat(rays_dir, (3, r_total))
+    lt = flat(rays_lt, (r_total, 3))
+    al = flat(alpha, ())
+    gsel_s = flat(gs, (3,)) * (al / r_spec)[:, None]
+    gsel_d = flat(gd, (3,)) * (al / max(r_total - r_spec, 1))[:, None]
+    cf_s = fan_coeff(coeff, lmax).to(dtype)
+    owner = _order_owner(lmax)
+    npow = min(lmax // 2, K5B_POWERS)
+    nb = (lmax + 1) ** 2
+    n_all = blocks * K5B_PIXELS
+    dlt = torch.empty((n_all, r_total, 3), dtype=rays_lt.dtype)
+    dc = torch.zeros((blocks, 32, nb, 3), dtype=dtype)
+    one, zero = torch.ones(n_all, dtype=dtype), torch.zeros(n_all,
+                                                            dtype=dtype)
+    for r in range(r_total):
+        x, y, z = rd[:, 0, r], rd[:, 1, r], rd[:, 2, r]
+        ct = z.clamp(-1.0, 1.0)
+        st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+        r2 = x * x + y * y
+        inv = torch.where(r2 > 0, torch.rsqrt(torch.where(r2 > 0, r2, 1.0)),
+                          0.0)
+        t1c = torch.where(r2 > 0, st * (x * inv), st)
+        t1s = st * (y * inv)
+        gsel = gsel_s if r < r_spec else gsel_d
+        ltg = lt[:, r] * gsel
+        stored, tc, ts = {}, t1c, t1s
+        for m in range(2, 2 * npow + 1):
+            tc, ts = _next_power(tc, ts, t1c, t1s)
+            if m % 2 == 0:
+                stored[m // 2] = (tc, ts)
+        rad = [torch.zeros((n_all, 3), dtype=dtype)
+               for _ in range(K5B_WARPS)]
+        contrib = torch.zeros((n_all, nb, 3), dtype=dtype)
+        for m in range(lmax + 1):
+            if m < 2:
+                tc, ts = (one, zero) if m == 0 else (t1c, t1s)
+            else:
+                k = min(m // 2, npow)
+                tc, ts = stored[k]
+                for _ in range(2 * k, m):
+                    tc, ts = _next_power(tc, ts, t1c, t1s)
+            cl, sl = tc[:, None] * ltg, ts[:, None] * ltg
+            a = cf_s[m * m + 2 * m].expand(n_all, 3)
+            b = cf_s[m * m].expand(n_all, 3)
+            contrib[:, m * m + 2 * m] = cl
+            if m > 0:
+                contrib[:, m * m] = sl
+            r0, r1 = one, ct
+            for l in range(m + 1, lmax + 1):
+                if l > m + 1:
+                    r0, r1 = r1, ct * r1 - _rec_k(l, m) * r0
+                rv = r1[:, None]
+                a = cf_s[l * l + l + m] * rv + a
+                contrib[:, l * l + l + m] = rv * cl
+                if m > 0:
+                    b = cf_s[l * l + l - m] * rv + b
+                    contrib[:, l * l + l - m] = rv * sl
+            w = owner[m]
+            rad[w] = (rad[w] + a if m == 0
+                      else tc[:, None] * a + (ts[:, None] * b + rad[w]))
+        total = rad[0]
+        for w in range(1, K5B_WARPS):
+            total = total + rad[w]
+        dlt[:, r] = (total * gsel).to(rays_lt.dtype)
+        halves = contrib.reshape(blocks, 2, 32, nb, 3)
+        dc = dc + halves[:, 0]
+        dc = dc + halves[:, 1]
+    part = torch.zeros((blocks, nb, 3), dtype=dtype)
+    for lane in range(32):
+        part = part + dc[:, lane]
+    acc = torch.zeros((32, nb, 3), dtype=dtype)
+    for k in range(blocks):
+        acc[k % 32] = acc[k % 32] + part[k]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[torch.arange(32) ^ o]
+    scale = torch.tensor(fan_basis_scale(lmax), dtype=dtype)
+    return (dlt[:n_pix].reshape(rays_lt.shape), acc[0] * scale[:, None])
+
+
+@pytest.mark.parametrize("lmax", list(range(11)))
+@pytest.mark.parametrize("r_spec", [1, 13, 26])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5b_scaled_backward_on_materialised_rays(lmax, r_spec, dtype):
+    """K5b's order of operations (k5b_emulate: K1b's backward on stored
+    rays, T_9 and T_10 from the stored T_8, the per-order fold summed in
+    warp order, d coeff summed per lane, lane order and block order) on
+    stored bf16 rays of 13 + 13 rays over 100 pixels (two blocks, the
+    second partly dead): non-unit directions, the poles and zero
+    directions at masked pixels.  Against sh_shade_bwd_torch within
+    kernels_shade's tolerances (d coeff 1e-4 x max, d rays_lt 2^-7 x max
+    after the bf16 rounding); masked pixels' d rays_lt exactly 0."""
+    rng = np.random.default_rng(1000 + 100 * lmax + r_spec)
+    rd, lt, al = _k5_rays(rng, 10, 26)
+    coeff = torch.from_numpy((0.3 * rng.standard_normal(
+        ((lmax + 1) ** 2, 3))).astype(np.float32))
+    gs, gd = (torch.from_numpy(rng.standard_normal((1, 10, 10, 3)).astype(
+        np.float32)) for _ in range(2))
+    dlt, dcoeff = k5b_emulate(rd, lt, al, coeff, gs, gd, lmax, r_spec, dtype)
+    want_l, want_c = sh_shade_bwd_torch(rd, lt, al, coeff, gs, gd, lmax,
+                                        r_spec)
+    assert dlt.shape == want_l.shape and dcoeff.shape == want_c.shape
+    assert dlt.dtype == want_l.dtype
+    assert float((dcoeff.float() - want_c).abs().max()) <= 1e-4 * float(
+        want_c.abs().max())
+    assert float((dlt.float() - want_l.float()).abs().max()) <= 2 ** -7 * (
+        float(want_l.float().abs().max()))
+    masked = al[..., 0] == 0
+    assert bool((dlt[masked] == 0).all())
