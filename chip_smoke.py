@@ -25,7 +25,15 @@ Phases (each failure raises, so the script exits non-zero):
            shows, and K5b the output pinned in K5B_DIGEST; K1b also runs
            at batch 2, and K1, K1b, K5 and K5b report queued and host
            times and f32 T-ops/s beside the median.  K1, K1b, K5, K5b,
-           K3b and P1 run twice and must agree bit for bit; K2b (f32
+           K3b and P1 run twice and must agree bit for bit; K2 must give
+           the output pinned in K2_DIGEST (the first design's, bit for
+           bit) and also runs at batch 2, with every pixel on the corner
+           texel, with a uv seam inside its pixel tiles and on a view of
+           the G-buffer phase's sphere, each twice bit-equal, with
+           queued, host and C-entry times and a bound from the texels its
+           taps touch (the every-texel figure beside it), the wrapper's
+           host time with and without the autograd Function, four
+           F.grid_sample calls timed beside it as a yardstick; K2b (f32
            atomics) reports its run-to-run difference and also runs at
            batch 2, with every pixel on the corner texel and
            with a uv seam inside its pixel tiles.  K4 runs at V 7500 and C
@@ -143,6 +151,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from rnr_tpu_torch.ops import _build  # noqa: E402
+from rnr_tpu_torch.ops.backend import check_launch  # noqa: E402
 from rnr_tpu_torch.ops.conv4_cuda import (convt4, convt4_fwd,  # noqa: E402
                                           convt4_torch, convt4s, convt4s_fwd,
                                           down4, down4_fwd, down4_torch,
@@ -171,11 +180,13 @@ from rnr_tpu_torch.ops.sh_cuda import (sh_shade, sh_shade_bwd,  # noqa: E402
                                        sh_shade_fan_bwd,
                                        sh_shade_fan_bwd_torch,
                                        sh_shade_fan_torch, sh_shade_torch)
-from rnr_tpu_torch.ops.texture_cuda import (level_coords,  # noqa: E402
+from rnr_tpu_torch.ops.texture_cuda import (MipmapSampleFn,  # noqa: E402
+                                            level_coords,
                                             mipmap_sample,
                                             mipmap_sample_torch,
                                             mipmap_scatter,
-                                            mipmap_scatter_torch)
+                                            mipmap_scatter_torch,
+                                            touched_texels)
 
 KERNELS = {
     "sh_shade_fan": dict(
@@ -314,6 +325,13 @@ K1_DIGESTS = {
 # shared backward, constant bank or header that moves K5b shows
 K5B_DIGEST = (
     "d1aeec12f303a4172529a5050f1090754f3d69eb2bcfcb7bfa0484e1d79d91a5")
+
+# K2 at kernels_texture's G-buffer case, sha256 of its output's bytes
+# (csrc/mipmap_gather.cu, NVIDIA H100 80GB HBM3; the first design's output
+# bit for bit: each level's taps as FMAs in tap order, then the levels'
+# sums in level order), so that a change to K2's order of sums shows
+K2_DIGEST = (
+    "e6c70f0caf333a71a140c559faa8a7c5732e280c1a47ee1deb64061e15f8b614")
 
 # the relighting routes of rnr_tpu's test_rnr: (model variant, SH fit,
 # launches per frame); the variant's rays overrides of the config
@@ -508,6 +526,21 @@ def texture_work(n_pix: int, ch: int, sizes, taps: int):
     side, every level once on the other; 2 ops per channel per tap."""
     nbytes = n_pix * (2 * 4 + ch * 4) + sum(s * s * ch * 4 for s in sizes)
     return bound(nbytes, taps * ch * 2, F32_FLOPS)
+
+
+def gather_work(uv: torch.Tensor, ch: int, sizes) -> dict:
+    """K2's floor on uv: uv read once, the output written once and each
+    texel that the taps address, of weight 0 or not, read once
+    (texture_cuda.touched_texels); 2 ops per channel per tap.  Beside it
+    as all_texels_bound_ms texture_work's figure, which charges every
+    texel of every level and so is no floor."""
+    n_pix = uv.numel() // 2
+    taps = n_pix * 4 * len(sizes)
+    touched = touched_texels(uv, sizes)
+    work = bound(n_pix * (2 + ch) * 4 + sum(touched) * ch * 4,
+                 taps * ch * 2, F32_FLOPS)
+    return dict(work, touched_texels=touched, all_texels_bound_ms=(
+        texture_work(n_pix, ch, sizes, taps)["bound_ms"]))
 
 
 def conv_work(kind: str, n_pix: int, c: int, o: int):
@@ -878,28 +911,61 @@ def kernels_shade(rec: dict, b: dict) -> None:
 
 def kernels_texture(rec: dict, b: dict, rng) -> None:
     """K2 and K2b: the G-buffer's uv (about half the frame uncovered, at
-    uv = 0) over 4 levels 512..64 x 24 channels; K2b also at batch 2, with
-    every pixel on the corner texel and with a uv seam inside the pixel
-    tiles.  K2b's GB/s, queued and host times beside its median."""
+    uv = 0) over 4 levels 512..64 x 24 channels.  K2 also at batch 2, with
+    every pixel on the corner texel, with a uv seam inside the pixel tiles
+    and on one view of the G-buffer phase's sphere; on each case single,
+    queued and host times, twice bit-equal, its bound from the texels its
+    taps touch; on the G-buffer case also the digest pinned in K2_DIGEST,
+    the host time a call through the autograd Function (a training step's
+    way) beside the wrapper's without it (an eval frame's) and, as a
+    yardstick, four F.grid_sample calls summed.  K2b also at
+    batch 2, on the corner and the seam; its GB/s, queued and host times
+    beside its median."""
     texs = [torch.from_numpy((0.5 + 0.5 * rng.standard_normal(
         (s, s, 24))).astype(np.float32)).to(DEV) for s in TEX_SIZES]
     uv = b["uv_map"]
     n_pix = uv.shape[0] * uv.shape[1] * uv.shape[2]
-    k = mipmap_sample(texs, uv)
-    t = mipmap_sample_torch(texs, uv)
-    torch.cuda.synchronize()
-    scale = float(t.abs().max())
-    err = float((k - t).abs().max())
-    tol = 1e-5 * scale + 1e-6   # f32 both sides; FMA contraction only
-    log(f"[kernels] mipmap_gather {IMG}^2 4 levels x 24: max abs err "
-        f"{err:.3g}, rel {err / scale:.3g} (max |ref| {scale:.3g}, "
-        f"tol {tol:.3g})")
-    check("mipmap_gather", err, tol)
+    r, k = gather_case(texs, uv, "G-buffer uv, b1")
+    got = digest(k)
+    log(f"[kernels] mipmap_gather G-buffer uv, b1: output sha256 {got}")
+    if got != K2_DIGEST:
+        raise AssertionError(f"mipmap_gather: output digest {got} differs "
+                             f"from K2_DIGEST {K2_DIGEST}")
+    # the yardstick: torch's bilinear sampler, one call a level (NCHW,
+    # zero padding, align_corners: texel centres at -1 and 1), summed
+    nchw = [t.permute(2, 0, 1)[None].contiguous() for t in texs]
+    grid = torch.stack([2 * uv[..., 0] - 1, 1 - 2 * uv[..., 1]], -1)
+
+    def grid_sample_sum():
+        out = None
+        for t in nchw:
+            s = F.grid_sample(t, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=True)
+            out = s if out is None else out + s
+        return out
+
+    # the autograd Function's own host time: the wrapper called through it
+    # and without it, alternated, the median of three runs of each
+    with_fn, without_fn = [], []
+    for _ in range(3):
+        without_fn.append(host_us(lambda: mipmap_sample(texs, uv)))
+        with_fn.append(host_us(lambda: MipmapSampleFn.apply(uv, *texs)))
+    fn_us, no_fn_us = float(np.median(with_fn)), float(np.median(without_fn))
+    log(f"[kernels] mipmap_gather G-buffer uv, b1: host {fn_us:.1f} us a "
+        f"call through the autograd Function, {no_fn_us:.1f} us without it")
     rec["mipmap_gather"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: mipmap_sample(texs, uv)),
-        plain_ms=cuda_ms(lambda: mipmap_sample_torch(texs, uv)),
-        library_ms=None,
-        **texture_work(n_pix, 24, TEX_SIZES, n_pix * 4 * len(TEX_SIZES)))
+        r, plain_ms=cuda_ms(lambda: mipmap_sample_torch(texs, uv)),
+        library_ms=None, grid_sample_ms=cuda_ms(grid_sample_sum),
+        function_host_us=fn_us, no_function_host_us=no_fn_us,
+        digest=got, cases={})
+    for tag, u in (("G-buffer uv, b2", _gbuffer(IMG, 2)["uv_map"]),
+                   ("every pixel on the corner texel", torch.zeros_like(uv)),
+                   ("uv seam 0.02 | 0.98 at column 259", seam_uv(uv)),
+                   ("a view of the G-buffer phase's sphere", sphere_view_uv())):
+        rec["mipmap_gather"]["cases"][tag] = gather_case(texs, u, tag)[0]
+    log(f"[kernels] mipmap_gather G-buffer uv, b1: grid_sample x 4 summed "
+        f"{rec['mipmap_gather']['grid_sample_ms']:.4f} ms (yardstick)")
+    del k
 
     g = torch.from_numpy(rng.standard_normal((1, IMG, IMG, 24)).astype(
         np.float32)).to(DEV)
@@ -931,6 +997,67 @@ def kernels_texture(rec: dict, b: dict, rng) -> None:
         log(f"[kernels] mipmap_scatter {tag}: {ms:.4f} ms, "
             f"{scatter_bytes(n, 24) / ms / 1e6:.1f} GB/s")
     torch.cuda.synchronize()
+
+
+def gather_case(texs, uv: torch.Tensor, tag: str):
+    """K2 against its plain version on uv over TEX_SIZES (NaN where it is
+    NaN; else f32 both sides, FMA contraction only), twice bit-equal;
+    single, queued and host times, the C entry's own queued time
+    (kernel_queued_ms: where the wrapper's host time exceeds the kernel's,
+    queued wrapper calls time the host) and the bound (gather_work).
+    Returns the record and K2's output."""
+    k = mipmap_sample(texs, uv)
+    k2 = mipmap_sample(texs, uv)
+    t = mipmap_sample_torch(texs, uv)
+    torch.cuda.synchronize()
+    if not torch.equal(k.isnan(), t.isnan()):
+        raise AssertionError(f"mipmap_gather {tag}: NaN elsewhere than in "
+                             "the plain version")
+    if not torch.equal(k.nan_to_num(), k2.nan_to_num()):
+        raise AssertionError(f"mipmap_gather {tag}: two runs differ")
+    scale = float(t.nan_to_num().abs().max())
+    err = float((k.nan_to_num() - t.nan_to_num()).abs().max())
+    tol = 1e-5 * scale + 1e-6   # f32 both sides; FMA contraction only
+    check(f"mipmap_gather {tag}", err, tol)
+    r = dict(max_abs_err=err, bitwise_reproducible=True,
+             ms=cuda_ms(lambda: mipmap_sample(texs, uv)),
+             queued_ms=queued_ms(lambda: mipmap_sample(texs, uv)),
+             host_us=host_us(lambda: mipmap_sample(texs, uv)),
+             kernel_queued_ms=gather_entry_queued_ms(texs, uv),
+             **gather_work(uv, 24, TEX_SIZES))
+    log(f"[kernels] mipmap_gather {tag} -> 4 levels x 24: max abs err "
+        f"{err:.3g}, rel {err / scale:.3g} (tol {tol:.3g}); single "
+        f"{r['ms']:.4f} ms, queued {r['queued_ms']:.4f} ms, host "
+        f"{r['host_us']:.1f} us, C entry queued "
+        f"{r['kernel_queued_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; texels touched {r['touched_texels']}), every "
+        f"texel {r['all_texels_bound_ms']:.4f} ms; twice bit-equal")
+    return r, k
+
+
+def gather_entry_queued_ms(texs, uv: torch.Tensor) -> float:
+    """K2's C entry alone, called 20 times back to back between two CUDA
+    events over TEX_SIZES (one launch, nothing counted): the kernel's
+    device time per call, without the wrapper's host time."""
+    n, h, w, _ = uv.shape
+    out = torch.empty((n, h, w, 24), device=DEV)
+    f = _build.fn("mipmap_gather", "rnr_mipmap_gather", 6, 10)
+    args = (*[t.data_ptr() for t in texs], uv.data_ptr(), out.data_ptr(),
+            *TEX_SIZES, len(TEX_SIZES), n, h, w, 24, 0,
+            torch.cuda.current_stream().cuda_stream)
+    return queued_ms(lambda: check_launch(f(*args), "mipmap_gather"))
+
+
+def sphere_view_uv() -> torch.Tensor:
+    """The uv map of the first view of the G-buffer phase's sphere (K7
+    and the G-buffer's plain torch on the card)."""
+    from rnr_tpu_torch.drivers import test_rnr
+    from rnr_tpu_torch.ops.gbuffer import make_mesh_buffers, render_gbuffer
+    from rnr_tpu_torch.synthetic import camera_ring, sphere_mesh
+    mb = make_mesh_buffers(sphere_mesh(*MESH_LAT_LON))
+    gb = test_rnr._gbuffer(render_gbuffer, mb, camera_ring(IMG, N_VIEWS)[0],
+                           IMG)
+    return gb["uv_map"].contiguous()
 
 
 def scatter_bytes(n_pix: int, ch: int) -> int:

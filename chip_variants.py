@@ -1,4 +1,5 @@
-"""Time K4 (csrc/stratified_knn.cu), K2b (csrc/mipmap_scatter.cu), K1 and
+"""Time K4 (csrc/stratified_knn.cu), K2 (csrc/mipmap_gather.cu), K2b
+(csrc/mipmap_scatter.cu), K1 and
 K1b (csrc/sh_fan.cu), K5 and K5b (csrc/sh_shade.cu), K6a and K6b
 (csrc/conv4x4.cu), K7 (csrc/rasterize_tiles.cu), K8c and K8d
 (csrc/conv4x4_slab.cu), K8a and K8b (csrc/conv3x3_slab.cu,
@@ -10,6 +11,7 @@ parts of each kernel switched off, to see which part bounds it.
     python3 chip_variants.py --kernels K6,K8 --csrc OLD/rnr_tpu_torch/csrc
     python3 chip_variants.py --kernels K8s --csrc OLD/rnr_tpu_torch/csrc
     python3 chip_variants.py --kernels K5b,K7 --csrc OLD/rnr_tpu_torch/csrc
+    python3 chip_variants.py --kernels K2 --csrc OLD/rnr_tpu_torch/csrc
 
 Each variant is the real source with one textual switch applied, written
 to build/rnr_tpu_torch/variants/ and built with the flags of
@@ -26,6 +28,18 @@ K4:  real; no_argmax (the products, then nothing: the epilogue's scores,
      stores); no_pdl (the kernel launched after the first pass ends, not
      while it runs); no_products (the epilogue on accumulators set
      without wgmma).
+K2:  real (8 x 4 warp tiles, 2 x 4 warps a block, taps once a pixel
+     handed out by shuffles, every tap read through L1, streaming
+     stores); no_store (no output stores); taps_only (coordinates,
+     weights and shuffles, no texel reads); cached_stores (plain
+     stores); one_d (32 x 1 warp tiles: the first design's thread order
+     with the taps shared);
+     tile_16x2, tile_4x8; warps4, warps16, warps32 (2 x 2, 4 x 4, 4 x 8
+     warps a block).  Also on the seam and a view of the sphere of
+     chip_smoke.py, and at b2; the real build prints a digest of each
+     case's output, and the first design (one thread per pixel and 4
+     channels, its own arguments) has real only, so --csrc of the parent
+     shows the outputs bit for bit unchanged.
 K2b: real; no_atomics (every reduction into the gradient skipped);
      no_peel (where a tile's box overflows, every lane sends its own
      taps: no group summed first); no_sums (the per-tap work gone: no
@@ -171,6 +185,112 @@ K2B_VARIANTS = {
         ("  for (int l = 0; l < lv.n; ++l) {",
          "  if (u == 1.2345e-30f) gs[0] = vv;\n  for (int l = 0; l < 0; ++l) {")],
 }
+
+
+# K2 (csrc/mipmap_gather.cu): the design of warp tiles, its variants by
+# textual switch; the first design (one thread per pixel
+# and 4 channels) has real only, with its own argument list
+_K2_SHAPE = ("constexpr int TW = 8, TH = 4;", "constexpr int WX = 2, WY = 4;")
+
+
+def _k2_shape(tw, th, wx, wy) -> list:
+    return [(_K2_SHAPE[0], f"constexpr int TW = {tw}, TH = {th};"),
+            (_K2_SHAPE[1], f"constexpr int WX = {wx}, WY = {wy};")]
+
+
+K2_VARIANTS = {
+    "real": [],
+    "no_store": [("    if (ok) Vec<VEC>::store(o, total);",
+                  "    if (ok && total[0] == 1.2345e-30f) "
+                  "Vec<VEC>::store(o, total);")],
+    "taps_only": [
+        ("  static __device__ __forceinline__ float ld(const float* p) {",
+         "  static __device__ __forceinline__ float fake(int c) "
+         "{ return __int_as_float(c); }\n"
+         "  static __device__ __forceinline__ float ld(const float* p) {"),
+        ("  static __device__ __forceinline__ float4 ld(const float* p) {",
+         "  static __device__ __forceinline__ float4 fake(int c) "
+         "{ const float f = __int_as_float(c); "
+         "return make_float4(f, f, f, f); }\n"
+         "  static __device__ __forceinline__ float4 ld(const float* p) {"),
+        ("Vec<VEC>::ld(tex + (size_t)texel[k] * ch)",
+         "Vec<VEC>::fake(texel[k])")],
+    "cached_stores": [
+        ("    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));",
+         "    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);")],
+    "one_d": _k2_shape(32, 1, 8, 1),
+    "tile_16x2": _k2_shape(16, 2, 2, 4),
+    "tile_4x8": _k2_shape(4, 8, 4, 2),
+    "warps4": _k2_shape(8, 4, 2, 2),
+    "warps16": _k2_shape(8, 4, 4, 4),
+    "warps32": _k2_shape(8, 4, 4, 8),
+}
+K2_DESIGNS = {  # a line of the source that tells the design: its variants
+    "warp tiles, taps by shuffles": ("constexpr int TW = ", K2_VARIANTS),
+    "one thread per pixel and 4 channels": ("int n_pix", {"real": []}),
+}
+
+
+def warp_tiles(a: torch.Tensor, tile=(8, 4)) -> torch.Tensor:
+    """[N, H, W, ...] -> [T, TW * TH, ...]: the warps' pixel tiles of K2
+    in the kernel's order (image, tile row, tile column), lane = row * TW
+    + column; the frame padded with zeros to whole tiles."""
+    tw, th = tile
+    n, h, w = a.shape[:3]
+    hp, wp = -(-h // th) * th, -(-w // tw) * tw
+    rest = a.shape[3:]
+    pad = torch.zeros((n, hp, wp, *rest), dtype=a.dtype, device=a.device)
+    pad[:, :h, :w] = a
+    return (pad.reshape(n, hp // th, th, wp // tw, tw, *rest).transpose(2, 3)
+            .reshape(n * (hp // th) * (wp // tw), th * tw, *rest))
+
+
+def gather_counts(uv_map: torch.Tensor, sizes, ch: int,
+                  tiles=((8, 4), (32, 8), (16, 16))) -> dict:
+    """What K2's taps touch on uv_map, counted on the host: the texels per
+    level (texture_cuda.touched_texels), the bytes of the floor (uv, the
+    touched texels and the output, each once), the every-texel figure
+    beside it, the bytes the taps ask of L1 (16 x C x 4 a pixel over four
+    levels), the boxes of the covered pixels' taps (uv not 0) per tile
+    shape and level (median, p99, largest, share of tiles over 512
+    texels, among tiles holding a covered pixel), and the share of tiles
+    whose taps reach the corner texel of uv = 0 beside covered ones."""
+    from rnr_tpu_torch.ops.interpolate import bilinear_taps
+    from rnr_tpu_torch.ops.texture_cuda import level_coords, touched_texels
+    n_pix = uv_map.numel() // 2
+    touched = touched_texels(uv_map, sizes)
+    res = dict(touched=touched,
+               floor_bytes=n_pix * (2 + ch) * 4 + sum(touched) * ch * 4,
+               all_texels_bytes=n_pix * (2 + ch) * 4
+               + sum(s * s for s in sizes) * ch * 4,
+               l1_bytes=n_pix * 4 * len(sizes) * ch * 4, boxes={},
+               corner_share={})
+    covered = (uv_map != 0).any(-1)
+    big = torch.iinfo(torch.int64).max
+    for tile in tiles:
+        cov = warp_tiles(covered, tile)
+        has = cov.any(1)
+        res["corner_share"][tile] = float(
+            (has & warp_tiles(~covered, tile).any(1)).sum()) / max(
+            int(cov.shape[0]), 1)
+        uvt = warp_tiles(uv_map, tile)
+        for s in sizes:
+            x, y = level_coords(uvt, s)
+            idx = torch.stack([i for i, _ in bilinear_taps(x, y, s, s)], -1)
+            tx, ty = idx % s, idx // s
+            bw = (torch.where(cov, tx[..., 2], -1).max(1).values
+                  - torch.where(cov, tx[..., 0], big).min(1).values + 1)
+            bh = (torch.where(cov, ty[..., 1], -1).max(1).values
+                  - torch.where(cov, ty[..., 0], big).min(1).values + 1)
+            area = (bw * bh)[has].double()
+            res["boxes"][(tile, s)] = dict(
+                median=float(area.median()) if area.numel() else 0.0,
+                p99=float(torch.quantile(area, 0.99)) if area.numel() else 0.0,
+                largest=float(area.max()) if area.numel() else 0.0,
+                over_512=float((area > 512).double().mean())
+                if area.numel() else 0.0)
+    return res
+
 
 
 # The SH sources, built for lmax 10 alone (the shared header inlined).
@@ -1328,6 +1448,90 @@ def time_k2b(dev, stream) -> None:
                   "per call", flush=True)
 
 
+def time_k2(dev, stream, csrc: str, only=None) -> None:
+    """K2 on the synthetic G-buffer's uv at 512^2 (b1 and b2), the object
+    alone (the uncovered pixels moved off the texture), every pixel on
+    the corner texel, chip_smoke.py's seam and one view of its G-buffer
+    phase's sphere, 4 levels x 24 channels: queued device time per call
+    of each variant of the design found in csrc, each design's C entry
+    called with its own arguments.  The variants that compute the
+    function (all but no_store and taps_only) are held to the plain
+    version; the real build prints a sha256 of each case's output and
+    keeps the outputs under build/, and when the other checkout's run
+    left its own there (one call: this tree, then --csrc), the largest
+    difference between the two designs' outputs is printed."""
+    from chip_smoke import seam_uv, sphere_view_uv
+    from rnr_tpu_torch.ops.texture_cuda import mipmap_sample_torch
+    from rnr_tpu_torch.synthetic import build_batch
+    text = open(os.path.join(csrc, "mipmap_gather.cu")).read()
+    design, table = next((d, t) for d, (mk, t) in K2_DESIGNS.items()
+                         if mk in text)
+    if only:
+        table = {k: v for k, v in table.items() if k in only}
+    tag = "" if csrc == str(_build.CSRC) else "_other"
+    new = design.startswith("warp tiles")
+    print(f"K2 kernels of {csrc}: {design}", flush=True)
+    libs = build_all("mipmap_gather", table, csrc, tag + "_k2")
+    for name in table:
+        so = os.path.join(OUT, f"mipmap_gather{tag}_k2_{name}.so")
+        for fn_name, ops in sass_counts(so, "mipmap_gather_kernel").items():
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
+            print(f"[sass] K2 {name} {'vec4' if 'ILi4E' in fn_name else 'scalar'}"
+                  f": {sum(ops.values())} instructions: "
+                  + ", ".join(f"{k} {v}" for k, v in top), flush=True)
+    sizes = (512, 256, 128, 64)
+    rng = np.random.default_rng(15)
+    texs = [torch.from_numpy((0.5 + 0.5 * rng.standard_normal(
+        (s, s, 24))).astype(np.float32)).to(dev) for s in sizes]
+    uv = torch.from_numpy(build_batch(512, 16, 1)["uv_map"]).to(dev)
+    covered = (uv != 0).any(-1, keepdim=True)
+    cases = {"G-buffer uv": uv,
+             "G-buffer uv, b2": torch.from_numpy(
+                 build_batch(512, 16, 2)["uv_map"]).to(dev),
+             "object alone": torch.where(covered, uv, torch.full_like(
+                 uv, -1.0)).contiguous(),
+             "every pixel on the corner": torch.zeros_like(uv),
+             "seam": seam_uv(uv),
+             "a view of the sphere": sphere_view_uv()}
+    outs = {}
+    for name, lib in libs.items():
+        if new:
+            f = entry(lib, "rnr_mipmap_gather", 6, 10)
+        else:
+            f = entry(lib, "rnr_mipmap_gather", 6, 8)
+        for case, u in cases.items():
+            n = u.shape[0]
+            out = torch.empty((n, 512, 512, 24), device=dev)
+            ptrs = [t.data_ptr() for t in texs] + [u.data_ptr(),
+                                                    out.data_ptr()]
+            ints = ((*sizes, 4, n, 512, 512, 24, 0) if new
+                    else (*sizes, 4, n * 512 * 512, 24, 0))
+            us = device_us(lambda: f(*ptrs, *ints, stream))
+            f(*ptrs, *ints, stream)
+            torch.cuda.synchronize()
+            extra = ""
+            if name not in ("no_store", "taps_only"):
+                ref = mipmap_sample_torch(texs, u)
+                err = float((out - ref).abs().max())
+                extra = f", max abs err {err:.3g} against the plain version"
+                if not err <= 1e-5 * float(ref.abs().max()) + 1e-6:
+                    raise AssertionError(f"K2 {name} {case}: err {err}")
+            if name == "real":
+                extra += f"; sha256 {digest(out)}"
+                outs[case] = out.cpu()
+            print(f"K2 512^2 x 4 levels x 24, {case}, {name}: {us:.2f} us "
+                  f"per call{extra}", flush=True)
+    if outs:
+        torch.save(outs, os.path.join(OUT, f"k2_out{tag}.pt"))
+    other = os.path.join(OUT, f"k2_out{'' if tag else '_other'}.pt")
+    if outs and os.path.exists(other):
+        for case, o in torch.load(other).items():
+            d = (outs[case] - o).abs().max()
+            print(f"K2 {case}: this design against the other checkout's, "
+                  f"max abs diff {float(d):.4g}, bit-equal "
+                  f"{torch.equal(outs[case], o)}", flush=True)
+
+
 def sh_inputs(dev, batch: int) -> tuple:
     """The kernels phase's K1 / K1b operands at 512^2 and `batch`: the
     synthetic G-buffer, 13 + 13 pivots, bf16 rays_lt, coeff of lmax 10,
@@ -1421,16 +1625,16 @@ def build_all(src: str, table: dict, csrc: str = str(_build.CSRC),
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels",
-                    default="K4,K2b,K1,K1b,K5,K5b,K6,K7,K8,K8s,P1",
-                    help="comma-separated subset of K4,K2b,K1,K1b,K5,K5b,K6,"
-                    "K7,K8,K8s,P1 (K6: K6a and K6b; K8: K8c and K8d; K8s: "
+                    default="K4,K2,K2b,K1,K1b,K5,K5b,K6,K7,K8,K8s,P1",
+                    help="comma-separated subset of K4,K2,K2b,K1,K1b,K5,K5b,"
+                    "K6,K7,K8,K8s,P1 (K6: K6a and K6b; K8: K8c and K8d; K8s: "
                     "K8a and K8b)")
     ap.add_argument("--csrc", default=str(_build.CSRC),
-                    help="the csrc directory whose SH, K6, K7, K8, K8s and "
-                    "P1 kernels are timed")
+                    help="the csrc directory whose K2, SH, K6, K7, K8, K8s "
+                    "and P1 kernels are timed")
     ap.add_argument("--variants", default="",
-                    help="comma-separated SH, K6, K7, K8, K8s or P1 variants "
-                    "to time (default all)")
+                    help="comma-separated K2, SH, K6, K7, K8, K8s or P1 "
+                    "variants to time (default all)")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -1441,6 +1645,9 @@ def main() -> None:
         time_k4(dev, stream)
     if "K2b" in which:
         time_k2b(dev, stream)
+    if "K2" in which:
+        time_k2(dev, stream, os.path.abspath(args.csrc),
+                set(filter(None, args.variants.split(","))))
     if which & {"K1", "K1b"}:
         time_sh(dev, stream, os.path.abspath(args.csrc), which,
                 set(filter(None, args.variants.split(","))))

@@ -33,7 +33,7 @@
 //   warps) is only a container of shared memory, and no warp waits for
 //   another.  The warp reads its pixels' g rows once, as float4 across
 //   lanes, into shared memory.  Then per level, one lane per pixel
-//   computes the four taps with the rounding of mipmap_gather.cu (the
+//   computes the four taps of csrc/mipmap_common.cuh, the gather's (the
 //   coordinates by __fmul_rn / __fsub_rn, no FMA contraction), and the
 //   warp takes the bounding box of its taps of nonzero weight (redux).
 //   Where the box holds at most WIN texels, the warp counting-sorts its
@@ -68,20 +68,15 @@
 
 #include <cuda_runtime.h>
 
+#include "mipmap_common.cuh"
+
 namespace {
 
-constexpr int MAX_LEVELS = 4;
 constexpr int MAX_CH = 128;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int TW = 8, TH = 4;          // a warp's pixel tile
 constexpr int WARPS = 8;
 constexpr int WIN = 128;               // texels of a warp's box, at most
-
-struct Levels {
-  float* grad[MAX_LEVELS];
-  int size[MAX_LEVELS];
-  int n;
-};
 
 // a warp's shared memory: its pixels' g rows, each padded so that the
 // lanes' float4 (or float) reads of 32 rows fall in distinct banks; the
@@ -108,7 +103,7 @@ __device__ __forceinline__ void red_add<4>(float* dst, const float* a) {
 
 template <int VEC>
 __global__ void __launch_bounds__(32 * WARPS)
-mipmap_scatter_kernel(Levels lv, const float* __restrict__ uv,
+mipmap_scatter_kernel(Levels<float*> lv, const float* __restrict__ uv,
                       const float* __restrict__ g, int n, int h, int w,
                       int ch) {
   extern __shared__ float smem[];
@@ -153,28 +148,13 @@ mipmap_scatter_kernel(Levels lv, const float* __restrict__ uv,
 
   for (int l = 0; l < lv.n; ++l) {
     const int s = lv.size[l];
-    const float sm1 = (float)(s - 1);
-    // the coordinates and weights of mipmap_gather.cu, rounding for
-    // rounding (no FMA contraction)
-    const float x = __fmul_rn(u, sm1);
-    const float y = __fsub_rn(sm1, __fmul_rn(vv, sm1));
-    const float valid =
-        (live && x >= 0.f && x <= sm1 && y >= 0.f && y <= sm1) ? 1.f : 0.f;
-    const int xf = (int)floorf(fminf(fmaxf(x, -1.f), (float)s));
-    const int yf = (int)floorf(fminf(fmaxf(y, -1.f), (float)s));
-    const int x0 = min(max(xf, 0), s - 1), x1 = min(max(x0 + 1, 0), s - 1);
-    const int y0 = min(max(yf, 0), s - 1), y1 = min(max(y0 + 1, 0), s - 1);
-    const float x0w = (float)(x0 - (x0 == x1 ? 1 : 0));
-    const float y0w = (float)(y0 - (y0 == y1 ? 1 : 0));
-    const float ax = __fsub_rn((float)x1, x), bx = __fsub_rn(x, x0w);
-    const float ay = __fsub_rn((float)y1, y), by = __fsub_rn(y, y0w);
-    const float wt[4] = {__fmul_rn(__fmul_rn(ax, ay), valid),
-                         __fmul_rn(__fmul_rn(ax, by), valid),
-                         __fmul_rn(__fmul_rn(bx, ay), valid),
-                         __fmul_rn(__fmul_rn(bx, by), valid)};
-    const int tx[4] = {x0, x0, x1, x1}, ty[4] = {y0, y1, y0, y1};
+    // the gather's taps, rounding for rounding
+    const Taps tp = level_taps(u, vv, s, live);
+    const float wt[4] = {tp.w[0], tp.w[1], tp.w[2], tp.w[3]};
+    const int tx[4] = {tp.x0, tp.x0, tp.x1, tp.x1};
+    const int ty[4] = {tp.y0, tp.y1, tp.y0, tp.y1};
 
-    float* dt = lv.grad[l];
+    float* dt = lv.ptr[l];
 
     // the bounding box of the warp's taps of nonzero weight
     unsigned lo_x = 0xffffffffu, lo_y = 0xffffffffu, hi_x = 0, hi_y = 0;
@@ -327,7 +307,7 @@ mipmap_scatter_kernel(Levels lv, const float* __restrict__ uv,
 }
 
 template <int VEC>
-int launch(const Levels& lv, const float* uv, const float* g, int n, int h,
+int launch(const Levels<float*>& lv, const float* uv, const float* g, int n, int h,
            int w, int ch, cudaStream_t stream) {
   const int smem = WARPS * warp_floats(ch, VEC) * (int)sizeof(float);
   static bool attr = false;
@@ -362,14 +342,12 @@ extern "C" int rnr_mipmap_scatter(void* d0, void* d1, void* d2, void* d3,
   if (n_levels < 1 || n_levels > MAX_LEVELS || ch < 1 || ch > MAX_CH ||
       n < 0 || h < 0 || w < 0)
     return (int)cudaErrorInvalidValue;
-  Levels lv;
-  void* ds[MAX_LEVELS] = {d0, d1, d2, d3};
+  float* const ds[MAX_LEVELS] = {static_cast<float*>(d0),
+                                 static_cast<float*>(d1),
+                                 static_cast<float*>(d2),
+                                 static_cast<float*>(d3)};
   const int ss[MAX_LEVELS] = {s0, s1, s2, s3};
-  for (int i = 0; i < MAX_LEVELS; ++i) {
-    lv.grad[i] = static_cast<float*>(ds[i]);
-    lv.size[i] = ss[i];
-  }
-  lv.n = n_levels;
+  const Levels<float*> lv = make_levels(ds, ss, n_levels);
   const float* u = static_cast<const float*>(uv);
   const float* gp = static_cast<const float*>(g);
   return ch % 4 == 0 ? launch<4>(lv, u, gp, n, h, w, ch, stream)

@@ -18,7 +18,7 @@ from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
                                        use_kernel)
 from rnr_tpu_torch.ops.interpolate import bilinear_taps, interpolate_bilinear
 
-LEVELS_PER_LAUNCH = 4   # csrc/mipmap_gather.cu / mipmap_scatter.cu MAX_LEVELS
+LEVELS_PER_LAUNCH = 4   # csrc/mipmap_common.cuh MAX_LEVELS
 SCATTER_MAX_CH = 128    # csrc/mipmap_scatter.cu MAX_CH
 
 
@@ -62,28 +62,66 @@ def mipmap_scatter_torch(uv_map: torch.Tensor, g: torch.Tensor, sizes):
     return grads
 
 
+def touched_texels(uv_map: torch.Tensor, sizes) -> list[int]:
+    """Per level, the texels that the taps of every pixel address, of
+    weight 0 or not: each is read at least once."""
+    counts = []
+    for s in sizes:
+        x, y = level_coords(uv_map.reshape(-1, 2), s)
+        seen = torch.zeros(s * s, dtype=torch.bool, device=uv_map.device)
+        for idx, _ in bilinear_taps(x, y, s, s):
+            seen[idx] = True
+        counts.append(int(seen.sum()))
+    return counts
+
+
+_gather_entry = None   # K2's C entry, looked up once per process
+
+
 def _launch_gather(textures, uv_map):
-    n, h, w, _ = uv_map.shape
-    ch = textures[0].shape[-1]
+    """K2 on CUDA tensors: f32 levels [S, S, C] and uv [N, H, W, 2],
+    contiguous (made so here), uv 8-byte aligned (a view at an odd float
+    offset is copied: the kernel reads each pixel's uv as a float2); one
+    launch per LEVELS_PER_LAUNCH levels, each after the first adding into
+    the output."""
+    global _gather_entry
+    if _gather_entry is None:
+        _gather_entry = _build.fn("mipmap_gather", "rnr_mipmap_gather", 6, 10)
     uv = uv_map.contiguous()
-    require(uv, "uv_map", torch.float32, (n, h, w, 2))
+    if uv.data_ptr() % 8:
+        uv = uv.clone()
     texs = [t.contiguous() for t in textures]
-    for i, t in enumerate(texs):
-        require(t, f"texture_{i}", torch.float32,
-                (t.shape[0], t.shape[0], ch))
-    out = torch.empty((n, h, w, ch), dtype=torch.float32,
-                      device=uv.device)
-    f = _build.fn("mipmap_gather", "rnr_mipmap_gather", 6, 8)
+    n, h, w, two = uv.shape
+    ch = texs[0].shape[-1]
+    if two != 2:
+        raise ValueError(f"uv_map: shape {tuple(uv.shape)}, expected "
+                         "[N, H, W, 2]")
+    for i, t in enumerate((uv, *texs)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"mipmap_gather: input {i} is {t.dtype}, the "
+                            "kernel takes float32")
+        if i and (t.dim() != 3 or t.shape[0] != t.shape[1]
+                  or t.shape[2] != ch):
+            raise ValueError(f"texture_{i - 1}: shape {tuple(t.shape)}, "
+                             f"expected [S, S, {ch}]")
+    out = torch.empty((n, h, w, ch), dtype=torch.float32, device=uv.device)
     stream = stream_of(uv)
     for g in range(0, len(texs), LEVELS_PER_LAUNCH):
         grp = texs[g:g + LEVELS_PER_LAUNCH]
-        ptrs = [t.data_ptr() for t in grp] + [0] * (LEVELS_PER_LAUNCH - len(grp))
-        sizes = [t.shape[0] for t in grp] + [0] * (LEVELS_PER_LAUNCH - len(grp))
+        pad = [0] * (LEVELS_PER_LAUNCH - len(grp))
         mipmap_sample.launches += 1
-        check_launch(f(*ptrs, uv.data_ptr(), out.data_ptr(), *sizes,
-                       len(grp), n * h * w, ch, int(g > 0), stream),
-                     "mipmap_gather")
+        check_launch(_gather_entry(
+            *[t.data_ptr() for t in grp], *pad, uv.data_ptr(),
+            out.data_ptr(), *[t.shape[0] for t in grp], *pad, len(grp), n,
+            h, w, ch, int(g > 0), stream), "mipmap_gather")
     return out
+
+
+def _sample(textures, uv_map: torch.Tensor) -> torch.Tensor:
+    """K2 on CUDA tensors, the plain version on CPU tensors."""
+    if use_kernel(uv_map, *textures):
+        return _launch_gather(textures, uv_map)
+    return mipmap_sample_torch(textures, uv_map)
 
 
 def mipmap_scatter(uv_map: torch.Tensor, g: torch.Tensor, sizes):
@@ -125,9 +163,7 @@ class MipmapSampleFn(torch.autograd.Function):
         ctx.save_for_backward(uv_map)
         ctx.sizes = [t.shape[0] for t in textures]
         ctx.dtypes = [t.dtype for t in textures]
-        if use_kernel(uv_map, *textures):
-            return _launch_gather(textures, uv_map)
-        return mipmap_sample_torch(textures, uv_map)
+        return _sample(textures, uv_map)
 
     @staticmethod
     def backward(ctx, g):
@@ -138,8 +174,12 @@ class MipmapSampleFn(torch.autograd.Function):
 
 def mipmap_sample(textures, uv_map: torch.Tensor) -> torch.Tensor:
     """textures: sequence of [S_l, S_l, Ch] f32; uv_map [N, H, W, 2] f32
-    -> [N, H, W, Ch] f32, differentiable in the textures."""
-    return MipmapSampleFn.apply(uv_map, *textures)
+    -> [N, H, W, Ch] f32, differentiable in the textures.  Where no
+    gradient is asked for (eval frames), K2 or the plain version runs
+    without the autograd Function's host time."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in textures):
+        return MipmapSampleFn.apply(uv_map, *textures)
+    return _sample(textures, uv_map)
 
 
 mipmap_sample.launches = 0

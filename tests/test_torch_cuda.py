@@ -4,9 +4,12 @@ Marked `cuda`: every test skips (and counts as no pass) where
 torch.cuda.is_available() is False, which is decided inside the fixture,
 never at import.  On the GPU machine:  python -m pytest tests/test_torch_cuda.py -q
 Small, odd shapes that the canonical frame does not reach (scalar
-staging paths, ragged tiles, more than four texture levels; K2b also at
-batch 2, across a uv seam and past its per-warp box); the slice shapes
-are checked by chip_smoke.py.  K4 runs at V 700, 1000, 333 and 7500 and C
+staging paths, ragged tiles, more than four texture levels; K2 also on
+adversarial uv (the G-buffer's at batch 2, the corner texel, a seam,
+uv outside [0, 1], exact edges and NaN, a frame no tile divides), twice
+bit-equal, uv and levels at unaligned offsets, and K2, K2b, K2, K2b on one
+stream; K2b also at batch 2, across a uv seam and past its per-warp
+box); the slice shapes are checked by chip_smoke.py.  K4 runs at V 700, 1000, 333 and 7500 and C
 3, 64, 130 and 512, held to its plain version within f32 rounding
 (knn_cuda.compare_picks) and bitwise across two runs, with ties between
 duplicated vertices or zero rows going to the lower index.  The 4x4 pair of K6 and K8 is run
@@ -171,6 +174,128 @@ def test_mipmap_gather_kernel(dev, ch, sizes):
     t = mipmap_sample_torch(texs, uv)
     torch.cuda.synchronize()
     assert float((k - t).abs().max()) <= 1e-5 * float(t.abs().max()) + 1e-6
+
+
+def _k2_uv(case: str) -> np.ndarray:
+    """K2's adversarial uv: the G-buffer's at 128^2 and 512^2 (batch 2),
+    every pixel on the corner texel, a seam across the object, random uv
+    in [-0.05, 1.05], exact 0 and 1 with NaN entries, and a frame that is
+    no multiple of the warp tile (36 x 100)."""
+    rng = np.random.default_rng(len(case))
+    if case.startswith("gbuffer"):
+        return build_batch(int(case[7:]), 16, 2)["uv_map"]
+    if case == "corner":
+        return np.zeros((1, 64, 64, 2), np.float32)
+    if case == "seam":
+        uv = build_batch(128, 16, 1)["uv_map"]
+        xs = np.arange(128, dtype=np.float32)
+        u = np.where(xs < 67, 0.02 + np.abs(xs - 67) / 1280,
+                     0.98 - np.abs(xs - 67) / 1280).astype(np.float32)
+        uv[..., 0] = np.where((uv != 0).any(-1), u, uv[..., 0])
+        return uv
+    if case == "random":
+        return rng.uniform(-0.05, 1.05, (2, 32, 32, 2)).astype(np.float32)
+    if case == "edges_nan":
+        uv = rng.uniform(0, 1, (1, 24, 40, 2)).astype(np.float32)
+        uv[0, 1:3] = np.where(rng.uniform(size=(2, 40, 2)) < 0.5, 0.0, 1.0)
+        uv[0, 5, :4] = [[np.nan, 0.5], [0.5, np.nan], [np.nan, np.nan],
+                        [1, np.nan]]
+        return uv
+    return rng.uniform(-0.05, 1.05, (1, 36, 100, 2)).astype(np.float32)
+
+
+K2_CASES = ["gbuffer128", "gbuffer512", "corner", "seam", "random",
+            "edges_nan", "ragged"]
+
+
+def _k2_check(k, t):
+    """K2 against its plain version: NaN where it is NaN, else within
+    1e-5 x max + 1e-6 (f32 both sides; FMA contraction only)."""
+    assert torch.equal(k.isnan(), t.isnan())
+    k, t = torch.nan_to_num(k), torch.nan_to_num(t)
+    assert float((k - t).abs().max()) <= 1e-5 * float(t.abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+@pytest.mark.parametrize("ch,levels", [(24, 4), (5, 5)])
+def test_mipmap_gather_kernel_adversarial(dev, case, ch, levels):
+    """Four levels from 512 (the 512^2 G-buffer) or 128 down, or five from
+    32 down to 2 (a second launch that adds into the first's output)."""
+    uv = _t(_k2_uv(case), dev)
+    top = 512 if case == "gbuffer512" else 128
+    sizes = [top >> k for k in range(4)] if levels == 4 else [32, 16, 8, 4, 2]
+    rng = np.random.default_rng(ch)
+    texs = [_t((0.5 + 0.5 * rng.standard_normal((s, s, ch))).astype(
+        np.float32), dev) for s in sizes]
+    n0 = mipmap_sample.launches
+    k = mipmap_sample(texs, uv)
+    assert mipmap_sample.launches == n0 + -(-len(sizes) // 4)
+    k2 = mipmap_sample(texs, uv)
+    t = mipmap_sample_torch(texs, uv)
+    torch.cuda.synchronize()
+    _k2_check(k, t)
+    assert torch.equal(torch.nan_to_num(k), torch.nan_to_num(k2))
+
+
+@pytest.mark.parametrize("uv_off,tex_off", [(1, 0), (0, 1), (1, 1)])
+def test_mipmap_gather_kernel_misaligned_inputs(dev, uv_off, tex_off):
+    """uv a contiguous view at an odd float offset (the kernel reads uv as
+    float2: the wrapper copies it) and levels one float off 16 bytes (the
+    scalar path), each against its plain version."""
+    rng = np.random.default_rng(uv_off + 2 * tex_off)
+    uv_np = rng.uniform(-0.05, 1.05, (2, 16, 24, 2)).astype(np.float32)
+    uv = torch.empty(uv_np.size + uv_off, device=dev)[uv_off:].view(
+        uv_np.shape)
+    uv.copy_(_t(uv_np, dev))
+    assert uv.is_contiguous() and uv.data_ptr() % 8 == 4 * uv_off
+    texs = []
+    for s in (32, 16, 8, 4, 2):
+        t = torch.empty(s * s * 24 + tex_off, device=dev)[tex_off:].view(
+            s, s, 24)
+        t.copy_(_t(rng.standard_normal((s, s, 24)).astype(np.float32), dev))
+        texs.append(t)
+    k = mipmap_sample(texs, uv)
+    t = mipmap_sample_torch(texs, uv)
+    torch.cuda.synchronize()
+    _k2_check(k, t)
+
+
+def test_mipmap_gather_entry_refuses_misaligned_uv(dev):
+    """K2's C entry returns cudaErrorInvalidValue for a uv base that is not
+    8-byte aligned, and launches nothing."""
+    f = _build.fn("mipmap_gather", "rnr_mipmap_gather", 6, 10)
+    tex = torch.ones((8, 8, 4), device=dev)
+    uv = torch.zeros(2 * 4 * 4 * 2 + 1, device=dev)
+    out = torch.full((2, 4, 4, 4), 7.0, device=dev)
+    rc = f(tex.data_ptr(), 0, 0, 0, uv.data_ptr() + 4, out.data_ptr(), 8, 0,
+           0, 0, 1, 2, 4, 4, 4, 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1   # cudaErrorInvalidValue
+    assert bool((out == 7.0).all())
+
+
+def test_mipmap_gather_and_scatter_interleaved_on_one_stream(dev):
+    """K2, K2b, K2, K2b back to back on one stream, each against its plain
+    version, on the G-buffer's uv at 128^2, batch 2."""
+    uv = _t(_k2_uv("gbuffer128"), dev)
+    rng = np.random.default_rng(15)
+    sizes = (128, 64, 32, 16)
+    texs = [_t(rng.standard_normal((s, s, 24)).astype(np.float32), dev)
+            for s in sizes]
+    g = _t(rng.standard_normal((2, 128, 128, 24)).astype(np.float32), dev)
+    outs = []
+    for _ in range(2):
+        outs.append(mipmap_sample(texs, uv))
+        outs.append(mipmap_scatter(uv, g, sizes))
+    t = mipmap_sample_torch(texs, uv)
+    tg = mipmap_scatter_torch(uv, g, sizes)
+    m = mipmap_scatter_torch(uv, g.abs(), sizes)
+    torch.cuda.synchronize()
+    for k in outs[0::2]:
+        _k2_check(k, t)
+    for kg in outs[1::2]:
+        for a, b, mm in zip(kg, tg, m):
+            assert bool(((a - b).abs() <= 1e-5 * mm + 1e-7).all())
 
 
 @pytest.mark.parametrize("c,o", [(5, 12), (64, 78), (108, 64), (24, 640)])
