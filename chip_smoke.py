@@ -10,6 +10,7 @@ and K8b) and "slab" (the 3x3 slab conv and K8's 4x4 pair).
     python3 chip_smoke.py --phases device,build,kernels,slice,gbuffer
     python3 chip_smoke.py --phases device,build,kernels,slice,relight
     python3 chip_smoke.py --phases device,build,kernels,slice,train
+    python3 chip_smoke.py --phases device,build,drivers
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
@@ -36,7 +37,9 @@ Phases (each failure raises, so the script exits non-zero):
            F.grid_sample calls timed beside it as a yardstick; K2b (f32
            atomics) reports its run-to-run difference and also runs at
            batch 2, with every pixel on the corner texel and
-           with a uv seam inside its pixel tiles.  K4 runs at V 7500 and C
+           with a uv seam inside its pixel tiles, and on uv and g views
+           off their alignment, behind MipmapSampleFn and through its
+           wrapper (copied there), its C entry refusing such bases.  K4 runs at V 7500 and C
            64, 3, 130 and 512: its picks equal the plain version's except
            at near-ties, where the two picks' scores in double lie within
            the sum of their f32 rounding bounds (knn_cuda.compare_picks,
@@ -125,6 +128,26 @@ Phases (each failure raises, so the script exits non-zero):
   train_parity  one training step (loss and every gradient) of the
            canonical model at 128^2 and 1024 vertices on the card and on
            the CPU, same weights, dropout and the stochastic GCN off.
+  drivers  the offline workflow of scripts/preproc.sh, train_rnr.sh and
+           test_rnr.sh through the port's entry points (their main(argv))
+           in this process, on a scene it writes under build/: the
+           gbuffer phase's sphere, a 7,500-vertex GCN sphere, 10 views of
+           the camera ring (8 to train, 2 to validate), two procedural
+           256 x 512 HDR probes.  precompute (both meshes), stitch_lp,
+           train_rnr at the canonical configuration and shipped knobs for
+           6 iterations (one validation, one checkpoint), test_rnr.main on
+           model_final.ckpt under the trained lighting, the probes' SH
+           fit (also per stage: K5) and their gather.  Checks every
+           output file, finite losses and validation metrics, the
+           launches of K1, K1b, K2, K2b, K3, K3b, K4, K5 and K7 on that
+           path (drivers_launches), the checkpoint's round trip (every
+           tensor) and test_rnr.main's frame of a view bit-equal to the
+           eval step's on the trained model; reports precompute s/view,
+           train_rnr iterations/s through the driver beside the train
+           phase's bare step, test_rnr views/s and buckets, the
+           checkpoint's size and save and load seconds, and the trained
+           model's step kernels on a view's G-buffer with the scene's GCN
+           sphere, that sphere jittered and the train phase's GCN points.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the per-kernel JSON
 record.  Nothing is printed as a result without a card.
@@ -996,7 +1019,71 @@ def kernels_texture(rec: dict, b: dict, rng) -> None:
         n = u.shape[0] * IMG * IMG
         log(f"[kernels] mipmap_scatter {tag}: {ms:.4f} ms, "
             f"{scatter_bytes(n, 24) / ms / 1e6:.1f} GB/s")
+    scatter_misaligned_case(texs, uv)
     torch.cuda.synchronize()
+
+
+def _offset_copy(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous copy of t that starts `off` floats into its allocation
+    (4 * off bytes off the allocator's alignment)."""
+    v = torch.empty(t.numel() + off, device=t.device)[off:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def scatter_misaligned_case(texs, uv: torch.Tensor) -> None:
+    """K2b on views at unaligned offsets: the G-buffer's uv one float off
+    (K2b reads uv as float2) and g two floats off (read as float4 at 24
+    channels), behind MipmapSampleFn (forward and backward, against the
+    aligned run: the forward bit-equal, each level's gradient within 1e-5
+    x the sum of its terms' magnitudes, K2b's atomics landing in no fixed
+    order) and through mipmap_scatter against its plain version; then K2b's
+    C entry refusing each such base (cudaErrorInvalidValue, nothing
+    written).  Its own seed."""
+    g = torch.from_numpy(np.random.default_rng(216).standard_normal(
+        (1, IMG, IMG, 24)).astype(np.float32)).to(DEV)
+    uv_m, g_m = _offset_copy(uv, 1), _offset_copy(g, 2)
+    if uv_m.data_ptr() % 8 == 0 or g_m.data_ptr() % 16 == 0:
+        raise AssertionError("mipmap_scatter misaligned case: views aligned")
+
+    def through_fn(u, gg):
+        lv = [t.detach().clone().requires_grad_(True) for t in texs]
+        out = mipmap_sample(lv, u)
+        out.backward(gg)
+        return out.detach(), [t.grad for t in lv]
+
+    out_a, grads_a = through_fn(uv, g)
+    out_m, grads_m = through_fn(uv_m, g_m)
+    direct = mipmap_scatter(uv_m, g_m, TEX_SIZES)
+    plain = mipmap_scatter_torch(uv, g, TEX_SIZES)
+    mag = mipmap_scatter_torch(uv, g.abs(), TEX_SIZES)
+    torch.cuda.synchronize()
+    if not torch.equal(out_m, out_a):
+        raise AssertionError("mipmap_gather on a misaligned uv differs from "
+                             "the aligned run")
+    err = 0.0
+    for got, ref in ((grads_m, grads_a), (direct, plain)):
+        for a, r, m in zip(got, ref, mag):
+            check("mipmap_scatter misaligned uv and g",
+                  float(((a - r).abs() - 1e-5 * m).max()), 0.0)
+            err = max(err, float((a - r).abs().max()))
+    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 9)
+    d = torch.full((8, 8, 4), 7.0, device=DEV)
+    base_uv = torch.zeros(2 * 4 * 4 * 2 + 4, device=DEV)
+    base_g = torch.ones(2 * 4 * 4 * 4 + 4, device=DEV)
+    for uv_off, g_off in ((1, 0), (0, 1), (0, 2)):
+        rc = f(d.data_ptr(), 0, 0, 0, base_uv.data_ptr() + 4 * uv_off,
+               base_g.data_ptr() + 4 * g_off, 8, 0, 0, 0, 1, 2, 4, 4, 4,
+               torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc != 1 or not bool((d == 7.0).all()):
+            raise AssertionError(f"rnr_mipmap_scatter took a base {uv_off} "
+                                 f"/ {g_off} floats off: rc {rc}")
+    log(f"[kernels] mipmap_scatter on uv 1 and g 2 floats off their "
+        f"alignment: forward bit-equal, gradients max abs err {err:.3g} "
+        "(tol 1e-5 x the sum of each texel's |terms|) through "
+        "MipmapSampleFn and mipmap_scatter; the C entry refused three "
+        "misaligned bases")
 
 
 def gather_case(texs, uv: torch.Tensor, tag: str):
@@ -2879,11 +2966,279 @@ def phase_train_parity() -> None:
         f"card, {max(x[1] for x in noise):.3g} on the CPU)")
 
 
+# the drivers phase: the offline workflow of scripts/preproc.sh,
+# train_rnr.sh and test_rnr.sh through the port's own entry points, on a
+# scene written by this script: the gbuffer phase's sphere as the mesh, a
+# UV sphere of GCN_LAT_LON (60 x 125 = 7,500 vertices) as the GCN mesh,
+# a ring of DRIVER_VIEWS views (the first DRIVER_TRAIN_VIEWS to train,
+# the rest to validate) and the relight phase's probes
+DRIVER_VIEWS = 10
+DRIVER_TRAIN_VIEWS = 8
+GCN_LAT_LON = (59, 124)
+DRIVER_ITERS = 6
+# kernels each driver run must launch (the drivers path): the training
+# steps and validation (K1, K1b, K2, K2b, K3, K3b, K4), precompute and
+# test_rnr (K7) and test_rnr's per-stage SH route (K5)
+DRIVER_KERNELS = ("sh_shade_fan", "sh_shade_fan_bwd", "mipmap_gather",
+                  "mipmap_scatter", "conv3x3", "conv3x3_wgrad",
+                  "stratified_knn", "rasterize_tiles", "sh_shade")
+
+
+def write_obj(path: str, mesh) -> None:
+    """A mesh of synthetic.sphere_mesh (uv and normal per vertex) as OBJ."""
+    with open(path, "w") as f:
+        f.write("".join("v %.7f %.7f %.7f\n" % tuple(v) for v in mesh.v))
+        f.write("".join("vt %.7f %.7f\n" % tuple(t) for t in mesh.vt))
+        f.write("".join("vn %.7f %.7f %.7f\n" % tuple(n) for n in mesh.vn))
+        f.write("".join("f %d/%d/%d %d/%d/%d %d/%d/%d\n" % tuple(
+            np.repeat(tri + 1, 3)) for tri in mesh.f_v_idx))
+
+
+def write_scene(root: str) -> None:
+    """mesh.obj, mesh_7500v.obj, calib.mat (DRIVER_VIEWS views of the
+    camera ring at IMG^2), rgb0/ and rgb1/ (a shaded disc per view and
+    lighting, 8-bit PNG) and lp/ (two procedural 256 x 512 HDR probes)."""
+    import scipy.io
+    from rnr_tpu_torch.data.imageio import write_hdr, write_png
+    from rnr_tpu_torch.synthetic import camera_ring, make_probes, sphere_mesh
+    for d in ("rgb0", "rgb1", "lp"):
+        os.makedirs(os.path.join(root, d))
+    write_obj(os.path.join(root, "mesh.obj"), sphere_mesh(*MESH_LAT_LON))
+    write_obj(os.path.join(root, "mesh_7500v.obj"), sphere_mesh(*GCN_LAT_LON))
+    views = camera_ring(IMG, DRIVER_VIEWS)
+    yy, xx = np.mgrid[0:IMG, 0:IMG] / IMG
+    disc = (np.hypot(yy - 0.5, xx - 0.5) < 0.4).astype(np.float32)
+    for i in range(DRIVER_VIEWS):
+        for light, shade in enumerate((0.4 + 0.6 * xx, 1.0 - 0.5 * yy)):
+            img = disc[..., None] * shade[..., None] * np.array(
+                [200.0, 150.0, 100.0]) * (0.8 + 0.02 * i)
+            write_png(os.path.join(root, f"rgb{light}", "%06d.png" % i),
+                      img.astype(np.uint8))
+    for k, probe in enumerate(make_probes(N_PROBES, seed=0)):
+        write_hdr(os.path.join(root, "lp", f"{k}.hdr"), probe)
+    scipy.io.savemat(os.path.join(root, "calib.mat"), {
+        "poses": np.stack([v["pose"] for v in views]),
+        "projs": np.stack([v["proj"] for v in views]),
+        "dist_coeffs": np.stack([v["dist_coeffs"] for v in views]),
+        "img_hws": np.tile([IMG, IMG], (DRIVER_VIEWS, 1)),
+        "global_RT": np.eye(4)})
+
+
+def _files(path: str) -> list:
+    if not os.path.isdir(path):
+        raise AssertionError(f"drivers: {path} is missing")
+    return sorted(f for f in os.listdir(path) if not f.startswith("."))
+
+
+def check_outputs(root: str, log_dir: str) -> None:
+    """Every file the workflow writes: the two precompute trees, the
+    stitch, the run's files and PNG directories."""
+    stems = ["%06d" % i for i in range(DRIVER_VIEWS)]
+    res = os.path.join(root, "precomp_mesh", f"resol_{IMG}")
+    for sub in ("raster", "uv_map", "normal_map", "normal_map_cam",
+                "position_map", "position_map_cam", "view_dir_map",
+                "view_dir_map_cam", "view_dir_map_tangent", "sh_basis_map",
+                "reflect_dir_map", "TBN_map", "proj"):
+        if _files(os.path.join(res, sub)) != [s + ".mat" for s in stems]:
+            raise AssertionError(f"drivers: precompute {sub} incomplete")
+    for sub in ("alpha_map", "img_gt"):
+        if _files(os.path.join(res, sub)) != [s + ".png" for s in stems]:
+            raise AssertionError(f"drivers: precompute {sub} incomplete")
+    low = os.path.join(root, "precomp_mesh_7500v", f"resol_{IMG}")
+    if _files(low) != ["raster"] or len(_files(os.path.join(
+            low, "raster"))) != DRIVER_VIEWS:
+        raise AssertionError("drivers: the GCN mesh's raster is incomplete")
+    st = os.path.join(root, f"light_probe_stitch_first_{DRIVER_TRAIN_VIEWS}")
+    for f in ("0.png", "0.hdr", "mask/0.png", "count/0.png", "count/0.mat"):
+        if not os.path.isfile(os.path.join(st, f)):
+            raise AssertionError(f"drivers: stitch_lp did not write {f}")
+    for f in ("params.json", "model_final.ckpt",
+              f"model_iter-{DRIVER_ITERS - 1}.ckpt", "summary.json"):
+        if not os.path.isfile(os.path.join(log_dir, f)):
+            raise AssertionError(f"drivers: train_rnr did not write {f}")
+    for sub in ("val_out", "val_err", "val_gt", "val_relight_out"):
+        if len(_files(os.path.join(log_dir, sub))) != (
+                DRIVER_VIEWS - DRIVER_TRAIN_VIEWS):
+            raise AssertionError(f"drivers: {sub} incomplete")
+
+
+def phase_drivers(driver_launches: dict, train_out: dict) -> None:
+    """The offline workflow through the port's entry points, in this
+    process: precompute (both meshes), stitch_lp, train_rnr at the
+    canonical configuration for DRIVER_ITERS iterations (one validation,
+    one checkpoint), then test_rnr.main on model_final.ckpt under the
+    trained lighting, the novel probes by SH fit (also per stage) and by
+    gather.  Checks every output file, finite losses and metrics, the
+    checkpoint's round trip, test_rnr.main's frame bit-equal to the eval
+    step's on the trained model, and the launches of DRIVER_KERNELS; then
+    profiles the trained model's step on three sets of GCN points."""
+    import shutil
+    from rnr_tpu_torch.data import Mesh, ViewDataset, load_obj
+    from rnr_tpu_torch.drivers import precompute, stitch_lp, test_rnr
+    from rnr_tpu_torch.drivers import train_rnr
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.ops.gbuffer import make_mesh_buffers, render_gbuffer
+    from rnr_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                save_checkpoint)
+    from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
+                                           make_rnr_eval_step)
+    root = os.path.join(ROOT, "build", "drivers_scene")
+    shutil.rmtree(root, ignore_errors=True)
+    write_scene(root)
+    dr = ["--data_root", root, "--img_size", str(IMG)]
+    split = [f"first_{DRIVER_TRAIN_VIEWS}", f"after_{DRIVER_TRAIN_VIEWS}"]
+    reset_launches()
+    t0 = time.perf_counter()
+    precompute.main([*dr])
+    t_pre = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    precompute.main([*dr, "--obj_fp", "_/mesh_7500v.obj",
+                     "--only_mesh_related", "true"])
+    t_low = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stitch_lp.main(["--data_root", root, "--sampling_pattern", split[0],
+                    "--img_suffix", ".png"])
+    t_stitch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log_dir, model = train_rnr.main([
+        *dr, "--logging_root", os.path.join(root, "logs"),
+        "--sampling_pattern", split[0], "--sampling_pattern_val", split[1],
+        "--lighting_idx", "0", "--lighting_relight_idx", "1",
+        "--lp_dir", "_/lp", "--rays_dtype", "bfloat16",
+        "--unet_conv_backend", "pallas3", "--sphere_samples_fp",
+        "nonexistent.mat", "--max_iter", str(DRIVER_ITERS),
+        "--val_freq", str(DRIVER_ITERS - 1), "--ckp_freq",
+        str(DRIVER_ITERS - 1), "--log_freq", "100"])
+    t_train = time.perf_counter() - t0
+    tr = ["--data_root", root, "--checkpoint_dir", log_dir,
+          "--img_size", str(IMG), "--sphere_samples_fp", "nonexistent.mat"]
+    runs = {}
+    for name, extra in (
+            ("train", ["--lighting_type", "train"]),
+            ("sh", ["--lp_dir", "_/lp", "--save_lp_background", "true"]),
+            ("gather", ["--lp_dir", "_/lp", "--lp_sh", "false"]),
+            ("sh_staged", ["--lp_dir", "_/lp", "--per_stage_timing", "true",
+                           "--sampling_pattern", split[1]])):
+        out = os.path.join(log_dir, f"test_{name}")
+        runs[name] = test_rnr.main([*tr, *extra, "--out_dir", out],
+                                   keep_frames=name == "train")
+        n_png = sum(len(_files(os.path.join(out, d))) for d in _files(out))
+        if n_png != runs[name]["views"] * runs[name]["lightings"]:
+            raise AssertionError(f"drivers: test_rnr {name} wrote {n_png} "
+                                 "PNGs")
+    torch.cuda.synchronize()
+    driver_launches.update(read_launches())
+    missing = [k for k in DRIVER_KERNELS if not driver_launches[k]]
+    if missing:
+        raise AssertionError(f"drivers: {missing} never launched")
+    log(f"[drivers] launches on the drivers path: {driver_launches}")
+    check_outputs(root, log_dir)
+
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    vals = [summary["first_loss"], summary["last_loss"],
+            *summary["val"].values()]
+    if summary["iters"] != DRIVER_ITERS or not np.isfinite(vals).all():
+        raise AssertionError(f"drivers: summary {summary}")
+    timing = summary["timing"]
+    step_ms = train_out.get(1, {}).get("step_ms")
+    log(f"[drivers] precompute: {t_pre / DRIVER_VIEWS:.4f} s/view with "
+        f"every map ({DRIVER_VIEWS} views, .mat and .png writes "
+        f"included), {t_low / DRIVER_VIEWS:.4f} s/view for the GCN mesh's "
+        f"raster; stitch_lp {t_stitch:.3f} s ({DRIVER_TRAIN_VIEWS} views, "
+        "1600 x 3200 probe)")
+    log(f"[drivers] train_rnr: {timing['iters_per_s']:.3f} iterations/s "
+        f"through the driver ({1e3 / timing['iters_per_s']:.3f} ms an "
+        f"iteration over {timing['iters_timed']} after the first; "
+        f"validation {timing['validate_s']:.3f} s, checkpoint "
+        f"{timing['checkpoint_s']:.3f} s; main() {t_train:.3f} s in all) "
+        "beside the bare step "
+        + (f"{step_ms:.3f} ms (train phase, CUDA events)" if step_ms
+           else "(not measured: the train phase did not run)")
+        + f"; losses {summary['first_loss']:.6g} -> "
+        f"{summary['last_loss']:.6g}")
+    for name, r in runs.items():
+        b = {k: round(v / r["views"], 6) for k, v in r["buckets"].items()}
+        log(f"[drivers] test_rnr {name}: {r['views'] / r['render_s']:.3f} "
+            f"views/s ({r['views']} views x {r['lightings']} lightings, PNG "
+            f"writes included); per view, s: {b}")
+
+    # the checkpoint: size, save and load seconds, and its round trip
+    path = os.path.join(log_dir, "model_final.ckpt")
+    opt = create_rnr_optimizer(model, 1e-3)
+    t0 = time.perf_counter()
+    save_checkpoint(path + ".again", model, opt, DRIVER_ITERS)
+    t_save = time.perf_counter() - t0
+    gcn_pos = load_obj(os.path.join(root, "mesh_7500v.obj")).v
+    back = RNRModel(model.cfg, len(gcn_pos), l_dir=model.lighting.l_dir.cpu()
+                    .numpy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = load_checkpoint(path, back)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    if step != DRIVER_ITERS:
+        raise AssertionError(f"drivers: checkpoint step {step}")
+    for (k, a), (k2, b) in zip(model.state_dict().items(),
+                               back.state_dict().items()):
+        if k != k2 or not torch.equal(a, b):
+            raise AssertionError(f"drivers: checkpoint round trip: {k}")
+    log(f"[drivers] checkpoint {os.path.getsize(path) / 2 ** 20:.3f} MiB: "
+        f"save {t_save:.3f} s, load {t_load:.3f} s; every tensor of "
+        f"{len(back.state_dict())} equal after the round trip")
+
+    # test_rnr.main's frame against the eval step's on the trained model
+    ds = ViewDataset(root, os.path.join(root, "calib.mat"), (IMG, IMG),
+                     load_img=False)
+    mesh_buf = make_mesh_buffers(Mesh(os.path.join(root, "mesh.obj"),
+                                      global_RT=np.eye(4, dtype=np.float32)))
+    view = ds.read_view(DRIVER_TRAIN_VIEWS)
+    with torch.inference_mode():
+        vf = model.compute_v_feature(torch.from_numpy(gcn_pos).to(DEV))
+    batch = test_rnr._to_batch(test_rnr._gbuffer(render_gbuffer, mesh_buf,
+                                                 view, IMG), gcn_pos)
+    (name, lp, sh), = test_rnr.lightings(model, lighting_idx=0)
+    img = test_rnr.relit_frame(make_rnr_eval_step(model), batch, lp, sh, vf)
+    got = runs["train"]["frames"][(view["img_fn"].split(".")[0], name)]
+    if not torch.equal(img, got) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("drivers: test_rnr.main's frame differs from "
+                             "the eval step's on the trained model: max "
+                             f"{float((img - got).abs().max()):.3g}")
+    log(f"[drivers] test_rnr.main's frame of view {view['img_fn']} under "
+        f"{name} bit-equal to the eval step's on the trained model "
+        f"(mean {float(img.mean()):.6g})")
+
+    # the driver's step beside the train phase's: the trained model's
+    # step on this view's G-buffer with the scene's GCN sphere (its poles
+    # and seam repeat vertices), that sphere jittered by 1e-5, and the
+    # train phase's GCN points; kernels a step by the profiler
+    from rnr_tpu_torch.synthetic import build_batch, build_statics
+    from rnr_tpu_torch.train.steps import make_generator, make_rnr_train_step
+    tstep = make_rnr_train_step(model, create_rnr_optimizer(model, 1e-3))
+    statics, gen = build_statics(model, 4096), make_generator(0)
+    jitter = np.random.default_rng(0).standard_normal(gcn_pos.shape)
+    points = {"scene sphere": gcn_pos,
+              "scene sphere jittered": gcn_pos + 1e-5 * jitter,
+              "train phase points": build_batch(IMG, len(gcn_pos))["gcn_pos"]}
+    step_ms = {}
+    for what, pos in points.items():
+        b = dict(batch, gcn_pos=torch.as_tensor(pos, dtype=torch.float32,
+                                                 device=DEV))
+        step_ms[what] = profile_window(
+            f"drivers: train step, {what}",
+            lambda b=b: tstep(b, statics, gen), 1, top=2)
+    log("[drivers] train step kernels by GCN points: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in step_ms.items()))
+    del model, back, runs, tstep
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="device,build,kernels,slice,"
                                         "gbuffer,relight,parity,train,"
-                                        "train_parity")
+                                        "train_parity,drivers")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2895,6 +3250,7 @@ def main() -> None:
     variant_launches: dict = {}
     route_launches: dict = {}
     kernel_launches: dict = {}
+    driver_launches: dict = {}
 
     def done(name):
         torch.cuda.synchronize()
@@ -2923,12 +3279,16 @@ def main() -> None:
             done("parity")
         del state
         torch.cuda.empty_cache()
+    train_out: dict = {}
     if "train" in phases:
-        phase_train(train_launches, variant_launches)
+        train_out = phase_train(train_launches, variant_launches)
         done("train")
     if "train_parity" in phases:
         phase_train_parity()
         done("train_parity")
+    if "drivers" in phases:
+        phase_drivers(driver_launches, train_out)
+        done("drivers")
     # launches: the count on the kernel's main path, the training step
     # (one step at b1), or for K7 the G-buffer path (N_VIEWS views), for
     # K5 the relight path (N_VIEWS views x N_PROBES probes x the routes),
@@ -2952,6 +3312,7 @@ def main() -> None:
                     relight_launches=relight_launches.get(n),
                     train_variant_launches={
                         v: c.get(n) for v, c in variant_launches.items()},
+                    drivers_launches=driver_launches.get(n),
                     **rec.get(n, {}))
                for n, s in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))

@@ -4,11 +4,16 @@ imports nothing of `rnr_tpu`.
 
 `from_dict` rebuilds a config from `dataclasses.asdict` of either
 package's RNRConfig, which is how a test carries a JAX config across.
+`to_dict`, `save_config` and `load_config` are rnr_tpu's: the training
+driver snapshots its config to `params.json`, and either package reads
+the other's (the same JSON; `load_config` keeps the fields of the class
+and ignores keys it does not know, as rnr_tpu's does).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any
 
 
@@ -150,15 +155,33 @@ _NESTED = {"texture": TextureConfig, "lighting": LightingConfig,
            "train": TrainConfig}
 
 
-def from_dict(cls, d: dict) -> Any:
+def from_dict(cls, d: dict, strict: bool = True) -> Any:
     """Build `cls` from a (nested) dict; keys it lacks take the defaults,
-    unknown keys raise."""
+    unknown keys raise, or are dropped when not `strict`."""
     names = {f.name for f in dataclasses.fields(cls)}
     unknown = set(d) - names
-    if unknown:
+    if unknown and strict:
         raise ValueError(f"{cls.__name__}: unknown fields {sorted(unknown)}")
     kwargs = {}
-    for name, v in d.items():
+    for name in names & set(d):
+        v = d[name]
         sub = _NESTED.get(name) if cls is RNRConfig else None
-        kwargs[name] = from_dict(sub, v) if sub and isinstance(v, dict) else v
+        kwargs[name] = (from_dict(sub, v, strict)
+                        if sub and isinstance(v, dict) else v)
     return cls(**kwargs)
+
+
+def to_dict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def save_config(cfg: Any, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2, default=str)
+
+
+def load_config(cls, path: str) -> Any:
+    """A config of class `cls` from a `params.json` written by either
+    package's save_config; keys `cls` does not know are dropped."""
+    with open(path) as f:
+        return from_dict(cls, json.load(f), strict=False)

@@ -333,19 +333,28 @@ int launch(const Levels<float*>& lv, const float* uv, const float* g, int n, int
 // Up to MAX_LEVELS level gradients per launch (each [S_l, S_l, ch] f32,
 // zeroed by the caller: the kernel adds into them); a caller with more
 // levels launches again.  uv [n, h, w, 2], g [n, h, w, ch] f32, ch <=
-// MAX_CH.
+// MAX_CH.  uv is read as float2, so its base must be 8-byte aligned; where
+// ch % 4 == 0, g is read and the level gradients are added to as float4,
+// so their bases must be 16-byte aligned.  Anything else returns
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int rnr_mipmap_scatter(void* d0, void* d1, void* d2, void* d3,
                                   const void* uv, const void* g, int s0,
                                   int s1, int s2, int s3, int n_levels,
                                   int n, int h, int w, int ch,
                                   cudaStream_t stream) {
   if (n_levels < 1 || n_levels > MAX_LEVELS || ch < 1 || ch > MAX_CH ||
-      n < 0 || h < 0 || w < 0)
+      n < 0 || h < 0 || w < 0 || (reinterpret_cast<size_t>(uv) & 7) != 0)
     return (int)cudaErrorInvalidValue;
   float* const ds[MAX_LEVELS] = {static_cast<float*>(d0),
                                  static_cast<float*>(d1),
                                  static_cast<float*>(d2),
                                  static_cast<float*>(d3)};
+  if (ch % 4 == 0) {
+    bool aligned = (reinterpret_cast<size_t>(g) & 15) == 0;
+    for (int i = 0; i < n_levels; ++i)
+      aligned = aligned && (reinterpret_cast<size_t>(ds[i]) & 15) == 0;
+    if (!aligned) return (int)cudaErrorInvalidValue;
+  }
   const int ss[MAX_LEVELS] = {s0, s1, s2, s3};
   const Levels<float*> lv = make_levels(ds, ss, n_levels);
   const float* u = static_cast<const float*>(uv);

@@ -44,12 +44,16 @@ class RNRModel(nn.Module):
     first spectral-norm layer spans the vertex axis; flax infers it from
     the input, torch needs it up front).  l_dir: [3, S] sphere sample
     directions of the lighting (default: the Fibonacci sphere of
-    cfg.lighting.num_sample, the synthetic set).  The model is built on
-    `device`: the current CUDA device when None (raising without one),
-    "cpu" for the plain versions of the kernels."""
+    cfg.lighting.num_sample, the synthetic set).  init_lighting_coeff
+    ([L, B, C] or [B, C]) and texture_init ([S, S, 3]) start the SH
+    lighting and the texture's level 0 as in rnr_tpu's RNRModel.  The
+    model is built on `device`: the current CUDA device when None
+    (raising without one), "cpu" for the plain versions of the kernels."""
 
     def __init__(self, cfg: RNRConfig, num_v: int,
-                 l_dir: np.ndarray | None = None, device=None):
+                 l_dir: np.ndarray | None = None, device=None,
+                 init_lighting_coeff: np.ndarray | None = None,
+                 texture_init: np.ndarray | None = None):
         super().__init__()
         device = resolve_device(device)
         c = cfg
@@ -59,7 +63,8 @@ class RNRModel(nn.Module):
         self.rays_dtype = getattr(torch, c.rays.rays_dtype)
         self.texture_mapper = TextureMapper(
             c.texture.texture_size, c.texture.texture_num_ch,
-            c.texture.mipmap_level, c.texture.apply_sh, c.texture.fix_tex)
+            c.texture.mipmap_level, c.texture.apply_sh, c.texture.fix_tex,
+            texture_init)
         self.render_net = RenderingNet(
             nf0=c.render_net.nf0, in_channels=c.render_net_in_channels,
             out_channels=c.render_net_out_channels,
@@ -88,7 +93,7 @@ class RNRModel(nn.Module):
                                    c.lighting.num_lighting, 3,
                                    c.lighting.fix_lighting,
                                    c.lighting.lp_recon_h,
-                                   c.lighting.lp_recon_w)
+                                   c.lighting.lp_recon_w, init_lighting_coeff)
         self.ray_sampler = spec = RaySampler(
             c.rays.num_azi, c.rays.num_polar, c.rays.interval_polar_specular,
             "reflect")

@@ -17,12 +17,15 @@ from rnr_tpu_torch.ops.texture_cuda import mipmap_sample
 
 class TextureMapper(nn.Module):
     """Parameters `texture_{l}` [S_l, S_l, C] (level l has side S/2^l),
-    initialised like the JAX module: ones at level 0, 0.01 above.
-    `fix_texture` stops the gradient into the levels."""
+    initialised like the JAX module: ones at level 0, 0.01 above, and
+    `texture_init` [S, S, C0] (an image) written into channels [0, C0)
+    and [C0, 2 C0) of level 0.  `fix_texture` stops the gradient into the
+    levels."""
 
     def __init__(self, texture_size: int, texture_num_ch: int,
                  mipmap_level: int = 4, apply_sh: bool = True,
-                 fix_texture: bool = False):
+                 fix_texture: bool = False,
+                 texture_init: np.ndarray | None = None):
         super().__init__()
         self.texture_size = texture_size
         self.mipmap_level = mipmap_level
@@ -33,6 +36,11 @@ class TextureMapper(nn.Module):
             t = torch.ones((s, s, texture_num_ch), dtype=torch.float32)
             if level:
                 t = t * 0.01
+            elif texture_init is not None:
+                ti = torch.as_tensor(np.asarray(texture_init, np.float32))
+                c0 = ti.shape[-1]
+                t[..., :c0] = ti
+                t[..., c0:2 * c0] = ti
             setattr(self, f"texture_{level}", nn.Parameter(t))
 
     def level_size(self, level: int) -> int:

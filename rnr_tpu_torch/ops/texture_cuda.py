@@ -129,14 +129,21 @@ def mipmap_scatter(uv_map: torch.Tensor, g: torch.Tensor, sizes):
     [S_l, S_l, Ch] f32 of every level of side `sizes[l]`; the plain
     version on CPU tensors.  The kernel pre-reduces each warp's 8 x 4
     pixel tile per texel in shared memory before its f32 vector atomics
-    (csrc/mipmap_scatter.cu): not bitwise reproducible.  Ch <= 128."""
+    (csrc/mipmap_scatter.cu): not bitwise reproducible.  Ch <= 128.
+    The kernel reads uv as float2 and, where Ch % 4 == 0, g as float4: a
+    view at an offset off those alignments is copied here (the C entry
+    refuses it)."""
     if not use_kernel(uv_map, g):
         return mipmap_scatter_torch(uv_map, g, sizes)
     n, h, w, ch = g.shape
     if ch > SCATTER_MAX_CH:
         raise ValueError(f"mipmap_scatter kernel: Ch={ch} > {SCATTER_MAX_CH}")
     uv = uv_map.contiguous()
+    if uv.data_ptr() % 8:
+        uv = uv.clone()
     gf = g.to(torch.float32).contiguous()
+    if ch % 4 == 0 and gf.data_ptr() % 16:
+        gf = gf.clone()
     require(uv, "uv_map", torch.float32, (n, h, w, 2))
     require(gf, "g", torch.float32, (n, h, w, ch))
     grads = [torch.zeros((s, s, ch), dtype=torch.float32, device=uv.device)

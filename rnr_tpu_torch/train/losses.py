@@ -8,6 +8,13 @@ from __future__ import annotations
 import torch
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with rnr_tpu's gradient at 0, +1 (JAX's abs), where torch.abs
+    gives 0: a lighting that starts equal to its anchor (a black stitched
+    probe) or a black pixel rendered black then moves as in rnr_tpu."""
+    return torch.where(x >= 0, x, -x)
+
+
 def image_l1_loss(out_img: torch.Tensor, img_gt: torch.Tensor,
                   alpha_map: torch.Tensor, border_crop: int = 5) -> torch.Tensor:
     """Alpha-masked L1 with `border_crop` outer pixels excluded.
@@ -17,7 +24,7 @@ def image_l1_loss(out_img: torch.Tensor, img_gt: torch.Tensor,
         out_img = out_img[:, b:-b, b:-b]
         img_gt = img_gt[:, b:-b, b:-b]
         alpha_map = alpha_map[:, b:-b, b:-b]
-    return torch.mean(torch.abs(out_img * alpha_map - img_gt * alpha_map))
+    return torch.mean(_abs(out_img * alpha_map - img_gt * alpha_map))
 
 
 def lighting_loss(l_samples_est: torch.Tensor, l_samples_init: torch.Tensor,
@@ -26,7 +33,7 @@ def lighting_loss(l_samples_est: torch.Tensor, l_samples_init: torch.Tensor,
     """L1 between estimated and stitched-probe light samples [S, C];
     directions the probe covers (covered_mask [S], 0/1) at full weight,
     the others weakly."""
-    diff = torch.abs(l_samples_init - l_samples_est)
+    diff = _abs(l_samples_init - l_samples_est)
     m = covered_mask[:, None]
     n_cov = torch.clamp(torch.sum(covered_mask), min=1.0)
     n_unc = torch.clamp(torch.sum(1.0 - covered_mask), min=1.0)
@@ -45,5 +52,5 @@ def albedo_prior_loss(albedo_tex: torch.Tensor,
     denom = torch.sum(mask)
     mean_per_ch = torch.sum(albedo_tex * mask, dim=(0, 1)) / torch.clamp(
         denom, min=1.0)
-    loss = torch.sum(torch.abs(mean_per_ch - 0.5)) / albedo_tex.shape[-1]
+    loss = torch.sum(_abs(mean_per_ch - 0.5)) / albedo_tex.shape[-1]
     return torch.where(denom == 0, torch.zeros_like(loss), loss)

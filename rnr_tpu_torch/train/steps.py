@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from rnr_tpu_torch.models.rays import rays_lt_chrom_loss
@@ -21,6 +22,10 @@ from rnr_tpu_torch.ops.metrics import masked_err_metrics
 from rnr_tpu_torch.train.losses import (albedo_prior_loss, image_l1_loss,
                                         lighting_loss)
 
+# the standard deviation of a unit normal truncated at +-2: flax's
+# truncated-normal initialisers divide by it to keep the variance asked
+TRUNC_NORMAL_STD = 0.87962566103423978
+
 
 def make_generator(seed: int, device=None) -> torch.Generator:
     """The generator of a training run: on the current CUDA device when
@@ -29,6 +34,36 @@ def make_generator(seed: int, device=None) -> torch.Generator:
     g = torch.Generator(device=resolve_device(device))
     g.manual_seed(seed)
     return g
+
+
+@torch.no_grad()
+def init_rnr_params(model: RNRModel, seed: int) -> RNRModel:
+    """The initial weights of rnr_tpu's create_rnr_state (flax's
+    defaults), drawn from a CPU generator seeded with `seed`, so a run on
+    the card and one on the CPU start from the same weights: every
+    kernel (conv HWIO, Dense [in, out], nn.Linear [out, in]) lecun-normal,
+    a normal truncated at two deviations with variance 1 / fan-in; the
+    SNDense vectors `u` standard normal.  Biases, norm scales, textures,
+    the PReLU slope and the SH coefficients keep their constructed
+    values."""
+    gen = torch.Generator().manual_seed(seed)
+    modules = dict(model.named_modules())
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        linear = (isinstance(modules[".".join(path)], torch.nn.Linear)
+                  and leaf == "weight")
+        if leaf != "kernel" and not linear:
+            continue
+        fan_in = p.shape[-1] if linear else int(np.prod(p.shape[:-1]))
+        std = (1.0 / fan_in) ** 0.5 / TRUNC_NORMAL_STD
+        w = torch.empty(p.shape)
+        torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                    generator=gen)
+        p.copy_(w)
+    for name, b in model.named_buffers():
+        if name.endswith(".u"):
+            b.copy_(torch.randn(b.shape, generator=gen))
+    return model
 
 
 def create_rnr_optimizer(model: RNRModel, lr: float) -> torch.optim.Adam:

@@ -8,8 +8,9 @@ staging paths, ragged tiles, more than four texture levels; K2 also on
 adversarial uv (the G-buffer's at batch 2, the corner texel, a seam,
 uv outside [0, 1], exact edges and NaN, a frame no tile divides), twice
 bit-equal, uv and levels at unaligned offsets, and K2, K2b, K2, K2b on one
-stream; K2b also at batch 2, across a uv seam and past its per-warp
-box); the slice shapes are checked by chip_smoke.py.  K4 runs at V 700, 1000, 333 and 7500 and C
+stream; K2b also at batch 2, across a uv seam, past its per-warp
+box, and on uv and g views at unaligned offsets behind MipmapSampleFn,
+with its C entry refusing such bases); the slice shapes are checked by chip_smoke.py.  K4 runs at V 700, 1000, 333 and 7500 and C
 3, 64, 130 and 512, held to its plain version within f32 rounding
 (knn_cuda.compare_picks) and bitwise across two runs, with ties between
 duplicated vertices or zero rows going to the lower index.  The 4x4 pair of K6 and K8 is run
@@ -272,6 +273,72 @@ def test_mipmap_gather_entry_refuses_misaligned_uv(dev):
     torch.cuda.synchronize()
     assert rc == 1   # cudaErrorInvalidValue
     assert bool((out == 7.0).all())
+
+
+def _offset_view(a: np.ndarray, off: int, dev) -> torch.Tensor:
+    """A contiguous f32 copy of `a` on the card that starts `off` floats
+    into its allocation (4 * off bytes off the allocator's alignment)."""
+    t = torch.empty(a.size + off, device=dev)[off:].view(a.shape)
+    t.copy_(_t(a, dev))
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4 * off
+    return t
+
+
+@pytest.mark.parametrize("uv_off,g_off", [(1, 0), (0, 1), (1, 2), (3, 3)])
+def test_mipmap_sample_backward_misaligned_inputs(dev, uv_off, g_off):
+    """K2b behind MipmapSampleFn on a uv view at an odd float offset (the
+    kernel reads uv as float2) and an output gradient off 16 bytes (read
+    as float4 at C 24): forward and backward equal the aligned run's
+    (the wrappers copy such views), and mipmap_scatter on the same views
+    equals its plain version."""
+    rng = np.random.default_rng(40 + uv_off + 4 * g_off)
+    uv_np = rng.uniform(-0.05, 1.05, (2, 16, 24, 2)).astype(np.float32)
+    g_np = rng.standard_normal((2, 16, 24, 24)).astype(np.float32)
+    sizes = (32, 16, 8, 4, 2)
+    lv = [rng.standard_normal((s, s, 24)).astype(np.float32) for s in sizes]
+
+    def run(uv, g):
+        texs = [_t(a, dev).requires_grad_(True) for a in lv]
+        out = mipmap_sample(texs, uv)
+        out.backward(g)
+        return out.detach(), [t.grad for t in texs]
+
+    uv_a, g_a = _t(uv_np, dev), _t(g_np, dev)
+    uv_m, g_m = _offset_view(uv_np, uv_off, dev), _offset_view(g_np, g_off,
+                                                                dev)
+    n0 = mipmap_scatter.launches
+    out_m, grads_m = run(uv_m, g_m)
+    assert mipmap_scatter.launches == n0 + 2
+    out_a, grads_a = run(uv_a, g_a)
+    direct = mipmap_scatter(uv_m, g_m, sizes)
+    plain = mipmap_scatter_torch(uv_a, g_a, sizes)
+    mag = mipmap_scatter_torch(uv_a, g_a.abs(), sizes)
+    torch.cuda.synchronize()
+    assert torch.equal(out_m, out_a)
+    # the level gradients: K2b's atomics land in no fixed order, so equal
+    # to f32 rounding of the sum of magnitudes, as its plain version is
+    for got in (grads_m, direct):
+        for a, b, m in zip(got, grads_a, mag):
+            assert bool(((a - b).abs() <= 1e-5 * m + 1e-7).all())
+    for a, b, m in zip(direct, plain, mag):
+        assert bool(((a - b).abs() <= 1e-5 * m + 1e-7).all())
+
+
+@pytest.mark.parametrize("uv_off,g_off", [(1, 0), (0, 1), (0, 2), (1, 3)])
+def test_mipmap_scatter_entry_refuses_misaligned_bases(dev, uv_off, g_off):
+    """K2b's C entry returns cudaErrorInvalidValue for a uv base that is
+    not 8-byte aligned or, at C % 4 == 0, a g base that is not 16-byte
+    aligned, and launches nothing."""
+    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 9)
+    d = torch.full((8, 8, 4), 7.0, device=dev)
+    uv = torch.zeros(2 * 4 * 4 * 2 + 4, device=dev)
+    g = torch.ones(2 * 4 * 4 * 4 + 4, device=dev)
+    rc = f(d.data_ptr(), 0, 0, 0, uv.data_ptr() + 4 * uv_off,
+           g.data_ptr() + 4 * g_off, 8, 0, 0, 0, 1, 2, 4, 4, 4,
+           torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1   # cudaErrorInvalidValue
+    assert bool((d == 7.0).all())
 
 
 def test_mipmap_gather_and_scatter_interleaved_on_one_stream(dev):

@@ -212,6 +212,42 @@ def test_losses_and_metrics_match_jax():
                                    atol=1e-6)
 
 
+def test_l1_terms_take_jax_gradient_where_the_difference_is_zero():
+    """Where an estimate equals its target bit for bit (a black pixel
+    rendered black, a zero lighting against a black stitched probe, an
+    albedo mean of exactly 0.5), each L1 term's gradient is rnr_tpu's:
+    JAX's |x| has slope +1 at 0 (-0.0 too), torch.abs 0."""
+    rng = np.random.default_rng(2)
+    img = rng.uniform(0, 1, (1, 16, 16, 3)).astype(np.float32)
+    gt = rng.uniform(0, 1, (1, 16, 16, 3)).astype(np.float32)
+    img[:, :8] = gt[:, :8] = 0.0
+    alpha = np.ones((1, 16, 16, 1), np.float32)
+    est = rng.standard_normal((64, 3)).astype(np.float32)
+    init = rng.standard_normal((64, 3)).astype(np.float32)
+    est[:32] = init[:32] = 0.0
+    est[0] = -0.0
+    mask = (np.arange(64) % 3 > 0).astype(np.float32)
+    tex = np.tile(np.asarray([0.25, 0.75], np.float32), 32).reshape(8, 8, 1)
+    tex = np.concatenate([tex, tex[::-1], tex + 0.125], -1)
+    cases = [
+        (lambda x: losses.image_l1_loss(x, torch.from_numpy(gt),
+                                        torch.from_numpy(alpha), 2),
+         lambda x: jax_losses.image_l1_loss(x, gt, alpha, 2), img),
+        (lambda x: losses.lighting_loss(x, torch.from_numpy(init),
+                                        torch.from_numpy(mask), 1.0, 0.1),
+         lambda x: jax_losses.lighting_loss(x, init, mask, 1.0, 0.1), est),
+        (lambda x: losses.albedo_prior_loss(x, torch.zeros_like(x)),
+         lambda x: jax_losses.albedo_prior_loss(x, jnp.zeros_like(x)), tex),
+    ]
+    for port_fn, jax_fn, x in cases:
+        xt = torch.from_numpy(x.copy()).requires_grad_(True)
+        port_fn(xt).backward()
+        want = np.asarray(jax.grad(jax_fn)(jnp.asarray(x)))
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-6,
+                                   atol=1e-9)
+
+
 def test_chrom_loss_matches_jax_with_finite_gradient_at_zero():
     """Values and gradients of rays_lt_chrom_loss, with some rays_lt
     exactly (0, 0, 0), where a norm would give a NaN gradient."""
