@@ -1,8 +1,9 @@
 """Drive the PyTorch + CUDA port on one NVIDIA GPU: the serving path, the
 training step, inference from a mesh (G-buffer, then the frame),
-relighting under novel light probes, and the U-Net's conv routes
-"pallas" (K6), "p3s4" (K8's 4x4 pair), "slab3" (K8's 3x3 slab conv, K8a
-and K8b) and "slab" (the 3x3 slab conv and K8's 4x4 pair).
+relighting under novel light probes, the U-Net's conv routes "pallas"
+(K6), "p3s4" (K8's 4x4 pair), "slab3" (K8's 3x3 slab conv, K8a and K8b)
+and "slab" (the 3x3 slab conv and K8's 4x4 pair), the offline drivers,
+Deferred Neural Rendering and the differentiable rasterizer.
 
     python3 chip_smoke.py            # every phase (one H100, a few minutes)
     python3 chip_smoke.py --phases device,build,kernels
@@ -11,6 +12,7 @@ and K8b) and "slab" (the 3x3 slab conv and K8's 4x4 pair).
     python3 chip_smoke.py --phases device,build,kernels,slice,relight
     python3 chip_smoke.py --phases device,build,kernels,slice,train
     python3 chip_smoke.py --phases device,build,drivers
+    python3 chip_smoke.py --phases device,build,drivers,dnr,edge_grad
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
@@ -148,6 +150,41 @@ Phases (each failure raises, so the script exits non-zero):
            checkpoint's size and save and load seconds, and the trained
            model's step kernels on a view's G-buffer with the scene's GCN
            sphere, that sphere jittered and the train phase's GCN points.
+  dnr      Deferred Neural Rendering through the port's entry points on
+           the drivers phase's scene (its own copy): precompute,
+           train_dnr at full width (512^2, texture 512^2 x 30 channels x 4
+           levels, nf0 64, 5 downs, batch 1, apply_sh, "auto"; the U-Net
+           in f32 as rnr_tpu's, each conv's kernel three times on bf16
+           parts, each weight gradient's six) for 20 iterations with one
+           validation and one checkpoint, test_dnr.main on
+           model_final.ckpt, make_spiral (8
+           steps) and test_dnr on the spiral.  Checks every file, finite
+           losses and metrics, the launches of K2, K2b, K3, K3b and K7 on
+           that path, test_dnr's frame bit-equal to the eval step's on the
+           trained model, the launches of one step and one frame
+           (dnr_launches), their CUDA-event medians and the step's share
+           in kernels by name, the f32 route's glue (its splits and
+           sums) by name; K3's forward and data gradient and K3b on the
+           f32 route at the step's own conv inputs against their plain
+           f32 versions (5e-5 of the largest; a one-pass bf16 control
+           must fail that check); K2 and K2b at C 30 on the scene's uv
+           against their plain versions (single, queued and host times,
+           the bound), also on views off their alignment; one step under
+           "pallas" (K6a, K6b).
+  edge_grad  silhouette and rasterize_opt (ops/edge_grad.py) on the UV
+           sphere of the G-buffer phase from a ring view at 224^2 (32 x
+           112 tiles), 256^2 and 512^2: K7 once a call, overflow 0, the
+           oracle never taken;
+           K7's face index, weights and alpha and both Functions' forward
+           outputs bit-equal to rasterize_face_index's; the gradients of
+           a random weighting against the same Functions on the oracle's
+           maps; times.  At 320^2 (32 x 80 tiles) the overflow rule: K7
+           once, its overflow reported, the oracle's maps.  Then a
+           20-step Adam silhouette fit at 256^2 whose loss must fall (K7
+           once a step).
+The slice phase also holds K4 to its plain version (compare_picks) on
+the canonical GCN's own block features, and the parity phase runs the
+canonical model with group norm at 128^2 on the card against the CPU.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the per-kernel JSON
 record.  Nothing is printed as a result without a card.
@@ -1034,15 +1071,36 @@ def _offset_copy(t: torch.Tensor, off: int) -> torch.Tensor:
 def scatter_misaligned_case(texs, uv: torch.Tensor) -> None:
     """K2b on views at unaligned offsets: the G-buffer's uv one float off
     (K2b reads uv as float2) and g two floats off (read as float4 at 24
-    channels), behind MipmapSampleFn (forward and backward, against the
-    aligned run: the forward bit-equal, each level's gradient within 1e-5
-    x the sum of its terms' magnitudes, K2b's atomics landing in no fixed
-    order) and through mipmap_scatter against its plain version; then K2b's
-    C entry refusing each such base (cudaErrorInvalidValue, nothing
-    written).  Its own seed."""
+    channels), `misaligned_views`; then K2b's C entry refusing each such
+    base (cudaErrorInvalidValue, nothing written)."""
+    misaligned_views(texs, uv, 2)
+    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 9)
+    d = torch.full((8, 8, 4), 7.0, device=DEV)
+    base_uv = torch.zeros(2 * 4 * 4 * 2 + 4, device=DEV)
+    base_g = torch.ones(2 * 4 * 4 * 4 + 4, device=DEV)
+    for uv_off, g_off in ((1, 0), (0, 1), (0, 2)):
+        rc = f(d.data_ptr(), 0, 0, 0, base_uv.data_ptr() + 4 * uv_off,
+               base_g.data_ptr() + 4 * g_off, 8, 0, 0, 0, 1, 2, 4, 4, 4,
+               torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc != 1 or not bool((d == 7.0).all()):
+            raise AssertionError(f"rnr_mipmap_scatter took a base {uv_off} "
+                                 f"/ {g_off} floats off: rc {rc}")
+    log("[kernels] mipmap_scatter: the C entry refused three misaligned "
+        "bases")
+
+
+def misaligned_views(texs, uv: torch.Tensor, g_off: int) -> None:
+    """K2 and K2b on the uv view one float off and a g view `g_off` floats
+    off their alignment, C = texs' channels, behind MipmapSampleFn
+    (forward and backward, against the aligned run: the forward
+    bit-equal, each level's gradient within 1e-5 x the sum of its terms'
+    magnitudes, K2b's atomics landing in no fixed order) and through
+    mipmap_scatter against its plain version.  Its own seed."""
+    ch = texs[0].shape[-1]
     g = torch.from_numpy(np.random.default_rng(216).standard_normal(
-        (1, IMG, IMG, 24)).astype(np.float32)).to(DEV)
-    uv_m, g_m = _offset_copy(uv, 1), _offset_copy(g, 2)
+        (1, IMG, IMG, ch)).astype(np.float32)).to(DEV)
+    uv_m, g_m = _offset_copy(uv, 1), _offset_copy(g, g_off)
     if uv_m.data_ptr() % 8 == 0 or g_m.data_ptr() % 16 == 0:
         raise AssertionError("mipmap_scatter misaligned case: views aligned")
 
@@ -1064,26 +1122,13 @@ def scatter_misaligned_case(texs, uv: torch.Tensor) -> None:
     err = 0.0
     for got, ref in ((grads_m, grads_a), (direct, plain)):
         for a, r, m in zip(got, ref, mag):
-            check("mipmap_scatter misaligned uv and g",
+            check(f"mipmap_scatter misaligned uv and g, C {ch}",
                   float(((a - r).abs() - 1e-5 * m).max()), 0.0)
             err = max(err, float((a - r).abs().max()))
-    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 9)
-    d = torch.full((8, 8, 4), 7.0, device=DEV)
-    base_uv = torch.zeros(2 * 4 * 4 * 2 + 4, device=DEV)
-    base_g = torch.ones(2 * 4 * 4 * 4 + 4, device=DEV)
-    for uv_off, g_off in ((1, 0), (0, 1), (0, 2)):
-        rc = f(d.data_ptr(), 0, 0, 0, base_uv.data_ptr() + 4 * uv_off,
-               base_g.data_ptr() + 4 * g_off, 8, 0, 0, 0, 1, 2, 4, 4, 4,
-               torch.cuda.current_stream().cuda_stream)
-        torch.cuda.synchronize()
-        if rc != 1 or not bool((d == 7.0).all()):
-            raise AssertionError(f"rnr_mipmap_scatter took a base {uv_off} "
-                                 f"/ {g_off} floats off: rc {rc}")
-    log(f"[kernels] mipmap_scatter on uv 1 and g 2 floats off their "
-        f"alignment: forward bit-equal, gradients max abs err {err:.3g} "
-        "(tol 1e-5 x the sum of each texel's |terms|) through "
-        "MipmapSampleFn and mipmap_scatter; the C entry refused three "
-        "misaligned bases")
+    log(f"[kernels] mipmap_gather / mipmap_scatter at C {ch} on uv 1 and g "
+        f"{g_off} floats off their alignment: forward bit-equal, gradients "
+        f"max abs err {err:.3g} (tol 1e-5 x the sum of each texel's "
+        "|terms|) through MipmapSampleFn and mipmap_scatter")
 
 
 def gather_case(texs, uv: torch.Tensor, tag: str):
@@ -1111,8 +1156,9 @@ def gather_case(texs, uv: torch.Tensor, tag: str):
              queued_ms=queued_ms(lambda: mipmap_sample(texs, uv)),
              host_us=host_us(lambda: mipmap_sample(texs, uv)),
              kernel_queued_ms=gather_entry_queued_ms(texs, uv),
-             **gather_work(uv, 24, TEX_SIZES))
-    log(f"[kernels] mipmap_gather {tag} -> 4 levels x 24: max abs err "
+             **gather_work(uv, texs[0].shape[-1], TEX_SIZES))
+    log(f"[kernels] mipmap_gather {tag} -> 4 levels x {texs[0].shape[-1]}: "
+        f"max abs err "
         f"{err:.3g}, rel {err / scale:.3g} (tol {tol:.3g}); single "
         f"{r['ms']:.4f} ms, queued {r['queued_ms']:.4f} ms, host "
         f"{r['host_us']:.1f} us, C entry queued "
@@ -1127,10 +1173,11 @@ def gather_entry_queued_ms(texs, uv: torch.Tensor) -> float:
     events over TEX_SIZES (one launch, nothing counted): the kernel's
     device time per call, without the wrapper's host time."""
     n, h, w, _ = uv.shape
-    out = torch.empty((n, h, w, 24), device=DEV)
+    ch = texs[0].shape[-1]
+    out = torch.empty((n, h, w, ch), device=DEV)
     f = _build.fn("mipmap_gather", "rnr_mipmap_gather", 6, 10)
     args = (*[t.data_ptr() for t in texs], uv.data_ptr(), out.data_ptr(),
-            *TEX_SIZES, len(TEX_SIZES), n, h, w, 24, 0,
+            *TEX_SIZES, len(TEX_SIZES), n, h, w, ch, 0,
             torch.cuda.current_stream().cuda_stream)
     return queued_ms(lambda: check_launch(f(*args), "mipmap_gather"))
 
@@ -1189,7 +1236,8 @@ def scatter_case(uv: torch.Tensor, g: torch.Tensor, tag: str):
     for s in TEX_SIZES:
         x, y = level_coords(uv, s)
         taps += sum(int((w != 0).sum()) for _, w in bilinear_taps(x, y, s, s))
-    log(f"[kernels] mipmap_scatter {tag} -> 4 levels x 24: max abs err "
+    log(f"[kernels] mipmap_scatter {tag} -> 4 levels x {g.shape[-1]}: max "
+        f"abs err "
         f"{err:.3g} (tol 1e-5 x the sum of each texel's |terms|); "
         f"run-to-run max difference {rerun:.3g} (f32 atomics); {taps} "
         f"nonzero taps of {uv.shape[0] * IMG * IMG * 4 * len(TEX_SIZES)}")
@@ -2241,11 +2289,16 @@ def slice_routes(state: dict, route_launches: dict, frames: int = 3) -> None:
 
 
 def profile_window(name: str, fn, n: int, top: int = 12,
-                   warm: bool = True) -> float:
+                   warm: bool = True, by_name: dict | None = None,
+                   ranges: dict | None = None) -> float:
     """torch.profiler over n runs of fn (after one untraced run when
     `warm`): device time by kernel, and the share of the traced window
     the device was busy (sum of kernel times over first kernel start to
-    last kernel end).  Returns the kernel time per run in ms."""
+    last kernel end).  Returns the kernel time per run in ms; `by_name`
+    ({label: (substrings of kernel names)}) is filled in place with each
+    label's device ms per run, `ranges` ({label: record_function name})
+    with the device ms per run of the kernels launched inside that host
+    range and the ranges per run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2256,14 +2309,27 @@ def profile_window(name: str, fn, n: int, top: int = 12,
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # kernels only: a named host range may also show as a device-side
+    # annotation spanning its kernels
+    names = set((ranges or {}).values())
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name not in names]
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     span = (max(e.time_range.end for e in kern)
             - min(e.time_range.start for e in kern)) / 1e3
     log(f"[profile] {name} x{n}: kernels {busy:.3f} ms in a "
         f"{span:.3f} ms window: device busy {100 * busy / span:.1f}%, "
         f"idle {100 * (1 - busy / span):.1f}%")
-    ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for label, rname in (ranges or {}).items():
+        ev = [e for e in prof.events() if e.name == rname
+              and e.device_type == DeviceType.CPU]
+        ranges[label] = dict(ms=sum(e.device_time_total for e in ev) / 1e3
+                             / n, ranges=len(ev) // n)
+    ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and e.key not in names]
+    for label, subs in (by_name or {}).items():
+        by_name[label] = sum(e.self_device_time_total for e in ka
+                             if any(x in e.key for x in subs)) / 1e3 / n
     for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} "
             f"ms/run  x{e.count // n:<4d} {e.key[:100]}")
@@ -2613,6 +2679,64 @@ def phase_parity(state: dict) -> None:
             f"max |ref| {scale:.4g}")
         check(f"parity {route} max", err, tol_max)
         check(f"parity {route} mean", mean, tol_mean)
+    group_norm_parity()
+
+
+def group_norm_parity() -> None:
+    """norm "group" (flax's GroupNorm, groups of 16 channels) on the card:
+    the canonical model at 128^2 with group norm and seeded weights, its
+    frame on the card (the shipped route, pallas3) against the CPU's
+    (plain versions) from the card's v_feature, to the conv routes'
+    tolerances."""
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.synthetic import build_batch, init_weights, to_torch
+    from rnr_tpu_torch.train.steps import make_rnr_eval_step
+    card = init_weights(RNRModel(canonical_config(
+        128, render_net=dict(norm="group")), GCN_V), seed=0)
+    cpu = variant(card, device="cpu")
+    nb = build_batch(128, GCN_V)
+    bc, bh = to_torch(nb, DEV), to_torch(nb, "cpu")
+    with torch.inference_mode():
+        vf = card.compute_v_feature(bc["gcn_pos"])
+    a = make_rnr_eval_step(card)(bc, v_feature=vf)["img"].float().cpu()
+    r = make_rnr_eval_step(cpu)(bh, v_feature=vf.cpu())["img"].float()
+    scale = float(r.abs().max())
+    d = (a - r).abs()
+    err, mean = float(d.max()), float(d.mean())
+    log(f"[parity] group norm, pallas3: card vs CPU image 128^2: max abs err "
+        f"{err:.4g} (rel {err / scale:.3g}, tol {5e-2 * scale:.4g}), mean "
+        f"abs err {mean:.4g} (rel {mean / scale:.3g}, tol "
+        f"{5e-3 * scale:.4g}), max |ref| {scale:.4g}")
+    check("parity group norm max", err, 5e-2 * scale)
+    check("parity group norm mean", mean, 5e-3 * scale)
+
+
+def gcn_block_knn(state: dict) -> None:
+    """K4 on the canonical GCN's own block features: the inputs that the
+    slice's model gives stratified_knn in one GCN forward (eval, on the
+    canonical batch's 7,500 points), each held to the plain version by
+    compare_picks and bitwise over two runs (knn_case)."""
+    import rnr_tpu_torch.models.gcn as gcn_mod
+    seen = []
+    real = gcn_mod.stratified_knn
+
+    def record(x, width):
+        seen.append(x.clone())
+        return real(x, width)
+
+    gcn_mod.stratified_knn = record
+    try:
+        with torch.inference_mode():
+            state["model"].compute_v_feature(_gbuffer(IMG)["gcn_pos"])
+    finally:
+        gcn_mod.stratified_knn = real
+    ties = [knn_case(x, f"GCN block {i} features") for i, x in
+            enumerate(seen)]
+    log(f"[slice] stratified_knn on the GCN's {len(seen)} stratified blocks' "
+        f"features: {sum(t['differ'] for t in ties)} picks differ from the "
+        f"plain version, {sum(t['exact_ties'] for t in ties)} exact ties, "
+        f"{sum(t['near_ties'] for t in ties)} near-ties, none beyond the "
+        "f32 rounding bound")
 
 
 # ------------------------------------------------------------ training
@@ -3234,11 +3358,672 @@ def phase_drivers(driver_launches: dict, train_out: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------- DNR
+
+DNR_ITERS = 20
+DNR_CH = 30
+DNR_SPIRAL = 8
+# the kernels of the DNR path: the texture (K2, K2b), the U-Net's 3x3
+# convs (K3, K3b) and test_dnr's G-buffer (K7); K6's pair under "pallas"
+DNR_KERNELS = ("mipmap_gather", "mipmap_scatter", "conv3x3", "conv3x3_wgrad",
+               "rasterize_tiles")
+# the DNR step's kernels by name in the profiler: K3 with its reflect
+# dgrad's ring fold, K3b with its split-K sum
+DNR_PROFILE = {"mipmap_gather": ("mipmap_gather_kernel",),
+               "mipmap_scatter": ("mipmap_scatter_kernel",),
+               "conv3x3": ("conv3x3_kernel", "fold_ring_kernel"),
+               "conv3x3_wgrad": ("wgrad_kernel", "reduce_splits"),
+               "down4": ("conv4_kernel",)}
+
+
+def dnr_want(mods, train: bool) -> dict:
+    """The launches of one DNR step (train) or eval frame of `mods`: K2
+    once, K2b once a step.  The U-Net computes in f32, so each conv takes
+    its kernel three times (conv_cuda.f32_by_three) and each weight
+    gradient six (conv_cuda.f32_by_six): per 3x3 conv K3 3 and, in a step,
+    3 for its data gradient and K3b 6; under "pallas" per
+    4x4 down conv down4 3, per transpose conv convt4 3 and, in a step,
+    down4 3 for its data gradient (the down convs' is the plain conv's
+    under reflect padding)."""
+    from rnr_tpu_torch.models.unet import Conv, ConvTranspose
+    ms = list(mods.render_net.modules())
+    n3 = sum(isinstance(m, Conv) and m.route == "k3" for m in ms)
+    nd = sum(isinstance(m, Conv) and m.route == "down4" for m in ms)
+    nt = sum(isinstance(m, ConvTranspose) and m.route == "convt4" for m in ms)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(mipmap_gather=1, mipmap_scatter=int(train),
+                conv3x3=3 * n3 * (1 + int(train)),
+                conv3x3_wgrad=6 * n3 * int(train),
+                down4=3 * nd + 3 * nt * int(train), convt4=3 * nt)
+    return want
+
+
+def counted(fn, want: dict, tag: str):
+    """fn() with the launch counts set to 0 just before it and read just
+    after, each equal to `want`'s: (the counts, fn's result)."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_launches()
+    bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+    if bad:
+        raise AssertionError(f"{tag}: launches (got, expected) {bad}")
+    log(f"[dnr] launches in one {tag}: "
+        + json.dumps({k: v for k, v in got.items() if v}))
+    return got, out
+
+
+DNR_PARITY_IMG = 128
+# the f32 route's limit at the U-Net's own inputs, as
+# tests/test_torch_cuda.py::test_f32_activations_take_three_launches
+CONV_F32_TOL = 5e-5
+
+
+def dnr_card_vs_cpu(cfg) -> None:
+    """One DNR loss, every gradient and the eval frame at 128^2 on the
+    card (kernels, the f32 convs by three bf16 launches, their weight
+    gradients by six) and on the CPU
+    (plain f32 versions): the same seeded weights and a random batch of
+    its own seed, dropout off.  The loss and the frame within 1e-4 (the
+    f32 cuDNN 4x4 convs and the split products round apart); each
+    parameter's gradient at a cosine of at least 0.999 with the CPU's and
+    a norm within 1% (five levels of batch statistics amplify those
+    roundings in the backward; the largest elementwise error is
+    reported).  The conv kernels themselves are held elementwise at
+    512^2 by dnr_conv_parity."""
+    from rnr_tpu_torch.drivers.train_dnr import _synthetic_views, make_batch
+    from rnr_tpu_torch.train import steps as st
+    from rnr_tpu_torch.train.losses import image_l1_loss
+    s = DNR_PARITY_IMG
+    views = _synthetic_views(np.random.default_rng(128), 1, s)
+    out = []
+    for d in (DEV, torch.device("cpu")):
+        mods = st.init_dnr_params(st.build_dnr_modules(cfg, device=d), 0)
+        mods.render_net.Unet_0.use_dropout = False
+        b = make_batch(views, d)
+        img, _ = st.dnr_forward(mods, b, train=True,
+                                sh_start_ch=cfg.sh_start_ch)
+        loss = image_l1_loss(img, b["img_gt"], b["alpha_map"],
+                             cfg.loss.border_crop)
+        loss.backward()
+        frame = st.make_dnr_eval_step(cfg, mods)(b)
+        out.append((float(loss.detach()), frame.cpu(),
+                    {n: p.grad.cpu() for n, p in mods.named_parameters()}))
+    (la, fa, ga), (lr, fr, gr) = out
+    check("dnr card vs CPU loss", abs(la - lr), 1e-4 * abs(lr))
+    check("dnr card vs CPU frame", float((fa - fr).abs().max()),
+          1e-4 * float(fr.abs().max()))
+    rel, cos, ratio = {}, {}, {}
+    for n in gr:
+        a, r = ga[n].double().flatten(), gr[n].double().flatten()
+        rel[n] = float((a - r).abs().max() / r.abs().max())
+        cos[n] = float(a @ r / (a.norm() * r.norm()))
+        ratio[n] = float(a.norm() / r.norm())
+    worst = max(rel, key=rel.get)
+    log(f"[dnr] card vs CPU at {s}^2 (f32 U-Net, dropout off): loss "
+        f"{la:.7g} / {lr:.7g}, frame max abs err "
+        f"{float((fa - fr).abs().max()):.3g}; of the {len(gr)} gradients "
+        f"the largest max abs err {rel[worst]:.3g} of its largest "
+        f"({worst}), lowest cosine {min(cos.values()):.7f}, norm ratios "
+        f"{min(ratio.values()):.6f}..{max(ratio.values()):.6f}")
+    for n in gr:
+        check(f"dnr card vs CPU gradient {n}: 1 - cosine", 1 - cos[n], 1e-3)
+        check(f"dnr card vs CPU gradient {n}: |norm ratio - 1|",
+              abs(ratio[n] - 1), 1e-2)
+
+
+def dnr_conv_parity(step) -> dict:
+    """K3's forward, K3's data gradient and K3b on the f32 route
+    (conv_cuda.f32_by_three, three bf16 launches; f32_by_six, six, for
+    K3b) at the inputs that one DNR train step at full width gives them,
+    captured from the step (as gcn_block_knn captures K4's): each output
+    within CONV_F32_TOL of the largest value of the plain f32 version on
+    the same inputs (TF32 off).  The control, one bf16 launch on the same
+    inputs with an f32 output, must fail the same check (miss the limit
+    on at least one call of each kind: a weight gradient's sum over 512^2
+    pixels can average one pass's roundings below it), so the check can
+    tell the f32 route from one pass.  Each call's errors against the
+    float64 sums are logged beside, the plain version's too.  Returns per
+    kind the calls, the route's largest error, the control's smallest
+    and largest, the calls where the control misses, and the largest
+    errors against float64."""
+    from rnr_tpu_torch.ops import conv_cuda as cc
+    bf = torch.bfloat16
+    real = {k: getattr(cc, f"conv3x3_{k}") for k in ("fwd", "dgrad", "wgrad")}
+    seen = {k: [] for k in real}
+    real_vjp = cc._vjp
+
+    def fwd(x, w, b, pad_mode):
+        seen["fwd"].append([x.detach().clone(), w.detach().clone(),
+                            b.detach().clone(), pad_mode])
+        return real["fwd"](x, w, b, pad_mode)
+
+    def vjp(ctx, g, dgrad, wgrad):
+        # the backward's operands as _vjp gives them to its dgrad / wgrad
+        x, w = ctx.saved_tensors
+        gx = g.to(x.dtype).detach().clone()
+        seen["dgrad"].append([gx, w.detach().clone(), ctx.pad_mode])
+        seen["wgrad"].append([x.detach().clone(), gx, ctx.pad_mode])
+        return real_vjp(ctx, g, dgrad, wgrad)
+
+    cc.conv3x3_fwd, cc._vjp = fwd, vjp
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        cc.conv3x3_fwd, cc._vjp = real["fwd"], real_vjp
+    # (the route, the plain f32 version, the one-pass control) per kind
+    runs = {
+        "fwd": lambda x, w, b, p: (
+            real["fwd"](x, w, b, p), cc.conv3x3_torch(x, w, b, p),
+            real["fwd"](x.to(bf), w, b, p, torch.float32)),
+        "dgrad": lambda g, w, p: (
+            real["dgrad"](g, w, p), cc.conv3x3_dgrad_torch(g, w, p),
+            real["dgrad"](g.to(bf), w, p)),
+        "wgrad": lambda x, g, p: (
+            real["wgrad"](x, g, p), cc.conv3x3_wgrad_torch(x, g, p),
+            real["wgrad"](x.to(bf), g.to(bf), p))}
+    f64 = torch.float64
+
+    def conv64(x, w):
+        return torch.nn.functional.conv2d(
+            x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+            padding=1).permute(0, 2, 3, 1)
+
+    # the same functions in float64: how far the f32 plain version itself
+    # lies from the exact sums
+    exact = {
+        "fwd": lambda x, w, b, p: torch.nn.functional.conv2d(
+            cc._pad_nhwc(x.to(f64), p).permute(0, 3, 1, 2),
+            w.to(f64).permute(3, 2, 0, 1)).permute(0, 2, 3, 1) + b.to(f64),
+        "dgrad": lambda g, w, p: cc._dgrad(g.to(f64), w.to(f64), p, conv64),
+        "wgrad": lambda x, g, p: torch.stack([
+            torch.einsum("nhwc,nhwo->co", cc._pad_nhwc(x.to(f64), p)[
+                :, dy:dy + x.shape[1], dx:dx + x.shape[2]], g.to(f64))
+            for dy in range(3) for dx in range(3)]).reshape(
+                3, 3, x.shape[-1], g.shape[-1])}
+    out, errs = {}, {}
+    for kind, calls in seen.items():
+        if not calls or any(t.dtype != torch.float32 for a in calls
+                            for t in a[:2]):
+            raise AssertionError(f"dnr conv parity: {len(calls)} {kind} "
+                                 "calls captured, all must be f32")
+        e = errs[kind] = {"route": [], "control": [], "route_exact": [],
+                          "plain_exact": [], "shapes": []}
+        for a in calls:
+            k, p, one = runs[kind](*a)
+            x64 = exact[kind](*a)
+            scale, s64 = float(p.abs().max()), float(x64.abs().max())
+            if not scale > 0:
+                raise AssertionError(f"dnr conv parity {kind}: plain "
+                                     "output all zero")
+            e["route"].append(float((k - p).abs().max()) / scale)
+            e["control"].append(float((one - p).abs().max()) / scale)
+            e["route_exact"].append(float((k.to(f64) - x64).abs().max())
+                                    / s64)
+            e["plain_exact"].append(float((p.to(f64) - x64).abs().max())
+                                    / s64)
+            e["shapes"].append([tuple(a[0].shape), tuple(a[1].shape)])
+        out[kind] = dict(calls=len(calls), route_max_rel=max(e["route"]),
+                         one_pass_min_rel=min(e["control"]),
+                         one_pass_max_rel=max(e["control"]),
+                         one_pass_calls_beyond=sum(
+                             x > CONV_F32_TOL for x in e["control"]),
+                         route_vs_f64_max_rel=max(e["route_exact"]),
+                         plain_vs_f64_max_rel=max(e["plain_exact"]))
+        del calls[:]
+    log("[dnr] f32 route per call (route vs plain f32, one pass vs plain "
+        "f32, route vs f64, plain f32 vs f64, each over the reference's "
+        "largest value): " + json.dumps(
+            {k: [[f"{v['route'][i]:.3g}", f"{v['control'][i]:.3g}",
+                  f"{v['route_exact'][i]:.3g}", f"{v['plain_exact'][i]:.3g}",
+                  v["shapes"][i]] for i in range(len(v["route"]))]
+             for k, v in errs.items()}))
+    log(f"[dnr] the f32 route at the DNR step's own conv inputs ({IMG}^2), "
+        f"error over the plain f32 version's largest value, limit "
+        f"{CONV_F32_TOL}: " + json.dumps(
+            {k: {n: float(f"{x:.3g}") if isinstance(x, float) else x
+                 for n, x in v.items()} for k, v in out.items()}))
+    for kind, e in errs.items():
+        for i, err in enumerate(e["route"]):
+            check(f"dnr conv parity {kind} {i} {e['shapes'][i]} (route)",
+                  err, CONV_F32_TOL)
+        if not out[kind]["one_pass_calls_beyond"]:
+            raise AssertionError(
+                f"dnr conv parity {kind}: one bf16 pass within "
+                f"{CONV_F32_TOL} on all {len(e['control'])} calls (largest "
+                f"{max(e['control']):.3g}): the check cannot tell it from "
+                "the f32 route")
+    return out
+
+
+def f32_glue_ranges():
+    """conv_cuda's f32 route with its operand splits (split_bf16) and its
+    sums of the products (add_parts) each in a named profiler range, for
+    profile_window's `ranges`; restore with the returned function."""
+    from torch.profiler import record_function
+
+    from rnr_tpu_torch.ops import conv_cuda as cc
+    real = {"split_bf16": cc.split_bf16, "add_parts": cc.add_parts}
+
+    def ranged(name):
+        def f(*a, **k):
+            with record_function(f"f32 route: {name}"):
+                return real[name](*a, **k)
+        return f
+
+    for name in real:
+        setattr(cc, name, ranged(name))
+    return lambda: [setattr(cc, n, f) for n, f in real.items()]
+
+
+def phase_dnr(dnr_launches: dict, rec: dict) -> None:
+    """The DNR vertical through the port's entry points, in this process,
+    on the drivers phase's scene (written under build/dnr_scene/):
+    precompute, train_dnr at full width (512^2, texture 512^2 x 30 x 4
+    levels, nf0 64, 5 downs, batch 1, apply_sh, "auto") for DNR_ITERS
+    iterations (one validation, one checkpoint), test_dnr.main on
+    model_final.ckpt, make_spiral (DNR_SPIRAL steps) and test_dnr on the
+    spiral.  Checks every file, finite losses and metrics, the launches
+    of DNR_KERNELS on that path, test_dnr's frame bit-equal to the eval
+    step's on the trained model, then the launches of one step and one
+    frame against dnr_want, their CUDA-event medians and the step's
+    share in kernels; K2 and K2b at C 30 against their plain versions
+    (and on misaligned views); one step under "pallas" (K6a, K6b)."""
+    import shutil
+    from rnr_tpu_torch.data import Mesh, ViewDataset
+    from rnr_tpu_torch.drivers import (make_spiral, precompute, test_dnr,
+                                       train_dnr)
+    from rnr_tpu_torch.drivers.test_rnr import _gbuffer
+    from rnr_tpu_torch.ops.gbuffer import make_mesh_buffers, render_gbuffer
+    from rnr_tpu_torch.train import steps as st
+    root = os.path.join(ROOT, "build", "dnr_scene")
+    shutil.rmtree(root, ignore_errors=True)
+    write_scene(root)
+    dr = ["--data_root", root, "--img_size", str(IMG)]
+    split = [f"first_{DRIVER_TRAIN_VIEWS}", f"after_{DRIVER_TRAIN_VIEWS}"]
+    t0 = time.perf_counter()
+    precompute.main(dr)
+    t_pre = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    log_dir, mods = train_dnr.main([
+        *dr, "--logging_root", os.path.join(root, "logs"),
+        "--texture_size", "512", "--texture_num_ch", str(DNR_CH),
+        "--mipmap_level", "4", "--nf0", "64", "--sampling_pattern", split[0],
+        "--sampling_pattern_val", split[1], "--max_iter", str(DNR_ITERS),
+        "--val_freq", str(DNR_ITERS - 1), "--ckp_freq", str(DNR_ITERS - 1),
+        "--log_freq", "100"])
+    t_train = time.perf_counter() - t0
+    tr = ["--data_root", root, "--checkpoint_dir", log_dir, "--img_size",
+          str(IMG)]
+    # cuDNN's deterministic algorithms for the comparison with the eval
+    # step below (the plain f32 4x4 convs of "auto"; measured there)
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    res = test_dnr.main([*tr, "--out_dir", os.path.join(log_dir, "test")],
+                        keep_frames=True)
+    t_test = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = False
+    make_spiral.main(["--data_root", root, "--num_step", str(DNR_SPIRAL),
+                      "--out_dir", "_/test_seq/spiral"])
+    spiral = test_dnr.main([*tr, "--calib_dir", "_/test_seq/spiral",
+                            "--out_dir", os.path.join(log_dir, "spiral")])
+    torch.cuda.synchronize()
+    dnr_launches["path"] = read_launches()
+    missing = [k for k in DNR_KERNELS if not dnr_launches["path"][k]]
+    if missing:
+        raise AssertionError(f"dnr: {missing} never launched")
+    log(f"[dnr] launches on the DNR path: {dnr_launches['path']}")
+
+    for f in ("params.json", "model_final.ckpt",
+              f"model_iter-{DNR_ITERS - 1}.ckpt", "summary.json"):
+        if not os.path.isfile(os.path.join(log_dir, f)):
+            raise AssertionError(f"dnr: train_dnr did not write {f}")
+    for sub, n in (("val_out", DRIVER_VIEWS - DRIVER_TRAIN_VIEWS),
+                   ("test", DRIVER_VIEWS), ("spiral", DNR_SPIRAL)):
+        if len(_files(os.path.join(log_dir, sub))) != n:
+            raise AssertionError(f"dnr: {sub} holds "
+                                 f"{len(_files(os.path.join(log_dir, sub)))}"
+                                 f" files, expected {n}")
+    if (res["views"], spiral["views"]) != (DRIVER_VIEWS, DNR_SPIRAL):
+        raise AssertionError(f"dnr: test_dnr rendered {res['views']} and "
+                             f"{spiral['views']} views")
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    vals = [summary["first_loss"], summary["last_loss"],
+            *summary["val"].values()]
+    if summary["iters"] != DNR_ITERS or not np.isfinite(vals).all():
+        raise AssertionError(f"dnr: summary {summary}")
+    timing = summary["timing"]
+    log(f"[dnr] precompute {t_pre / DRIVER_VIEWS:.4f} s/view; train_dnr "
+        f"{timing['iters_per_s']:.3f} iterations/s through the driver "
+        f"({1e3 / timing['iters_per_s']:.3f} ms an iteration over "
+        f"{timing['iters_timed']} after the first; validation "
+        f"{timing['validate_s']:.3f} s, checkpoint "
+        f"{timing['checkpoint_s']:.3f} s; main() {t_train:.3f} s in all); "
+        f"losses {summary['first_loss']:.6g} -> {summary['last_loss']:.6g}; "
+        f"val {summary['val']}; test_dnr.main {res['views'] / res['render_s']:.3f}"
+        f" views/s ({t_test:.3f} s with the checkpoint's load), the spiral "
+        f"{spiral['views'] / spiral['render_s']:.3f} views/s (PNG writes "
+        "included)")
+
+    # test_dnr.main's frame against the eval step's on the trained model
+    cfg = mods.cfg
+    eval_step = st.make_dnr_eval_step(cfg, mods)
+    ds = ViewDataset(root, os.path.join(root, "calib.mat"), (IMG, IMG),
+                     load_img=False)
+    mesh_buf = make_mesh_buffers(Mesh(os.path.join(root, "mesh.obj"),
+                                      global_RT=np.eye(4, dtype=np.float32)))
+    view = ds.read_view(DRIVER_TRAIN_VIEWS)
+    gbatch = test_dnr.gbuffer_batch(_gbuffer(render_gbuffer, mesh_buf, view,
+                                             IMG))
+    reruns = [eval_step(gbatch) for _ in range(2)]
+    rerun = float((reruns[0] - reruns[1]).abs().max())
+    torch.backends.cudnn.deterministic = True
+    img = eval_step(gbatch)[0] * gbatch["alpha_map"][0]
+    torch.backends.cudnn.deterministic = False
+    got = res["frames"][view["img_fn"].split(".")[0]]
+    if not torch.equal(img, got) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("dnr: test_dnr.main's frame differs from the "
+                             "eval step's on the trained model: max "
+                             f"{float((img - got).abs().max()):.3g}")
+    log(f"[dnr] test_dnr.main's frame of view {view['img_fn']} bit-equal to "
+        f"the eval step's on the trained model (mean {float(img.mean()):.6g};"
+        f" both under cudnn.deterministic; without it two eval frames "
+        f"differ by up to {rerun:.3g})")
+
+    # one step and one frame: launches, times, the step's share in kernels
+    tds = ViewDataset(root, os.path.join(root, "calib.mat"), (IMG, IMG),
+                      img_dir=os.path.join(root, "rgb0"),
+                      load_precompute=True,
+                      precomp_high_dir=os.path.join(root, "precomp_mesh"),
+                      precomp_low_dir=os.path.join(root, "precomp_mesh"))
+    b = train_dnr.make_batch([tds.read_view(0)], DEV)
+    gen = st.make_generator(0)
+    step = st.make_dnr_train_step(cfg, mods,
+                                  st.create_rnr_optimizer(mods, 1e-3))
+    step(b, gen)
+    dnr_launches["step"], met = counted(lambda: step(b, gen),
+                                        dnr_want(mods, True), "DNR step")
+    if not all(np.isfinite(float(v)) for v in met.values()):
+        raise AssertionError(f"dnr: step metrics {met}")
+    dnr_launches["frame"], _ = counted(lambda: eval_step(b),
+                                       dnr_want(mods, False), "DNR frame")
+    step_ms = cuda_ms(lambda: step(b, gen), iters=5, warmup=1)
+    frame_ms = cuda_ms(lambda: eval_step(b))
+    # the f32 route's glue (its operand splits and output sums) by name
+    glue = {"split": "f32 route: split_bf16", "sum": "f32 route: add_parts"}
+    s_by, s_glue = dict(DNR_PROFILE), dict(glue)
+    f_by, f_glue = dict(DNR_PROFILE), dict(glue)
+    restore = f32_glue_ranges()
+    try:
+        s_k = profile_window("dnr: train step", lambda: step(b, gen), 3,
+                             top=10, by_name=s_by, ranges=s_glue)
+        f_k = profile_window("dnr: eval frame", lambda: eval_step(b), 5,
+                             top=6, by_name=f_by, ranges=f_glue)
+    finally:
+        restore()
+    log(f"[dnr] step {step_ms:.3f} ms (CUDA events, median of 5), "
+        f"{s_k:.3f} ms in kernels ({100 * s_k / step_ms:.1f}% of the "
+        f"step); frame {frame_ms:.3f} ms (median of 10), {f_k:.3f} ms in "
+        f"kernels ({100 * f_k / frame_ms:.1f}%); by kernel a step "
+        + json.dumps({k: round(v, 4) for k, v in s_by.items()})
+        + ", a frame " + json.dumps({k: round(v, 4) for k, v in f_by.items()})
+        + "; the f32 route's glue (device ms of the kernels in its ranges, "
+        "ranges) a step " + json.dumps(s_glue) + ", a frame "
+        + json.dumps(f_glue))
+    for name in DNR_PROFILE:
+        rec.setdefault(name, {})["dnr"] = dict(
+            step_kernel_ms=s_by[name], frame_kernel_ms=f_by[name],
+            launches_step=dnr_launches["step"][name],
+            launches_frame=dnr_launches["frame"][name])
+    rec.setdefault("dnr_step", {}).update(
+        step_ms=step_ms, frame_ms=frame_ms, step_kernel_ms=s_k,
+        frame_kernel_ms=f_k, step_f32_glue=s_glue, frame_f32_glue=f_glue)
+    parity = dnr_conv_parity(lambda: step(b, gen))
+    rec["conv3x3"]["dnr"]["f32_route"] = {k: parity[k]
+                                          for k in ("fwd", "dgrad")}
+    rec["conv3x3_wgrad"]["dnr"]["f32_route"] = parity["wgrad"]
+
+    # K2 and K2b at the DNR shape: 4 levels 512..64 x 30 channels on the
+    # scene's uv (its own seed)
+    rng = np.random.default_rng(30)
+    texs = [torch.from_numpy((0.5 + 0.5 * rng.standard_normal(
+        (s, s, DNR_CH))).astype(np.float32)).to(DEV) for s in TEX_SIZES]
+    uv = b["uv_map"].contiguous()
+    n_pix = IMG * IMG
+    r, _ = gather_case(texs, uv, f"DNR view uv, C {DNR_CH}")
+    r["plain_ms"] = cuda_ms(lambda: mipmap_sample_torch(texs, uv))
+    g = torch.from_numpy(rng.standard_normal((1, IMG, IMG, DNR_CH)).astype(
+        np.float32)).to(DEV)
+    err, rerun, taps = scatter_case(uv, g, f"DNR view uv, C {DNR_CH}")
+    sc = dict(max_abs_err=err, rerun_max_diff=rerun,
+              ms=cuda_ms(lambda: mipmap_scatter(uv, g, TEX_SIZES)),
+              queued_ms=queued_ms(lambda: mipmap_scatter(uv, g, TEX_SIZES)),
+              host_us=host_us(lambda: mipmap_scatter(uv, g, TEX_SIZES)),
+              plain_ms=cuda_ms(lambda: mipmap_scatter_torch(uv, g, TEX_SIZES),
+                               iters=3, warmup=1),
+              **texture_work(n_pix, DNR_CH, TEX_SIZES, taps))
+    log(f"[dnr] mipmap_scatter C {DNR_CH}: {sc['ms']:.4f} ms, queued "
+        f"{sc['queued_ms']:.4f} ms, host {sc['host_us']:.1f} us, plain "
+        f"{sc['plain_ms']:.4f} ms; bound {sc['bound_ms']:.4f} ms "
+        f"({sc['bound_by']}), {scatter_bytes(n_pix, DNR_CH) / sc['ms'] / 1e6:.1f}"
+        " GB/s")
+    misaligned_views(texs, uv, 1)
+    rec["mipmap_gather"]["dnr"]["shape"] = r
+    rec["mipmap_scatter"]["dnr"]["shape"] = sc
+
+    dnr_card_vs_cpu(override(cfg, train=dict(img_size=DNR_PARITY_IMG)))
+
+    # one step under "pallas": K6a / K6b on the U-Net's 4x4 convs
+    pcfg = override(cfg, render_net=dict(conv_backend="pallas"))
+    pm = st.build_dnr_modules(pcfg)
+    pm.load_state_dict(mods.state_dict())
+    pstep = st.make_dnr_train_step(pcfg, pm, st.create_rnr_optimizer(pm, 1e-3))
+    pstep(b, gen)
+    dnr_launches["pallas_step"], pmet = counted(
+        lambda: pstep(b, gen), dnr_want(pm, True), "DNR step under pallas")
+    if not np.isfinite(float(pmet["loss"])):
+        raise AssertionError(f"dnr: pallas step loss {pmet['loss']}")
+    p_ms = cuda_ms(lambda: pstep(b, gen), iters=3, warmup=0)
+    rec["dnr_step"]["pallas_step_ms"] = p_ms
+    log(f"[dnr] step under pallas {p_ms:.3f} ms (CUDA events, median of "
+        f"3), loss {float(pmet['loss']):.6g}")
+    del mods, pm, step, pstep, eval_step
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- edge_grad
+
+# 224^2: K7 on 32 x 112 tiles, where the TPU kernel's 32 x 128 does not
+# divide the frame
+EDGE_SIZES = (224, 256, 512)
+# 32 x 80 tiles, where the sphere's pole puts more than K7's 2048
+# candidates in a tile: the overflow rule's case
+EDGE_OVERFLOW_SIZE = 320
+EDGE_FIT_STEPS = 20
+EDGE_FIT_SIZE = 256
+EDGE_ELEVATION = 30.0
+
+
+def edge_case(faces: torch.Tensor, s: int, rng) -> dict:
+    """silhouette and rasterize_opt on faces at s^2 against the same
+    Functions on the oracle's winner maps (backend "xla"): K7 once a call,
+    overflow 0 and no oracle run; K7's face index, weights and alpha
+    bit-equal to rasterize_face_index's (its depth within one f32 rounding)
+    and both Functions' forward outputs too; the gradients of a random
+    weighting
+    within 1e-5 of the largest (index_add's atomics sum in another order);
+    times of the forward and of forward + backward."""
+    from rnr_tpu_torch.ops import edge_grad as eg
+    from rnr_tpu_torch.ops.rasterize import rasterize_face_index
+    tag = f"{faces.shape[1]} faces at {s}^2"
+    eg.ORACLE_TAKEN.update(overflow=0)
+    reset_launches()
+    win = eg._rasterize_winner(faces, s, 0.0, 100.0)
+    torch.cuda.synchronize()
+    overflow = int(win.overflow.sum())
+    ref = rasterize_face_index(faces, s, near=0.0, far=100.0)
+    for k in ("face_index_map", "weight_map", "alpha_map"):
+        if not torch.equal(getattr(win, k), getattr(ref, k)):
+            raise AssertionError(f"edge_grad {tag}: K7's {k} differs from "
+                                 "rasterize_face_index's")
+    # the z-buffer's depth (used by neither Function: rasterize_opt
+    # recomputes it from the face index) may differ by an f32 rounding
+    dd = (win.depth_map - ref.depth_map).abs()
+    check(f"edge_grad {tag} depth_map", float(dd.max()),
+          2 ** -22 * float(ref.depth_map.abs().max()))
+    w1 = torch.from_numpy(rng.uniform(0.2, 1, (1, s, s)).astype(
+        np.float32)).to(DEV)
+    w3 = torch.from_numpy(rng.uniform(0.2, 1, (1, 3, s, s)).astype(
+        np.float32)).to(DEV)
+    tex = torch.from_numpy(rng.uniform(0, 1, (1, faces.shape[1], 2, 2, 2, 3))
+                           .astype(np.float32)).to(DEV)
+
+    def sil(backend):
+        f = faces.detach().clone().requires_grad_(True)
+        a = eg.silhouette(f, s, 0.0, 100.0, backend)
+        (a * w1).sum().backward()
+        return a.detach(), f.grad
+
+    def opt(backend):
+        f = faces.detach().clone().requires_grad_(True)
+        t = tex.clone().requires_grad_(True)
+        o = eg.rasterize_opt(f, t, s, near=0.0, far=100.0, backend=backend)
+        ((o["rgb"] * w3).sum() + (o["alpha"] * w1).sum()
+         + (o["depth"] * w1).sum() * 1e-3).backward()
+        return [o[k].detach() for k in ("rgb", "alpha", "depth")], (f.grad,
+                                                                    t.grad)
+
+    reset_launches()
+    a, ga = sil("auto")
+    o, go = opt("auto")
+    torch.cuda.synchronize()
+    k7 = rasterize_tiles.launches
+    if k7 != 2 or eg.ORACLE_TAKEN != {"overflow": 0}:
+        raise AssertionError(f"edge_grad {tag}: K7 launched {k7} times for "
+                             f"2 calls, oracle taken {eg.ORACLE_TAKEN}")
+    ra, rga = sil("xla")
+    ro, rgo = opt("xla")
+    if not torch.equal(a, ref.alpha_map) or not torch.equal(a, ra) or any(
+            not torch.equal(x, y) for x, y in zip(o, ro)):
+        raise AssertionError(f"edge_grad {tag}: forward differs from the "
+                             "oracle's")
+    errs = {}
+    for name, got, want in (("silhouette d faces", ga, rga),
+                            ("rasterize_opt d faces", go[0], rgo[0]),
+                            ("rasterize_opt d textures", go[1], rgo[1])):
+        scale = float(want.abs().max())
+        errs[name] = float((got - want).abs().max())
+        if not scale > 0:
+            raise AssertionError(f"edge_grad {tag}: {name} is all zero")
+        check(f"edge_grad {tag} {name}", errs[name], 1e-5 * scale)
+    times = dict(
+        silhouette_fwd_ms=cuda_ms(lambda: eg.silhouette(faces, s, 0.0,
+                                                        100.0)),
+        silhouette_ms=cuda_ms(lambda: sil("auto")),
+        rasterize_opt_fwd_ms=cuda_ms(lambda: eg.rasterize_opt(
+            faces, tex, s, near=0.0, far=100.0)),
+        rasterize_opt_ms=cuda_ms(lambda: opt("auto")),
+        oracle_fwd_ms=cuda_ms(lambda: rasterize_face_index(
+            faces, s, near=0.0, far=100.0), iters=3, warmup=1))
+    log(f"[edge_grad] {tag}: tiles {eg.winner_tiles(s)}, overflow "
+        f"{overflow}, K7 {k7} times in 2 calls, oracle taken 0 times; "
+        "face index, weights, alpha and both forwards "
+        f"bit-equal to the oracle's, {int((dd > 0).sum())} depth pixels off "
+        f"by up to {float(dd.max()):.3g}; "
+        f"gradients against the oracle's maps, max abs err "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
+        + "; ms (CUDA events) "
+        + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    return dict(tiles=list(eg.winner_tiles(s)), overflow=overflow, calls=2,
+                k7_launches=k7, **times)
+
+
+def phase_edge_grad(edge_launches: dict, rec: dict) -> None:
+    """The differentiable rasterizer on the card: silhouette and
+    rasterize_opt on the scene's UV sphere (MESH_LAT_LON) from a view of
+    the camera ring at each of EDGE_SIZES (edge_case), the overflow rule
+    at EDGE_OVERFLOW_SIZE, then a 20-step Adam
+    silhouette fit at 256^2 toward the same sphere's silhouette scaled by
+    0.92 and moved by (0.04, -0.03) in NDC: the loss falls, K7 once a
+    step, the oracle never."""
+    from rnr_tpu_torch.ops import edge_grad as eg
+    from rnr_tpu_torch.ops.rasterize import rasterize_face_index
+    rng = np.random.default_rng(17)
+    out = {}
+    for s in EDGE_SIZES:
+        out[s] = edge_case(ring_faces(*MESH_LAT_LON, EDGE_ELEVATION, [0], s),
+                           s, rng)
+    # the overflow rule on the card: K7 once, its overflow reported, and
+    # the oracle's maps returned, taken once if K7 overflowed
+    s = EDGE_OVERFLOW_SIZE
+    faces = ring_faces(*MESH_LAT_LON, EDGE_ELEVATION, [0], s)
+    eg.ORACLE_TAKEN.update(overflow=0)
+    reset_launches()
+    win = eg._rasterize_winner(faces, s, 0.0, 100.0)
+    torch.cuda.synchronize()
+    k7, overflow = rasterize_tiles.launches, int(win.overflow.sum())
+    ref = rasterize_face_index(faces, s, near=0.0, far=100.0)
+    if (k7 != 1 or eg.ORACLE_TAKEN != {"overflow": int(overflow > 0)}
+            or not torch.equal(win.face_index_map, ref.face_index_map)
+            or not torch.equal(win.alpha_map, ref.alpha_map)):
+        raise AssertionError(f"edge_grad at {s}^2: K7 {k7}, overflow "
+                             f"{overflow}, oracle {eg.ORACLE_TAKEN}, or maps "
+                             "differ from rasterize_face_index's")
+    log(f"[edge_grad] {faces.shape[1]} faces at {s}^2 on tiles "
+        f"{eg.winner_tiles(s)}: K7 {k7} time, overflow {overflow} dropped "
+        f"candidates, the oracle taken {eg.ORACLE_TAKEN['overflow']} time; "
+        "face index and alpha equal to rasterize_face_index's")
+    overflow_case = dict(size=s, tiles=list(eg.winner_tiles(s)),
+                         k7_launches=k7, overflow=overflow,
+                         oracle_taken=eg.ORACLE_TAKEN["overflow"])
+    s = EDGE_FIT_SIZE
+    faces = ring_faces(*MESH_LAT_LON, EDGE_ELEVATION, [0], s).clone()
+    moved = faces.clone()
+    moved[..., :2] = moved[..., :2] * 0.92 + torch.tensor([0.04, -0.03],
+                                                          device=DEV)
+    target = eg.silhouette(moved, s, 0.0, 100.0)
+    faces.requires_grad_(True)
+    adam = torch.optim.Adam([faces], lr=5e-3, betas=(0.9, 0.999), eps=1e-8)
+    eg.ORACLE_TAKEN.update(overflow=0)
+    reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(EDGE_FIT_STEPS):
+        adam.zero_grad()
+        loss = ((eg.silhouette(faces, s, 0.0, 100.0) - target) ** 2).mean()
+        loss.backward()
+        adam.step()
+        losses.append(loss.detach())
+    losses = [float(x) for x in losses]
+    fit_s = time.perf_counter() - t0
+    edge_launches.update(fit=rasterize_tiles.launches, fit_steps=EDGE_FIT_STEPS)
+    if (rasterize_tiles.launches != EDGE_FIT_STEPS
+            or eg.ORACLE_TAKEN != {"overflow": 0}
+            or not np.isfinite(losses).all() or not losses[-1] < losses[0]):
+        raise AssertionError(f"edge_grad fit: losses {losses}, K7 "
+                             f"{rasterize_tiles.launches}, oracle "
+                             f"{eg.ORACLE_TAKEN}")
+    log(f"[edge_grad] silhouette fit at {s}^2, {EDGE_FIT_STEPS} Adam steps: "
+        f"loss {losses[0]:.6g} -> {losses[-1]:.6g} (min {min(losses):.6g}); "
+        f"{fit_s / EDGE_FIT_STEPS * 1e3:.3f} ms a step on the host clock; K7 "
+        "once a step, the oracle never")
+    rec.setdefault("rasterize_tiles", {})["edge_grad"] = dict(
+        cases={str(k): v for k, v in out.items()}, overflow_case=overflow_case,
+        fit_loss_first=losses[0], fit_loss_last=losses[-1],
+        fit_step_ms=fit_s / EDGE_FIT_STEPS * 1e3)
+    edge_launches["calls"] = {str(k): v["k7_launches"]
+                              for k, v in out.items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="device,build,kernels,slice,"
                                         "gbuffer,relight,parity,train,"
-                                        "train_parity,drivers")
+                                        "train_parity,drivers,dnr,edge_grad")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3251,6 +4036,8 @@ def main() -> None:
     route_launches: dict = {}
     kernel_launches: dict = {}
     driver_launches: dict = {}
+    dnr_launches: dict = {}
+    edge_launches: dict = {}
 
     def done(name):
         torch.cuda.synchronize()
@@ -3267,6 +4054,7 @@ def main() -> None:
         state = phase_slice(eval_launches)
         profile_slice(state)
         slice_routes(state, route_launches)
+        gcn_block_knn(state)
         done("slice")
         if "gbuffer" in phases:
             phase_gbuffer(state, view_launches)
@@ -3289,6 +4077,12 @@ def main() -> None:
     if "drivers" in phases:
         phase_drivers(driver_launches, train_out)
         done("drivers")
+    if "dnr" in phases:
+        phase_dnr(dnr_launches, rec)
+        done("dnr")
+    if "edge_grad" in phases:
+        phase_edge_grad(edge_launches, rec)
+        done("edge_grad")
     # launches: the count on the kernel's main path, the training step
     # (one step at b1), or for K7 the G-buffer path (N_VIEWS views), for
     # K5 the relight path (N_VIEWS views x N_PROBES probes x the routes),
@@ -3313,6 +4107,10 @@ def main() -> None:
                     train_variant_launches={
                         v: c.get(n) for v, c in variant_launches.items()},
                     drivers_launches=driver_launches.get(n),
+                    dnr_launches={k: c.get(n) for k, c in
+                                  dnr_launches.items()},
+                    edge_grad_launches=(edge_launches or None)
+                    if n == "rasterize_tiles" else None,
                     **rec.get(n, {}))
                for n, s in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))

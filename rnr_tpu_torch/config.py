@@ -3,7 +3,8 @@ rnr_tpu/config.py (same names, same defaults), kept here so that the port
 imports nothing of `rnr_tpu`.
 
 `from_dict` rebuilds a config from `dataclasses.asdict` of either
-package's RNRConfig, which is how a test carries a JAX config across.
+package's RNRConfig or DNRConfig, which is how a test carries a JAX
+config across.
 `to_dict`, `save_config` and `load_config` are rnr_tpu's: the training
 driver snapshots its config to `params.json`, and either package reads
 the other's (the same JSON; `load_config` keeps the fields of the class
@@ -149,6 +150,15 @@ class RNRConfig:
         return from_dict(cls, d)
 
 
+@dataclasses.dataclass(frozen=True)
+class DNRConfig:
+    texture: TextureConfig = TextureConfig(texture_num_ch=30, apply_sh=True)
+    render_net: RenderNetConfig = RenderNetConfig()
+    loss: LossConfig = LossConfig()
+    train: TrainConfig = TrainConfig()
+    sh_start_ch: int = 3
+
+
 _NESTED = {"texture": TextureConfig, "lighting": LightingConfig,
            "rays": RaysConfig, "gcn": GCNTrainConfig,
            "render_net": RenderNetConfig, "loss": LossConfig,
@@ -165,7 +175,7 @@ def from_dict(cls, d: dict, strict: bool = True) -> Any:
     kwargs = {}
     for name in names & set(d):
         v = d[name]
-        sub = _NESTED.get(name) if cls is RNRConfig else None
+        sub = _NESTED.get(name) if cls in (RNRConfig, DNRConfig) else None
         kwargs[name] = (from_dict(sub, v, strict)
                         if sub and isinstance(v, dict) else v)
     return cls(**kwargs)

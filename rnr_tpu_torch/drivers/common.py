@@ -1,9 +1,11 @@
 """Shared driver utilities (port of rnr_tpu/drivers/common.py): path
-resolution, the device choice, sphere samples and PNG output."""
+resolution, the device choice, sphere samples, PNG output and the
+training loops' timing."""
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import scipy.io
@@ -65,3 +67,22 @@ def save_png(path: str, img) -> None:
         img = img.detach().float().cpu().numpy()
     arr = np.clip(np.asarray(img, np.float32), 0.0, 1.0) * 255.0
     write_png(path, arr.astype(np.uint8))
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for the card's queued work (nothing on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def loop_time(timing: dict, t_loop: float | None, dev) -> dict:
+    """A training loop's timing at its end (summary.json's "timing"): its
+    wall time after the first iteration, validation and checkpoints
+    taken out, and iterations a second."""
+    if t_loop is not None:
+        sync(dev)
+        timing["loop_s"] = (time.perf_counter() - t_loop
+                            - timing["validate_s"] - timing["checkpoint_s"])
+    if timing["loop_s"] > 0:
+        timing["iters_per_s"] = timing["iters_timed"] / timing["loop_s"]
+    return timing

@@ -43,8 +43,8 @@ from rnr_tpu_torch.data import LightProbeDataset, ViewDataset, load_obj
 from rnr_tpu_torch.data.imageio import read_image, resize
 from rnr_tpu_torch.data.prefetch import prefetch
 from rnr_tpu_torch.drivers.common import (cond_mkdir, load_sphere_samples,
-                                          resolve, save_png, setup_device,
-                                          str2bool)
+                                          loop_time, resolve, save_png,
+                                          setup_device, str2bool, sync)
 from rnr_tpu_torch.models.lighting import LightingLP
 from rnr_tpu_torch.models.rnr import RNRModel
 from rnr_tpu_torch.ops.interpolate import interpolate_bilinear
@@ -533,12 +533,12 @@ def main(argv=None):
         for batch in batches:
             if opt.max_iter is not None and it >= opt.max_iter:
                 _final(log_dir, model, optimizer, history, it, last_val,
-                       writer, _loop_time(timing, t_loop, dev))
+                       writer, loop_time(timing, t_loop, dev))
                 return log_dir, model
             t0 = time.time()
             metrics = train_step(batch, statics, generator)
             if t_loop is None:
-                _sync(dev)
+                sync(dev)
                 t_loop = time.perf_counter()
             else:
                 timing["iters_timed"] += 1
@@ -604,7 +604,7 @@ def main(argv=None):
             if it and it % opt.val_freq == 0:
                 # the queued steps finish inside the loop's time, not
                 # inside the validation's
-                _sync(dev)
+                sync(dev)
                 t0 = time.perf_counter()
                 last_val = _validate(eval_step, val_views, relight_views,
                                      gcn_pos, bs, log_dir, it, writer,
@@ -613,32 +613,16 @@ def main(argv=None):
                 timing["validate_s"] += time.perf_counter() - t0
             it += 1
             if it % opt.ckp_freq == 0:
-                _sync(dev)
+                sync(dev)
                 t0 = time.perf_counter()
                 save_checkpoint(os.path.join(log_dir,
                                              f"model_iter-{it}.ckpt"),
                                 model, optimizer, it)
                 timing["checkpoint_s"] += time.perf_counter() - t0
     _final(log_dir, model, optimizer, history, it, last_val, writer,
-           _loop_time(timing, t_loop, dev))
+           loop_time(timing, t_loop, dev))
     return log_dir, model
 
-
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def _loop_time(timing: dict, t_loop, dev) -> dict:
-    """The loop's timing at its end: its wall time after the first
-    iteration, less validation and checkpoints, and iterations a second."""
-    if t_loop is not None:
-        _sync(dev)
-        timing["loop_s"] = (time.perf_counter() - t_loop
-                            - timing["validate_s"] - timing["checkpoint_s"])
-    if timing["loop_s"] > 0:
-        timing["iters_per_s"] = timing["iters_timed"] / timing["loop_s"]
-    return timing
 
 
 def _validate(eval_step, val_views, relight_views, gcn_pos, bs, log_dir, it,

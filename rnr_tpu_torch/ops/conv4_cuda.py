@@ -10,7 +10,9 @@ Replaces rnr_tpu/ops/conv_pallas.py::down4 / convt4 / down4s / convt4s
 (:747, :787, :1207, :1338), as the U-Net calls them under conv_backend
 "pallas" (K6) and "p3s4" (K8's pair): NHWC activations, HWIO weights
 [4, 4, C, O] cast to the activation dtype, f32 sums, no bias (the U-Net
-adds it after, in the activation dtype).
+adds it after, in the activation dtype).  The kernels multiply bf16;
+f32 activations take three launches on bf16 parts
+(`conv_cuda.f32_by_three`).
 
 - down4(x, w, pad_mode): out[i, j] = sum_{dy, dx < 4} xp[2i + dy,
   2j + dx] w[dy, dx], with xp = x and a ring of 1 (zero, "same", or
@@ -39,7 +41,8 @@ import torch.nn.functional as F
 from rnr_tpu_torch.ops import _build
 from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
                                        use_kernel)
-from rnr_tpu_torch.ops.conv_cuda import k3_weights, pad_channels, round8
+from rnr_tpu_torch.ops.conv_cuda import (f32_by_three, k3_weights,
+                                         pad_channels, round8)
 
 # K8's tiling (csrc/conv4x4_slab.cu): input channels per reduction unit,
 # the blocks of one wave on the H100 (132 SMs), the fewest units a split
@@ -201,9 +204,15 @@ def _launch(lib: str, plan, symbol: str, counter, x: torch.Tensor,
     by conv4_plan, or K8's csrc/conv4x4_slab.cu by conv4s_plan), bf16 or
     f32 output, its split-K sum included; counts in `counter.launches`.
     C % 8 != 0 is padded with zero channels first, O with zero weights.
-    `pad` is (reflect,) for the down convs."""
+    `pad` is (reflect,) for the down convs.  f32 x with an f32 output:
+    three launches on bf16 parts, `conv_cuda.f32_by_three`."""
     n, h, wd, c = x.shape
     o = w.shape[-1]
+    if x.dtype == torch.float32 and out_dtype in (None, torch.float32):
+        return f32_by_three(
+            lambda xp, wp, _: _launch(lib, plan, symbol, counter, xp, wp, up,
+                                      pad, torch.float32),
+            x, w.to(torch.float32))
     y = _output(symbol, x, w, up, out_dtype)
     xc = x.contiguous()
     require(xc, "x", torch.bfloat16, (n, h, wd, c))

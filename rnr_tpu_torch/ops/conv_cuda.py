@@ -23,12 +23,15 @@ autograd.Function with its plain versions:
 Both with rnr_tpu's custom VJP at fuse_act=False, as the U-Net calls
 them: NHWC activations, HWIO weights cast to the activation dtype, f32
 accumulation, + bias in f32, output in the activation dtype; zero
-("same") or reflect padding.  The backward is that of `_conv3x3_bwd`
-(:409) and `_conv3x3s_bwd` (:1054): the output gradient cast to the
-activation dtype; db = sum(g) in f32; dx = the forward's f32-output
-kernel on g with the rotated, io-transposed weights, under reflect
-padding run on g zero-padded by one ring and folded back with the exact
-adjoint of reflect-pad; dW from the weight-gradient kernel.
+("same") or reflect padding.  The kernels multiply bf16; f32 activations
+(rnr_tpu's kernels keep f32 products for them) take three launches on
+bf16 parts, `f32_by_three`, and the weight gradients, whose sums over
+every pixel cancel, six, `f32_by_six`.  The backward is that of
+`_conv3x3_bwd` (:409) and `_conv3x3s_bwd` (:1054): the output gradient
+cast to the activation dtype; db = sum(g) in f32; dx = the forward's
+f32-output kernel on g with the rotated, io-transposed weights, under
+reflect padding run on g zero-padded by one ring and folded back with
+the exact adjoint of reflect-pad; dW from the weight-gradient kernel.
 """
 
 from __future__ import annotations
@@ -52,6 +55,10 @@ K3B_TARGET_BLOCKS = SMS
 # split-K of K8b (csrc/conv3x3_slab_wgrad.cu): the same units; a block per
 # band dy x 64 channels x 64 outputs of each dx band, three blocks an SM
 K8B_TARGET_BLOCKS = 3 * SMS
+# f32 weight gradients: runs of at most this many units, so that each
+# tensor-core accumulation chain (its adds rounded toward zero) stays
+# short against sums that cancel
+F32_WGRAD_PER = 8
 # K3's `pad` argument: zero ring, reflect ring, or the reflect data
 # gradient's full correlation (csrc/conv3x3.cu)
 K3_PAD = {"same": 0, "reflect": 1}
@@ -142,7 +149,9 @@ def k3_weights(w: torch.Tensor, c8: int) -> torch.Tensor:
     round8(O)], zero-padded: one conversion, and a pad only where C or O
     is ragged (K3's 3x3 weights, K8's 4x4 ones)."""
     c, o = w.shape[2], w.shape[3]
-    wb = w.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    # .to() returns a bf16 w itself, strides and all: a transposed view (a
+    # data gradient's weights) needs the copy
+    wb = w.to(torch.bfloat16).contiguous()
     if (c8, round8(o)) == (c, o):
         return wb
     return F.pad(wb, (0, round8(o) - o, 0, c8 - c))
@@ -177,6 +186,53 @@ def k8a_plan(n: int, h: int, wd: int, o: int,
     return bn, wgs, ring
 
 
+def split_bf16(t: torch.Tensor, parts: int = 2) -> list[torch.Tensor]:
+    """An f32 tensor as `parts` bf16 tensors, largest first, each the rest
+    of t rounded to bf16 (the differences are exact in f32): two hold 16
+    bits of t's 24, three all of them."""
+    out, rest = [], t
+    for i in range(parts):
+        q = rest.to(torch.bfloat16)
+        out.append(q)
+        if i < parts - 1:
+            rest = rest - q.to(torch.float32)
+    return out
+
+
+def add_parts(*parts: torch.Tensor) -> torch.Tensor:
+    """The f32 route's products summed left to right."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def f32_by_three(one, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A product of f32 operands a and b (activations and weights) on a
+    kernel that multiplies bf16 and sums in f32: a b as a_hi b_hi + a_lo
+    b_hi + a_hi b_lo, three calls one(a_part, b_part, first) with f32
+    results summed in that order (`first`: the call that adds the bias).
+    What is dropped, a_lo b_lo and the rounding of the lo parts, is below
+    2^-16 of a b."""
+    ah, al = split_bf16(a)
+    bh, bl = split_bf16(b)
+    return add_parts(one(ah, bh, True), one(al, bh, False),
+                     one(ah, bl, False))
+
+
+def f32_by_six(one, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32_by_three's product to f32's precision, for sums whose result
+    is far below the sum of their terms' sizes (a weight gradient's, over
+    every pixel): a and b in three bf16 parts each, a b as the six
+    products a_i b_j with i + j <= 2, the small ones summed first.  What
+    is dropped, a_1 b_2, a_2 b_1 and a_2 b_2, is below 2^-23 of a b."""
+    a0, a1, a2 = split_bf16(a, 3)
+    b0, b1, b2 = split_bf16(b, 3)
+    return add_parts(one(a1, b1, False), one(a2, b0, False),
+                     one(a0, b2, False), one(a1, b0, False),
+                     one(a0, b1, False), one(a0, b0, True))
+
+
 def _launch_conv3(lib: str, symbol: str, counter, x: torch.Tensor,
                   w: torch.Tensor, b: torch.Tensor | None, pad: int,
                   out_dtype: torch.dtype, plan: tuple = ()) -> torch.Tensor:
@@ -186,9 +242,15 @@ def _launch_conv3(lib: str, symbol: str, counter, x: torch.Tensor,
     [3, 3, C, O], b [O] (None: no bias) -> [N, H, W, O] in `out_dtype`
     (bf16 or f32); under pad K3_FULL (f32, no bias) a flat buffer whose
     first N H W rows of O are the reflect dgrad dx, the ring rows after
-    them its scratch.  C % 8 != 0 is padded with zero channels first."""
+    them its scratch.  C % 8 != 0 is padded with zero channels first.
+    f32 x (with an f32 output): three launches, `f32_by_three`."""
     n, h, wd, c = x.shape
     o = w.shape[-1]
+    if x.dtype == torch.float32 and out_dtype == torch.float32:
+        return f32_by_three(
+            lambda xp, wp, first: _launch_conv3(
+                lib, symbol, counter, xp, wp, b if first else None, pad,
+                torch.float32, plan), x, w.to(torch.float32))
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{symbol}: output dtype {out_dtype}, the kernel "
                         "writes bf16 or f32")
@@ -197,6 +259,7 @@ def _launch_conv3(lib: str, symbol: str, counter, x: torch.Tensor,
     xb = pad_channels(x.contiguous(), c8)
     require(xb, "x", torch.bfloat16, (n, h, wd, c8))
     wb = k3_weights(w, c8)
+    require(wb, "w", torch.bfloat16, (3, 3, c8, round8(o)))
     bf = None
     if b is not None:
         bf = b.to(torch.float32).contiguous()
@@ -374,35 +437,42 @@ def conv3x3s_wgrad_torch(x: torch.Tensor, g: torch.Tensor,
     return dwcat.reshape(3, c, 3, o).permute(0, 2, 1, 3)
 
 
-def k3b_plan(n: int, h: int, wd: int, c8: int, o8: int) -> tuple[int, int]:
+def k3b_plan(n: int, h: int, wd: int, c8: int, o8: int,
+             max_per: int | None = None) -> tuple[int, int]:
     """(splits, chunk) of K3b's split-K for x [N, H, W, c8], g [N, H, W,
     o8] (multiples of 8): the N H ceil(W / 64) units of 64 columns of a
     row cut into runs of `chunk` / 64 units, at most K3B_TARGET_BLOCKS
-    blocks over the card with a block per 64 x 64 tile of dW.  Fixed by
-    the shapes alone, so a rerun adds in the same order."""
+    blocks over the card with a block per 64 x 64 tile of dW, or runs of
+    at most `max_per` units where that is given.  Fixed by the shapes
+    alone, so a rerun adds in the same order."""
     splits, per = _split_units(n * h * -(-wd // K3B_UNIT),
                                -(-c8 // K3B_CT) * -(-o8 // K3B_CT),
-                               K3B_TARGET_BLOCKS)
+                               K3B_TARGET_BLOCKS, max_per)
     return splits, per * K3B_UNIT
 
 
-def k8b_plan(n: int, h: int, wd: int, c8: int, o8: int) -> tuple[int, int]:
+def k8b_plan(n: int, h: int, wd: int, c8: int, o8: int,
+             max_per: int | None = None) -> tuple[int, int]:
     """(splits, per) of K8b's split-K for x [N, H, W, c8], g [N, H, W, o8]
     (multiples of 8): the N H ceil(W / 64) units of 64 columns of a row
     (K3b's) cut into runs of `per` units, at most K8B_TARGET_BLOCKS blocks
     (one wave at three an SM) with a block per band dy x 64 channels x 64
-    outputs.  Fixed by the shapes alone, so a rerun adds in the same
-    order."""
+    outputs, or runs of at most `max_per` units where that is given.
+    Fixed by the shapes alone, so a rerun adds in the same order."""
     return _split_units(n * h * -(-wd // K3B_UNIT),
                         3 * -(-c8 // K3B_CT) * -(-o8 // K3B_CT),
-                        K8B_TARGET_BLOCKS)
+                        K8B_TARGET_BLOCKS, max_per)
 
 
-def _split_units(units: int, tiles: int, target: int) -> tuple[int, int]:
+def _split_units(units: int, tiles: int, target: int,
+                 max_per: int | None = None) -> tuple[int, int]:
     """(splits, per): `units` cut into runs of `per`, as many runs as fit
-    `target` blocks of `tiles` each (at least one), none empty."""
+    `target` blocks of `tiles` each (at least one), none empty, none
+    longer than `max_per` where that is given."""
     want = max(1, min(units, target // tiles))
     per = -(-units // want)
+    if max_per is not None:
+        per = min(per, max_per)
     return -(-units // per), per
 
 
@@ -422,8 +492,15 @@ def _wgrad_launch(lib: str, symbol: str, counter, plan, x: torch.Tensor,
     """One launch of K3b or K8b (its split sum included), `symbol` of
     csrc/`lib`.cu with the two ints of `plan`; counts in
     `counter.launches`.  C and O not multiples of 8 are padded with zero
-    channels (a copy of x or g)."""
+    channels (a copy of x or g).  f32 x and g: six launches, `f32_by_six`,
+    each in runs of at most F32_WGRAD_PER units."""
     _check_pad(pad_mode)
+    if x.dtype == torch.float32 and g.dtype == torch.float32:
+        def short(*shape):
+            return plan(*shape, max_per=F32_WGRAD_PER)
+        return f32_by_six(
+            lambda xp, gp, _: _wgrad_launch(lib, symbol, counter, short, xp,
+                                            gp, pad_mode), x, g)
     n, h, wd, c = x.shape
     o = g.shape[-1]
     _check_reflect(pad_mode, h, wd)
@@ -478,7 +555,7 @@ class Conv3x3Fn(torch.autograd.Function):
         ctx.pad_mode = pad_mode
         ctx.save_for_backward(x, w)
         if use_kernel(x, w, b):
-            return conv3x3_fwd(x, w, b, pad_mode, torch.bfloat16)
+            return conv3x3_fwd(x, w, b, pad_mode)
         return conv3x3_torch(x, w, b, pad_mode)
 
     @staticmethod
@@ -504,7 +581,8 @@ class Conv3x3SlabFn(torch.autograd.Function):
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             pad_mode: str = "same") -> torch.Tensor:
     """x [N, H, W, C], w [3, 3, C, O], b [O] -> [N, H, W, O] in x.dtype,
-    differentiable in x, w and b.  The kernels take bf16 activations."""
+    differentiable in x, w and b.  The kernels take bf16 activations,
+    f32 ones by `f32_by_three` (`f32_by_six` for dW)."""
     _check_pad(pad_mode)
     return Conv3x3Fn.apply(x, w, b, pad_mode)
 

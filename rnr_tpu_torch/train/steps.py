@@ -1,5 +1,7 @@
-"""Steps (port of rnr_tpu/train/steps.py:44-273): the RNR training step,
-its loss, its optimizer and the eval step.
+"""Steps (port of rnr_tpu/train/steps.py): the RNR training step, its
+loss, its optimizer and the eval step (:44-273), and the DNR block
+(:280-406): the neural texture and a U-Net with no GCN and no lighting,
+trained with the border-cropped, alpha-masked L1.
 
 One Adam over every parameter, as rnr_tpu's optax.adam.  A step runs where
 the model lives and keeps every result on that device: no `.item()`, so a
@@ -15,8 +17,13 @@ from typing import Callable
 import numpy as np
 import torch
 
+from torch import nn
+
+from rnr_tpu_torch.config import DNRConfig
 from rnr_tpu_torch.models.rays import rays_lt_chrom_loss
 from rnr_tpu_torch.models.rnr import RNRModel
+from rnr_tpu_torch.models.texture import TextureMapper
+from rnr_tpu_torch.models.unet import RenderingNet
 from rnr_tpu_torch.ops.backend import resolve_device
 from rnr_tpu_torch.ops.metrics import masked_err_metrics
 from rnr_tpu_torch.train.losses import (albedo_prior_loss, image_l1_loss,
@@ -37,7 +44,7 @@ def make_generator(seed: int, device=None) -> torch.Generator:
 
 
 @torch.no_grad()
-def init_rnr_params(model: RNRModel, seed: int) -> RNRModel:
+def init_rnr_params(model: nn.Module, seed: int) -> nn.Module:
     """The initial weights of rnr_tpu's create_rnr_state (flax's
     defaults), drawn from a CPU generator seeded with `seed`, so a run on
     the card and one on the CPU start from the same weights: every
@@ -66,7 +73,7 @@ def init_rnr_params(model: RNRModel, seed: int) -> RNRModel:
     return model
 
 
-def create_rnr_optimizer(model: RNRModel, lr: float) -> torch.optim.Adam:
+def create_rnr_optimizer(model: nn.Module, lr: float) -> torch.optim.Adam:
     """Adam with optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8 added
     to sqrt(v_hat)) over every parameter."""
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
@@ -181,5 +188,120 @@ def make_rnr_eval_step(model: RNRModel, lighting_idx: int = 0,
         if output_keys is not None:
             out = {k: out[k] for k in output_keys}
         return out
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# DNR
+# ---------------------------------------------------------------------------
+
+
+class DNRModules(nn.Module):
+    """rnr_tpu's DNRModules as one module with the flax parts' names, so
+    that `convert.load_jax_variables` and the checkpoints carry a flax
+    DNR state ({"texture_mapper": ..., "render_net": ...}) across.
+
+    As rnr_tpu's build_dnr_modules: the texture from cfg.texture (never
+    fixed), `texture_init` [S, S, C0] into level 0; the U-Net with no GCN,
+    cfg.texture.texture_num_ch in, 3 out, cfg.render_net's nf0, downs,
+    norm, pad_mode and conv_backend, in float32 whatever
+    cfg.render_net.compute_dtype says (rnr_tpu's build_dnr_modules leaves
+    its RenderingNet at that default), so that its convs' kernels take f32
+    activations (`ops/conv_cuda.py::f32_by_three`, `f32_by_six` for the
+    weight gradients)."""
+
+    def __init__(self, cfg: DNRConfig, texture_init: np.ndarray | None = None,
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        t, r = cfg.texture, cfg.render_net
+        if r.remat not in (False, "none"):
+            raise NotImplementedError("remat is not ported")
+        self.cfg = cfg
+        self.texture_mapper = TextureMapper(
+            t.texture_size, t.texture_num_ch, t.mipmap_level, t.apply_sh,
+            texture_init=texture_init)
+        self.render_net = RenderingNet(
+            nf0=r.nf0, in_channels=t.texture_num_ch, out_channels=3,
+            num_down_unet=r.num_down_unet, use_gcn=False, norm=r.norm,
+            compute_dtype="float32", pad_mode=r.pad_mode,
+            conv_backend=r.conv_backend)
+        self.to(device)
+
+
+def build_dnr_modules(cfg: DNRConfig, texture_init: np.ndarray | None = None,
+                      device=None) -> DNRModules:
+    """The DNR modules on `device` (the current CUDA device when None,
+    raising without one), with the constructors' values; the initial
+    weights come from `init_dnr_params`."""
+    return DNRModules(cfg, texture_init, device)
+
+
+def init_dnr_params(mods: DNRModules, seed: int) -> DNRModules:
+    """rnr_tpu's create_dnr_state initial weights by flax's distributions
+    (every conv kernel lecun-normal), from a CPU generator seeded with
+    `seed`; textures, biases and norm scales keep their constructed
+    values."""
+    return init_rnr_params(mods, seed)
+
+
+def create_dnr_state(cfg: DNRConfig, seed: int, lr: float,
+                     texture_init: np.ndarray | None = None, device=None
+                     ) -> tuple[DNRModules, torch.optim.Adam]:
+    """The modules with their initial weights and their Adam (optax.adam
+    over the texture and the U-Net)."""
+    mods = init_dnr_params(build_dnr_modules(cfg, texture_init, device), seed)
+    return mods, create_rnr_optimizer(mods, lr)
+
+
+def dnr_forward(mods: DNRModules, batch: dict, train: bool = True,
+                generator: torch.Generator | None = None,
+                sh_start_ch: int = 3, img_max_val: float = 2.0):
+    """(image [N, H, W, 3], the neural image): the texture sampled at
+    batch["uv_map"] (K2), modulated by batch["sh_basis_map"] from
+    `sh_start_ch`, through the U-Net, its tanh output mapped to [0,
+    img_max_val].  train=True runs dropout from `generator`."""
+    neural_img = mods.texture_mapper(batch["uv_map"],
+                                     batch.get("sh_basis_map"),
+                                     sh_start_ch=sh_start_ch)
+    out = mods.render_net(neural_img, None, train, generator)
+    return (out * 0.5 + 0.5) * img_max_val, neural_img
+
+
+def make_dnr_train_step(cfg: DNRConfig, mods: DNRModules,
+                        optimizer: torch.optim.Optimizer) -> Callable:
+    """The DNR training step: step(batch, generator) -> metrics, the
+    masked_err_metrics of the border-cropped, masked image (0..255) and
+    the loss, detached tensors on the modules' device.  batch holds
+    uv_map, sh_basis_map, alpha_map [N, H, W, 1] and img_gt; the
+    parameters are updated in place."""
+    b = cfg.loss.border_crop
+
+    def step(batch: dict, generator: torch.Generator) -> dict:
+        optimizer.zero_grad(set_to_none=True)
+        out, _ = dnr_forward(mods, batch, train=True, generator=generator,
+                             sh_start_ch=cfg.sh_start_ch)
+        loss = image_l1_loss(out, batch["img_gt"], batch["alpha_map"], b)
+        loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            alpha_c = batch["alpha_map"][:, b:-b, b:-b]
+            metrics = masked_err_metrics(
+                out[:, b:-b, b:-b] * alpha_c * 255.0,
+                batch["img_gt"][:, b:-b, b:-b] * alpha_c * 255.0, alpha_c)
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    return step
+
+
+def make_dnr_eval_step(cfg: DNRConfig, mods: DNRModules) -> Callable:
+    """step(batch) -> the image [N, H, W, 3] in [0, 2], no dropout, under
+    torch.inference_mode()."""
+    def step(batch: dict) -> torch.Tensor:
+        with torch.inference_mode():
+            return dnr_forward(mods, batch, train=False,
+                               sh_start_ch=cfg.sh_start_ch)[0]
 
     return step

@@ -215,3 +215,125 @@ def test_reflect_dgrad_ring_fold_is_dgrads_fold_bitwise(h, wd):
     want = cc._dgrad(g, torch.zeros(3, 3, 3, 4), "reflect",
                      lambda a, k: dxp)
     assert torch.equal(_fold_like_kernel(dxp), want)
+
+
+# --------------------------------------------- f32 activations, three passes
+
+
+def _f32_cases():
+    from rnr_tpu_torch.ops.conv4_cuda import (convt4_torch, down4_fwd,
+                                              down4_torch)
+    from rnr_tpu_torch.ops.conv_cuda import (conv3x3_fwd, conv3x3_wgrad,
+                                             conv3x3_wgrad_torch)
+    return {
+        # name: (kernel stand-in on bf16 parts with an f32 output, exact
+        # f32 function, operand shapes)
+        "conv3x3_reflect": (
+            lambda a, b, bias: conv3x3_fwd(a, b, bias, "reflect",
+                                           torch.float32),
+            lambda a, b, bias: conv3x3_torch(a, b, bias, "reflect"),
+            (2, 12, 10, 30), (3, 3, 30, 20)),
+        "conv3x3_same": (
+            lambda a, b, bias: conv3x3_fwd(a, b, bias, "same",
+                                           torch.float32),
+            lambda a, b, bias: conv3x3_torch(a, b, bias, "same"),
+            (1, 9, 16, 24), (3, 3, 24, 8)),
+        "conv3x3_wgrad": (
+            lambda a, b, _: conv3x3_wgrad(a, b, "reflect"),
+            lambda a, b, _: conv3x3_wgrad_torch(a, b, "reflect"),
+            (2, 12, 10, 30), (2, 12, 10, 20)),
+        "down4": (
+            lambda a, b, _: down4_fwd(a, b, "reflect", torch.float32),
+            lambda a, b, _: down4_torch(a, b, "reflect"),
+            (1, 16, 12, 30), (4, 4, 30, 16)),
+        "convt4": (
+            lambda a, b, _: convt4_torch(a, b, torch.float32),
+            lambda a, b, _: convt4_torch(a, b),
+            (1, 8, 6, 32), (4, 4, 32, 16)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_f32_cases()))
+def test_f32_by_three_computes_the_f32_function(name):
+    """conv_cuda.f32_by_three, the kernels' route for f32 activations (the
+    DNR U-Net; rnr_tpu's kernels keep f32 products for them), on the
+    kernels' plain versions for bf16 operands with f32 outputs: within
+    5e-5 of the largest value of the exact f32 function, where one bf16
+    pass is off by more than 20 times as much."""
+    from rnr_tpu_torch.ops.conv_cuda import f32_by_three
+    one, exact, sa, sb = _f32_cases()[name]
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(sa, generator=g), torch.randn(sb, generator=g)
+    bias = torch.randn(sb[-1], generator=g)
+    want = exact(a, b, bias)
+    got = f32_by_three(lambda ap, bp, first: one(
+        ap, bp, bias if first else torch.zeros_like(bias)), a, b)
+    single = one(a.to(torch.bfloat16), b.to(torch.bfloat16), bias)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert got.dtype == torch.float32 and err <= 5e-5 * scale, err / scale
+    assert float((single - want).abs().max()) > 20 * err
+
+
+# ------------------------------- f32 weight gradients, six passes, short runs
+
+from test_torch_cuda import _cancelling_operands, _wgrad_f64  # noqa: E402
+
+
+@pytest.mark.parametrize("wgrad", ["conv3x3_wgrad", "conv3x3s_wgrad"])
+def test_f32_weight_gradient_holds_where_sums_cancel(wgrad):
+    """conv_cuda.f32_by_six, the f32 route of K3b and K8b, on the
+    wrappers' plain versions for bf16 parts (exact products, f32 sums):
+    within 5e-5 of the largest exact dW on operands whose sums cancel,
+    under the U-Net's reflect padding (a zero ring leaves its edge taps
+    sums that do not cancel), where f32_by_three (the forward's route)
+    misses that limit."""
+    pad_mode = "reflect"
+    one_kernel = getattr(cc, wgrad)
+    x, gy = _cancelling_operands((1, 32, 32, 30), 16, 0)
+    want = _wgrad_f64(x, gy, pad_mode)
+    scale = float(want.abs().max())
+
+    def one(a, b, _):
+        return one_kernel(a, b, pad_mode)
+
+    def rel(t):
+        return float((t.to(torch.float64) - want).abs().max()) / scale
+
+    six, three = cc.f32_by_six(one, x, gy), cc.f32_by_three(one, x, gy)
+    assert six.dtype == torch.float32 and rel(six) <= 5e-5, rel(six)
+    assert rel(three) > 5e-5, rel(three)
+    assert rel(one_kernel(x.to(torch.bfloat16), gy.to(torch.bfloat16),
+                          pad_mode)) > 1e-2
+
+
+def test_split_bf16_parts_sum_to_the_tensor():
+    """Three bf16 parts hold every bit of an f32 tensor (normal range);
+    two hold all but the lowest 8 of the 24."""
+    t = torch.randn(4096, generator=torch.Generator().manual_seed(1))
+    p3 = cc.split_bf16(t, 3)
+    assert all(p.dtype == torch.bfloat16 for p in p3)
+    s3 = sum(p.to(torch.float64) for p in p3)
+    assert torch.equal(s3, t.to(torch.float64))
+    s2 = sum(p.to(torch.float64) for p in cc.split_bf16(t))
+    assert float(((s2 - t.to(torch.float64)) / t).abs().max()) <= 2 ** -17
+
+
+@pytest.mark.parametrize("plan", ["k3b_plan", "k8b_plan"])
+@pytest.mark.parametrize("n,h,wd,c8,o8", [
+    (1, 512, 512, 32, 64), (1, 512, 512, 64, 64), (1, 128, 128, 256, 256),
+    (1, 32, 32, 512, 512), (2, 7, 9, 8, 16)])
+def test_f32_wgrad_runs_are_short(plan, n, h, wd, c8, o8):
+    """The f32 weight gradients' plans: runs of at most F32_WGRAD_PER
+    units of 64 columns, every unit in exactly one, none empty; the
+    default plan where its runs are shorter already."""
+    fn = getattr(cc, plan)
+    units = n * h * -(-wd // cc.K3B_UNIT)
+    splits, run = fn(n, h, wd, c8, o8, max_per=cc.F32_WGRAD_PER)
+    per = run // cc.K3B_UNIT if plan == "k3b_plan" else run
+    assert 1 <= per <= cc.F32_WGRAD_PER
+    assert splits * per >= units > (splits - 1) * per
+    d_splits, d_run = fn(n, h, wd, c8, o8)
+    d_per = d_run // cc.K3B_UNIT if plan == "k3b_plan" else d_run
+    if d_per <= cc.F32_WGRAD_PER:
+        assert (splits, run) == (d_splits, d_run)

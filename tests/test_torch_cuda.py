@@ -33,7 +33,10 @@ stream (their shared constant bank); K1 and K1b keep their pinned digests
 K5b, K3b and K8b (conv weight gradients) must
 also be bitwise deterministic, and the rasterizer K7 bitwise equal to its
 plain version, also on faces at the edge of its cull's exactness
-(synthetic.degenerate_faces) at 128^2 and 512^2.
+(synthetic.degenerate_faces) at 128^2 and 512^2.  f32 activations run
+through K3 / K3b, K8a / K8b and the 4x4 pair as three launches on bf16
+parts (within 5e-5 of the f32 plain versions), and silhouette /
+rasterize_opt run K7 once a call with the CPU's forward bit for bit.
 """
 
 import ctypes
@@ -385,10 +388,119 @@ def test_conv3x3_kernel(dev, c, o, pad_mode):
 
 
 def test_conv3x3_kernel_rejects_f32(dev):
+    """K3 once refused f32 activations; it now takes them as three
+    launches on bf16 parts (conv_cuda.f32_by_three, the DNR U-Net's
+    route), and refuses the dtypes it has no route for (f16)."""
     x = torch.zeros((1, 4, 4, 8), device=dev)
+    w, b = torch.zeros((3, 3, 8, 8), device=dev), torch.zeros(8, device=dev)
     with pytest.raises(TypeError):
-        conv3x3(x, torch.zeros((3, 3, 8, 8), device=dev),
-                torch.zeros(8, device=dev))
+        conv3x3(x.half(), w, b)
+    n0 = conv3x3.launches
+    assert conv3x3(x, w, b).dtype == torch.float32
+    assert conv3x3.launches == n0 + 3
+
+
+@pytest.mark.parametrize("c,o,pad_mode", [(30, 64, "reflect"),
+                                          (64, 3, "same"), (13, 24, "same"),
+                                          (64, 64, "reflect"),
+                                          (32, 16, "same")])
+def test_f32_activations_take_three_launches(dev, c, o, pad_mode):
+    """f32 activations through K3 (forward, data gradient), three launches
+    each (conv_cuda.f32_by_three), and K3b, six (conv_cuda.f32_by_six),
+    and through K6's down4 /
+    convt4 and their autograd (convt4's data gradient is down4 on the
+    flipped, io-swapped weights, a transposed view): outputs and gradients
+    within 5e-5 of the largest value of the plain f32 versions on the CPU
+    (one bf16 pass is ~4e-3 off).  C and O multiples of 8 take the
+    weights unpadded, so the data gradient's transposed weights must be
+    copied, not read through their strides."""
+    rng = np.random.default_rng(c * o)
+    x = rng.standard_normal((1, 12, 18, c)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(
+        np.float32)
+    b = rng.standard_normal(o).astype(np.float32)
+    g = rng.standard_normal((1, 12, 18, o)).astype(np.float32)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        xt = _t(x, d).requires_grad_(True)
+        wt, bt = _t(w, d).requires_grad_(True), _t(b, d)
+        n0, m0 = conv3x3.launches, conv3x3_wgrad.launches
+        y = conv3x3(xt, wt, bt, pad_mode)
+        y.backward(_t(g, d))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert (conv3x3.launches - n0, conv3x3_wgrad.launches - m0) == (
+                6, 6)
+        outs[d.type] = [t.detach().cpu() for t in (y, xt.grad, wt.grad)]
+    for k, r in zip(outs["cuda"], outs["cpu"]):
+        assert k.dtype == torch.float32
+        assert float((k - r).abs().max()) <= 5e-5 * float(r.abs().max())
+    w4 = (rng.standard_normal((4, 4, c, o)) / np.sqrt(16 * c)).astype(
+        np.float32)
+    n0, m0 = c4.down4.launches, c4.convt4.launches
+    kd = c4.down4_fwd(_t(x, dev), _t(w4, dev), pad_mode)
+    kt = c4.convt4_fwd(_t(x, dev), _t(w4, dev))
+    torch.cuda.synchronize()
+    assert (c4.down4.launches - n0, c4.convt4.launches - m0) == (3, 3)
+    for k, r in ((kd, c4.down4_torch(torch.from_numpy(x),
+                                     torch.from_numpy(w4), pad_mode)),
+                 (kt, c4.convt4_torch(torch.from_numpy(x),
+                                      torch.from_numpy(w4)))):
+        assert k.dtype == torch.float32
+        assert float((k.cpu() - r).abs().max()) <= 5e-5 * float(
+            r.abs().max())
+    g4 = rng.standard_normal((1, 24, 36, o)).astype(np.float32)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        xt = _t(x, d).requires_grad_(True)
+        c4.convt4(xt, _t(w4, d)).backward(_t(g4, d))
+        grads[d.type] = xt.grad.cpu()
+    r = grads["cpu"]
+    assert float((grads["cuda"] - r).abs().max()) <= 5e-5 * float(
+        r.abs().max())
+
+
+def _cancelling_operands(shape_x, o, seed):
+    """Weight-gradient operands whose sums over the pixels cancel, as at
+    the DNR U-Net's first conv (its input near a constant, the output
+    gradient of zero mean per channel after batch norm): one bf16 pass is
+    off by about 5% of the largest dW."""
+    g = torch.Generator().manual_seed(seed)
+    x = 1.0 + 0.05 * torch.randn(shape_x, generator=g)
+    gy = torch.randn(shape_x[:-1] + (o,), generator=g)
+    return x, gy - gy.mean(dim=(0, 1, 2), keepdim=True)
+
+
+def _wgrad_f64(x, gy, pad_mode):
+    """The weight gradient's exact sums (float64) -> [3, 3, C, O]."""
+    xp = cc._pad_nhwc(x.to(torch.float64), pad_mode)
+    h, wd = x.shape[1], x.shape[2]
+    return torch.stack([
+        torch.einsum("nhwc,nhwo->co", xp[:, dy:dy + h, dx:dx + wd],
+                     gy.to(torch.float64))
+        for dy in range(3) for dx in range(3)]).reshape(
+            3, 3, x.shape[-1], gy.shape[-1])
+
+
+@pytest.mark.parametrize("wgrad", ["conv3x3_wgrad", "conv3x3s_wgrad"])
+@pytest.mark.parametrize("shape", [(1, 32, 32, 30, 16), (1, 512, 512, 30, 64)])
+def test_f32_weight_gradient_kernels_hold_where_sums_cancel(dev, wgrad,
+                                                             shape):
+    """K3b and K8b on the f32 route (six launches, runs of at most
+    F32_WGRAD_PER units) on weight-gradient operands whose sums cancel
+    (tests/test_torch_conv.py's case, and at the DNR U-Net's first conv's
+    size): within 5e-5 of the largest exact dW, where three launches
+    missed that limit on the DNR step's own first conv."""
+    n, h, w_, c, o = shape
+    x, gy = _cancelling_operands((n, h, w_, c), o, 0)
+    want = _wgrad_f64(x, gy, "reflect")
+    fn = getattr(cc, wgrad)
+    m0 = fn.launches
+    got = fn(x.to(dev), gy.to(dev), "reflect")
+    torch.cuda.synchronize()
+    assert fn.launches == m0 + 6
+    err = float((got.cpu().to(torch.float64) - want).abs().max())
+    assert err <= 5e-5 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("c", [3, 64, 130, 512])
@@ -935,10 +1047,15 @@ def test_conv4s_kernels_are_bitwise_reproducible(dev, name, c, o, h):
 
 
 def test_conv4_kernels_reject_f32_activations(dev):
+    """The 4x4 kernels once refused f32 activations; they now take them
+    as three launches on bf16 parts (conv_cuda.f32_by_three) with an f32
+    output, and refuse the dtypes they have no route for (f16)."""
     x = torch.zeros((1, 8, 8, 8), device=dev)
+    w = torch.zeros((4, 4, 8, 8), device=dev)
     for fwd, *_ in CONV4.values():
         with pytest.raises(TypeError):
-            fwd(x, torch.zeros((4, 4, 8, 8), device=dev))
+            fwd(x.half(), w)
+        assert fwd(x, w).dtype == torch.float32
 
 
 @pytest.mark.parametrize("pad_mode", ["same", "reflect"])
@@ -1071,12 +1188,21 @@ def test_conv3x3s_autograd_launches_its_kernels(dev):
 
 
 def test_conv3x3s_kernels_reject_f32_activations(dev):
+    """K8a / K8b once refused f32 activations; they now take them as
+    three (K8a, conv_cuda.f32_by_three) and six (K8b, conv_cuda.f32_by_six)
+    launches on bf16 parts with f32 results, and refuse the dtypes they
+    have no route for (f16)."""
     x = torch.zeros((1, 4, 4, 8), device=dev)
     w, b = torch.zeros((3, 3, 8, 8), device=dev), torch.zeros(8, device=dev)
     with pytest.raises(TypeError):
-        cc.conv3x3s_fwd(x, w, b)
+        cc.conv3x3s_fwd(x.half(), w, b)
     with pytest.raises(TypeError):
-        cc.conv3x3s_wgrad(x, x)
+        cc.conv3x3s_wgrad(x.half(), x.half())
+    n0, m0 = cc.conv3x3s.launches, cc.conv3x3s_wgrad.launches
+    assert cc.conv3x3s_fwd(x, w, b).dtype == torch.float32
+    assert cc.conv3x3s_wgrad(x, x).dtype == torch.float32
+    assert (cc.conv3x3s.launches - n0, cc.conv3x3s_wgrad.launches - m0) == (
+        3, 6)
 
 
 # ------------------------------------------------------ P1: the GEMM chain
@@ -1141,3 +1267,39 @@ def test_gemm_chain_resident_w_is_bitwise_streamed_w(dev, m, k, n, t):
     torch.cuda.synchronize()
     assert torch.equal(ys[0], ys[1])
     assert torch.equal(ys[0], gemm_chain(x, w))
+
+
+@pytest.mark.parametrize("s", [64, 48])
+def test_silhouette_and_rasterize_opt_run_k7(dev, s):
+    """ops/edge_grad.py on the card: K7 once a call (the oracle never
+    taken), also at 48^2, which 32 x 128 does not tile; the forward
+    bit-equal to the CPU's (K7's plain version), the faces' and textures'
+    gradients within 1e-5 of the largest."""
+    from rnr_tpu_torch.ops import edge_grad as eg
+    rng = np.random.default_rng(7)
+    xy = rng.uniform(-0.8, 0.8, (1, 60, 1, 2)) + rng.uniform(
+        -0.5, 0.5, (1, 60, 3, 2))
+    f = np.concatenate([xy, rng.uniform(1.5, 4.0, (1, 60, 3, 1))],
+                       -1).astype(np.float32)
+    tex = rng.uniform(0, 1, (1, 60, 2, 2, 2, 3)).astype(np.float32)
+    wt = rng.uniform(0.2, 1, (1, 3, s, s)).astype(np.float32)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        n0, o0 = rasterize_tiles.launches, dict(eg.ORACLE_TAKEN)
+        ft = _t(f, d).requires_grad_(True)
+        tt = _t(tex, d).requires_grad_(True)
+        a = eg.silhouette(ft, s, 0.0, 100.0)
+        o = eg.rasterize_opt(ft, tt, s, near=0.0, far=100.0)
+        ((o["rgb"] * _t(wt, d)).sum() + a.sum() + o["depth"].sum()).backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert rasterize_tiles.launches == n0 + 2
+        assert eg.ORACLE_TAKEN == o0
+        res[d.type] = [x.detach().cpu() for x in (a, o["rgb"], o["depth"],
+                                                  ft.grad, tt.grad)]
+    for i, (k, r) in enumerate(zip(res["cuda"], res["cpu"])):
+        if i < 2:
+            assert torch.equal(k, r), i
+        else:
+            assert float((k - r).abs().max()) <= 1e-5 * float(
+                r.abs().max()), i

@@ -736,10 +736,12 @@ def test_step_timer_and_trace_context(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["precompute", "stitch_lp", "train_rnr",
-                                  "test_rnr"])
+                                  "test_rnr", "train_dnr", "test_dnr",
+                                  "make_spiral"])
 def test_drivers_take_rnr_tpu_flags(name):
     """Every flag of rnr_tpu's build_argparser, with its default, but
-    --platform: the port's takes cuda (the default) or cpu."""
+    --platform: the port's takes cuda (the default) or cpu (make_spiral,
+    on the host, has none in either package)."""
     import importlib
     jp = importlib.import_module(f"rnr_tpu.drivers.{name}").build_argparser()
     tp = importlib.import_module(
@@ -803,6 +805,9 @@ def test_no_port_module_imports_jax_flax_rnr_tpu_cv2_or_msgpack():
     for d, _, names in os.walk(os.path.join(ROOT, "rnr_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
+    for name in ("train_dnr", "test_dnr", "make_spiral"):
+        assert os.path.join(ROOT, "rnr_tpu_torch", "drivers",
+                            name + ".py") in files, name
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -64,7 +64,7 @@ def _max(a) -> float:
 
 CONFIG_CLASSES = ("TextureConfig", "LightingConfig", "RaysConfig",
                   "GCNTrainConfig", "RenderNetConfig", "LossConfig",
-                  "TrainConfig", "RNRConfig")
+                  "TrainConfig", "RNRConfig", "DNRConfig")
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
