@@ -3,7 +3,8 @@ training step, inference from a mesh (G-buffer, then the frame),
 relighting under novel light probes, the U-Net's conv routes "pallas"
 (K6), "p3s4" (K8's 4x4 pair), "slab3" (K8's 3x3 slab conv, K8a and K8b)
 and "slab" (the 3x3 slab conv and K8's 4x4 pair), the offline drivers,
-Deferred Neural Rendering and the differentiable rasterizer.
+Deferred Neural Rendering, the differentiable rasterizer, and remat and
+data parallelism over ranks.
 
     python3 chip_smoke.py            # every phase (one H100, a few minutes)
     python3 chip_smoke.py --phases device,build,kernels
@@ -13,6 +14,7 @@ Deferred Neural Rendering and the differentiable rasterizer.
     python3 chip_smoke.py --phases device,build,kernels,slice,train
     python3 chip_smoke.py --phases device,build,drivers
     python3 chip_smoke.py --phases device,build,drivers,dnr,edge_grad
+    python3 chip_smoke.py --phases device,build,parallel
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
@@ -182,6 +184,37 @@ Phases (each failure raises, so the script exits non-zero):
            once, its overflow reported, the oracle's maps.  Then a
            20-step Adam silhouette fit at 256^2 whose loss must fall (K7
            once a step).
+  parallel  remat, data parallelism and the native OBJ parser at full
+           width (512^2, the canonical config, the shipped knobs).  The
+           shipped train step at batch 4 under remat "none", "wide" and
+           "all": peak memory (MiB), step ms by CUDA events (median and
+           range of 5), K3's launches; each mode's loss bit-equal to
+           "none"'s and its gradients within 10x the difference between
+           two runs of "none" (the adjoint of the 4x4 down convs' reflect
+           pad adds with atomics), and with DETERMINISTIC_NET ("pallas",
+           zero padding) the loss, the dropout generator's end state and
+           every gradient but K2b's texture ones bit for bit; then
+           train_rnr --unet_remat wide for 3 synthetic iterations.  A
+           one-rank NCCL group on cuda:0: the dp = 1 step, its
+           collectives over NCCL, bit-equal to the step run with no
+           process group (DETERMINISTIC_NET; K2b's texture gradients to
+           1e-5).  Two ranks on the one card over Gloo with CUDA tensors
+           (spawned by parallel.run_ranks; NCCL refuses two ranks on one
+           device), global batch 2 of two distinct views, dropout off,
+           against one process's b2 step and frame: the sharded RNR step
+           and eval rows with f32 rays and U-Net (DETERMINISTIC_NET), the
+           same under remat "wide", at the shipped bf16, and the sharded
+           DNR step (f32, DETERMINISTIC_NET); each (but the remat one)
+           also as a control without the cross-rank norm.  Each limit
+           (DP_LIMITS: the loss, the gradient cosine, each gradient's
+           largest error, the eval rows) lies between the sound run's
+           reading and the control's: the sound run within, the control
+           outside; at bf16 the cosines and elementwise errors are
+           reported.  The ranks' parameters equal by digest after two
+           steps (dropout on).  Last, which parser
+           load_obj ran (the build error where the C++ one did not
+           build) and, where the native one ran, its arrays against the
+           Python parser's on the gbuffer phase's sphere.
 The slice phase also holds K4 to its plain version (compare_picks) on
 the canonical GCN's own block features, and the parity phase runs the
 canonical model with group norm at 128^2 on the card against the CPU.
@@ -193,6 +226,7 @@ record.  Nothing is printed as a result without a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -4019,11 +4053,647 @@ def phase_edge_grad(edge_launches: dict, rec: dict) -> None:
                               for k, v in out.items()}
 
 
+REMAT_MODES = ("none", "wide", "all")
+REMAT_BATCH = 4
+REMAT_STEPS = 5
+REMAT_ITERS = 3
+# train_rnr's flags besides the remat run's own: the synthetic views at
+# the canonical width (train_rnr's defaults)
+REMAT_RUN_ARGS = ["--synthetic", "--sphere_samples_fp", "nonexistent.mat"]
+# a remat mode against "none" at the same weights, masks and batch, with
+# cuDNN deterministic: the loss bit for bit (the forward is the same
+# code).  With DETERMINISTIC_NET every gradient but the texture's bit for
+# bit, the texture's (K2b's f32 atomics) within REMAT_TEX_TOL of its
+# largest.  On the shipped route the adjoint of the 4x4 down convs'
+# reflect pad adds with atomics too, and the bf16 backward amplifies any
+# rounding: there the largest gradient error outside the GCN (whose
+# gradient batch norm blocks) is held to REMAT_SPREAD_FACTOR x that of a
+# rerun of "none"
+REMAT_TEX_TOL = 1e-5
+REMAT_SPREAD_FACTOR = 10.0
+# two ranks at dp 2 against one process at b2, the same weights, dropout
+# off.  Cases: "float32" f32 rays and U-Net with DETERMINISTIC_NET (the
+# function), run also under U-Net remat "wide" ("remat_wide": its
+# recompute repeats the norms' all-reduces) against the same reference
+# and limits, "bfloat16" the shipped rays, U-Net and route, "dnr" the DNR
+# step (f32, DETERMINISTIC_NET).  Each case also runs as a control: the
+# same steps with each rank's batch norm over its own rows
+# (`local_batch_norm`).  Readings: "loss" the global loss's relative
+# error, "cosine" 1 - the cosine of the models' gradients (the GCN's,
+# which batch norm blocks, left out), "grad" the largest gradient error
+# of each gradient's largest value, "frame" the eval rows' error of the
+# single-device frame's largest value.  Each limit in DP_LIMITS lies
+# between the sound run's reading and the control's (both in PERF.md §6):
+# the sound run must fall within it and the control outside it.
+# A reading where the control is not set apart from the sound run is
+# reported, not limited.  Not tighter elementwise: the batch statistics
+# and the split sums round in another order over two ranks, and five
+# levels of batch norm at random weights amplify a rounding difference
+# to a few percent of some gradients' largest elements.
+# The readings on an H100 (sound / control): float32 loss 9.05e-8 /
+# 2.08e-6, cosine 5.1e-7 / 3.92e-4, grad 0.0811 / 0.618, frame 1.48e-5 /
+# 0.0109 (remat_wide's as float32's); bfloat16 loss 1.81e-7 / 3.26e-6,
+# frame 0.0204 / 0.0465, and not set apart: cosine 4.44e-4 / 1.62e-3
+# (the bf16 backward is chaotic), grad 0.695 / 1.11; dnr loss 1.04e-7 /
+# 8.96e-5, cosine 7e-8 / 1.07e-4, grad 0.0637 / 0.541.
+DP_LIMITS = {
+    "float32": dict(loss=4e-7, cosine=1e-5, grad=0.22, frame=4e-4),
+    "bfloat16": dict(loss=8e-7, frame=0.03),
+    "dnr": dict(loss=3e-6, cosine=3e-6, grad=0.19),
+}
+
+
+def two_views(img: int, dev) -> dict:
+    """A global batch of 2 distinct views: the synthetic sphere and its
+    mirror image, with another target."""
+    from rnr_tpu_torch.synthetic import build_batch, to_torch
+    b = build_batch(img, GCN_V, 2)
+    for k, v in b.items():
+        if v.ndim >= 3:
+            v[1] = np.flip(v[1], axis=1)
+    b["img_gt"][1] = 0.8 - 0.5 * b["img_gt"][1]
+    return to_torch(b, dev)
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """{name: max |got - want|} over each gradient's largest value, or the
+    model's largest for the gradients batch norm blocks."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return {n: float((got[n] - want[n]).abs().max())
+            / (top if blocked_by_batch_norm(n)
+               else max(float(want[n].abs().max()), 1e-30))
+            for n in want}
+
+
+def grad_cosine(a: dict, b: dict) -> float:
+    """The cosine of the whole models' gradients, the GCN's left out."""
+    keys = [n for n in b if not blocked_by_batch_norm(n)]
+    x = torch.cat([a[n].double().flatten() for n in keys])
+    y = torch.cat([b[n].double().flatten() for n in keys])
+    return float(x @ y / (x.norm() * y.norm()))
+
+
+def model_grads(model) -> dict:
+    return {n: p.grad.detach().float().clone()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+# a U-Net whose backward adds nothing with atomics: K6 for the 4x4 convs
+# and zero padding (the 4x4 down convs' reflect pad has an adjoint that
+# adds with atomics, under every route: aten's reflection_pad2d_backward)
+DETERMINISTIC_NET = dict(conv_backend="pallas", pad_mode="same")
+
+
+def remat_grads(mode: str, net: dict, b: dict, statics: dict) -> dict:
+    """One loss and backward of the canonical model under remat `mode`
+    and the `net` overrides of render_net, dropout on (generator seed
+    3), cuDNN deterministic: the loss, every gradient, the generator's
+    end state."""
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.synthetic import init_weights
+    from rnr_tpu_torch.train.steps import make_generator, make_rnr_loss_fn
+    model = init_weights(RNRModel(canonical_config(render_net=dict(
+        net, remat=mode)), GCN_V), seed=0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        gen = make_generator(3)
+        loss, aux = make_rnr_loss_fn(model)(b, statics, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        return dict(loss=aux["loss"].detach().clone(),
+                    grads=model_grads(model), gen=gen.get_state().cpu())
+    finally:
+        torch.backends.cudnn.deterministic = False
+        del model
+        torch.cuda.empty_cache()
+
+
+def worst_outside_gcn(got: dict, want: dict) -> tuple[float, str]:
+    """The largest gradient error outside the GCN (grad_errors)."""
+    err = grad_errors(got, want)
+    return max((e, n) for n, e in err.items() if not blocked_by_batch_norm(n))
+
+
+def remat_exact(b: dict, statics: dict) -> dict:
+    """Each remat mode against "none" with DETERMINISTIC_NET: the loss,
+    the generator's end state and every gradient but the texture's (K2b's
+    atomics) bit for bit, the texture's within REMAT_TEX_TOL of its
+    largest."""
+    ref = remat_grads("none", DETERMINISTIC_NET, b, statics)
+    out = {}
+    for mode in REMAT_MODES[1:]:
+        got = remat_grads(mode, DETERMINISTIC_NET, b, statics)
+        if not torch.equal(got["loss"], ref["loss"]):
+            raise AssertionError(f"remat {mode}: loss {float(got['loss'])} "
+                                 f"!= none's {float(ref['loss'])}")
+        if not torch.equal(got["gen"], ref["gen"]):
+            raise AssertionError(f"remat {mode}: the dropout generator ends "
+                                 "elsewhere than without remat")
+        tex = [n for n in ref["grads"] if n.startswith("texture_mapper.")]
+        differ = [n for n in ref["grads"] if n not in tex
+                  and not torch.equal(got["grads"][n], ref["grads"][n])]
+        if differ:
+            raise AssertionError(f"remat {mode} ({DETERMINISTIC_NET}): "
+                                 f"gradients differ from none's: "
+                                 f"{differ[:8]}")
+        err = max(grad_errors({n: got["grads"][n] for n in tex},
+                              {n: ref["grads"][n] for n in tex}).values())
+        check(f"remat {mode} texture gradients", err, REMAT_TEX_TOL)
+        log(f"[parallel] remat {mode} against none, {DETERMINISTIC_NET}, batch "
+            f"{REMAT_BATCH} at {IMG}^2: loss and the dropout generator's end "
+            f"state bit-equal, {len(ref['grads']) - len(tex)} gradients "
+            f"bit-equal, the {len(tex)} texture gradients (K2b's atomics) "
+            f"within {err:.3g} of their largest")
+        out[mode] = dict(texture_grad_err=err)
+    return out
+
+
+def remat_shipped(mode: str, b: dict, statics: dict, ref: dict | None,
+                  spread: float | None, launches: dict) -> dict:
+    """The shipped train step at batch REMAT_BATCH under remat `mode`:
+    one loss and backward against `ref` ("none"'s; its largest gradient
+    error outside the GCN at most REMAT_SPREAD_FACTOR x `spread`, that
+    of a rerun of "none"), one counted step, the peak memory of a step,
+    REMAT_STEPS steps by CUDA events."""
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.synthetic import init_weights
+    from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
+                                           make_generator,
+                                           make_rnr_train_step)
+    out = {}
+    if ref is not None:
+        got = remat_grads(mode, {}, b, statics)
+        if not torch.equal(got["loss"], ref["loss"]):
+            raise AssertionError(f"remat {mode}: loss {float(got['loss'])} "
+                                 f"!= none's {float(ref['loss'])}")
+        err, worst = worst_outside_gcn(got["grads"], ref["grads"])
+        cos = grad_cosine(got["grads"], ref["grads"])
+        log(f"[parallel] remat {mode} against none, shipped route: loss "
+            f"bit-equal; largest gradient error outside the GCN {err:.3g} "
+            f"({worst}), a rerun of none's {spread:.3g}; cosine {cos:.8f}")
+        check(f"remat {mode} gradient {worst}", err,
+              REMAT_SPREAD_FACTOR * max(spread, 1e-6))
+        out.update(max_grad_err=err, cosine=cos)
+    model = init_weights(RNRModel(canonical_config(
+        render_net=dict(remat=mode)), GCN_V), seed=0)
+    step = make_rnr_train_step(model, create_rnr_optimizer(model, 1e-3))
+    gen = make_generator(0)
+    for _ in range(2):
+        step(b, statics, gen)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step(b, statics, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches[mode] = read_launches()
+    times = []
+    for _ in range(REMAT_STEPS):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        met = step(b, statics, gen)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    if not np.isfinite(float(met["loss"])):
+        raise AssertionError(f"remat {mode}: loss {float(met['loss'])}")
+    out.update(peak_mib=peak, step_ms=float(np.median(times)),
+               step_ms_min=min(times), step_ms_max=max(times),
+               k3_launches=launches[mode]["conv3x3"])
+    log(f"[parallel] remat {mode} batch {REMAT_BATCH} at {IMG}^2: peak "
+        f"memory {peak:.1f} MiB; step {out['step_ms']:.3f} ms median "
+        f"({min(times):.3f}-{max(times):.3f}) over {REMAT_STEPS} by CUDA "
+        f"events; K3 {launches[mode]['conv3x3']} launches a step")
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_driver_run() -> None:
+    """train_rnr --unet_remat wide, REMAT_ITERS synthetic iterations at
+    the canonical width."""
+    from rnr_tpu_torch.drivers import train_rnr
+    root = os.path.join(ROOT, "build", "parallel_remat_run")
+    log_dir, model = train_rnr.main(REMAT_RUN_ARGS + [
+        "--unet_remat", "wide", "--max_iter", str(REMAT_ITERS),
+        "--log_freq", "1", "--logging_root", root])
+    if model.render_net.Unet_0.remat != "wide":
+        raise AssertionError("train_rnr --unet_remat wide built no remat")
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    if summary["iters"] != REMAT_ITERS or not np.isfinite(
+            summary["last_loss"]):
+        raise AssertionError(f"train_rnr --unet_remat wide: {summary}")
+    log(f"[parallel] train_rnr --unet_remat wide: {REMAT_ITERS} iterations, "
+        f"last loss {summary['last_loss']:.6g}, "
+        f"{summary['timing'].get('iters_per_s', 0.0):.3f} iterations/s")
+    del model
+    torch.cuda.empty_cache()
+
+
+def one_rank_nccl() -> None:
+    """A one-rank NCCL group on cuda:0: the dp = 1 step, its collectives
+    over the group, equals the step run with no process group bit for
+    bit (loss terms, metrics, every gradient but the texture's, which
+    K2b's atomics give in no fixed order), with DETERMINISTIC_NET."""
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.parallel import (init_distributed, make_mesh,
+                                        make_sharded_rnr_train_step)
+    from rnr_tpu_torch.parallel.distributed import free_port
+    from rnr_tpu_torch.synthetic import build_statics, init_weights
+    from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
+                                           make_generator,
+                                           make_rnr_train_step)
+    import torch.distributed as dist
+    b = _gbuffer(IMG, 1)
+
+    def run(mesh):
+        model = init_weights(RNRModel(canonical_config(
+            render_net=DETERMINISTIC_NET), GCN_V), 0)
+        opt = create_rnr_optimizer(model, 1e-3)
+        step = (make_rnr_train_step(model, opt) if mesh is None
+                else make_sharded_rnr_train_step(model, opt, mesh))
+        met = step(b, build_statics(model, 4096), make_generator(0))
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in met.items()}, model_grads(model)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        m0, g0 = run(None)
+        init_distributed(f"127.0.0.1:{free_port()}", 1, 0, 1)
+        try:
+            mesh = make_mesh(1)
+            if dist.get_backend() != "nccl" or not mesh.grouped:
+                raise AssertionError(f"backend {dist.get_backend()}, "
+                                     f"grouped {mesh.grouped}")
+            m1, g1 = run(mesh)
+        finally:
+            dist.destroy_process_group()
+        for k in m0:
+            if not torch.equal(m0[k], m1[k]):
+                raise AssertionError(f"dp=1 NCCL step: {k} differs")
+        tex = [n for n in g0 if n.startswith("texture_mapper.")]
+        for n in g0:
+            if n not in tex and not torch.equal(g0[n], g1[n]):
+                raise AssertionError(f"dp=1 NCCL step: gradient {n} differs")
+        err = max(grad_errors({n: g1[n] for n in tex},
+                              {n: g0[n] for n in tex}).values())
+        check("dp=1 NCCL step texture gradients", err, 1e-5)
+        log(f"[parallel] one-rank NCCL group on cuda:0: the dp=1 step (its "
+            f"collectives over NCCL) equals the step with no process group "
+            f"bit for bit ({len(m0)} metrics, {len(g0) - len(tex)} "
+            f"gradients); the {len(tex)} texture gradients (K2b's atomics) "
+            f"within {err:.3g} of their largest")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def local_batch_norm():
+    """Inside: the steps' batch norms over each rank's own rows, not the
+    global batch's (the control: dp without the cross-rank norm)."""
+    from rnr_tpu_torch.parallel import sharding
+    keep = sharding.global_batch_norm
+    sharding.global_batch_norm = lambda model, mesh: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        sharding.global_batch_norm = keep
+
+
+def param_digest(model) -> str:
+    h = hashlib.sha256()
+    for t in list(model.parameters()) + list(model.buffers()):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rnr_builder(dtype: str, remat: str = "none"):
+    """A builder of the canonical model of a dp case (DP_LIMITS), dropout
+    off."""
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.synthetic import init_weights
+    net = DETERMINISTIC_NET if dtype == "float32" else {}
+    cfg = canonical_config(rays=dict(rays_dtype=dtype), render_net=dict(
+        net, compute_dtype=dtype, remat=remat))
+
+    def build():
+        m = init_weights(RNRModel(cfg, GCN_V), 0)
+        m.render_net.Unet_0.use_dropout = False
+        return m
+
+    return build
+
+
+def _dnr_builder():
+    from rnr_tpu_torch.synthetic import init_weights
+    from rnr_tpu_torch.train.steps import build_dnr_modules
+
+    def build():
+        mods = init_weights(build_dnr_modules(dnr_config()), 1)
+        mods.render_net.Unet_0.use_dropout = False
+        return mods
+
+    return build
+
+
+def _dp_run(kind: str, build, mesh, b: dict, statics: dict | None,
+            control: bool, digest: bool):
+    """One sharded step (and, for RNR, the sharded eval rows at the
+    initial weights) of a fresh model: (result, gradients, this rank's
+    rows or None).  With `digest`, a second step with dropout on and the
+    parameters' digest."""
+    from rnr_tpu_torch.parallel import (make_sharded_dnr_train_step,
+                                        make_sharded_rnr_eval_step,
+                                        make_sharded_rnr_train_step)
+    from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
+                                           make_generator)
+    model = build()
+    opt = create_rnr_optimizer(model, 1e-3)
+    row = None
+    with local_batch_norm() if control else contextlib.nullcontext():
+        if kind == "dnr":
+            dstep = make_sharded_dnr_train_step(dnr_config(), model, opt,
+                                                mesh, seed=7)
+
+            def step(gen):
+                return dstep(b, gen)
+        else:
+            # the frames at the initial weights: after a step the two
+            # sides' weights differ by Adam's normalised updates of
+            # gradients that differ in rounding
+            row = make_sharded_rnr_eval_step(model, mesh)(b)["img"].float()
+            rstep = make_sharded_rnr_train_step(model, opt, mesh, seed=7)
+
+            def step(gen):
+                return rstep(b, statics, gen)
+        t0 = time.perf_counter()
+        met = step(make_generator(0))
+        torch.cuda.synchronize()
+        r = dict(step_s=time.perf_counter() - t0, loss=float(met["loss"]))
+        grads = model_grads(model)
+        if digest:
+            model.render_net.Unet_0.use_dropout = True
+            step(make_generator(1))
+            r["digest"] = param_digest(model)
+    return r, grads, row
+
+
+def _dp_reference(kind: str, build, b: dict):
+    """The single-process b2 step of a fresh model: (loss, gradients,
+    the eval frame at the initial weights or None)."""
+    from rnr_tpu_torch.synthetic import build_statics
+    from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
+                                           make_dnr_train_step,
+                                           make_generator,
+                                           make_rnr_eval_step,
+                                           make_rnr_train_step)
+    ref = build()
+    opt = create_rnr_optimizer(ref, 1e-3)
+    if kind == "dnr":
+        frame = None
+        met = make_dnr_train_step(dnr_config(), ref, opt)(b,
+                                                          make_generator(0))
+    else:
+        frame = make_rnr_eval_step(ref)(b)["img"].float().cpu()
+        met = make_rnr_train_step(ref, opt)(b, build_statics(ref, 4096),
+                                            make_generator(0))
+    torch.cuda.synchronize()
+    return float(met["loss"]), model_grads(ref), frame
+
+
+def _dp_rank(local_rank: int, port: int) -> dict:
+    """One of two ranks on cuda:0 over Gloo (a spawned process): each dp
+    case (DP_LIMITS) and its control; rank 0 also runs the
+    single-process b2 steps and frames they are held to and reads each
+    case against them.  Returns plain numbers."""
+    import torch.distributed as dist
+    from rnr_tpu_torch.parallel import init_distributed, make_mesh
+    from rnr_tpu_torch.synthetic import build_statics
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_distributed(f"127.0.0.1:{port}", 1, 0, 2, local_rank=local_rank,
+                     backend="gloo")
+    out = {}
+    try:
+        mesh = make_mesh(2, dp=2)
+        b = two_views(IMG, DEV)
+        db = dnr_batch(DEV)
+        plan = {"float32": ("rnr", _rnr_builder("float32"),
+                            ("dp", "control", "remat_wide")),
+                "bfloat16": ("rnr", _rnr_builder("bfloat16"),
+                             ("dp", "control")),
+                "dnr": ("dnr", _dnr_builder(), ("dp", "control"))}
+        for case, (kind, build, runs) in plan.items():
+            batch = db if kind == "dnr" else b
+            statics = (None if kind == "dnr"
+                       else build_statics(build(), 4096))
+            res, got = {}, {}
+            for run in runs:
+                bld = (_rnr_builder("float32", "wide")
+                       if run == "remat_wide" else build)
+                r, grads, row = _dp_run(kind, bld, mesh, batch, statics,
+                                        run == "control", run == "dp")
+                if row is not None:
+                    rows = [torch.empty_like(row).cpu() for _ in range(2)]
+                    dist.all_gather(rows, row.cpu())
+                    row = torch.cat(rows)
+                res[run], got[run] = r, (grads, row)
+                torch.cuda.empty_cache()
+            if mesh.rank == 0:
+                ref_loss, rg, rframe = _dp_reference(kind, build, batch)
+                for run, (grads, rows) in got.items():
+                    r = res[run]
+                    r.update(ref_loss=ref_loss,
+                             loss_rel=abs(r["loss"] - ref_loss)
+                             / abs(ref_loss), **grad_summary(grads, rg))
+                    if rows is not None:
+                        r["frame_err"] = float((rows - rframe).abs().max()
+                                               / rframe.abs().max())
+                del rg
+            out[case] = res
+            del got
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def grad_summary(got: dict, want: dict) -> dict:
+    """The whole models' gradient cosine (GCN left out), the largest
+    elementwise error and the norm ratio furthest from 1 by tensor."""
+    err = worst_outside_gcn(got, want)
+    ratios = {n: float(got[n].norm() / want[n].norm().clamp_min(1e-30))
+              for n in want if not blocked_by_batch_norm(n)}
+    far = max(ratios, key=lambda n: abs(math.log(max(ratios[n], 1e-30))))
+    return dict(cosine=grad_cosine(got, want), grad_err=err,
+                norm_ratio=(ratios[far], far))
+
+
+def dnr_config():
+    """DNR at rnr_tpu's train_dnr widths (512^2, texture 512^2 x 30 x 4
+    levels, nf0 64, 5 downs) with DETERMINISTIC_NET (K6 for its 4x4
+    convs, on the f32 route)."""
+    from rnr_tpu_torch.config import (DNRConfig, LossConfig, RenderNetConfig,
+                                      TextureConfig, TrainConfig)
+    return DNRConfig(
+        texture=TextureConfig(texture_size=512, texture_num_ch=DNR_CH,
+                              mipmap_level=4),
+        render_net=RenderNetConfig(nf0=64, num_down_unet=5,
+                                   **DETERMINISTIC_NET),
+        loss=LossConfig(), train=TrainConfig(img_size=IMG))
+
+
+def dnr_batch(dev) -> dict:
+    """Two distinct views of the synthetic sphere's uv, SH basis (9 of
+    the DNR texture's channels modulated), alpha and a target."""
+    b = two_views(IMG, dev)
+    return {"uv_map": b["uv_map"], "sh_basis_map": b["sh_basis_map"],
+            "alpha_map": b["alpha_map"], "img_gt": b["img_gt"]}
+
+
+def dp_readings(r: dict) -> dict:
+    """The readings DP_LIMITS names, of one run read against its
+    reference."""
+    out = dict(loss=r["loss_rel"], cosine=1.0 - r["cosine"],
+               grad=r["grad_err"][0])
+    if "frame_err" in r:
+        out["frame"] = r["frame_err"]
+    return out
+
+
+def dp_two_ranks() -> dict:
+    """Two ranks on the one card over Gloo with CUDA tensors (NCCL
+    refuses two ranks on one device), each its own process: every case
+    and control read and logged, then held to DP_LIMITS."""
+    from rnr_tpu_torch.parallel import run_ranks
+    from rnr_tpu_torch.parallel.distributed import free_port
+    t0 = time.perf_counter()
+    r0, r1 = run_ranks(_dp_rank, 2, free_port())
+    log(f"[parallel] two Gloo ranks on cuda:0: {time.perf_counter() - t0:.1f}"
+        " s with their start")
+    for case, runs in r0.items():
+        for run, a in runs.items():
+            name = case if run == "dp" else (
+                f"{case} {run}" if run != "control"
+                else f"{case} without the cross-rank norm (control)")
+            frame = (f"; the eval rows against the single-device frame "
+                     f"{a['frame_err']:.3g} of its largest"
+                     if "frame_err" in a else "")
+            log(f"[parallel] dp=2 {name} at b2 {IMG}^2: loss "
+                f"{a['loss']:.8g} against one process's {a['ref_loss']:.8g} "
+                f"(rel {a['loss_rel']:.3g}); gradient cosine "
+                f"{a['cosine']:.8f}, largest elementwise error "
+                f"{a['grad_err'][0]:.3g} ({a['grad_err'][1]}), norm ratio "
+                f"{a['norm_ratio'][0]:.6f} ({a['norm_ratio'][1]}){frame}; "
+                f"the ranks' first step {a['step_s']:.2f} / "
+                f"{r1[case][run]['step_s']:.2f} s (host clock)")
+    for case, runs in r0.items():
+        for run, a in runs.items():
+            if a["loss"] != r1[case][run]["loss"]:
+                raise AssertionError(f"dp {case} {run}: the ranks' losses "
+                                     "differ")
+        if runs["dp"]["digest"] != r1[case]["dp"]["digest"]:
+            raise AssertionError(f"dp {case}: the ranks' parameters differ "
+                                 "after two steps")
+    log("[parallel] every case's parameters bit-equal across the ranks "
+        "after two steps (dropout on, each rank's own masks)")
+    for case, runs in r0.items():
+        limits = DP_LIMITS[case]
+        for run, a in runs.items():
+            if run == "control":
+                continue
+            got = dp_readings(a)
+            for m, tol in limits.items():
+                check(f"dp {case} {run} {m}", got[m], tol)
+        if "control" in runs:
+            got = dp_readings(runs["control"])
+            passed = [m for m, tol in limits.items() if got[m] <= tol]
+            if passed:
+                raise AssertionError(f"dp {case}: the control without the "
+                                     f"cross-rank norm passes {passed}")
+    return r0
+
+
+def native_parser() -> str:
+    """Which parser load_obj ran; where the C++ one ran, its arrays
+    against the Python parser's on the G-buffer phase's sphere."""
+    from rnr_tpu_torch.data.obj import load_obj
+    from rnr_tpu_torch.synthetic import sphere_mesh
+    path = os.path.join(ROOT, "build", "parallel_sphere.obj")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_obj(path, sphere_mesh(*MESH_LAT_LON))
+    t0 = time.perf_counter()
+    load_obj(path, use_native=True)      # builds the library at first use
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = load_obj(path, use_native=True)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = load_obj(path, use_native=False)
+    t_py = time.perf_counter() - t0
+    log(f"[parallel] load_obj(use_native=True) ran the {nat.parser} parser "
+        f"({t_nat * 1e3:.1f} ms, host clock; its first call, the build "
+        f"included, {t_first:.2f} s; the Python parser "
+        f"{t_py * 1e3:.1f} ms) on {len(py.v)} vertices, "
+        f"{len(py.f_v_idx)} faces")
+    if nat.parser == "native":
+        for f in ("v", "vt", "vn", "f_v_idx", "f_vt_idx", "f_vn_idx"):
+            a, c = getattr(nat, f), getattr(py, f)
+            if a.shape != c.shape or (
+                    not np.array_equal(a, c) if f.startswith("f_")
+                    else not np.allclose(a, c, rtol=1e-6, atol=0)):
+                raise AssertionError(f"native parser: {f} differs")
+        log("[parallel] the native parser's arrays equal the Python "
+            "parser's (indices exactly, floats to 1e-6 relative)")
+    else:
+        from rnr_tpu_torch.data import native
+        log(f"[parallel] the native library did not build here: "
+            f"{native.build_error}")
+    return nat.parser
+
+
+def phase_parallel(remat_launches: dict, rec: dict) -> None:
+    """Remat on the card, a one-rank NCCL group, two Gloo ranks on the
+    one card, and the native OBJ parser (module docstring)."""
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.synthetic import build_statics, init_weights
+    b = _gbuffer(IMG, REMAT_BATCH)
+    statics = build_statics(init_weights(RNRModel(canonical_config(), GCN_V),
+                                         0), 4096)
+    exact = remat_exact(b, statics)
+    ref = remat_grads("none", {}, b, statics)
+    rerun = remat_grads("none", {}, b, statics)
+    spread, where = worst_outside_gcn(rerun["grads"], ref["grads"])
+    log(f"[parallel] two runs of none, shipped route: loss bit-equal "
+        f"{torch.equal(rerun['loss'], ref['loss'])}; largest gradient "
+        f"difference outside the GCN {spread:.3g} ({where}), cosine "
+        f"{grad_cosine(rerun['grads'], ref['grads']):.8f}")
+    del rerun
+    remat = {}
+    for mode in REMAT_MODES:
+        remat[mode] = remat_shipped(mode, b, statics,
+                                    None if mode == "none" else ref, spread,
+                                    remat_launches)
+        remat[mode].update(exact.get(mode, {}))
+    remat["none_rerun_grad_err"] = spread
+    del b, statics, ref
+    torch.cuda.empty_cache()
+    remat_driver_run()
+    one_rank_nccl()
+    dp = dp_two_ranks()
+    rec["parallel"] = dict(remat=remat, dp=dp, parser=native_parser())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="device,build,kernels,slice,"
                                         "gbuffer,relight,parity,train,"
-                                        "train_parity,drivers,dnr,edge_grad")
+                                        "train_parity,drivers,dnr,edge_grad,"
+                                        "parallel")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4038,6 +4708,8 @@ def main() -> None:
     driver_launches: dict = {}
     dnr_launches: dict = {}
     edge_launches: dict = {}
+    remat_launches: dict = {}
+    parallel: dict = {}
 
     def done(name):
         torch.cuda.synchronize()
@@ -4083,6 +4755,10 @@ def main() -> None:
     if "edge_grad" in phases:
         phase_edge_grad(edge_launches, rec)
         done("edge_grad")
+    if "parallel" in phases:
+        phase_parallel(remat_launches, parallel)
+        done("parallel")
+        log(f"[parallel] {json.dumps(parallel)}")
     # launches: the count on the kernel's main path, the training step
     # (one step at b1), or for K7 the G-buffer path (N_VIEWS views), for
     # K5 the relight path (N_VIEWS views x N_PROBES probes x the routes),
@@ -4111,6 +4787,8 @@ def main() -> None:
                                   dnr_launches.items()},
                     edge_grad_launches=(edge_launches or None)
                     if n == "rasterize_tiles" else None,
+                    remat_launches={m: c.get(n) for m, c in
+                                    remat_launches.items()},
                     **rec.get(n, {}))
                for n, s in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))

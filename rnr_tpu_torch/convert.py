@@ -17,7 +17,9 @@ flax names, so a torch parameter `a.b.Dense_0.weight` reads flax
 `basis_val_recon` the port computes itself, and they are held to the JAX
 values (to 1e-4 of the larger of their largest magnitude and 1).
 `jax_grads_to_torch` maps a JAX gradient tree (the `params` structure)
-into the port's parameter names and layouts by the same rules.
+into the port's parameter names and layouts by the same rules.  A U-Net
+under remat reads its blocks under rnr_tpu's names for them
+(`Unet.flax_names`: nn.remat's "CheckpointDownBlock_0", ...).
 """
 
 from __future__ import annotations
@@ -52,6 +54,16 @@ def _leaf_paths(tree: dict, prefix=()) -> set[tuple]:
             out |= _leaf_paths(v, prefix + (k,))
         else:
             out.add(prefix + (k,))
+    return out
+
+
+def _flax_path(modules: dict, mod_path: list[str]) -> list[str]:
+    """The flax path of a torch module path: each segment under a module
+    with `flax_names` (the U-Net) takes its flax name."""
+    out = []
+    for k, seg in enumerate(mod_path):
+        names = getattr(modules[".".join(mod_path[:k])], "flax_names", {})
+        out.append(names.get(seg, seg))
     return out
 
 
@@ -104,7 +116,8 @@ def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
     for name, tensor in targets:
         *mod_path, leaf = name.split(".")
         mod = modules[".".join(mod_path)]
-        coll, fpath, arr = _convert(mod, leaf, variables, mod_path)
+        coll, fpath, arr = _convert(mod, leaf, variables,
+                                    _flax_path(modules, mod_path))
         if tuple(arr.shape) != tuple(tensor.shape):
             raise ValueError(f"{name}: JAX {'/'.join(fpath)} has shape "
                              f"{arr.shape}, torch {tuple(tensor.shape)}")
@@ -127,7 +140,8 @@ def jax_grads_to_torch(model: nn.Module, grads: dict) -> dict:
     for name, p in model.named_parameters():
         *mod_path, leaf = name.split(".")
         _, fpath, arr = _convert(modules[".".join(mod_path)], leaf,
-                                 {"params": grads}, mod_path)
+                                 {"params": grads},
+                                 _flax_path(modules, mod_path))
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: JAX grad {'/'.join(fpath)} has shape "
                              f"{arr.shape}, torch {tuple(p.shape)}")

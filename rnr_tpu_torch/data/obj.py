@@ -9,8 +9,10 @@ normalization, and the global rigid transform with span statistics;
 (`load_obj(load_texture=True)`, through `ops/texture_atlas.py`), and
 `save_obj`, with the per-face volumes baked into an atlas PNG.  Texture
 images are read by `data/imageio.py` (PNG, HDR, `.mat`): a JPEG or EXR
-texture raises a ValueError that names the format.  rnr_tpu's C++ parser
-route (`use_native`) is not ported: the Python parser always runs.
+texture raises a ValueError that names the format.  `use_native` parses
+with the C++ runtime (data/native.py, the port's own build and binding
+of native/rnr_native.cpp) where it builds, else with the Python parser;
+`MeshData.parser` says which ran.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from rnr_tpu_torch.data.imageio import read_image, write_png
+from rnr_tpu_torch.data.native import parse_obj_native
 from rnr_tpu_torch.ops import texture_atlas
 
 
@@ -37,6 +40,7 @@ class MeshData:
     f_vt_idx: np.ndarray  # [F, 3] int32 (possibly empty)
     # [F, ts, ts, ts, 3] float32 when load_obj(load_texture=True)
     textures: np.ndarray | None = None
+    parser: str = "python"  # "native" where the C++ parser ran
 
 
 WRAP_MODES = {"REPEAT": texture_atlas.REPEAT,
@@ -153,7 +157,8 @@ def load_obj(path: str, normalization: bool = False,
     load_texture: fill MeshData.textures [F, ts, ts, ts, 3] from the
     materials of the OBJ's `mtllib` (texture_size ts, texture_wrapping
     one of WRAP_MODES, bilinear or nearest); an OBJ without one raises.
-    use_native is accepted and ignored (the C++ parser is not ported).
+    use_native: parse with the C++ runtime where it is available
+    (`parser` "native" in the result), else with the Python parser.
     """
     textures = None
     if load_texture:
@@ -167,6 +172,20 @@ def load_obj(path: str, normalization: bool = False,
             raise RuntimeError(f"load_texture=True but {path} has no mtllib")
         textures = _load_obj_textures(path, mtl_path, texture_size,
                                       texture_wrapping, use_bilinear)
+    res = parse_obj_native(path) if use_native else None
+    if res is not None:
+        v, vt, vn, fv, fvt, fvn = res
+        if normalization and len(v):
+            v = v - (v.max(0) + v.min(0)) / 2.0
+            v = v / np.abs(v).max()
+        # as the Python parser: a triplet array only where every face has it
+        empty = np.zeros((0, 3), np.int32)
+        return MeshData(v=v, vn=vn, vt=vt, f_v_idx=fv,
+                        f_vn_idx=fvn if len(fvn) and (fvn >= 0).all()
+                        else empty,
+                        f_vt_idx=fvt if len(fvt) and (fvt >= 0).all()
+                        else empty,
+                        textures=textures, parser="native")
     vs: list[list[float]] = []
     vns: list[list[float]] = []
     vts: list[list[float]] = []

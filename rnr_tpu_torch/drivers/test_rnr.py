@@ -15,8 +15,12 @@ t_network_render, or with `--per_stage_timing` the reference's buckets
 (t_prep, t_raster, t_preproc, t_sh, t_texture, t_rays, t_network,
 t_render; `_make_staged`), each on the card timed by CUDA events that it
 waits for.  `_reconcile_sh_bands` fits a novel probe's SH projection to
-the model's band count.  `--mesh_devices` raises NotImplementedError
-(ROADMAP.md Queue 1 item 10).
+the model's band count.  `--mesh_devices N --mesh_dp N` splits the
+views over N spawned ranks (view i to rank i mod N, on cuda:{rank} or
+the CPU); each rank renders whole frames at batch 1, so each frame is
+the single-device frame, and writes its own views' PNGs.  `--mesh_dp`
+below `--mesh_devices` (rnr_tpu's tile-sharded frames, image rows over
+sp) raises NotImplementedError (ROADMAP.md Queue 1 item 10).
 
 Usage:
   python -m rnr_tpu_torch.drivers.test_rnr --data_root DATA \
@@ -46,6 +50,8 @@ from rnr_tpu_torch.ops.gbuffer import (make_mesh_buffers, render_gbuffer,
                                        render_raster)
 from rnr_tpu_torch.ops.interpolate import interpolate_bilinear
 from rnr_tpu_torch.ops.spherical import spherical_mapping
+from rnr_tpu_torch.parallel.distributed import rank_device, run_ranks
+from rnr_tpu_torch.parallel.sharding import mesh_shape
 from rnr_tpu_torch.train.checkpoint import load_checkpoint
 from rnr_tpu_torch.train.steps import make_rnr_eval_step
 from rnr_tpu_torch.utils.trace import StepTimer
@@ -96,7 +102,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--calib_format", type=str, default="convert",
                    choices=["convert"])
     p.add_argument("--mesh_devices", type=int, default=None,
-                   help="not ported (NotImplementedError)")
+                   help="split the views over N ranks (with --mesh_dp N)")
     p.add_argument("--mesh_dp", type=int, default=1)
     return p
 
@@ -215,10 +221,40 @@ def main(argv=None, keep_frames: bool = False) -> dict:
     with `keep_frames` the frames {(image stem, lighting name):
     [H, W, C] tensor}, else empty."""
     opt = build_argparser().parse_args(argv)
-    if opt.mesh_devices:
-        raise NotImplementedError("--mesh_devices is not ported: multi-GPU "
-                                  "is ROADMAP.md Queue 1 item 10")
+    n = opt.mesh_devices or 1
+    mesh_shape(n, opt.mesh_dp)
     dev = setup_device(opt.platform)
+    if n == 1:
+        return _render(opt, dev, keep_frames)
+    parts = run_ranks(_render_rank, n, opt, keep_frames)
+    frames, buckets = {}, {}
+    for part in parts:
+        frames.update({k: torch.from_numpy(v)
+                       for k, v in part["frames"].items()})
+        for k, v in part["buckets"].items():
+            buckets[k] = buckets.get(k, 0.0) + v
+    return {"views": sum(p["views"] for p in parts),
+            "lightings": parts[0]["lightings"],
+            "render_s": max(p["render_s"] for p in parts),
+            "buckets": buckets, "frames": frames}
+
+
+def _render_rank(rank: int, opt, keep_frames: bool) -> dict:
+    """A spawned rank's share of the views; frames as host arrays."""
+    if opt.platform == "cpu":     # the host's cores shared by the ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // opt.mesh_devices))
+    out = _render(opt, rank_device(rank, opt.platform), keep_frames, rank,
+                  opt.mesh_devices)
+    out["frames"] = {k: v.float().cpu().numpy()
+                     for k, v in out["frames"].items()}
+    return out
+
+
+def _render(opt, dev: torch.device, keep_frames: bool, rank: int = 0,
+            world: int = 1) -> dict:
+    """main's render on `dev`: views rank, rank + world, ... of the list
+    ("views" counts them)."""
     if opt.calib_dir:
         opt.calib_fp = os.path.join(resolve(opt.calib_dir, opt.data_root),
                                     "calib.mat")
@@ -288,9 +324,11 @@ def main(argv=None, keep_frames: bool = False) -> dict:
     staged = _make_staged(model, dev) if opt.per_stage_timing else None
     frames = {}
     buckets: dict = {}
-    print(f"rendering {len(ds)} views under {len(lps)} lightings")
+    mine = range(rank, len(ds), world)
+    print(f"rendering {len(mine)} of {len(ds)} views under {len(lps)} "
+          "lightings")
     t_views = time.perf_counter()
-    for i in range(len(ds)):
+    for i in mine:
         t0 = time.time()
         view = ds.read_view(i)
         t_prep = time.time() - t0
@@ -338,7 +376,7 @@ def main(argv=None, keep_frames: bool = False) -> dict:
             buckets[k] = buckets.get(k, 0.0) + v
     render_s = time.perf_counter() - t_views
     print("wrote", out_dir)
-    return {"views": len(ds), "lightings": len(lps), "render_s": render_s,
+    return {"views": len(mine), "lightings": len(lps), "render_s": render_s,
             "buckets": buckets, "frames": frames}
 
 

@@ -14,15 +14,23 @@ CPU generator, so the card and the CPU start alike), dropout and the
 stochastic GCN from one `make_generator(--seed)` on the run's device, the
 view order from NumPy's default_rng(--seed), as rnr_tpu's.
 
-Multi-device runs (`--mesh_devices`, `--coordinator_address` /
-`--num_processes`) and `--unet_remat` raise NotImplementedError: they are
-ROADMAP.md Queue 1 items 9-10.
+Data parallelism (parallel/): `--mesh_devices N --mesh_dp N` spawns N
+ranks on this host, one a device (cuda:{rank}, NCCL; Gloo with
+`--platform cpu`), with a rendezvous on a free local port; the
+batch (`--batch_size`, global) is split over them.  `--coordinator_address
+HOST:PORT --num_processes P --process_id I` joins P hosts, each starting
+`--local_device_count` ranks (one when not given).  Every rank computes
+the same parameters; only rank 0 writes logs, params.json, validation
+images and checkpoints, and the view buffer stays on the host.  The
+GCN's picks come from make_generator(--seed) on every rank, dropout
+from a generator per rank.  `--mesh_dp` below `--mesh_devices` (image
+rows across devices, rnr_tpu's sp) raises NotImplementedError.
 
 Usage:
   python -m rnr_tpu_torch.drivers.train_rnr --data_root DATA \\
       --lighting_idx 0 --lighting_relight_idx 1 [--sampling_pattern ...]
   python -m rnr_tpu_torch.drivers.train_rnr --synthetic --max_iter 10 \\
-      [--platform cpu]
+      [--platform cpu] [--mesh_devices 2 --mesh_dp 2 --batch_size 2]
 """
 
 from __future__ import annotations
@@ -50,15 +58,17 @@ from rnr_tpu_torch.models.rnr import RNRModel
 from rnr_tpu_torch.ops.interpolate import interpolate_bilinear
 from rnr_tpu_torch.ops.sh import evaluate_sh_basis, fit_sh_coeff
 from rnr_tpu_torch.ops.spherical import spherical_mapping
+from rnr_tpu_torch.parallel.distributed import (fetch_global, free_port,
+                                                init_distributed,
+                                                is_main_process, rank_device,
+                                                run_ranks)
+from rnr_tpu_torch.parallel.sharding import make_mesh, mesh_shape
 from rnr_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from rnr_tpu_torch.train.steps import (create_rnr_optimizer, init_rnr_params,
                                        make_generator, make_rnr_eval_step,
                                        make_rnr_train_step,
                                        rnr_texture_flatten_init)
 from rnr_tpu_torch.utils.eval_metrics import compute_err_metrics_batch, psnr_np
-
-NOT_PORTED = ("is not ported: multi-device training and remat are "
-              "ROADMAP.md Queue 1 items 9-10")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -171,7 +181,7 @@ def build_argparser() -> argparse.ArgumentParser:
     # in 4 GB) and gather batches there, else assemble them on the host
     p.add_argument("--device_view_buffer", type=str, default="auto",
                    choices=["auto", "on", "off"])
-    # multi-device: not ported (NotImplementedError)
+    # data parallelism over ranks (parallel/)
     p.add_argument("--mesh_devices", type=int, default=None)
     p.add_argument("--mesh_dp", type=int, default=1)
     p.add_argument("--coordinator_address", type=str, default=None)
@@ -250,16 +260,65 @@ def _sample_probe(img: np.ndarray, l_dir: np.ndarray) -> np.ndarray:
 
 
 def main(argv=None):
-    """Train; returns (log_dir, model) of the run."""
+    """Train; returns (log_dir, model) of the run: rank 0's log_dir and
+    None for the model where the ranks ran in spawned processes."""
     opt = build_argparser().parse_args(argv)
-    if opt.mesh_devices:
-        raise NotImplementedError(f"--mesh_devices {NOT_PORTED}")
-    if opt.coordinator_address or opt.num_processes:
-        raise NotImplementedError(f"multi-host training {NOT_PORTED}")
-    if opt.unet_remat is not False:
-        raise NotImplementedError(f"--unet_remat {NOT_PORTED}")
-    dev = setup_device(opt.platform)
+    ranks = _ranks(opt)
+    if ranks is None:
+        return _train(opt, setup_device(opt.platform), None)
+    if ranks[3] == 1:
+        return _rank(0, opt, ranks)
+    return run_ranks(_spawned_rank, ranks[3], opt, ranks)[0], None
 
+
+def _ranks(opt) -> tuple | None:
+    """(coordinator, processes, process id, ranks a process) of a run over
+    ranks, None for one device; checks the mesh before any rank starts."""
+    if opt.coordinator_address is None:
+        if (opt.mesh_devices or 1) == 1:
+            return None
+        ranks = (f"127.0.0.1:{free_port()}", 1, 0, opt.mesh_devices)
+    else:
+        if opt.num_processes is None or opt.process_id is None:
+            raise ValueError("--coordinator_address requires "
+                             "--num_processes and --process_id")
+        ranks = (opt.coordinator_address, opt.num_processes, opt.process_id,
+                 opt.local_device_count or 1)
+    world = ranks[1] * ranks[3]
+    if (opt.mesh_devices or world) != world:
+        raise ValueError(f"--mesh_devices {opt.mesh_devices}: the run has "
+                         f"{world} ranks")
+    dp, _ = mesh_shape(world, opt.mesh_dp)
+    if opt.batch_size % dp:
+        raise ValueError(f"--batch_size {opt.batch_size} does not split "
+                         f"over {dp} ranks")
+    if opt.platform != "cpu":
+        setup_device(opt.platform)      # raises without a card
+    return ranks
+
+
+def _rank(local_rank: int, opt, ranks: tuple):
+    """One rank of a run: join the group, train, leave the group."""
+    coord, nproc, pid, per = ranks
+    if opt.platform == "cpu" and per > 1:   # the host's cores shared
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // per))
+    init_distributed(coord, nproc, pid, per, local_rank=local_rank,
+                     platform=opt.platform)
+    try:
+        mesh = make_mesh(nproc * per, dp=opt.mesh_dp)
+        return _train(opt, rank_device(local_rank, opt.platform), mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _spawned_rank(local_rank: int, opt, ranks: tuple) -> str:
+    return _rank(local_rank, opt, ranks)[0]
+
+
+def _train(opt, dev: torch.device, mesh):
+    """The training run on `dev`; over the ranks of `mesh` where one is
+    given (parallel.sharding.make_mesh)."""
+    main_proc = is_main_process()
     synthetic = opt.synthetic
     lighting_idx = opt.lighting_idx if opt.lighting_idx is not None else 0
     has_relight = opt.lighting_relight_idx is not None
@@ -426,11 +485,12 @@ def main(argv=None):
                 + "_" + opt.sampling_pattern
                 + (("_" + opt.exp_name) if opt.exp_name else ""))
     log_dir = os.path.join(log_root, dir_name)
-    cond_mkdir(log_dir)
-    for sub in ("val_out", "val_gt", "val_err", "val_relight_out",
-                "val_relight_err", "val_relight_gt"):
-        cond_mkdir(os.path.join(log_dir, sub))
-    save_config(cfg, os.path.join(log_dir, "params.json"))
+    if main_proc:
+        cond_mkdir(log_dir)
+        for sub in ("val_out", "val_gt", "val_err", "val_relight_out",
+                    "val_relight_err", "val_relight_gt"):
+            cond_mkdir(os.path.join(log_dir, sub))
+        save_config(cfg, os.path.join(log_dir, "params.json"))
 
     bs = opt.batch_size
     optimizer = create_rnr_optimizer(model, cfg.train.lr)
@@ -443,15 +503,20 @@ def main(argv=None):
         "l_samples_mask": torch.from_numpy(l_samples_mask).to(dev),
         "tex_flatten_init": rnr_texture_flatten_init(model),
     }
-    train_step = make_rnr_train_step(model, optimizer, lighting_idx)
-    eval_step = make_rnr_eval_step(model, lighting_idx)
+    train_step = make_rnr_train_step(model, optimizer, lighting_idx, mesh,
+                                     opt.seed)
+    eval_step = make_rnr_eval_step(model, lighting_idx, mesh=mesh)
+    if mesh is not None:
+        print(f"rank {mesh.rank} of {mesh.world} on {dev}: mesh "
+              f"{mesh.shape} {mesh.axis_names}", flush=True)
     generator = make_generator(opt.seed, dev)
 
     n_params = {part: sum(p.numel() for n, p in model.named_parameters()
                           if n.split(".", 1)[0] == part)
                 for part in ("texture_mapper", "render_net", "gcn",
                              "lighting")}
-    print("parameters:", json.dumps(n_params))
+    if main_proc:
+        print("parameters:", json.dumps(n_params))
 
     lp_relight = None
     if has_relight:
@@ -472,16 +537,18 @@ def main(argv=None):
     if init_coeff is not None and lighting_idx < len(init_coeff):
         lp_init = recon_probe(init_coeff[lighting_idx])
 
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(log_dir)
-    except Exception:
-        writer = None
+    writer = None
+    if main_proc:
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(log_dir)
+        except Exception:
+            writer = None
 
     # the training views stacked on the device once, batches gathered
     # there; else assembled on a host thread while the card runs
     views_dev = None
-    if opt.device_view_buffer != "off":
+    if opt.device_view_buffer != "off" and mesh is None:
         keys = VIEW_KEYS + ("alpha_map", "img_gt")
         view_bytes = sum(np.asarray(train_views[0][k]).nbytes
                          for k in keys) * len(train_views)
@@ -533,7 +600,7 @@ def main(argv=None):
         for batch in batches:
             if opt.max_iter is not None and it >= opt.max_iter:
                 _final(log_dir, model, optimizer, history, it, last_val,
-                       writer, loop_time(timing, t_loop, dev))
+                       writer, loop_time(timing, t_loop, dev), main_proc)
                 return log_dir, model
             t0 = time.time()
             metrics = train_step(batch, statics, generator)
@@ -579,8 +646,10 @@ def main(argv=None):
                       f"psnr {float(metrics['psnr_valid']):.4f} "
                       f"t {time.time() - t0:.3f}s")
 
+            # fetch_global is a collective: every rank enters with rank 0
+            if (writer or mesh) and it % opt.log_freq == 0:
+                img = np.clip(fetch_global(metrics["img"]), 0, 1)
             if writer and it % opt.log_freq == 0:
-                img = np.clip(metrics["img"].float().cpu().numpy(), 0, 1)
                 gt = np.clip(batch["img_gt"].cpu().numpy(), 0, 1)
                 err = np.clip(np.abs(img - gt), 0, 1)
                 grid = np.concatenate(
@@ -608,11 +677,12 @@ def main(argv=None):
                 t0 = time.perf_counter()
                 last_val = _validate(eval_step, val_views, relight_views,
                                      gcn_pos, bs, log_dir, it, writer,
-                                     lp_relight, dev, first_val=not ran_val)
+                                     lp_relight, dev, first_val=not ran_val,
+                                     write=main_proc)
                 ran_val = True
                 timing["validate_s"] += time.perf_counter() - t0
             it += 1
-            if it % opt.ckp_freq == 0:
+            if it % opt.ckp_freq == 0 and main_proc:
                 sync(dev)
                 t0 = time.perf_counter()
                 save_checkpoint(os.path.join(log_dir,
@@ -620,17 +690,18 @@ def main(argv=None):
                                 model, optimizer, it)
                 timing["checkpoint_s"] += time.perf_counter() - t0
     _final(log_dir, model, optimizer, history, it, last_val, writer,
-           loop_time(timing, t_loop, dev))
+           loop_time(timing, t_loop, dev), main_proc)
     return log_dir, model
 
 
 
 def _validate(eval_step, val_views, relight_views, gcn_pos, bs, log_dir, it,
-              writer, lp_relight, dev, first_val=False):
+              writer, lp_relight, dev, first_val=False, write=True):
     """Validation with the reference's outputs: masked MAE / MSE / PSNR /
     SSIM (full, bounding box and valid), val_out / val_err PNGs every
     pass, val_gt once, and the relight outputs, errors and ground truth
-    where a relight lighting exists."""
+    where a relight lighting exists; the PNGs only with `write` (rank 0).
+    Over ranks every rank computes the metrics of the whole batch."""
     agg: dict = {}
     agg_rel: dict = {}
 
@@ -643,14 +714,14 @@ def _validate(eval_step, val_views, relight_views, gcn_pos, bs, log_dir, it,
     for start in range(0, len(val_views) - bs + 1, bs):
         views = val_views[start:start + bs]
         batch = make_rnr_batch(views, gcn_pos, dev)
-        img = eval_step(batch)["img"].float().cpu().numpy()
+        img = fetch_global(eval_step(batch)["img"])
         gt = batch["img_gt"].cpu().numpy()
         alpha = batch["alpha_map"].cpu().numpy()
         accumulate(agg, compute_err_metrics_batch(
             img * alpha * 255.0, gt * alpha * 255.0, alpha,
             compute_ssim=True))
         err = np.clip(np.abs(img - gt), 0.0, 1.0)
-        for i in range(bs):
+        for i in range(bs) if write else ():
             stem = f"{it:08d}_{start + i:05d}.png"
             save_png(os.path.join(log_dir, "val_out", stem), img[i])
             save_png(os.path.join(log_dir, "val_err", stem), err[i])
@@ -659,9 +730,9 @@ def _validate(eval_step, val_views, relight_views, gcn_pos, bs, log_dir, it,
                                       f"{start + i:05d}.png"), gt[i])
         if lp_relight is None:
             continue
-        img_r = eval_step(batch, lp_override=lp_relight, relight=True)["img"]
-        img_r = img_r.float().cpu().numpy()
-        for i in range(bs):
+        img_r = fetch_global(eval_step(batch, lp_override=lp_relight,
+                                       relight=True)["img"])
+        for i in range(bs) if write else ():
             save_png(os.path.join(log_dir, "val_relight_out",
                                   f"{it:08d}_{start + i:05d}.png"), img_r[i])
         if relight_views is not None:
@@ -671,7 +742,7 @@ def _validate(eval_step, val_views, relight_views, gcn_pos, bs, log_dir, it,
                 img_r * alpha * 255.0, gt_r * alpha * 255.0, alpha,
                 compute_ssim=True))
             err_r = np.clip(np.abs(img_r - gt_r), 0.0, 1.0)
-            for i in range(bs):
+            for i in range(bs) if write else ():
                 stem = f"{it:08d}_{start + i:05d}.png"
                 save_png(os.path.join(log_dir, "val_relight_err", stem),
                          err_r[i])
@@ -712,7 +783,9 @@ def _validate(eval_step, val_views, relight_views, gcn_pos, bs, log_dir, it,
 
 
 def _final(log_dir, model, optimizer, history, total_iters, val_metrics,
-           writer, timing):
+           writer, timing, write=True):
+    if not write:
+        return
     summary = {"first_loss": history[0] if history else None,
                "last_loss": history[-1] if history else None,
                "iters": total_iters, "timing": timing}

@@ -117,13 +117,16 @@ def build_fan_channels(tbn, vdt, alpha, pivots, r_spec: int):
 
 
 def rays_lt_chrom_loss(rays_lt: torch.Tensor, alpha_map: torch.Tensor,
-                       img: torch.Tensor | None = None):
+                       img: torch.Tensor | None = None,
+                       n_alpha: torch.Tensor | None = None):
     """White-light-transport chromaticity prior (rnr_tpu/models/rays.py:199).
 
     rays_lt [N, H, W, R, C] (f32 math even when stored bf16), alpha_map
     [N, H, W, 1], img optional [N, H, W, C] intensity weighting.  Both
     normalisations use rsqrt(sq + 1e-20), finite with a finite gradient at
-    rays_lt = 0 (where a norm's gradient is NaN).
+    rays_lt = 0 (where a norm's gradient is NaN).  The masked sum is
+    divided by `n_alpha` (the global batch's alpha sum under data
+    parallelism), else by alpha_map's sum.
     Returns (loss, chrom, chrom_mean, diff).
     """
     rays_lt = rays_lt.to(torch.float32)
@@ -138,8 +141,9 @@ def rays_lt_chrom_loss(rays_lt: torch.Tensor, alpha_map: torch.Tensor,
                                                       keepdim=True) * 20.0,
                              max=1.0)
         diff = diff * weight
-    loss = (torch.sum(diff) / torch.clamp(torch.sum(alpha_map), min=1.0)
-            / rays_lt.shape[-2])
+    if n_alpha is None:
+        n_alpha = torch.sum(alpha_map)
+    loss = torch.sum(diff) / torch.clamp(n_alpha, min=1.0) / rays_lt.shape[-2]
     return loss, chrom, chrom_mean, diff
 
 

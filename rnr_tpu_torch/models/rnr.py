@@ -19,8 +19,8 @@ when no probe is given and direct_sh_shading is on; the probe path
 otherwise.  Every configuration is ported, for serving and for training
 (train=True: dropout, the stochastic GCN graphs and the SNDense
 power-iteration update), every conv_backend among them
-(models/unet.py::conv_routes; an unknown name raises ValueError), except
-remat, which raises NotImplementedError.
+(models/unet.py::conv_routes; an unknown name raises ValueError) and
+every remat mode (models/unet.py::remat_mode).
 """
 
 from __future__ import annotations
@@ -57,8 +57,6 @@ class RNRModel(nn.Module):
         super().__init__()
         device = resolve_device(device)
         c = cfg
-        if c.render_net.remat not in (False, "none"):
-            raise NotImplementedError("remat is not ported")
         self.cfg = cfg
         self.rays_dtype = getattr(torch, c.rays.rays_dtype)
         self.texture_mapper = TextureMapper(
@@ -72,7 +70,7 @@ class RNRModel(nn.Module):
             out_channels_gcn=c.gcn.out_channels, use_gcn=c.use_gcn,
             norm=c.render_net.norm, compute_dtype=c.render_net.compute_dtype,
             fuse_mode=c.render_net.fuse_mode, pad_mode=c.render_net.pad_mode,
-            conv_backend=c.render_net.conv_backend)
+            conv_backend=c.render_net.conv_backend, remat=c.render_net.remat)
         if c.use_gcn:
             g = c.gcn
             self.gcn = DenseDeepGCN(GCNConfig(
@@ -118,14 +116,17 @@ class RNRModel(nn.Module):
                 v_feature_override: torch.Tensor | None = None,
                 sh_coeff_override: torch.Tensor | None = None,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                dropout_generator: torch.Generator | None = None) -> dict:
         """batch: NHWC G-buffer maps uv_map, sh_basis_map, normal_map,
         view_dir_map, view_dir_map_tangent, TBN_map, alpha_map, and
         gcn_pos [V, 3].  lp_override [1 or N, Hl, Wl, C]: a probe to
         relight with through the probe gather; sh_coeff_override [B, C]:
         SH coefficients to relight with through the SH path, which takes
         precedence.  train=True runs dropout and the stochastic GCN
-        graphs from `generator` and advances the SNDense vectors."""
+        graphs from `generator` (dropout from `dropout_generator` where
+        one is given: a rank's own under data parallelism) and advances
+        the SNDense vectors."""
         c = self.cfg
         n, h, w = batch["alpha_map"].shape[:3]
         v_feature = None
@@ -167,7 +168,8 @@ class RNRModel(nn.Module):
         net_in = torch.cat([net_rays, batch["normal_map"].to(rdt),
                             batch["view_dir_map"].to(rdt),
                             neural_img.to(rdt)], dim=-1)
-        lt = self.render_net(net_in, v_feature, train, generator)
+        lt = self.render_net(net_in, v_feature, train,
+                             dropout_generator or generator)
         rays_lt = lt.reshape(n, h, w, r_total, 3)
         rays_lt = ((rays_lt * 0.5 + 0.5) * c.rays.lt_max_val).to(rdt)
 

@@ -25,6 +25,13 @@ HWIO `kernel`.
 
 Normalisation uses current-batch statistics ("batch", no running
 state), flax's GroupNorm with groups of 16 channels ("group"), or none.
+Under data parallelism the batch statistics are the global batch's
+(`BatchActNorm.moments`, set by parallel/sharding.py::global_batch_norm).
+`remat` recomputes blocks in the backward instead of storing their
+activations, as rnr_tpu's nn.remat (rnr_tpu/models/unet.py:387-420):
+False / "none" stores everything, True / "all" recomputes every
+DownBlock, GcnFuseBlock and UpBlock, "wide" only those at level 0 and 1
+and the fusion block.
 With train=True, dropout (p 0.1) follows every activation where
 rnr_tpu's Unet has it, its masks drawn from the torch.Generator the
 caller passes.  Submodule names mirror the flax auto-names (Conv_0,
@@ -39,6 +46,7 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rnr_tpu_torch.ops.conv4_cuda import convt4, convt4s, down4, down4s
 from rnr_tpu_torch.ops.conv_cuda import conv3x3, conv3x3s
@@ -57,6 +65,50 @@ CONV_ROUTES = {
     "slab3": ("slab", "plain", "plain"),
     "slab": ("slab", "down4s", "convt4s"),
 }
+
+
+# rnr_tpu's Unet.remat values -> the blocks recomputed in the backward
+REMAT_MODES = {False: "none", "none": "none", True: "all", "all": "all",
+               "wide": "wide"}
+
+
+def remat_mode(remat) -> str:
+    """"none", "all" or "wide" for a RenderNetConfig.remat value; raises
+    ValueError for another."""
+    mode = REMAT_MODES.get(remat) if isinstance(remat, (bool, str)) else None
+    if mode is None:
+        raise ValueError(f"remat {remat!r}: expected one of "
+                         f"{list(REMAT_MODES)}")
+    return mode
+
+
+def remat_call(fn, generator: torch.Generator | None, *args):
+    """fn(*args) under torch.utils.checkpoint (non-reentrant): its
+    activations are recomputed in the backward instead of stored.
+    checkpoint restores only the global RNGs, so the recompute restarts
+    `generator` (dropout's) from where fn's forward found it and then sets
+    it back to where the backward found it: the masks are the forward's,
+    and a run with remat leaves the generator where one without leaves
+    it."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    entry = generator.get_state()
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a)
+        left = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(left)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def conv_routes(backend: str) -> tuple[str, str, str]:
@@ -160,18 +212,24 @@ class ConvTranspose(nn.Module):
 
 
 class BatchActNorm(nn.Module):
-    """Affine normalisation by current-batch statistics over (N, H, W)."""
+    """Affine normalisation by current-batch statistics over (N, H, W).
+    `moments`, when set, gives (var, mean) of f32 activations in place of
+    torch.var_mean: the global batch's under data parallelism."""
 
     def __init__(self, ch: int, epsilon: float = 1e-5):
         super().__init__()
         self.epsilon = epsilon
         self.scale = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
+        self.moments = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
-        var, mean = torch.var_mean(x32, dim=(0, 1, 2), keepdim=True,
-                                   unbiased=False)
+        if self.moments is not None:
+            var, mean = self.moments(x32)
+        else:
+            var, mean = torch.var_mean(x32, dim=(0, 1, 2), keepdim=True,
+                                       unbiased=False)
         y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.scale + self.bias).to(x.dtype)
 
@@ -243,20 +301,21 @@ def dropout(x: torch.Tensor, p: float,
 
 
 class DownBlock(nn.Module):
-    """[3x3 prep conv, norm, LeakyReLU] + [kxk stride-s conv, norm,
-    LeakyReLU]."""
+    """[3x3 prep conv to middle_ch (in_ch when None), norm, LeakyReLU] +
+    [kxk stride-s conv, norm, LeakyReLU]."""
 
     def __init__(self, in_ch: int, out_ch: int, norm: str = "batch",
                  stride: int = 2, kernel: int = 4,
                  dtype: torch.dtype | None = None, pad_mode: str = "reflect",
-                 backend: str = "auto"):
+                 backend: str = "auto", middle_ch: int | None = None):
         super().__init__()
         use_bias = _check_norm(norm) == "none"
-        self.Conv_0 = Conv(in_ch, in_ch, 3, 1, use_bias, dtype, pad_mode,
+        mid = middle_ch or in_ch
+        self.Conv_0 = Conv(in_ch, mid, 3, 1, use_bias, dtype, pad_mode,
                            backend)
-        self.Conv_1 = Conv(in_ch, out_ch, kernel, stride, use_bias, dtype,
+        self.Conv_1 = Conv(mid, out_ch, kernel, stride, use_bias, dtype,
                            pad_mode, backend)
-        _add_norms(self, norm, in_ch, out_ch)
+        _add_norms(self, norm, mid, out_ch)
 
     def forward(self, x, drop=_identity):
         x = drop(_norm_act(self, 0, self.Conv_0(x), _lrelu))
@@ -313,8 +372,8 @@ class Unet(nn.Module):
     """Skip-connected encoder/decoder with GCN fusion after level 0.
     Dropout (p DROPOUT_P) runs in training; `use_dropout` may be switched
     off on an instance (as rnr_tpu's Unet field), e.g. to compare two
-    devices' gradients.  `conv_backend` routes every conv (module
-    docstring)."""
+    devices' gradients.  `conv_backend` routes every conv and `remat`
+    picks the blocks recomputed in the backward (module docstring)."""
 
     def __init__(self, in_channels: int, out_channels: int, nf0: int = 64,
                  num_down: int = 5, max_channels: int = 512,
@@ -322,9 +381,11 @@ class Unet(nn.Module):
                  out_channels_gcn: int = 512, use_gcn: bool = True,
                  outermost_highway_mode: str = "concat",
                  compute_dtype: str = "float32", fuse_mode: str = "concat",
-                 pad_mode: str = "reflect", conv_backend: str = "auto"):
+                 pad_mode: str = "reflect", conv_backend: str = "auto",
+                 remat: bool | str = False):
         super().__init__()
         _check_norm(norm)
+        self.remat = remat_mode(remat)
         conv_routes(conv_backend)
         if fuse_mode not in ("concat", "dense"):
             raise ValueError(f"fuse_mode {fuse_mode!r}")
@@ -347,6 +408,7 @@ class Unet(nn.Module):
         # flax numbers modules per class in creation order: the concat
         # fusion DownBlock is created right after level 0's
         self.down_names: list[str] = []
+        created: list[tuple[str, int]] = []    # (block, level) in order
         n_down = 0
         for i in range(nd):
             level_norm = "none" if i == nd - 1 else norm
@@ -354,16 +416,19 @@ class Unet(nn.Module):
             setattr(self, name, DownBlock(chs[i], chs[i + 1], level_norm,
                                           **kw))
             self.down_names.append(name)
+            created.append((name, i))
             n_down += 1
             if i == 0 and use_gcn:
                 if fuse_mode == "dense":
                     self.GcnFuseBlock_0 = GcnFuseBlock(
                         chs[1], out_channels_gcn, chs[1], norm, **kw)
+                    created.append(("GcnFuseBlock_0", 0))
                 else:
                     self.fuse_name = f"DownBlock_{n_down}"
                     setattr(self, self.fuse_name, DownBlock(
                         chs[1] + out_channels_gcn, chs[1], norm, stride=1,
                         kernel=3, **kw))
+                    created.append((self.fuse_name, 0))
                     n_down += 1
 
         # UpBlock_0 is the innermost level (created first, i = nd-1)
@@ -372,6 +437,18 @@ class Unet(nn.Module):
             in_ch = chs[nd] if i == nd - 1 else 2 * chs[i + 1]
             setattr(self, f"UpBlock_{j}", UpBlock(in_ch, chs[i], level_norm,
                                                   **kw))
+            created.append((f"UpBlock_{j}", i))
+
+        # rnr_tpu's names of the blocks (for convert.py): nn.remat makes a
+        # class "Checkpoint<Block>", numbered apart from the plain one
+        self.flax_names: dict[str, str] = {}
+        count: dict[str, int] = {}
+        for name, level in created:
+            cls = name.rsplit("_", 1)[0]
+            if self._remats(level):
+                cls = "Checkpoint" + cls
+            self.flax_names[name] = f"{cls}_{count.get(cls, 0)}"
+            count[cls] = count.get(cls, 0) + 1
 
         out_in = 2 * chs[0] if outermost_highway_mode == "concat" else chs[0]
         self.Conv_1 = Conv(out_in, out_channels, 3, 1,
@@ -379,15 +456,26 @@ class Unet(nn.Module):
         if not outermost_linear:
             _add_norms(self, norm, out_channels, first=1)
 
+    def _remats(self, level: int) -> bool:
+        """Whether the blocks of `level` are recomputed in the backward."""
+        return self.remat == "all" or (self.remat == "wide" and level <= 1)
+
     def forward(self, x: torch.Tensor, v_fea: torch.Tensor | None = None,
                 train: bool = False,
                 generator: torch.Generator | None = None):
-        drop = _identity
+        drop, drop_gen = _identity, None
         if train and self.use_dropout:
             if generator is None:
                 raise ValueError("dropout in training needs a torch.Generator")
             drop = functools.partial(dropout, p=DROPOUT_P,
                                      generator=generator)
+            drop_gen = generator
+
+        def block(level: int, mod: nn.Module, *args):
+            if torch.is_grad_enabled() and self._remats(level):
+                return remat_call(mod, drop_gen, *args, drop)
+            return mod(*args, drop)
+
         x = x.to(self.cdtype)
         if v_fea is not None:
             v_fea = v_fea.to(self.cdtype)
@@ -395,19 +483,19 @@ class Unet(nn.Module):
         skips = []
         for i, name in enumerate(self.down_names):
             skips.append(h)
-            h = getattr(self, name)(h, drop)
+            h = block(i, getattr(self, name), h)
             if i == 0 and self.use_gcn:
                 if v_fea is None:
                     raise ValueError("use_gcn=True requires v_fea")
                 if self.fuse_mode == "dense":
-                    h = self.GcnFuseBlock_0(h, v_fea, drop)
+                    h = block(0, self.GcnFuseBlock_0, h, v_fea)
                 else:
                     tiled = v_fea[:, None, None, :].expand(
                         h.shape[0], h.shape[1], h.shape[2], v_fea.shape[-1])
-                    h = getattr(self, self.fuse_name)(
-                        torch.cat([h, tiled], dim=-1), drop)
+                    h = block(0, getattr(self, self.fuse_name),
+                              torch.cat([h, tiled], dim=-1))
         for j, i in enumerate(reversed(range(self.num_down))):
-            h = getattr(self, f"UpBlock_{j}")(h, drop)
+            h = block(i, getattr(self, f"UpBlock_{j}"), h)
             mode = self.highway if i == 0 else "concat"
             if mode == "concat":
                 h = torch.cat([skips[i], h], dim=-1)
@@ -428,7 +516,7 @@ class RenderingNet(nn.Module):
                  use_gcn: bool = True, outermost_highway_mode: str = "concat",
                  norm: str = "batch", compute_dtype: str = "float32",
                  fuse_mode: str = "concat", pad_mode: str = "reflect",
-                 conv_backend: str = "auto"):
+                 conv_backend: str = "auto", remat: bool | str = False):
         super().__init__()
         self.Unet_0 = Unet(
             in_channels, out_channels, nf0=nf0, num_down=num_down_unet,
@@ -436,7 +524,7 @@ class RenderingNet(nn.Module):
             out_channels_gcn=out_channels_gcn, use_gcn=use_gcn,
             outermost_highway_mode=outermost_highway_mode,
             compute_dtype=compute_dtype, fuse_mode=fuse_mode,
-            pad_mode=pad_mode, conv_backend=conv_backend)
+            pad_mode=pad_mode, conv_backend=conv_backend, remat=remat)
 
     def forward(self, x, v_fea=None, train: bool = False,
                 generator: torch.Generator | None = None):

@@ -3,11 +3,13 @@
 Coordinates are in texel units; samples outside [0, W-1] x [0, H-1] are
 exactly zero, corner indices are clamped, and at the right/bottom edge the
 weight anchor shifts one texel back so that sampling exactly at the last
-texel returns that texel.
+texel returns that texel.  `interpolate_bilinear_np` is rnr_tpu's host
+NumPy twin, with clamped corners and no masking (no driver calls it).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -65,3 +67,22 @@ def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     y = F.interpolate(img.permute(2, 0, 1)[None], size=tuple(out_hw),
                       mode="bilinear", align_corners=False)
     return y[0].permute(1, 2, 0)
+
+
+def interpolate_bilinear_np(data: np.ndarray, sub_x, sub_y) -> np.ndarray:
+    """data [H, W, C] at float pixel coordinates sub_x, sub_y [...] ->
+    [..., C]: the four corners clamped into the image, no out-of-range
+    masking (rnr_tpu's NumPy twin, which differs from
+    `interpolate_bilinear` at the edges)."""
+    x0 = np.floor(sub_x).astype(np.int64)
+    y0 = np.floor(sub_y).astype(np.int64)
+    x1, y1 = x0 + 1, y0 + 1
+    x0, x1 = (np.clip(t, 0, data.shape[1] - 1) for t in (x0, x1))
+    y0, y1 = (np.clip(t, 0, data.shape[0] - 1) for t in (y0, y1))
+    w00 = (x1 - sub_x) * (y1 - sub_y)
+    w10 = (x1 - sub_x) * (sub_y - y0)
+    w01 = (sub_x - x0) * (y1 - sub_y)
+    w11 = (sub_x - x0) * (sub_y - y0)
+    return (data[y0, x0, :] * w00[..., None] + data[y1, x0, :] * w10[..., None]
+            + data[y0, x1, :] * w01[..., None]
+            + data[y1, x1, :] * w11[..., None])

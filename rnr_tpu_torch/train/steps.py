@@ -8,6 +8,13 @@ the model lives and keeps every result on that device: no `.item()`, so a
 run of steps never waits on the host.  Randomness (dropout masks, the
 stochastic GCN picks) comes from a torch.Generator that the caller passes
 to each step (`make_generator`).
+
+Each step takes an optional `mesh` (parallel/sharding.py; None is one
+rank): each rank then runs its rows of the global batch, its batch norms
+over the global batch's moments, its share of the loss, the gradients
+summed over the ranks before Adam, and gives the global batch's loss and
+metrics; over more than one rank dropout draws from the rank's own
+generator, seeded from (seed, rank).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from rnr_tpu_torch.models.texture import TextureMapper
 from rnr_tpu_torch.models.unet import RenderingNet
 from rnr_tpu_torch.ops.backend import resolve_device
 from rnr_tpu_torch.ops.metrics import masked_err_metrics
+from rnr_tpu_torch.parallel import sharding
 from rnr_tpu_torch.train.losses import (albedo_prior_loss, image_l1_loss,
                                         lighting_loss)
 
@@ -87,38 +95,51 @@ def rnr_texture_flatten_init(model: RNRModel) -> torch.Tensor:
     return torch.relu(model.texture_mapper.flatten_mipmap(0, 6))
 
 
-def make_rnr_loss_fn(model: RNRModel, lighting_idx: int = 0) -> Callable:
+def make_rnr_loss_fn(model: RNRModel, lighting_idx: int = 0,
+                     mesh: sharding.Mesh | None = None) -> Callable:
     """The RNR training loss: render L1 + lighting + chrom + albedo priors.
 
-    loss_fn(batch, statics, generator) -> (loss, aux); `statics` holds
-    l_samples_init [S, C], l_samples_mask [S] and tex_flatten_init
-    [H, W, 6]; aux holds the five loss terms and the image.
+    loss_fn(batch, statics, generator, dropout_generator=None) -> (loss,
+    aux); `statics` holds l_samples_init [S, C], l_samples_mask [S] and
+    tex_flatten_init [H, W, 6]; aux holds the five loss terms and the
+    image.  Dropout draws from `dropout_generator` where one is given,
+    else from `generator`.
+
+    With `mesh`, `batch` holds this rank's rows and the terms are its
+    shares of the global batch's loss, which sum over the ranks to that
+    loss: the image L1 (a mean over equal rows) and the priors on
+    parameters alone divided by the world size, the chroma prior's masked
+    sum over the global batch's alpha sum.
     """
     cfg = model.cfg
+    mesh = mesh or sharding.ONE_RANK
+    world = mesh.world
 
-    def loss_fn(batch: dict, statics: dict, generator: torch.Generator):
+    def loss_fn(batch: dict, statics: dict, generator: torch.Generator,
+                dropout_generator: torch.Generator | None = None):
         out = model(batch, lighting_idx=lighting_idx, train=True,
-                    generator=generator)
+                    generator=generator, dropout_generator=dropout_generator)
         alpha = batch["alpha_map"]
         img_gt = batch["img_gt"]
         loss_rn = image_l1_loss(out["img"], img_gt, alpha,
-                                cfg.loss.border_crop)
+                                cfg.loss.border_crop) / world
         if cfg.lighting.fix_lighting:
             loss_light = torch.zeros((), device=alpha.device)
         else:
             loss_light = lighting_loss(
                 out["l_samples_est"], statics["l_samples_init"],
                 statics["l_samples_mask"], cfg.loss.loss_lighting_weight,
-                cfg.loss.loss_lighting_uncovered_weight)
-        loss_chrom = (rays_lt_chrom_loss(out["rays_lt"], alpha, img_gt)[0]
-                      * cfg.loss.loss_rays_lt_chrom_weight)
+                cfg.loss.loss_lighting_uncovered_weight) / world
+        loss_chrom = rays_lt_chrom_loss(
+            out["rays_lt"], alpha, img_gt, mesh.sum_(torch.sum(alpha))
+        )[0] * cfg.loss.loss_rays_lt_chrom_weight
         albedo_flat = model.texture_mapper.flatten_mipmap(0, 6)
         tex_init = statics["tex_flatten_init"]
         loss_alb = (albedo_prior_loss(albedo_flat[..., 0:3],
                                       tex_init[..., 0:3])
                     + albedo_prior_loss(albedo_flat[..., 3:6],
                                         tex_init[..., 3:6])
-                    ) * cfg.loss.loss_alb_weight
+                    ) * cfg.loss.loss_alb_weight / world
         loss = loss_rn + loss_light + loss_chrom + loss_alb
         aux = {"loss": loss, "loss_rn": loss_rn, "loss_lighting": loss_light,
                "loss_rays_lt_chrom": loss_chrom, "loss_alb": loss_alb,
@@ -128,34 +149,57 @@ def make_rnr_loss_fn(model: RNRModel, lighting_idx: int = 0) -> Callable:
     return loss_fn
 
 
+def crop_metrics(img: torch.Tensor, batch: dict, b: int) -> dict:
+    """masked_err_metrics of the border-cropped (by b), alpha-masked image
+    against batch["img_gt"], both scaled to 0..255."""
+    alpha_c = batch["alpha_map"][:, b:-b, b:-b]
+    return masked_err_metrics(
+        img[:, b:-b, b:-b] * alpha_c * 255.0,
+        batch["img_gt"][:, b:-b, b:-b] * alpha_c * 255.0, alpha_c)
+
+
+def _device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
 def make_rnr_train_step(model: RNRModel, optimizer: torch.optim.Optimizer,
-                        lighting_idx: int = 0) -> Callable:
+                        lighting_idx: int = 0,
+                        mesh: sharding.Mesh | None = None, seed: int = 0
+                        ) -> Callable:
     """The RNR training step: step(batch, statics, generator) -> metrics,
     the loss terms, masked_err_metrics over the border-cropped, masked
     image (0..255) and the image, all detached tensors on the model's
-    device.  It updates the parameters and the SNDense vectors in place."""
-    loss_fn = make_rnr_loss_fn(model, lighting_idx)
+    device.  It updates the parameters and the SNDense vectors in place.
+    Over a mesh (module docstring) the metrics are the global batch's,
+    given on every rank, and "img" holds this rank's rows (fetch_global
+    gathers them); `generator` must be in the same state on every rank
+    (the GCN's picks)."""
+    mesh = mesh or sharding.ONE_RANK
+    loss_fn = make_rnr_loss_fn(model, lighting_idx, mesh)
+    drop = sharding.dropout_generator(mesh, seed, _device(model))
     b = model.cfg.loss.border_crop
 
     def step(batch: dict, statics: dict, generator: torch.Generator) -> dict:
+        local = sharding.shard_rnr_batch(batch, mesh)
         optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(batch, statics, generator)
-        loss.backward()
+        with sharding.global_batch_norm(model, mesh):
+            loss, aux = loss_fn(local, statics, generator, drop)
+            loss.backward()
+        sharding.all_reduce_grads(model, mesh)
         optimizer.step()
         with torch.no_grad():
-            alpha_c = batch["alpha_map"][:, b:-b, b:-b]
-            metrics = masked_err_metrics(
-                aux["img"][:, b:-b, b:-b] * alpha_c * 255.0,
-                batch["img_gt"][:, b:-b, b:-b] * alpha_c * 255.0, alpha_c)
-            metrics.update({k: v.detach() for k, v in aux.items()})
+            img = aux.pop("img")
+            metrics = sharding.global_metrics(
+                mesh, crop_metrics(img, local, b), aux)
+        metrics["img"] = img.detach()
         return metrics
 
     return step
 
 
 def make_rnr_eval_step(model: RNRModel, lighting_idx: int = 0,
-                       output_keys: tuple[str, ...] | None = ("img",)
-                       ) -> Callable:
+                       output_keys: tuple[str, ...] | None = ("img",),
+                       mesh: sharding.Mesh | None = None) -> Callable:
     """Inference step: step(batch, v_feature=None, lp_override=None,
     sh_override=None, relight=False) -> dict of `output_keys` (all
     outputs when None).
@@ -173,15 +217,21 @@ def make_rnr_eval_step(model: RNRModel, lighting_idx: int = 0,
     because a TPU measurement found XLA's fused forward convs faster
     there; nothing measured that on this card, so "auto" stays "pallas3"
     here as in the training step.
+
+    Over a mesh each rank renders its rows of the global batch,
+    normalised by the global batch's statistics, so that its rows equal
+    those of the single-device frame of the whole batch.
     """
+    mesh = mesh or sharding.ONE_RANK
     model.eval()
 
     def step(batch: dict, v_feature: torch.Tensor | None = None,
              lp_override: torch.Tensor | None = None,
              sh_override: torch.Tensor | None = None,
              relight: bool = False) -> dict:
-        with torch.inference_mode():
-            out = model(batch, lighting_idx=lighting_idx,
+        with torch.inference_mode(), sharding.global_batch_norm(model, mesh):
+            out = model(sharding.shard_rnr_batch(batch, mesh),
+                        lighting_idx=lighting_idx,
                         lp_override=lp_override if relight else None,
                         v_feature_override=v_feature,
                         sh_coeff_override=sh_override if relight else None)
@@ -216,8 +266,6 @@ class DNRModules(nn.Module):
         super().__init__()
         device = resolve_device(device)
         t, r = cfg.texture, cfg.render_net
-        if r.remat not in (False, "none"):
-            raise NotImplementedError("remat is not ported")
         self.cfg = cfg
         self.texture_mapper = TextureMapper(
             t.texture_size, t.texture_num_ch, t.mipmap_level, t.apply_sh,
@@ -226,7 +274,7 @@ class DNRModules(nn.Module):
             nf0=r.nf0, in_channels=t.texture_num_ch, out_channels=3,
             num_down_unet=r.num_down_unet, use_gcn=False, norm=r.norm,
             compute_dtype="float32", pad_mode=r.pad_mode,
-            conv_backend=r.conv_backend)
+            conv_backend=r.conv_backend, remat=r.remat)
         self.to(device)
 
 
@@ -270,28 +318,33 @@ def dnr_forward(mods: DNRModules, batch: dict, train: bool = True,
 
 
 def make_dnr_train_step(cfg: DNRConfig, mods: DNRModules,
-                        optimizer: torch.optim.Optimizer) -> Callable:
+                        optimizer: torch.optim.Optimizer,
+                        mesh: sharding.Mesh | None = None, seed: int = 0
+                        ) -> Callable:
     """The DNR training step: step(batch, generator) -> metrics, the
     masked_err_metrics of the border-cropped, masked image (0..255) and
     the loss, detached tensors on the modules' device.  batch holds
-    uv_map, sh_basis_map, alpha_map [N, H, W, 1] and img_gt; the
-    parameters are updated in place."""
+    uv_map, sh_basis_map, alpha_map [N, H, W, 1] and img_gt, every map
+    sharded over a mesh's ranks; the parameters are updated in place."""
+    mesh = mesh or sharding.ONE_RANK
+    drop = sharding.dropout_generator(mesh, seed, _device(mods))
     b = cfg.loss.border_crop
 
     def step(batch: dict, generator: torch.Generator) -> dict:
+        local = sharding.shard_batch(batch, mesh)
         optimizer.zero_grad(set_to_none=True)
-        out, _ = dnr_forward(mods, batch, train=True, generator=generator,
-                             sh_start_ch=cfg.sh_start_ch)
-        loss = image_l1_loss(out, batch["img_gt"], batch["alpha_map"], b)
-        loss.backward()
+        with sharding.global_batch_norm(mods, mesh):
+            out, _ = dnr_forward(mods, local, train=True,
+                                 generator=drop or generator,
+                                 sh_start_ch=cfg.sh_start_ch)
+            loss = image_l1_loss(out, local["img_gt"], local["alpha_map"],
+                                 b) / mesh.world
+            loss.backward()
+        sharding.all_reduce_grads(mods, mesh)
         optimizer.step()
         with torch.no_grad():
-            alpha_c = batch["alpha_map"][:, b:-b, b:-b]
-            metrics = masked_err_metrics(
-                out[:, b:-b, b:-b] * alpha_c * 255.0,
-                batch["img_gt"][:, b:-b, b:-b] * alpha_c * 255.0, alpha_c)
-        metrics["loss"] = loss.detach()
-        return metrics
+            return sharding.global_metrics(mesh, crop_metrics(out, local, b),
+                                           {"loss": loss})
 
     return step
 

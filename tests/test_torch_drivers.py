@@ -764,11 +764,14 @@ def test_drivers_take_rnr_tpu_flags(name):
 
 @pytest.mark.parametrize("flag", [["--mesh_devices", "2"],
                                   ["--coordinator_address", "h:1",
-                                   "--num_processes", "2"],
-                                  ["--unet_remat", "wide"]])
+                                   "--num_processes", "2",
+                                   "--process_id", "0"],
+                                  ["--mesh_devices", "4", "--mesh_dp", "2"]])
 def test_train_rnr_refuses_what_is_not_ported(flag, tmp_path):
+    """Image rows across devices (rnr_tpu's sp: --mesh_dp below the
+    ranks' count, 1 by default) raise before any rank starts."""
     from rnr_tpu_torch.drivers import train_rnr
-    with pytest.raises(NotImplementedError, match="Queue 1 items 9-10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         train_rnr.main(["--synthetic", "--platform", "cpu",
                         "--logging_root", str(tmp_path), *flag])
 

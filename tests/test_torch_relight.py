@@ -46,6 +46,7 @@ from rnr_tpu_torch.models.lighting import (LightingLP, LightingSH,
 from rnr_tpu_torch.models.rays import (RaySampler, build_fan_channels,
                                        ray_render)
 from rnr_tpu_torch.models.rnr import RNRModel
+from rnr_tpu_torch.models.unet import remat_mode
 from rnr_tpu_torch.ops import spherical as tsph
 from rnr_tpu_torch.ops.gbuffer import make_mesh_buffers, render_gbuffer
 from rnr_tpu_torch.ops.interpolate import interpolate_bilinear_batch
@@ -600,9 +601,13 @@ def test_rnr_model_raises_only_for_remat():
                  dict(fan_impl="einsum")):
         RNRModel(dataclasses.replace(cfg, rays=dataclasses.replace(
             cfg.rays, **rays)), 300, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
+    for remat in (True, "all", "wide", "none", False):
+        m = RNRModel(dataclasses.replace(cfg, render_net=dataclasses.replace(
+            cfg.render_net, remat=remat)), 300, device="cpu")
+        assert m.render_net.Unet_0.remat == remat_mode(remat)
+    with pytest.raises(ValueError, match="remat"):
         RNRModel(dataclasses.replace(cfg, render_net=dataclasses.replace(
-            cfg.render_net, remat=True)), 300, device="cpu")
+            cfg.render_net, remat="some")), 300, device="cpu")
 
 
 def test_make_probes_are_seeded_hdr_with_a_seam_sun():
