@@ -15,6 +15,7 @@ data parallelism over ranks.
     python3 chip_smoke.py --phases device,build,drivers
     python3 chip_smoke.py --phases device,build,drivers,dnr,edge_grad
     python3 chip_smoke.py --phases device,build,parallel
+    python3 chip_smoke.py --phases device,build,sp
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
@@ -215,6 +216,20 @@ Phases (each failure raises, so the script exits non-zero):
            load_obj ran (the build error where the C++ one did not
            build) and, where the native one ran, its arrays against the
            Python parser's on the gbuffer phase's sphere.
+  sp       image rows across ranks (rnr_tpu's sp axis) at full width:
+           Gloo ranks on cuda:0 (spawned by parallel.run_ranks), dropout
+           off, against one process on the same global batch.  Two ranks:
+           (a) sp 2 with the shipped route at b1, its train step and eval
+           frame; (d) the eval frame under every other conv route
+           ("xla", "pallas", "p3s4", "slab3", "slab") and under
+           norm="group".  Four ranks: (b) sp 4, the shipped eval frame;
+           (c) (dp 2, sp 2) at b2 of two distinct views, one f32 train
+           step and its eval frame (DETERMINISTIC_NET).  Each case also
+           runs as a control without the halo (each rank's convs padding
+           its own rows); each limit of SP_LIMITS lies between the two
+           readings.  Each rank's launches (sp_launches in the kernels
+           line) must equal the others' and the route's own counts: an
+           eval frame K4 17, K3 14, K1 1, K2 1 on each rank.
 The slice phase also holds K4 to its plain version (compare_picks) on
 the canonical GCN's own block features, and the parity phase runs the
 canonical model with group norm at 128^2 on the card against the CPU.
@@ -228,6 +243,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -4688,12 +4704,311 @@ def phase_parallel(remat_launches: dict, rec: dict) -> None:
     rec["parallel"] = dict(remat=remat, dp=dp, parser=native_parser())
 
 
+# ------------------------------------------------------------ sp phase
+#
+# Image rows across ranks (rnr_tpu's sp axis): Gloo ranks on cuda:0
+# (NCCL refuses two ranks on one card), spawned by run_ranks, each a
+# (dp, sp) mesh rank at the canonical full width, dropout off, held to
+# one process's step and frame on the same global batch.  Cases, by the
+# ranks that run them: (a) "sp2": the shipped bf16 route (pallas3,
+# reflect) at b1, its train step and eval frame; (d) "sp2_<route>" and
+# "sp2_group": the eval frame under each other conv route and under
+# norm="group"; (b) "sp4": the shipped eval frame over 4 row shards;
+# (c) "dp2sp2": one f32 train step (f32 rays and U-Net,
+# DETERMINISTIC_NET) and its eval frame over (dp 2, sp 2) at b2.  Each
+# case also runs as a control without the halo: each rank's convs pad
+# its own rows as a frame (`sharding.row_shards(halo=False)`).
+# Readings: "loss" the global loss's relative error, "cosine" 1 - the
+# cosine of the models' gradients (the GCN's left out), "grad" the
+# largest gradient error of each gradient's largest value, "frame" the
+# gathered frame's largest error of the single-device frame's largest
+# value.  Each limit in SP_LIMITS lies between the sound run's reading
+# and the control's (both in PERF.md §6): the sound run within, the
+# control outside.  Gloo on one card is a correctness vehicle: its times
+# are logged, not a speed figure.
+SP_ROUTES = ("xla", "pallas", "p3s4", "slab3", "slab")
+SP_CASES = {  # name: (ranks, dp, batch, runs, render_net overrides, dtype)
+    "sp2": (2, 1, 1, ("frame", "step"), {}, "bfloat16"),
+    **{f"sp2_{r}": (2, 1, 1, ("frame",), dict(conv_backend=r), "bfloat16")
+       for r in SP_ROUTES},
+    "sp2_group": (2, 1, 1, ("frame",), dict(norm="group"), "bfloat16"),
+    "sp4": (4, 1, 1, ("frame",), {}, "bfloat16"),
+    "dp2sp2": (4, 2, 2, ("frame", "step"), DETERMINISTIC_NET, "float32"),
+}
+# The readings on an H100 (sound / control): sp2 frame 0.0135 / 0.126,
+# loss 2.71e-6 / 8.30e-6, and not set apart: cosine 6.42e-4 / 2.77e-3
+# (the bf16 backward is chaotic), grad 0.564 / 0.992; the routes' frames
+# 0.0104-0.0135 / 0.126-0.140; sp2_group frame 2.06e-3 / 0.0759; sp4
+# frame 0.0114 / 0.194; dp2sp2 frame 1.54e-5 / 0.154, loss 9.05e-8 /
+# 7.34e-5, cosine 5.03e-7 / 9.83e-4, grad 0.0882 / 1.011.
+SP_LIMITS = {
+    "sp2": dict(loss=5e-6, frame=0.04),
+    **{f"sp2_{r}": dict(frame=0.04) for r in SP_ROUTES},
+    "sp2_group": dict(frame=0.01),
+    "sp4": dict(frame=0.04),
+    "dp2sp2": dict(loss=4e-7, cosine=1e-5, grad=0.22, frame=4e-4),
+}
+# launches per rank of one eval frame of the shipped route (cached
+# nothing: the GCN runs too) and of each case's route
+SP_FRAME_LAUNCHES = {"conv3x3": 14, "sh_shade_fan": 1, "mipmap_gather": 1,
+                     "stratified_knn": 17}
+SP_XLA_FRAME = dict(SP_FRAME_LAUNCHES, conv3x3=0)
+
+
+def sp_frame_want(net: dict, dtype: str) -> dict:
+    """The launches per rank of one eval frame under `net`'s route; an
+    f32 U-Net's conv kernels launch three times a conv (f32_by_three)."""
+    route = net.get("conv_backend", "pallas3")
+    if route == "xla":
+        return SP_XLA_FRAME
+    want = dict(SP_FRAME_LAUNCHES, **ROUTE_FRAME_LAUNCHES.get(route, {}))
+    if dtype == "float32":
+        want.update({k: 3 * n for k, n in want.items()
+                     if k.startswith(("conv", "down", "convt"))})
+    return want
+
+
+# the kernels of the f32 step under DETERMINISTIC_NET, each at least once
+# (an f32 conv launches its kernel three times, its weight gradient six)
+SP_F32_STEP_KERNELS = ("stratified_knn", "conv3x3", "conv3x3_wgrad", "down4",
+                       "convt4", "sh_shade_fan", "sh_shade_fan_bwd",
+                       "mipmap_gather", "mipmap_scatter")
+
+
+def sp_check_launches(case: str, run: str, got: dict, want) -> None:
+    """A rank's launches: each of `want` exactly (a dict) or at least
+    once (a tuple of names)."""
+    exact = isinstance(want, dict)
+    for name in want:
+        if (got[name] != want[name]) if exact else not got[name]:
+            raise AssertionError(f"sp {case} {run}: {name} launched "
+                                 f"{got[name]} times on a rank, expected "
+                                 f"{want[name] if exact else 'some'}")
+
+
+@contextlib.contextmanager
+def no_halo():
+    """Inside: the steps' convs on each rank's own rows, padded as a frame
+    (the control: sp without the halo exchange)."""
+    from rnr_tpu_torch.parallel import sharding
+    keep = sharding.row_shards
+    sharding.row_shards = functools.partial(keep, halo=False)
+    try:
+        yield
+    finally:
+        sharding.row_shards = keep
+
+
+def _sp_builder(net: dict, dtype: str):
+    """A builder of a case's model, dropout off: one model, its seeded
+    weights and buffers restored at each call (a step moves them)."""
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.synthetic import init_weights
+    cfg = canonical_config(rays=dict(rays_dtype=dtype),
+                           render_net=dict(net, compute_dtype=dtype))
+    model = init_weights(RNRModel(cfg, GCN_V), 0)
+    model.render_net.Unet_0.use_dropout = False
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def build():
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        return model
+
+    return build
+
+
+def _sp_run(run: str, build, mesh, b: dict, control: bool) -> dict:
+    """One sharded eval frame (gathered) or train step of the case's model
+    at its initial weights on this rank: its launches, seconds (host
+    clock, synchronised) and the frame, or the loss and gradients."""
+    from rnr_tpu_torch.parallel import (fetch_global,
+                                        make_sharded_rnr_eval_step,
+                                        make_sharded_rnr_train_step)
+    from rnr_tpu_torch.synthetic import build_statics
+    from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
+                                           make_generator)
+    model = build()
+    with no_halo() if control else contextlib.nullcontext():
+        if run == "frame":
+            step = make_sharded_rnr_eval_step(model, mesh)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            rows = step(b)["img"]
+            torch.cuda.synchronize()
+            r = dict(s=time.perf_counter() - t0, launches=read_launches())
+            r["frame"] = fetch_global(rows, mesh.sp)
+        else:
+            statics = build_statics(model, 4096)
+            step = make_sharded_rnr_train_step(
+                model, create_rnr_optimizer(model, 1e-3), mesh)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            met = step(b, statics, make_generator(0))
+            torch.cuda.synchronize()
+            r = dict(s=time.perf_counter() - t0, launches=read_launches(),
+                     loss=float(met["loss"]), grads=model_grads(model))
+    del model
+    torch.cuda.empty_cache()
+    return r
+
+
+def _sp_reference(run: str, build, b: dict) -> dict:
+    """One process's eval frame or train step of the case's model at its
+    initial weights on the whole global batch, with its host-clock
+    seconds."""
+    from rnr_tpu_torch.synthetic import build_statics
+    from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
+                                           make_generator,
+                                           make_rnr_eval_step,
+                                           make_rnr_train_step)
+    ref = build()
+    torch.cuda.synchronize()
+    if run == "frame":
+        step = make_rnr_eval_step(ref)
+        t0 = time.perf_counter()
+        frame = step(b)["img"].float()
+        torch.cuda.synchronize()
+        r = dict(s=time.perf_counter() - t0, frame=frame.cpu().numpy())
+    else:
+        statics = build_statics(ref, 4096)
+        step = make_rnr_train_step(ref, create_rnr_optimizer(ref, 1e-3))
+        t0 = time.perf_counter()
+        met = step(b, statics, make_generator(0))
+        torch.cuda.synchronize()
+        r = dict(s=time.perf_counter() - t0, loss=float(met["loss"]),
+                 grads=model_grads(ref))
+    del ref
+    torch.cuda.empty_cache()
+    return r
+
+
+def sp_readings(got: dict, want: dict) -> dict:
+    """The readings SP_LIMITS names, of one run against one process's."""
+    if "frame" in got:
+        f, w = got["frame"], want["frame"]
+        return dict(frame=float(np.abs(f - w).max() / np.abs(w).max()))
+    g = grad_summary(got["grads"], want["grads"])
+    return dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                cosine=1.0 - g["cosine"], grad=g["grad_err"][0])
+
+
+def _sp_rank(local_rank: int, port: int, n: int) -> dict:
+    """One of n ranks on cuda:0 over Gloo (a spawned process): every
+    case of SP_CASES on n ranks and its control, each rank's launches;
+    rank 0 also runs one process's frames and steps and reads each case
+    against them.  Returns plain numbers."""
+    import torch.distributed as dist
+    from rnr_tpu_torch.parallel import init_distributed, make_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_distributed(f"127.0.0.1:{port}", 1, 0, n, local_rank=local_rank,
+                     backend="gloo")
+    out = {}
+    try:
+        for case, (ranks, dp, bsz, runs, net, dtype) in SP_CASES.items():
+            if ranks != n:
+                continue
+            t_case = time.perf_counter()
+            mesh = make_mesh(n, dp=dp)
+            b = two_views(IMG, DEV) if bsz == 2 else _gbuffer(IMG, 1)
+            build = _sp_builder(net, dtype)
+            res = {}
+            for run in runs:
+                sound = _sp_run(run, build, mesh, b, control=False)
+                control = _sp_run(run, build, mesh, b, control=True)
+                res[run] = dict(s=sound["s"], launches=sound["launches"],
+                                control_s=control["s"])
+                if mesh.rank == 0:
+                    ref = _sp_reference(run, build, b)
+                    res[run].update(ref_s=ref["s"],
+                                    sound=sp_readings(sound, ref),
+                                    control=sp_readings(control, ref))
+                    if run == "step":
+                        res[run].update(loss=sound["loss"],
+                                        ref_loss=ref["loss"])
+                    del ref
+                del sound, control
+                torch.cuda.empty_cache()
+            del build
+            torch.cuda.empty_cache()
+            res["case_s"] = time.perf_counter() - t_case
+            out[case] = res
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sp(sp_launches: dict, rec: dict) -> None:
+    """Every case of SP_CASES on 2 and then 4 Gloo ranks on cuda:0: each
+    case's readings and its control's logged, then each rank's launches
+    checked (no rank falls back to a plain version) and each case held
+    to SP_LIMITS, its control outside them."""
+    from rnr_tpu_torch.parallel import run_ranks
+    from rnr_tpu_torch.parallel.distributed import free_port
+    per_rank: dict = {}
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        rs = run_ranks(_sp_rank, n, free_port(), n)
+        log(f"[sp] {n} Gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} "
+            "s with their start")
+        for case, res in rs[0].items():
+            per_rank[case] = [r[case] for r in rs]
+    for case, ranks in per_rank.items():
+        r0 = ranks[0]
+        for run in SP_CASES[case][3]:
+            a = r0[run]
+            loss = (f"; loss {a['loss']:.8g} against one process's "
+                    f"{a['ref_loss']:.8g}" if "loss" in a else "")
+            log(f"[sp] {case} {run}: sound {a['sound']}, control without "
+                f"the halo {a['control']}{loss}; the ranks' seconds "
+                f"{[round(r[run]['s'], 3) for r in ranks]} (controls "
+                f"{[round(r[run]['control_s'], 3) for r in ranks]}), one "
+                f"process {a['ref_s']:.3f} s (host clock, synchronised, "
+                "first call)")
+        log(f"[sp] {case}: {r0['case_s']:.1f} s on rank 0")
+    rec.update({case: {run: {k: ranks[0][run][k] for k in
+                             ("sound", "control", "s", "ref_s")}
+                       for run in SP_CASES[case][3]}
+                for case, ranks in per_rank.items()})
+    for case, ranks in per_rank.items():
+        _, _, _, runs, net, dtype = SP_CASES[case]
+        for run in runs:
+            got = [r[run]["launches"] for r in ranks]
+            if any(g != got[0] for g in got):
+                raise AssertionError(f"sp {case} {run}: the ranks' launches "
+                                     f"differ: {got}")
+            for name, count in got[0].items():
+                sp_launches.setdefault(name, {})[f"{case}_{run}"] = count
+            sp_check_launches(case, run, got[0], (
+                sp_frame_want(net, dtype) if run == "frame"
+                else TRAIN_LAUNCHES if dtype == "bfloat16"
+                else SP_F32_STEP_KERNELS))
+    log("[sp] launches per rank, every rank alike: " + json.dumps(
+        {run: {n: c[run] for n, c in sp_launches.items() if c.get(run)}
+         for run in next(iter(sp_launches.values()))}))
+    for case, ranks in per_rank.items():
+        limits = SP_LIMITS[case]
+        for run in SP_CASES[case][3]:
+            a = ranks[0][run]
+            held = {m: tol for m, tol in limits.items() if m in a["sound"]}
+            for m, tol in held.items():
+                check(f"sp {case} {run} {m}", a["sound"][m], tol)
+            passed = [m for m, tol in held.items() if a["control"][m] <= tol]
+            if passed:
+                raise AssertionError(f"sp {case} {run}: the control without "
+                                     f"the halo passes {passed}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="device,build,kernels,slice,"
                                         "gbuffer,relight,parity,train,"
                                         "train_parity,drivers,dnr,edge_grad,"
-                                        "parallel")
+                                        "parallel,sp")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4709,7 +5024,9 @@ def main() -> None:
     dnr_launches: dict = {}
     edge_launches: dict = {}
     remat_launches: dict = {}
+    sp_launches: dict = {}
     parallel: dict = {}
+    sp: dict = {}
 
     def done(name):
         torch.cuda.synchronize()
@@ -4759,6 +5076,10 @@ def main() -> None:
         phase_parallel(remat_launches, parallel)
         done("parallel")
         log(f"[parallel] {json.dumps(parallel)}")
+    if "sp" in phases:
+        phase_sp(sp_launches, sp)
+        done("sp")
+        log(f"[sp] {json.dumps(sp)}")
     # launches: the count on the kernel's main path, the training step
     # (one step at b1), or for K7 the G-buffer path (N_VIEWS views), for
     # K5 the relight path (N_VIEWS views x N_PROBES probes x the routes),
@@ -4789,6 +5110,7 @@ def main() -> None:
                     if n == "rasterize_tiles" else None,
                     remat_launches={m: c.get(n) for m, c in
                                     remat_launches.items()},
+                    sp_launches=sp_launches.get(n),
                     **rec.get(n, {}))
                for n, s in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))

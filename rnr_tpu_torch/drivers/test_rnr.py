@@ -15,12 +15,17 @@ t_network_render, or with `--per_stage_timing` the reference's buckets
 (t_prep, t_raster, t_preproc, t_sh, t_texture, t_rays, t_network,
 t_render; `_make_staged`), each on the card timed by CUDA events that it
 waits for.  `_reconcile_sh_bands` fits a novel probe's SH projection to
-the model's band count.  `--mesh_devices N --mesh_dp N` splits the
-views over N spawned ranks (view i to rank i mod N, on cuda:{rank} or
-the CPU); each rank renders whole frames at batch 1, so each frame is
-the single-device frame, and writes its own views' PNGs.  `--mesh_dp`
-below `--mesh_devices` (rnr_tpu's tile-sharded frames, image rows over
-sp) raises NotImplementedError (ROADMAP.md Queue 1 item 10).
+the model's band count.  `--mesh_devices N --mesh_dp D` spawns N ranks
+(on cuda:{rank} or the CPU) joined in one process group, laid out as a
+(D, N / D) mesh (parallel/sharding.py): view i goes to the ranks of dp
+index i mod D, whose N / D sp ranks render its frame together at batch
+1, rnr_tpu's tile-sharded frames.  Each of them rasterizes the whole
+G-buffer (K7) and runs the network on its rows (halo exchanges and
+norms over its sp group), so each frame is the single-device frame;
+the first sp rank of each dp index writes the PNGs of its views'
+gathered frames.  The rows must split: img_size % (sp · 2**num_down)
+== 0, at least 2 innermost rows a rank, checked before any rank starts;
+`--per_stage_timing` times whole frames on one rank only.
 
 Usage:
   python -m rnr_tpu_torch.drivers.test_rnr --data_root DATA \
@@ -50,8 +55,10 @@ from rnr_tpu_torch.ops.gbuffer import (make_mesh_buffers, render_gbuffer,
                                        render_raster)
 from rnr_tpu_torch.ops.interpolate import interpolate_bilinear
 from rnr_tpu_torch.ops.spherical import spherical_mapping
-from rnr_tpu_torch.parallel.distributed import rank_device, run_ranks
-from rnr_tpu_torch.parallel.sharding import mesh_shape
+from rnr_tpu_torch.parallel.distributed import (fetch_global, free_port,
+                                                init_distributed,
+                                                rank_device, run_ranks)
+from rnr_tpu_torch.parallel import sharding
 from rnr_tpu_torch.train.checkpoint import load_checkpoint
 from rnr_tpu_torch.train.steps import make_rnr_eval_step
 from rnr_tpu_torch.utils.trace import StepTimer
@@ -102,7 +109,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--calib_format", type=str, default="convert",
                    choices=["convert"])
     p.add_argument("--mesh_devices", type=int, default=None,
-                   help="split the views over N ranks (with --mesh_dp N)")
+                   help="render over N ranks: views over --mesh_dp, each "
+                        "frame's rows over N / mesh_dp")
     p.add_argument("--mesh_dp", type=int, default=1)
     return p
 
@@ -222,11 +230,19 @@ def main(argv=None, keep_frames: bool = False) -> dict:
     [H, W, C] tensor}, else empty."""
     opt = build_argparser().parse_args(argv)
     n = opt.mesh_devices or 1
-    mesh_shape(n, opt.mesh_dp)
+    _, sp = sharding.mesh_shape(n, opt.mesh_dp)
+    if sp > 1:
+        if opt.per_stage_timing:
+            raise ValueError("--per_stage_timing times whole frames: it "
+                             "takes --mesh_dp equal to --mesh_devices")
+        cfg = load_config(RNRConfig,
+                          os.path.join(opt.checkpoint_dir, "params.json"))
+        sharding.check_rows(opt.img_size, sp, cfg.render_net.num_down_unet)
     dev = setup_device(opt.platform)
     if n == 1:
         return _render(opt, dev, keep_frames)
-    parts = run_ranks(_render_rank, n, opt, keep_frames)
+    # the first sp rank of each dp index: its views' frames, counted once
+    parts = run_ranks(_render_rank, n, opt, keep_frames, free_port())[::sp]
     frames, buckets = {}, {}
     for part in parts:
         frames.update({k: torch.from_numpy(v)
@@ -239,22 +255,30 @@ def main(argv=None, keep_frames: bool = False) -> dict:
             "buckets": buckets, "frames": frames}
 
 
-def _render_rank(rank: int, opt, keep_frames: bool) -> dict:
-    """A spawned rank's share of the views; frames as host arrays."""
+def _render_rank(rank: int, opt, keep_frames: bool, port: int) -> dict:
+    """A spawned rank: joins the group, renders its share of the views
+    and leaves; frames as host arrays."""
+    n = opt.mesh_devices
     if opt.platform == "cpu":     # the host's cores shared by the ranks
-        torch.set_num_threads(max(1, (os.cpu_count() or 1)
-                                  // opt.mesh_devices))
-    out = _render(opt, rank_device(rank, opt.platform), keep_frames, rank,
-                  opt.mesh_devices)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    init_distributed(f"127.0.0.1:{port}", 1, 0, n, local_rank=rank,
+                     platform=opt.platform)
+    try:
+        out = _render(opt, rank_device(rank, opt.platform), keep_frames,
+                      sharding.make_mesh(n, dp=opt.mesh_dp))
+    finally:
+        torch.distributed.destroy_process_group()
     out["frames"] = {k: v.float().cpu().numpy()
                      for k, v in out["frames"].items()}
     return out
 
 
-def _render(opt, dev: torch.device, keep_frames: bool, rank: int = 0,
-            world: int = 1) -> dict:
-    """main's render on `dev`: views rank, rank + world, ... of the list
-    ("views" counts them)."""
+def _render(opt, dev: torch.device, keep_frames: bool,
+            ranks: sharding.Mesh | None = None) -> dict:
+    """main's render on `dev`: over the mesh `ranks`, the views of its dp
+    index (index, index + dp, ...; "views" counts them), each frame's
+    rows over its sp group; the frames kept and written by its first sp
+    rank."""
     if opt.calib_dir:
         opt.calib_fp = os.path.join(resolve(opt.calib_dir, opt.data_root),
                                     "calib.mat")
@@ -285,7 +309,13 @@ def _render(opt, dev: torch.device, keep_frames: bool, rank: int = 0,
     load_checkpoint(os.path.join(opt.checkpoint_dir, opt.checkpoint_name),
                     model)
     print(f"restored checkpoint ({time.time() - t0:.1f}s)")
+    part, parts, write = 0, 1, True
     eval_step = make_rnr_eval_step(model)
+    if ranks is not None:
+        part, parts, write = ranks.dp_index, ranks.dp, ranks.sp_index == 0
+        sp_mesh = ranks.sp_mesh()
+        eval_step = _gathered(make_rnr_eval_step(model, mesh=sp_mesh),
+                              sp_mesh)
 
     # the GCN feature does not depend on the view: once for the sequence
     v_feature = None
@@ -324,7 +354,7 @@ def _render(opt, dev: torch.device, keep_frames: bool, rank: int = 0,
     staged = _make_staged(model, dev) if opt.per_stage_timing else None
     frames = {}
     buckets: dict = {}
-    mine = range(rank, len(ds), world)
+    mine = range(part, len(ds), parts)
     print(f"rendering {len(mine)} of {len(ds)} views under {len(lps)} "
           "lightings")
     t_views = time.perf_counter()
@@ -364,9 +394,10 @@ def _render(opt, dev: torch.device, keep_frames: bool, rank: int = 0,
             else:
                 img = relit_frame(eval_step, batch, lp, sh, v_feature,
                                   opt.save_lp_background)
-            if keep_frames:
+            if keep_frames and write:
                 frames[(stem, name)] = img
-            save_png(os.path.join(out_dir, name, stem + ".png"), img)
+            if write:
+                save_png(os.path.join(out_dir, name, stem + ".png"), img)
         t_net = time.time() - t0   # the PNG writes wait for each frame
         stage_str = "".join(f"  {k} {v:.3f}" for k, v in times.items())
         print(f"view {i:04d}  t_prep {t_prep:.3f}  t_raster {t_raster:.3f}  "
@@ -378,6 +409,20 @@ def _render(opt, dev: torch.device, keep_frames: bool, rank: int = 0,
     print("wrote", out_dir)
     return {"views": len(mine), "lightings": len(lps), "render_s": render_s,
             "buckets": buckets, "frames": frames}
+
+
+def _gathered(step, mesh: sharding.Mesh):
+    """The eval step over the row shards of `mesh` (dp 1) with each
+    output gathered whole on every rank (a collective of the mesh)."""
+    if mesh.sp == 1:
+        return step
+
+    def run(batch, **kw):
+        out = step(batch, **kw)
+        return {k: torch.from_numpy(fetch_global(v, mesh.sp, mesh.group)
+                                    ).to(v.device) for k, v in out.items()}
+
+    return run
 
 
 def _make_staged(model, dev):

@@ -14,23 +14,26 @@ CPU generator, so the card and the CPU start alike), dropout and the
 stochastic GCN from one `make_generator(--seed)` on the run's device, the
 view order from NumPy's default_rng(--seed), as rnr_tpu's.
 
-Data parallelism (parallel/): `--mesh_devices N --mesh_dp N` spawns N
-ranks on this host, one a device (cuda:{rank}, NCCL; Gloo with
-`--platform cpu`), with a rendezvous on a free local port; the
-batch (`--batch_size`, global) is split over them.  `--coordinator_address
-HOST:PORT --num_processes P --process_id I` joins P hosts, each starting
-`--local_device_count` ranks (one when not given).  Every rank computes
-the same parameters; only rank 0 writes logs, params.json, validation
-images and checkpoints, and the view buffer stays on the host.  The
-GCN's picks come from make_generator(--seed) on every rank, dropout
-from a generator per rank.  `--mesh_dp` below `--mesh_devices` (image
-rows across devices, rnr_tpu's sp) raises NotImplementedError.
+Data and row parallelism (parallel/): `--mesh_devices N --mesh_dp D`
+spawns N ranks on this host, one a device (cuda:{rank}, NCCL; Gloo with
+`--platform cpu`), with a rendezvous on a free local port, laid out as
+a (D, N / D) mesh: the batch (`--batch_size`, global) is split over D,
+each frame's rows over N / D (rnr_tpu's sp; D defaults to 1, as
+rnr_tpu's).  The rows must split: --img_size % (sp · 2**num_down) == 0,
+at least 2 innermost rows a rank, checked before any rank starts.
+`--coordinator_address HOST:PORT --num_processes P --process_id I` joins
+P hosts, each starting `--local_device_count` ranks (one when not
+given).  Every rank computes the same parameters; only rank 0 writes
+logs, params.json, validation images and checkpoints, and the view
+buffer stays on the host.  The GCN runs whole on every rank, its picks
+from make_generator(--seed); dropout draws from a generator per rank.
 
 Usage:
   python -m rnr_tpu_torch.drivers.train_rnr --data_root DATA \\
       --lighting_idx 0 --lighting_relight_idx 1 [--sampling_pattern ...]
   python -m rnr_tpu_torch.drivers.train_rnr --synthetic --max_iter 10 \\
       [--platform cpu] [--mesh_devices 2 --mesh_dp 2 --batch_size 2]
+      [--mesh_devices 2 --img_size 128]     # rows over 2 ranks
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ from rnr_tpu_torch.parallel.distributed import (fetch_global, free_port,
                                                 init_distributed,
                                                 is_main_process, rank_device,
                                                 run_ranks)
-from rnr_tpu_torch.parallel.sharding import make_mesh, mesh_shape
+from rnr_tpu_torch.parallel.sharding import check_rows, make_mesh, mesh_shape
 from rnr_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from rnr_tpu_torch.train.steps import (create_rnr_optimizer, init_rnr_params,
                                        make_generator, make_rnr_eval_step,
@@ -288,7 +291,8 @@ def _ranks(opt) -> tuple | None:
     if (opt.mesh_devices or world) != world:
         raise ValueError(f"--mesh_devices {opt.mesh_devices}: the run has "
                          f"{world} ranks")
-    dp, _ = mesh_shape(world, opt.mesh_dp)
+    dp, sp = mesh_shape(world, opt.mesh_dp)
+    check_rows(opt.img_size, sp, RenderNetConfig.num_down_unet)
     if opt.batch_size % dp:
         raise ValueError(f"--batch_size {opt.batch_size} does not split "
                          f"over {dp} ranks")
@@ -506,7 +510,9 @@ def _train(opt, dev: torch.device, mesh):
     train_step = make_rnr_train_step(model, optimizer, lighting_idx, mesh,
                                      opt.seed)
     eval_step = make_rnr_eval_step(model, lighting_idx, mesh=mesh)
+    sp = 1
     if mesh is not None:
+        sp = mesh.sp
         print(f"rank {mesh.rank} of {mesh.world} on {dev}: mesh "
               f"{mesh.shape} {mesh.axis_names}", flush=True)
     generator = make_generator(opt.seed, dev)
@@ -648,7 +654,7 @@ def _train(opt, dev: torch.device, mesh):
 
             # fetch_global is a collective: every rank enters with rank 0
             if (writer or mesh) and it % opt.log_freq == 0:
-                img = np.clip(fetch_global(metrics["img"]), 0, 1)
+                img = np.clip(fetch_global(metrics["img"], sp), 0, 1)
             if writer and it % opt.log_freq == 0:
                 gt = np.clip(batch["img_gt"].cpu().numpy(), 0, 1)
                 err = np.clip(np.abs(img - gt), 0, 1)
@@ -678,7 +684,7 @@ def _train(opt, dev: torch.device, mesh):
                 last_val = _validate(eval_step, val_views, relight_views,
                                      gcn_pos, bs, log_dir, it, writer,
                                      lp_relight, dev, first_val=not ran_val,
-                                     write=main_proc)
+                                     write=main_proc, sp=sp)
                 ran_val = True
                 timing["validate_s"] += time.perf_counter() - t0
             it += 1
@@ -696,12 +702,13 @@ def _train(opt, dev: torch.device, mesh):
 
 
 def _validate(eval_step, val_views, relight_views, gcn_pos, bs, log_dir, it,
-              writer, lp_relight, dev, first_val=False, write=True):
+              writer, lp_relight, dev, first_val=False, write=True, sp=1):
     """Validation with the reference's outputs: masked MAE / MSE / PSNR /
     SSIM (full, bounding box and valid), val_out / val_err PNGs every
     pass, val_gt once, and the relight outputs, errors and ground truth
     where a relight lighting exists; the PNGs only with `write` (rank 0).
-    Over ranks every rank computes the metrics of the whole batch."""
+    Over ranks every rank computes the metrics of the whole batch, its
+    frames gathered from the (dp, sp) ranks (sp: the mesh's)."""
     agg: dict = {}
     agg_rel: dict = {}
 
@@ -714,7 +721,7 @@ def _validate(eval_step, val_views, relight_views, gcn_pos, bs, log_dir, it,
     for start in range(0, len(val_views) - bs + 1, bs):
         views = val_views[start:start + bs]
         batch = make_rnr_batch(views, gcn_pos, dev)
-        img = fetch_global(eval_step(batch)["img"])
+        img = fetch_global(eval_step(batch)["img"], sp)
         gt = batch["img_gt"].cpu().numpy()
         alpha = batch["alpha_map"].cpu().numpy()
         accumulate(agg, compute_err_metrics_batch(
@@ -731,7 +738,7 @@ def _validate(eval_step, val_views, relight_views, gcn_pos, bs, log_dir, it,
         if lp_relight is None:
             continue
         img_r = fetch_global(eval_step(batch, lp_override=lp_relight,
-                                       relight=True)["img"])
+                                       relight=True)["img"], sp)
         for i in range(bs) if write else ():
             save_png(os.path.join(log_dir, "val_relight_out",
                                   f"{it:08d}_{start + i:05d}.png"), img_r[i])

@@ -26,7 +26,10 @@ HWIO `kernel`.
 Normalisation uses current-batch statistics ("batch", no running
 state), flax's GroupNorm with groups of 16 channels ("group"), or none.
 Under data parallelism the batch statistics are the global batch's
-(`BatchActNorm.moments`, set by parallel/sharding.py::global_batch_norm).
+(`BatchActNorm.moments`, set by parallel/sharding.py::global_batch_norm);
+over row shards every conv route takes a halo exchange (`Conv.halo`)
+and group norm sums its statistics over the shards (`GroupNorm.group_sum`,
+both set by parallel/sharding.py::row_shards).
 `remat` recomputes blocks in the backward instead of storing their
 activations, as rnr_tpu's nn.remat (rnr_tpu/models/unet.py:387-420):
 False / "none" stores everything, True / "all" recomputes every
@@ -65,6 +68,13 @@ CONV_ROUTES = {
     "slab3": ("slab", "plain", "plain"),
     "slab": ("slab", "down4s", "convt4s"),
 }
+
+
+# (kernel, stride) -> (halo rows, output rows dropped at each side) of a
+# conv over row shards: 3x3 reads one row each side; the 4x4 stride-2
+# down conv takes two, so that the stride keeps its parity, and drops
+# the one output row that reads its own padding
+ROW_HALO = {(3, 1): (1, 1), (4, 2): (2, 1)}
 
 
 # rnr_tpu's Unet.remat values -> the blocks recomputed in the backward
@@ -132,7 +142,10 @@ class Conv(nn.Module):
     (a conv_backend selector) picks K3 or K8a for 3x3 stride 1 and K6 / K8
     for 4x4 stride 2, or the plain conv; a kernel's output gets the bias
     added in the activation dtype after it, as rnr_tpu does, except K3's
-    and K8a's, which add it in f32 inside."""
+    and K8a's, which add it in f32 inside.  `halo`, when set
+    (parallel/sharding.py::row_shards), extends a row shard by its sp
+    neighbours' rows (ROW_HALO) before the conv, whose output rows that
+    read its own padding are then dropped."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, use_bias: bool = True,
@@ -149,10 +162,20 @@ class Conv(nn.Module):
         self.kernel = nn.Parameter(torch.zeros((kernel_size, kernel_size,
                                                 in_ch, out_ch)))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+        self.halo = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype or x.dtype
-        x = x.to(dt)
+        x = x.to(self.dtype or x.dtype)
+        if self.halo is None:
+            return self._conv(x)
+        if (self.k, self.stride) not in ROW_HALO:
+            raise NotImplementedError(f"a {self.k}x{self.k} stride "
+                                      f"{self.stride} conv over row shards")
+        k, crop = ROW_HALO[(self.k, self.stride)]
+        return self._conv(self.halo(x, k, self.pad_mode))[:, crop:-crop]
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
         if self.route in ("k3", "slab"):
             b = self.bias if self.bias is not None else torch.zeros(
                 self.kernel.shape[-1], device=x.device)
@@ -185,7 +208,9 @@ class ConvTranspose(nn.Module):
     [4, 4, I, O]: jax.lax.conv_transpose(..., (2, 2), "SAME"), a
     correlation on the dilated input.  `backend` picks K6's convt4, K8's
     convt4s or the plain F.conv_transpose2d (with the kernel flipped, as
-    [I, O, 4, 4], padding 1); the bias follows in the activation dtype."""
+    [I, O, 4, 4], padding 1); the bias follows in the activation dtype.
+    Over row shards (`halo` set) the input gains a row each side (zeros
+    at the frame's edges) and the output drops 2 rows each side."""
 
     def __init__(self, in_ch: int, out_ch: int, use_bias: bool = True,
                  dtype: torch.dtype | None = None, backend: str = "auto"):
@@ -194,10 +219,17 @@ class ConvTranspose(nn.Module):
         self.route = conv_routes(backend)[2]
         self.kernel = nn.Parameter(torch.zeros((4, 4, in_ch, out_ch)))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+        self.halo = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype or x.dtype
-        x = x.to(dt)
+        x = x.to(self.dtype or x.dtype)
+        if self.halo is None:
+            return self._conv(x)
+        # a row of zeros at the frame's edges, as the dilated input's own
+        return self._conv(self.halo(x, 1, "same"))[:, 2:-2]
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
         if self.route == "convt4":
             y = convt4(x, self.kernel)
         elif self.route == "convt4s":
@@ -238,7 +270,9 @@ class GroupNorm(nn.Module):
     """flax nn.GroupNorm(num_groups=None, group_size=16): statistics per
     sample over (H, W) and each group of 16 channels, in f32, the variance
     as E[x^2] - E[x]^2 clipped at 0, epsilon 1e-6; the output is f32 for
-    any input, as flax promotes to the parameters' dtype."""
+    any input, as flax promotes to the parameters' dtype.  `group_sum`,
+    when set (parallel/sharding.py::row_shards), sums the per-sample sums
+    and counts over the ranks that hold the sample's other rows."""
 
     epsilon = 1e-6
 
@@ -249,13 +283,22 @@ class GroupNorm(nn.Module):
                              f"of the group size {GROUP_SIZE}")
         self.scale = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
+        self.group_sum = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c = x.shape[0], x.shape[-1]
         x32 = x.to(torch.float32)
         xg = x32.reshape(n, -1, c // GROUP_SIZE, GROUP_SIZE)
-        mean = xg.mean(dim=(1, 3))
-        var = torch.clamp((xg * xg).mean(dim=(1, 3)) - mean * mean, min=0.0)
+        if self.group_sum is None:
+            mean = xg.mean(dim=(1, 3))
+            ex2 = (xg * xg).mean(dim=(1, 3))
+        else:
+            s1 = xg.sum(dim=(1, 3))
+            s = self.group_sum(torch.stack([
+                s1, (xg * xg).sum(dim=(1, 3)),
+                torch.full_like(s1, xg.shape[1] * GROUP_SIZE)]))
+            mean, ex2 = s[0] / s[2], s[1] / s[2]
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         mean = mean.repeat_interleave(GROUP_SIZE, dim=1)
         mul = torch.rsqrt(var + self.epsilon).repeat_interleave(
             GROUP_SIZE, dim=1) * self.scale

@@ -26,17 +26,29 @@ def psnr(img_est: torch.Tensor, img_gt: torch.Tensor,
 
 
 def masked_err_metrics(img_est: torch.Tensor, img_gt: torch.Tensor,
-                       mask: torch.Tensor) -> dict[str, torch.Tensor]:
+                       mask: torch.Tensor, image_sum=None
+                       ) -> dict[str, torch.Tensor]:
     """MAE / MSE / PSNR over the full image and the masked region, each
     the mean over the batch of per-image values.  img_est, img_gt
-    [N, H, W, C] in 0..255, mask [N, H, W, 1] 0/1."""
+    [N, H, W, C] in 0..255, mask [N, H, W, 1] 0/1.  Each image's values
+    come from its sums (|d|, d^2, the mask's count and the element
+    count); where the image's rows lie on several ranks, `image_sum`
+    sums those [4, N] over them first (an all-reduce over the sp group),
+    so that the values are the whole frame's."""
     mask3 = mask.expand(img_est.shape)
     diff = torch.abs(img_est * mask3 - img_gt * mask3)
-    num_valid = torch.clamp(torch.sum(mask3, dim=(1, 2, 3)), min=1.0)
-    mae = torch.mean(diff, dim=(1, 2, 3))
-    mae_valid = torch.sum(diff, dim=(1, 2, 3)) / num_valid
-    mse = torch.mean(diff * diff, dim=(1, 2, 3))
-    mse_valid = torch.sum(diff * diff, dim=(1, 2, 3)) / num_valid
+    s_abs = torch.sum(diff, dim=(1, 2, 3))
+    sums = torch.stack([s_abs, torch.sum(diff * diff, dim=(1, 2, 3)),
+                        torch.sum(mask3, dim=(1, 2, 3)),
+                        torch.full_like(s_abs, diff[0].numel())])
+    if image_sum is not None:
+        sums = image_sum(sums)
+    s_abs, s_sq, n_mask, n_all = sums.unbind()
+    num_valid = torch.clamp(n_mask, min=1.0)
+    mae = s_abs / n_all
+    mae_valid = s_abs / num_valid
+    mse = s_sq / n_all
+    mse_valid = s_sq / num_valid
 
     def psnr_of(m):
         return -10.0 * torch.log10(torch.clamp(m / (255.0 ** 2), min=1e-10))

@@ -87,20 +87,40 @@ def is_main_process() -> bool:
     return rank() == 0
 
 
-def fetch_global(x: torch.Tensor) -> np.ndarray:
-    """A tensor sharded by rank along dim 0 as one host array: every
-    rank's rows in rank order (a collective: every rank calls it).  Gloo
-    gathers from host memory."""
+def fetch_global(x: torch.Tensor, sp: int = 1, group=None) -> np.ndarray:
+    """A tensor sharded over the ranks of `group` (the world when None)
+    as one host array, a collective that every rank of the group calls.
+    The group's ranks are laid out as (dp, sp): rank r holds rows
+    [s·H/sp, (s+1)·H/sp) (dim 1) of samples shard d (dim 0), d = r // sp,
+    s = r % sp; the frames come back whole, rows over sp, then samples
+    over dp.  Gloo gathers from host memory."""
     x = x.detach()
     if x.dtype == torch.bfloat16:
         x = x.float()
-    if world_size() > 1:
-        if dist.get_backend() == "gloo":
+    n = world_size() if group is None else dist.get_world_size(group)
+    if n > 1:
+        if dist.get_backend(group) == "gloo":
             x = x.cpu()
-        parts = [torch.empty_like(x) for _ in range(world_size())]
-        dist.all_gather(parts, x.contiguous())
-        x = torch.cat(parts)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        x = torch.cat([torch.cat(parts[d:d + sp], dim=1)
+                       for d in range(0, n, sp)])
     return x.cpu().numpy()
+
+
+def make_groups(dp: int, sp: int) -> tuple:
+    """(this rank's sp group, its dp group) of a (dp, sp) mesh over the
+    world: the sp groups hold ranks d·sp .. d·sp + sp - 1 (one per dp
+    index d), the dp groups ranks s, s + sp, ... (one per sp index s).
+    Every rank creates every group, in the same order (new_group is a
+    collective of the world)."""
+    me = rank()
+    wait = datetime.timedelta(seconds=TIMEOUT_S)
+    groups = [dist.new_group([d * sp + s for s in range(sp)], timeout=wait)
+              for d in range(dp)]
+    groups += [dist.new_group([d * sp + s for d in range(dp)], timeout=wait)
+               for s in range(sp)]
+    return groups[me // sp], groups[dp + me % sp]
 
 
 def host_local_batch_slice(global_batch: int) -> tuple[int, int]:

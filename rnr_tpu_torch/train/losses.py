@@ -16,15 +16,22 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 
 
 def image_l1_loss(out_img: torch.Tensor, img_gt: torch.Tensor,
-                  alpha_map: torch.Tensor, border_crop: int = 5) -> torch.Tensor:
+                  alpha_map: torch.Tensor, border_crop: int = 5,
+                  rows: slice | None = None,
+                  count: int | None = None) -> torch.Tensor:
     """Alpha-masked L1 with `border_crop` outer pixels excluded.
-    out_img / img_gt [N, H, W, C], alpha_map [N, H, W, 1]."""
+    out_img / img_gt [N, H, W, C], alpha_map [N, H, W, 1].  A row shard
+    passes the `rows` its crop keeps (parallel/sharding.py::crop_rows:
+    cropped at the frame's global top and bottom only) and the global
+    batch's cropped element `count`, and gets its share of the global
+    batch's loss: its sum over that count."""
     b = border_crop
-    if b > 0:
-        out_img = out_img[:, b:-b, b:-b]
-        img_gt = img_gt[:, b:-b, b:-b]
-        alpha_map = alpha_map[:, b:-b, b:-b]
-    return torch.mean(_abs(out_img * alpha_map - img_gt * alpha_map))
+    if rows is None:
+        rows = slice(b, -b) if b > 0 else slice(None)
+    cols = slice(b, -b) if b > 0 else slice(None)
+    d = _abs(out_img[:, rows, cols] * alpha_map[:, rows, cols]
+             - img_gt[:, rows, cols] * alpha_map[:, rows, cols])
+    return torch.mean(d) if count is None else torch.sum(d) / count
 
 
 def lighting_loss(l_samples_est: torch.Tensor, l_samples_init: torch.Tensor,

@@ -10,11 +10,13 @@ stochastic GCN picks) comes from a torch.Generator that the caller passes
 to each step (`make_generator`).
 
 Each step takes an optional `mesh` (parallel/sharding.py; None is one
-rank): each rank then runs its rows of the global batch, its batch norms
-over the global batch's moments, its share of the loss, the gradients
-summed over the ranks before Adam, and gives the global batch's loss and
+rank): each rank then runs its samples and image rows of the global
+batch (dp, sp), its batch norms over the global batch's moments, its
+convs on halo-extended rows and its group norms over its sp group
+(`sharding.row_shards`), its share of the loss, the gradients summed
+over the ranks before Adam, and gives the global batch's loss and
 metrics; over more than one rank dropout draws from the rank's own
-generator, seeded from (seed, rank).
+generator, seeded from (seed, rank).  The GCN runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -105,11 +107,12 @@ def make_rnr_loss_fn(model: RNRModel, lighting_idx: int = 0,
     image.  Dropout draws from `dropout_generator` where one is given,
     else from `generator`.
 
-    With `mesh`, `batch` holds this rank's rows and the terms are its
-    shares of the global batch's loss, which sum over the ranks to that
-    loss: the image L1 (a mean over equal rows) and the priors on
-    parameters alone divided by the world size, the chroma prior's masked
-    sum over the global batch's alpha sum.
+    With `mesh`, `batch` holds this rank's samples and rows and the
+    terms are its shares of the global batch's loss, which sum over the
+    ranks to that loss: the image L1's sum over the global batch's
+    cropped element count (`image_l1_share`), the priors on parameters
+    alone divided by the world size, the chroma prior's masked sum over
+    the global batch's alpha sum.
     """
     cfg = model.cfg
     mesh = mesh or sharding.ONE_RANK
@@ -121,8 +124,8 @@ def make_rnr_loss_fn(model: RNRModel, lighting_idx: int = 0,
                     generator=generator, dropout_generator=dropout_generator)
         alpha = batch["alpha_map"]
         img_gt = batch["img_gt"]
-        loss_rn = image_l1_loss(out["img"], img_gt, alpha,
-                                cfg.loss.border_crop) / world
+        loss_rn = image_l1_share(out["img"], img_gt, alpha,
+                                 cfg.loss.border_crop, mesh)
         if cfg.lighting.fix_lighting:
             loss_light = torch.zeros((), device=alpha.device)
         else:
@@ -149,13 +152,38 @@ def make_rnr_loss_fn(model: RNRModel, lighting_idx: int = 0,
     return loss_fn
 
 
-def crop_metrics(img: torch.Tensor, batch: dict, b: int) -> dict:
+def image_l1_share(out: torch.Tensor, img_gt: torch.Tensor,
+                   alpha: torch.Tensor, b: int,
+                   mesh: sharding.Mesh) -> torch.Tensor:
+    """This rank's share of the global batch's image_l1_loss: its rows
+    cropped by b at the frame's global edges only (`sharding.crop_rows`),
+    summed over the global batch's cropped element count; the whole loss
+    on one rank."""
+    n, h, w, c = out.shape
+    count = n * mesh.dp * (h * mesh.sp - 2 * b) * (w - 2 * b) * c
+    return image_l1_loss(out, img_gt, alpha, b, sharding.crop_rows(mesh, b),
+                         count)
+
+
+def crop_metrics(img: torch.Tensor, batch: dict, b: int,
+                 mesh: sharding.Mesh | None = None) -> dict:
     """masked_err_metrics of the border-cropped (by b), alpha-masked image
-    against batch["img_gt"], both scaled to 0..255."""
-    alpha_c = batch["alpha_map"][:, b:-b, b:-b]
+    against batch["img_gt"], both scaled to 0..255.  Over row shards the
+    rows are cropped at the frame's global top and bottom only and each
+    image's sums are summed over its sp group, so that every rank gets
+    its samples' whole-frame values."""
+    mesh = mesh or sharding.ONE_RANK
+    rows = sharding.crop_rows(mesh, b)
+    cols = slice(b, -b) if b else slice(None)
+    alpha_c = batch["alpha_map"][:, rows, cols]
     return masked_err_metrics(
-        img[:, b:-b, b:-b] * alpha_c * 255.0,
-        batch["img_gt"][:, b:-b, b:-b] * alpha_c * 255.0, alpha_c)
+        img[:, rows, cols] * alpha_c * 255.0,
+        batch["img_gt"][:, rows, cols] * alpha_c * 255.0, alpha_c,
+        mesh.sp_sum if mesh.sp > 1 else None)
+
+
+def _num_down(model: nn.Module) -> int:
+    return model.render_net.Unet_0.num_down
 
 
 def _device(model: nn.Module) -> torch.device:
@@ -171,18 +199,21 @@ def make_rnr_train_step(model: RNRModel, optimizer: torch.optim.Optimizer,
     image (0..255) and the image, all detached tensors on the model's
     device.  It updates the parameters and the SNDense vectors in place.
     Over a mesh (module docstring) the metrics are the global batch's,
-    given on every rank, and "img" holds this rank's rows (fetch_global
-    gathers them); `generator` must be in the same state on every rank
-    (the GCN's picks)."""
+    given on every rank, and "img" holds this rank's samples and rows
+    (fetch_global(img, mesh.sp) gathers them); `generator` must be in
+    the same state on every rank (the GCN's picks)."""
     mesh = mesh or sharding.ONE_RANK
     loss_fn = make_rnr_loss_fn(model, lighting_idx, mesh)
     drop = sharding.dropout_generator(mesh, seed, _device(model))
     b = model.cfg.loss.border_crop
 
     def step(batch: dict, statics: dict, generator: torch.Generator) -> dict:
+        sharding.check_rows(batch["alpha_map"].shape[1], mesh.sp,
+                            _num_down(model))
         local = sharding.shard_rnr_batch(batch, mesh)
         optimizer.zero_grad(set_to_none=True)
-        with sharding.global_batch_norm(model, mesh):
+        with sharding.global_batch_norm(model, mesh), \
+                sharding.row_shards(model, mesh):
             loss, aux = loss_fn(local, statics, generator, drop)
             loss.backward()
         sharding.all_reduce_grads(model, mesh)
@@ -190,7 +221,7 @@ def make_rnr_train_step(model: RNRModel, optimizer: torch.optim.Optimizer,
         with torch.no_grad():
             img = aux.pop("img")
             metrics = sharding.global_metrics(
-                mesh, crop_metrics(img, local, b), aux)
+                mesh, crop_metrics(img, local, b, mesh), aux)
         metrics["img"] = img.detach()
         return metrics
 
@@ -218,9 +249,12 @@ def make_rnr_eval_step(model: RNRModel, lighting_idx: int = 0,
     there; nothing measured that on this card, so "auto" stays "pallas3"
     here as in the training step.
 
-    Over a mesh each rank renders its rows of the global batch,
-    normalised by the global batch's statistics, so that its rows equal
-    those of the single-device frame of the whole batch.
+    Over a mesh each rank renders its samples and rows of the global
+    batch, normalised by the global batch's statistics, its convs on
+    halo-extended rows, so that its rows equal those of the
+    single-device frame of the whole batch (fetch_global(img, mesh.sp)
+    gathers them).  Each rank takes the whole G-buffer and keeps its
+    rows, as rnr_tpu renders whole and then shards.
     """
     mesh = mesh or sharding.ONE_RANK
     model.eval()
@@ -229,7 +263,11 @@ def make_rnr_eval_step(model: RNRModel, lighting_idx: int = 0,
              lp_override: torch.Tensor | None = None,
              sh_override: torch.Tensor | None = None,
              relight: bool = False) -> dict:
-        with torch.inference_mode(), sharding.global_batch_norm(model, mesh):
+        sharding.check_rows(batch["alpha_map"].shape[1], mesh.sp,
+                            _num_down(model))
+        with torch.inference_mode(), \
+                sharding.global_batch_norm(model, mesh), \
+                sharding.row_shards(model, mesh):
             out = model(sharding.shard_rnr_batch(batch, mesh),
                         lighting_idx=lighting_idx,
                         lp_override=lp_override if relight else None,
@@ -325,26 +363,30 @@ def make_dnr_train_step(cfg: DNRConfig, mods: DNRModules,
     masked_err_metrics of the border-cropped, masked image (0..255) and
     the loss, detached tensors on the modules' device.  batch holds
     uv_map, sh_basis_map, alpha_map [N, H, W, 1] and img_gt, every map
-    sharded over a mesh's ranks; the parameters are updated in place."""
+    sharded over a mesh's ranks (samples over dp, rows over sp); the
+    parameters are updated in place."""
     mesh = mesh or sharding.ONE_RANK
     drop = sharding.dropout_generator(mesh, seed, _device(mods))
     b = cfg.loss.border_crop
 
     def step(batch: dict, generator: torch.Generator) -> dict:
+        sharding.check_rows(batch["alpha_map"].shape[1], mesh.sp,
+                            _num_down(mods))
         local = sharding.shard_batch(batch, mesh)
         optimizer.zero_grad(set_to_none=True)
-        with sharding.global_batch_norm(mods, mesh):
+        with sharding.global_batch_norm(mods, mesh), \
+                sharding.row_shards(mods, mesh):
             out, _ = dnr_forward(mods, local, train=True,
                                  generator=drop or generator,
                                  sh_start_ch=cfg.sh_start_ch)
-            loss = image_l1_loss(out, local["img_gt"], local["alpha_map"],
-                                 b) / mesh.world
+            loss = image_l1_share(out, local["img_gt"], local["alpha_map"],
+                                  b, mesh)
             loss.backward()
         sharding.all_reduce_grads(mods, mesh)
         optimizer.step()
         with torch.no_grad():
-            return sharding.global_metrics(mesh, crop_metrics(out, local, b),
-                                           {"loss": loss})
+            return sharding.global_metrics(
+                mesh, crop_metrics(out, local, b, mesh), {"loss": loss})
 
     return step
 

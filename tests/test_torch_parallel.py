@@ -48,7 +48,7 @@ from rnr_tpu_torch.parallel import (fetch_global, host_local_batch_slice,
                                     make_sharded_rnr_train_step, run_ranks,
                                     shard_rnr_batch)
 from rnr_tpu_torch.parallel.distributed import free_port
-from rnr_tpu_torch.parallel.sharding import (all_reduce_grads,
+from rnr_tpu_torch.parallel.sharding import (all_reduce_grads, check_rows,
                                              dropout_generator, mesh_shape)
 from rnr_tpu_torch.synthetic import build_batch, init_weights
 from rnr_tpu_torch.train.steps import (build_dnr_modules,
@@ -195,20 +195,16 @@ def _no_dropout(next_fun, args, kwargs, context):
     return next_fun(*args, **kwargs)
 
 
-@pytest.fixture(scope="module")
-def case(tmp_path_factory):
-    """rnr_tpu's weights at TINY (f32, xla routes, exact kNN, no stochastic
-    GCN), its sharded step's loss at dp = 2, the port's single-process
-    step and eval frame at b2, and the two ranks' results."""
-    import flax.linen as nn
+def jax_setup() -> dict:
+    """rnr_tpu's model, weights, batch (`_two_views`), statics, Adam and
+    train state at TINY (f32, xla routes, exact kNN, no stochastic GCN),
+    and the port's payload of the same weights (`_rnr_model`)."""
     import jax
     import jax.numpy as jnp
     import optax
 
     import __graft_entry__ as graft
     from rnr_tpu.models.rnr import RNRModel as JaxRNRModel
-    from rnr_tpu.parallel import make_mesh as jax_make_mesh
-    from rnr_tpu.parallel import make_sharded_rnr_train_step as jax_sharded
     from rnr_tpu.train.steps import TrainState
     from rnr_tpu_torch.convert import load_jax_variables
 
@@ -252,11 +248,6 @@ def case(tmp_path_factory):
                        constants=variables["constants"],
                        spectral=variables["spectral"],
                        opt_state=tx.init(params))
-    sharded = jax_sharded(jm, tx, jax_make_mesh(2, dp=2))
-    with nn.intercept_methods(_no_dropout):
-        _, jmet = sharded(state, jbatch, statics, jax.random.PRNGKey(3))
-    jax_loss = float(jmet["loss"])
-
     cfg = dataclasses.asdict(jcfg)
     model = RNRModel(RNRConfig.from_dict(cfg), TINY["gcn_v"], l_dir=l_dir,
                      device="cpu")
@@ -265,6 +256,29 @@ def case(tmp_path_factory):
                "statics": statics,
                "state": {k: v.numpy().copy()
                          for k, v in model.state_dict().items()}}
+    return {"model": jm, "tx": tx, "state": state, "batch": jbatch,
+            "statics": statics, "payload": payload}
+
+
+def jax_sharded_loss(setup: dict, mesh) -> float:
+    """The loss of rnr_tpu's make_sharded_rnr_train_step over `mesh`,
+    dropout off, on a copy of the state (the step donates its own)."""
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+    from rnr_tpu.parallel import make_sharded_rnr_train_step as jax_sharded
+    sharded = jax_sharded(setup["model"], setup["tx"], mesh)
+    state = jax.tree_util.tree_map(jnp.copy, setup["state"])
+    with nn.intercept_methods(_no_dropout):
+        _, jmet = sharded(state, setup["batch"], setup["statics"],
+                          jax.random.PRNGKey(3))
+    return float(jmet["loss"])
+
+
+def single_process(payload: dict) -> dict:
+    """The port's single-process b2 RNR step (metrics, gradients, image),
+    eval frame at the initial weights and DNR step."""
+    batch, statics = payload["batch"], payload["statics"]
     model = _rnr_model(payload)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     tstatics = {k: torch.from_numpy(v) for k, v in statics.items()}
@@ -277,6 +291,18 @@ def case(tmp_path_factory):
     dmet = make_dnr_train_step(DNR_CFG, mods, create_rnr_optimizer(mods, LR))(
         _dnr_batch(), make_generator(0, "cpu"))
     single["dnr_metrics"], single["dnr_grads"] = _scalars(dmet), _grads(mods)
+    return single
+
+
+@pytest.fixture(scope="module")
+def case(tmp_path_factory):
+    """rnr_tpu's sharded step's loss at dp = 2, the port's single-process
+    step and eval frame at b2, and the two ranks' results."""
+    from rnr_tpu.parallel import make_mesh as jax_make_mesh
+    setup = jax_setup()
+    payload = setup["payload"]
+    jax_loss = jax_sharded_loss(setup, jax_make_mesh(2, dp=2))
+    single = single_process(payload)
 
     # the weights go by file: a spawned process reads its arguments only
     # once it has started, so arguments larger than a pipe's buffer would
@@ -390,18 +416,28 @@ def test_sharded_rnr_step_under_remat_equals_the_single_process_step(
 
 
 def test_mesh_shapes_and_what_is_not_ported():
+    """Every (dp, sp) factoring is a mesh now (rnr_tpu's layout: dp 1 by
+    default, rows over sp = n); what is refused is a factoring that does
+    not divide, a mesh without its process group, and rows that do not
+    split over sp * 2**num_down."""
     m = make_mesh(1)
     assert (m.shape, m.axis_names, m.world, m.rank) == (
         (1, 1), ("dp", "sp"), 1, 0)
+    assert (m.dp_index, m.sp_index) == (0, 0)
     assert mesh_shape(4, 4) == (4, 1)
-    with pytest.raises(NotImplementedError, match="mesh_dp must equal"):
-        make_mesh(2)                      # rnr_tpu's dp=1: sp = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        mesh_shape(8, 2)
+    assert mesh_shape(8, 2) == (2, 4)
+    assert mesh_shape(2) == (1, 2)        # rnr_tpu's dp=1: sp = 2
     with pytest.raises(ValueError, match="factor"):
         make_mesh(3, dp=2)
     with pytest.raises(RuntimeError, match="init_distributed"):
-        make_mesh(2, dp=2)                # no process group here
+        make_mesh(2)                      # no process group here
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        make_mesh(2, dp=2)
+    check_rows(32, 2, 2)
+    check_rows(512, 8, 5)
+    for h, sp in ((36, 2), (32, 8), (8, 2)):
+        with pytest.raises(ValueError, match=r"sp \* 2\*\*num_down"):
+            check_rows(h, sp, 2)
 
 
 def test_shard_rnr_batch_slices_the_rows():
@@ -524,5 +560,7 @@ def test_test_rnr_over_two_ranks_renders_the_single_device_frames(tmp_path):
                                    rtol=0, atol=1e-6, err_msg=str(k))
     assert _written(tmp_path / "two" / "learned0") == _written(
         tmp_path / "one" / "learned0")
-    with pytest.raises(NotImplementedError, match="sp"):
-        test_rnr.main(args + ["--mesh_devices", "2"])
+    # rows over sp = 8 leave 1 innermost row a rank: refused before any
+    # rank starts (the frames over sp are test_torch_sp.py's)
+    with pytest.raises(ValueError, match="num_down"):
+        test_rnr.main(args + ["--mesh_devices", "8"])
