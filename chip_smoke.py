@@ -138,8 +138,10 @@ Phases (each failure raises, so the script exits non-zero):
            in this process, on a scene it writes under build/: the
            gbuffer phase's sphere, a 7,500-vertex GCN sphere, 10 views of
            the camera ring (8 to train, 2 to validate), two procedural
-           256 x 512 HDR probes.  precompute (both meshes), stitch_lp,
-           train_rnr at the canonical configuration and shipped knobs for
+           256 x 512 HDR probes.  precompute (both meshes), stitch_lp
+           (on the PNG views, then at its default suffix on the same views
+           as ZIP EXR: the two stitches equal), train_rnr at the
+           canonical configuration and shipped knobs for
            6 iterations (one validation, one checkpoint), test_rnr.main on
            model_final.ckpt under the trained lighting, the probes' SH
            fit (also per stage: K5) and their gather.  Checks every
@@ -147,7 +149,11 @@ Phases (each failure raises, so the script exits non-zero):
            launches of K1, K1b, K2, K2b, K3, K3b, K4, K5 and K7 on that
            path (drivers_launches), the checkpoint's round trip (every
            tensor) and test_rnr.main's frame of a view bit-equal to the
-           eval step's on the trained model; reports precompute s/view,
+           eval step's on the trained model; train_rnr's reader of the
+           stitched 0.exr; the JPEG / BMP fixtures of tests/data/images
+           decoded bit-equal to their committed cv2 decodes (both cv2
+           flags, host ms each); train_dnr --tex_fp on the EXIF-6 JPEG
+           fixture for two iterations; reports precompute s/view,
            train_rnr iterations/s through the driver beside the train
            phase's bare step, test_rnr views/s and buckets, the
            checkpoint's size and save and load seconds, and the trained
@@ -3171,11 +3177,15 @@ def write_obj(path: str, mesh) -> None:
 def write_scene(root: str) -> None:
     """mesh.obj, mesh_7500v.obj, calib.mat (DRIVER_VIEWS views of the
     camera ring at IMG^2), rgb0/ and rgb1/ (a shaded disc per view and
-    lighting, 8-bit PNG) and lp/ (two procedural 256 x 512 HDR probes)."""
+    lighting, 8-bit PNG), lp/ (two procedural 256 x 512 HDR probes) and
+    exr/, stitch_lp's default input: mesh.obj, calib.mat and
+    rgb0/%03d.exr, rgb0's views over 255 as float32 ZIP OpenEXR."""
+    import shutil
+
     import scipy.io
-    from rnr_tpu_torch.data.imageio import write_hdr, write_png
+    from rnr_tpu_torch.data.imageio import write_exr, write_hdr, write_png
     from rnr_tpu_torch.synthetic import camera_ring, make_probes, sphere_mesh
-    for d in ("rgb0", "rgb1", "lp"):
+    for d in ("rgb0", "rgb1", "lp", "exr/rgb0"):
         os.makedirs(os.path.join(root, d))
     write_obj(os.path.join(root, "mesh.obj"), sphere_mesh(*MESH_LAT_LON))
     write_obj(os.path.join(root, "mesh_7500v.obj"), sphere_mesh(*GCN_LAT_LON))
@@ -3188,6 +3198,9 @@ def write_scene(root: str) -> None:
                 [200.0, 150.0, 100.0]) * (0.8 + 0.02 * i)
             write_png(os.path.join(root, f"rgb{light}", "%06d.png" % i),
                       img.astype(np.uint8))
+            if light == 0:
+                write_exr(os.path.join(root, "exr", "rgb0", "%03d.exr" % i),
+                          img.astype(np.uint8).astype(np.float32) / 255.0)
     for k, probe in enumerate(make_probes(N_PROBES, seed=0)):
         write_hdr(os.path.join(root, "lp", f"{k}.hdr"), probe)
     scipy.io.savemat(os.path.join(root, "calib.mat"), {
@@ -3196,6 +3209,8 @@ def write_scene(root: str) -> None:
         "dist_coeffs": np.stack([v["dist_coeffs"] for v in views]),
         "img_hws": np.tile([IMG, IMG], (DRIVER_VIEWS, 1)),
         "global_RT": np.eye(4)})
+    for f in ("mesh.obj", "calib.mat"):
+        shutil.copy(os.path.join(root, f), os.path.join(root, "exr", f))
 
 
 def _files(path: str) -> list:
@@ -3223,7 +3238,7 @@ def check_outputs(root: str, log_dir: str) -> None:
             low, "raster"))) != DRIVER_VIEWS:
         raise AssertionError("drivers: the GCN mesh's raster is incomplete")
     st = os.path.join(root, f"light_probe_stitch_first_{DRIVER_TRAIN_VIEWS}")
-    for f in ("0.png", "0.hdr", "mask/0.png", "count/0.png", "count/0.mat"):
+    for f in ("0.png", "0.exr", "mask/0.png", "count/0.png", "count/0.mat"):
         if not os.path.isfile(os.path.join(st, f)):
             raise AssertionError(f"drivers: stitch_lp did not write {f}")
     for f in ("params.json", "model_final.ckpt",
@@ -3236,16 +3251,120 @@ def check_outputs(root: str, log_dir: str) -> None:
             raise AssertionError(f"drivers: {sub} incomplete")
 
 
-def phase_drivers(driver_launches: dict, train_out: dict) -> None:
+IMAGE_FIXTURES = os.path.join(ROOT, "tests", "data", "images")
+
+
+def exr_stitch_equal(root: str, pattern: str) -> None:
+    """stitch_lp at its default suffix on the scene's EXR views (exr/)
+    against its `--img_suffix .png` run on the same values: the f32
+    probe, its mask and counts equal."""
+    import scipy.io
+    from rnr_tpu_torch.data.imageio import read_exr, read_png
+    a = os.path.join(root, f"light_probe_stitch_{pattern}")
+    b = os.path.join(root, "exr", f"light_probe_stitch_{pattern}")
+    if not np.array_equal(read_exr(os.path.join(a, "0.exr")),
+                          read_exr(os.path.join(b, "0.exr"))):
+        raise AssertionError("drivers: stitch_lp's 0.exr from EXR views "
+                             "differs from its run on the PNG views")
+    for f in ("0.png", "mask/0.png", "count/0.png"):
+        if not np.array_equal(read_png(os.path.join(a, f)),
+                              read_png(os.path.join(b, f))):
+            raise AssertionError(f"drivers: stitch_lp's {f} from EXR views "
+                                 "differs from its run on the PNG views")
+    ca, cb = (scipy.io.loadmat(os.path.join(d, "count", "0.mat"))
+              for d in (a, b))
+    if not (np.array_equal(ca["count"], cb["count"])
+            and ca["num_view"].item() == cb["num_view"].item()
+            == DRIVER_TRAIN_VIEWS):
+        raise AssertionError("drivers: stitch_lp's counts from EXR views "
+                             "differ")
+
+
+def image_formats(root: str, split: list, smi: str) -> None:
+    """The formats rnr_tpu reads through cv2: train_rnr's reader of the
+    stitched 0.exr; every committed JPEG / BMP fixture decoded (both cv2
+    flags) bit-equal to its committed cv2 decode, with its host decode
+    ms; train_dnr --tex_fp on the EXIF-6 JPEG fixture for two
+    iterations at full width, its texture's level 0 starting from the
+    JPEG's turned read."""
+    from rnr_tpu_torch.data.imageio import (IMREAD_COLOR, IMREAD_UNCHANGED,
+                                            read_exr, read_image, read_png,
+                                            resize)
+    from rnr_tpu_torch.drivers import train_dnr
+    from rnr_tpu_torch.drivers.common import read_texture_init
+    from rnr_tpu_torch.drivers.train_rnr import _read_stitch
+    st = os.path.join(root, f"light_probe_stitch_{split[0]}")
+    probe, cover = _read_stitch(st, 0, 1.0)
+    covered = cover[..., 0] == 1
+    if not (covered.any() and np.array_equal(
+            probe[covered], read_exr(os.path.join(st, "0.exr"))[covered])):
+        raise AssertionError("drivers: train_rnr's stitch reader does not "
+                             "return 0.exr")
+    names = sorted(f for f in os.listdir(IMAGE_FIXTURES)
+                   if f.endswith((".jpg", ".bmp")))
+    if len(names) < 10:
+        raise AssertionError(f"drivers: {len(names)} image fixtures")
+    ms = {}
+    for name in names:
+        path = os.path.join(IMAGE_FIXTURES, name)
+        stem = os.path.splitext(path)[0]
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = read_image(path, IMREAD_UNCHANGED)
+            times.append(time.perf_counter() - t0)
+        ms[name] = 1e3 * min(times)
+        color = (stem + ".color.png" if os.path.isfile(stem + ".color.png")
+                 else stem + ".png")
+        if not (np.array_equal(img, read_png(stem + ".png"))
+                and np.array_equal(read_image(path, IMREAD_COLOR),
+                                   read_png(color))):
+            raise AssertionError(f"drivers: {name} decodes differently from "
+                                 "its committed cv2 decode")
+    log(f"[drivers] image fixtures ({len(names)}, 107 x 75) decoded "
+        "bit-equal to their cv2 decodes under both flags; host decode ms "
+        f"(best of 3, {smi}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    tex = os.path.join(IMAGE_FIXTURES, "exif6.jpg")
+    want = read_texture_init(tex, 512)
+    upright = resize(read_image(tex, IMREAD_UNCHANGED), (512, 512),
+                     "area").astype(np.float32) / 255.0
+    t0 = time.perf_counter()
+    log_dir, mods = train_dnr.main([
+        "--data_root", root, "--img_size", str(IMG), "--logging_root",
+        os.path.join(root, "logs_tex"), "--texture_size", "512",
+        "--texture_num_ch", str(DNR_CH), "--mipmap_level", "4", "--nf0",
+        "64", "--sampling_pattern", split[0], "--sampling_pattern_val",
+        split[1], "--max_iter", "2", "--val_freq", "100", "--ckp_freq",
+        "100", "--log_freq", "100", "--tex_fp", tex])
+    t_tex = time.perf_counter() - t0
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    level0 = mods.texture_mapper.texture_0.detach()[..., :3].cpu().numpy()
+    moved = float(np.abs(level0 - want).max())
+    if (summary["iters"] != 2 or not np.isfinite(summary["last_loss"])
+            or moved > 0.01 or float(np.abs(upright - want).max()) < 0.1):
+        raise AssertionError(f"drivers: train_dnr --tex_fp: summary "
+                             f"{summary}, level 0 moved {moved:.3g} from the "
+                             "JPEG's read")
+    log(f"[drivers] train_dnr --tex_fp exif6.jpg: 2 iterations at full "
+        f"width in {t_tex:.3f} s (main()), level 0 within {moved:.3g} of "
+        "the JPEG's EXIF-turned read")
+    del mods
+
+
+def phase_drivers(driver_launches: dict, train_out: dict, smi: str) -> None:
     """The offline workflow through the port's entry points, in this
-    process: precompute (both meshes), stitch_lp, train_rnr at the
+    process: precompute (both meshes), stitch_lp (on the PNG views, then
+    at its default suffix on the same views as EXR), train_rnr at the
     canonical configuration for DRIVER_ITERS iterations (one validation,
     one checkpoint), then test_rnr.main on model_final.ckpt under the
     trained lighting, the novel probes by SH fit (also per stage) and by
-    gather.  Checks every output file, finite losses and metrics, the
-    checkpoint's round trip, test_rnr.main's frame bit-equal to the eval
-    step's on the trained model, and the launches of DRIVER_KERNELS; then
-    profiles the trained model's step on three sets of GCN points."""
+    gather.  Checks every output file, the two stitches equal, finite
+    losses and metrics, the checkpoint's round trip, test_rnr.main's
+    frame bit-equal to the eval step's on the trained model, and the
+    launches of DRIVER_KERNELS; then `image_formats`, and profiles the
+    trained model's step on three sets of GCN points."""
     import shutil
     from rnr_tpu_torch.data import Mesh, ViewDataset, load_obj
     from rnr_tpu_torch.drivers import precompute, stitch_lp, test_rnr
@@ -3273,6 +3392,11 @@ def phase_drivers(driver_launches: dict, train_out: dict) -> None:
     stitch_lp.main(["--data_root", root, "--sampling_pattern", split[0],
                     "--img_suffix", ".png"])
     t_stitch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stitch_lp.main(["--data_root", os.path.join(root, "exr"),
+                    "--sampling_pattern", split[0]])
+    t_stitch_exr = time.perf_counter() - t0
+    exr_stitch_equal(root, split[0])
     t0 = time.perf_counter()
     log_dir, model = train_rnr.main([
         *dr, "--logging_root", os.path.join(root, "logs"),
@@ -3307,6 +3431,7 @@ def phase_drivers(driver_launches: dict, train_out: dict) -> None:
         raise AssertionError(f"drivers: {missing} never launched")
     log(f"[drivers] launches on the drivers path: {driver_launches}")
     check_outputs(root, log_dir)
+    image_formats(root, split, smi)
 
     with open(os.path.join(log_dir, "summary.json")) as f:
         summary = json.load(f)
@@ -3320,7 +3445,8 @@ def phase_drivers(driver_launches: dict, train_out: dict) -> None:
         f"every map ({DRIVER_VIEWS} views, .mat and .png writes "
         f"included), {t_low / DRIVER_VIEWS:.4f} s/view for the GCN mesh's "
         f"raster; stitch_lp {t_stitch:.3f} s ({DRIVER_TRAIN_VIEWS} views, "
-        "1600 x 3200 probe)")
+        f"1600 x 3200 probe), {t_stitch_exr:.3f} s from the same views as "
+        "ZIP EXR (its default suffix; probe, mask and counts equal)")
     log(f"[drivers] train_rnr: {timing['iters_per_s']:.3f} iterations/s "
         f"through the driver ({1e3 / timing['iters_per_s']:.3f} ms an "
         f"iteration over {timing['iters_timed']} after the first; "
@@ -5064,7 +5190,7 @@ def main() -> None:
         phase_train_parity()
         done("train_parity")
     if "drivers" in phases:
-        phase_drivers(driver_launches, train_out)
+        phase_drivers(driver_launches, train_out, smi)
         done("drivers")
     if "dnr" in phases:
         phase_dnr(dnr_launches, rec)

@@ -6,7 +6,8 @@ after_N / skip_N / skipinv_N / only_N), the square crop and resize with
 the intrinsics adjusted to match, RAM buffering, and the precomputed
 G-buffer maps of the `precomp_<obj>/resol_<S>/` layout that either
 package's precompute writes.  Images are read by `data/imageio.py` (PNG,
-Radiance HDR, .mat; `.exr` and `.jpg` raise), channels RGB.
+JPEG, BMP, OpenEXR, Radiance HDR, .mat), cv2's IMREAD_UNCHANGED read of
+rnr_tpu, channels RGB.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from glob import glob
 import numpy as np
 import scipy.io
 
-from rnr_tpu_torch.data.imageio import read_image, read_png, resize
+from rnr_tpu_torch.data.imageio import (IMREAD_UNCHANGED, read_image,
+                                        read_png, resize)
 
 IMG_EXTS = ["*.png", "*.jpg", "*.JPEG", "*.bmp", "*.exr", "*.hdr", "*.mat"]
 
@@ -31,12 +33,13 @@ def glob_imgs(path: str) -> list[str]:
 
 def load_img(filepath: str, square_crop: bool = False,
              target_size: list[int] | None = None):
-    """An image as float32 RGB: PNG in [0, 1] (divided by 255), HDR and
-    .mat as stored.  Returns (img, center_coord, center_coord_new,
+    """An image as float32 RGB: `.exr`, `.hdr` and `.mat` as stored,
+    every other format (PNG, JPEG, BMP) divided by 255, as rnr_tpu's cv2
+    branch does.  Returns (img, center_coord, center_coord_new,
     img_crop_size), the reference loader's tuple, for the intrinsics
     adjustment."""
-    img = read_image(filepath)
-    if filepath.endswith(".png"):
+    img = read_image(filepath, IMREAD_UNCHANGED)
+    if not filepath.endswith((".exr", ".hdr", ".mat")):
         img = img.astype(np.float32) / 255.0
     img = np.asarray(img, np.float32)
     if img.ndim == 3:
@@ -234,11 +237,11 @@ class ViewDataset:
 
 
 def read_probe(fp: str, img_gamma: float = 1.0) -> np.ndarray:
-    """A light probe as float32 RGB [H, W, 3]: HDR as stored, PNG / .mat
-    8-bit over 255; then the gamma."""
-    img = read_image(fp)
-    if not fp.endswith(".hdr"):
-        img = img[:, :, :3].astype(np.float32) / 255.0
+    """A light probe as float32 RGB [H, W, 3]: `.exr` and `.hdr` as
+    stored, every other format over 255; then the gamma."""
+    img = read_image(fp, IMREAD_UNCHANGED)[:, :, :3]
+    if not fp.endswith((".exr", ".hdr")):
+        img = img.astype(np.float32) / 255.0
     return (np.asarray(img, np.float32) ** img_gamma).astype(np.float32)
 
 

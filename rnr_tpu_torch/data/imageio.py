@@ -7,11 +7,24 @@ numpy with no cv2 (the port's stand-in for what rnr_tpu takes from cv2).
 - Radiance `.hdr` (RGBE), read (flat or run-length scanlines) and written
   (run-length scanlines of literal chunks), with the RGBE rounding of
   Greg Ward's rgbe.c that cv2 uses.
+- JPEG (`.jpg`, `.jpeg`, any case), read bit-equal to libjpeg-turbo's
+  decode by `data/jpeg.py`: baseline, extended and progressive Huffman
+  files, restart intervals, gray or YCbCr / RGB at any integral
+  sampling, with the EXIF orientation.
+- BMP, read: 24- and 32-bit BI_RGB, 32-bit BI_BITFIELDS with byte masks
+  (cv2's own 32-bit files), 8-bit palettes; bottom-up and top-down.
+- OpenEXR, read: single-part scanline files, NONE, RLE, ZIPS or ZIP,
+  HALF (widened to float32), FLOAT or UINT channels R, G, B (+ A) or Y,
+  the dataWindow; written as cv2.imwrite writes a float32 image (FLOAT,
+  ZIP).
 - `.mat` images through scipy (the `img` variable).
-- `read_image` returns channels in file order (RGB, RGBA), where cv2
-  returns BGR; `bgr_to_rgb` flips cv2's order where one must be compared
-  with the other.  `.exr`, `.jpg` / `.jpeg` and `.bmp` raise a ValueError
-  that names the format.
+- `read_image(path, flags)` returns channels in file order (RGB, RGBA),
+  where cv2 returns BGR; `bgr_to_rgb` flips cv2's order where one must
+  be compared with the other.  `flags` is one of cv2's two flags that
+  rnr_tpu reads 8-bit images with: IMREAD_UNCHANGED (the default: as
+  stored, gray 2-D, no EXIF rotation) or IMREAD_COLOR (EXIF orientation
+  applied, three 8-bit channels).  Any other format, and each feature
+  the readers do not decode, raises a ValueError that names it.
 - `resize` with cv2's INTER_AREA and INTER_LINEAR rules (their source
   coordinates, clamps and, for uint8, the 11-bit fixed-point weights).
 - `fill_poly` and `dilate` as `cv2.fillPoly` (every edge drawn as an
@@ -28,18 +41,21 @@ import zlib
 import numpy as np
 import scipy.io
 
+from rnr_tpu_torch.data.jpeg import decode_jpeg
+
+# cv2's values of the two flags rnr_tpu reads images with
+IMREAD_UNCHANGED = -1
+IMREAD_COLOR = 1
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG color type -> channels: gray, RGB, gray + alpha, RGBA
 PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-UNSUPPORTED = {".exr": "OpenEXR", ".jpg": "JPEG", ".jpeg": "JPEG",
-               ".bmp": "BMP"}
 
 
 def _refuse(path: str) -> None:
-    ext = os.path.splitext(path)[1].lower()
-    name = UNSUPPORTED.get(ext, ext or "this")
-    raise ValueError(f"{path}: {name} files are not read or written by the "
-                     "port, which reads PNG, Radiance HDR (.hdr) and .mat")
+    ext = os.path.splitext(path)[1].lower() or "this"
+    raise ValueError(f"{path}: {ext} files are not read by the port, which "
+                     "reads PNG, JPEG, BMP, OpenEXR, Radiance HDR (.hdr) "
+                     "and .mat")
 
 
 # ------------------------------------------------------------------- PNG
@@ -257,20 +273,329 @@ def write_hdr(path: str, img: np.ndarray) -> None:
         f.write(head + np.ascontiguousarray(pixels).tobytes())
 
 
+# ------------------------------------------------------------------ JPEG
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """cv2's ExifTransform: the EXIF orientation (1-8) undone."""
+    if orientation >= 5:
+        img = np.swapaxes(img, 0, 1)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+def read_jpeg(path: str, flags: int = IMREAD_UNCHANGED) -> np.ndarray:
+    """A JPEG as uint8, bit-equal to cv2.imread(path, flags) with its BGR
+    flipped: [H, W] gray or [H, W, 3] RGB under IMREAD_UNCHANGED;
+    [H, W, 3] with the EXIF orientation applied under IMREAD_COLOR."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        img, orientation = decode_jpeg(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    return _as_color(img, orientation) if flags == IMREAD_COLOR else img
+
+
+# ------------------------------------------------------------------- BMP
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """A BMP as uint8, as cv2.imread(path, IMREAD_UNCHANGED) reads it
+    (file order): 24-bit and 32-bit BI_RGB -> RGB, 32-bit BI_BITFIELDS
+    with byte masks -> RGBA (alpha 255 where it has no alpha mask), an
+    8-bit palette -> [H, W] where every entry is gray, else RGB."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] != b"BM" or len(data) < 54:
+        raise ValueError(f"{path}: not a BMP file")
+    offset = struct.unpack("<I", data[10:14])[0]
+    hsize, w, h, _, bpp, comp = struct.unpack("<IiiHHI", data[14:34])
+    if hsize < 40:
+        raise ValueError(f"{path}: BMP with a {hsize}-byte OS/2 header: the "
+                         "port reads BITMAPINFOHEADER and later headers")
+    kind = {(24, 0): "rgb", (32, 0): "rgb", (32, 3): "bitfields",
+            (8, 0): "palette"}.get((bpp, comp))
+    if kind is None:
+        names = {0: "BI_RGB", 1: "BI_RLE8", 2: "BI_RLE4", 3: "BI_BITFIELDS",
+                 4: "BI_JPEG", 5: "BI_PNG", 6: "BI_ALPHABITFIELDS"}
+        raise ValueError(f"{path}: {bpp}-bit {names.get(comp, comp)} BMP: "
+                         "the port reads 24- and 32-bit BI_RGB, 32-bit "
+                         "BI_BITFIELDS and 8-bit palette BMPs")
+    top_down, h = h < 0, abs(h)
+    stride = (w * bpp // 8 + 3) & ~3
+    rows = np.frombuffer(data, np.uint8, h * stride, offset).reshape(h,
+                                                                     stride)
+    if not top_down:
+        rows = rows[::-1]
+    px = rows[:, :w * bpp // 8]
+    if kind == "palette":
+        n = struct.unpack("<I", data[46:50])[0] or 256
+        pal = np.frombuffer(data, np.uint8, 4 * n, 14 + hsize).reshape(n, 4)
+        pal = np.concatenate([pal, np.zeros((256 - n, 4), np.uint8)])
+        if (pal[:n, 0] == pal[:n, 1]).all() and (pal[:n, 0]
+                                                 == pal[:n, 2]).all():
+            return np.ascontiguousarray(pal[px, 0])
+        return np.ascontiguousarray(pal[px, 2::-1])
+    px = px.reshape(h, w, bpp // 8)
+    if kind == "rgb":
+        return np.ascontiguousarray(px[..., 2::-1])
+    masks = struct.unpack("<4I", data[54:70]) if hsize >= 56 else (
+        struct.unpack("<3I", data[54:66]) + (0,))
+    byte = {0xFF << (8 * i): i for i in range(4)}
+    if any(m not in byte for m in masks[:3]) or (masks[3] and masks[3]
+                                                 not in byte):
+        raise ValueError(f"{path}: BMP bit fields {[hex(m) for m in masks]}"
+                         ": the port reads byte-aligned masks")
+    out = np.stack([px[..., byte[m]] for m in masks[:3]], -1)
+    alpha = (px[..., byte[masks[3]]] if masks[3]
+             else np.full((h, w), 255, np.uint8))
+    return np.concatenate([out, alpha[..., None]], -1)
+
+
+# --------------------------------------------------------------- OpenEXR
+
+EXR_MAGIC = 20000630
+# compression -> (name, scanlines per chunk); None: not read by the port
+EXR_COMPRESSION = {0: ("NONE", 1), 1: ("RLE", 1), 2: ("ZIPS", 1),
+                   3: ("ZIP", 16), 4: ("PIZ", None), 5: ("PXR24", None),
+                   6: ("B44", None), 7: ("B44A", None), 8: ("DWAA", None),
+                   9: ("DWAB", None)}
+# pixel type -> numpy dtype: UINT, HALF, FLOAT
+EXR_TYPES = {0: np.dtype("<u4"), 1: np.dtype("<f2"), 2: np.dtype("<f4")}
+
+
+def _exr_unpredict(buf: bytes) -> np.ndarray:
+    """OpenEXR's ZIP / RLE post-pass: the byte predictor undone (a uint8
+    running sum of the deltas less 128), then the two halves
+    interleaved."""
+    t = np.frombuffer(buf, np.uint8).copy()
+    t[1:] -= 128
+    t = np.cumsum(t, dtype=np.uint8)
+    out = np.empty_like(t)
+    half = (t.size + 1) // 2
+    out[0::2], out[1::2] = t[:half], t[half:]
+    return out
+
+
+def _exr_predict(raw: np.ndarray) -> bytes:
+    """The inverse of _exr_unpredict: the two halves split, then each
+    byte stored as its difference from the one before, plus 128."""
+    t = np.concatenate([raw[0::2], raw[1::2]])
+    d = t.copy()
+    d[1:] = t[1:] - t[:-1] + 128
+    return d.tobytes()
+
+
+def _rle_decode(buf: bytes, n: int) -> bytes:
+    """OpenEXR's rleUncompress: a signed count byte, then count + 1
+    copies of one byte (count >= 0) or -count literal bytes."""
+    out, i = bytearray(), 0
+    while i < len(buf) and len(out) < n:
+        c = buf[i] - 256 if buf[i] > 127 else buf[i]
+        if c < 0:
+            out += buf[i + 1:i + 1 - c]
+            i += 1 - c
+        else:
+            out += buf[i + 1:i + 2] * (c + 1)
+            i += 2
+    return bytes(out)
+
+
+def _exr_header(data: bytes, path: str):
+    magic, version = struct.unpack("<iI", data[:8])
+    if magic != EXR_MAGIC:
+        raise ValueError(f"{path}: not an OpenEXR file")
+    for bit, what in ((0x200, "tiled"), (0x800, "deep"),
+                      (0x1000, "multi-part")):
+        if version & bit:
+            raise ValueError(f"{path}: {what} OpenEXR file: the port reads "
+                             "single-part scanline files")
+    attrs, pos = {}, 8
+    while data[pos] != 0:
+        end = data.index(b"\0", pos)
+        name = data[pos:end].decode()
+        tend = data.index(b"\0", end + 1)
+        typ = data[end + 1:tend].decode()
+        size = struct.unpack("<i", data[tend + 1:tend + 5])[0]
+        attrs[name] = (typ, data[tend + 5:tend + 5 + size])
+        pos = tend + 5 + size
+    return attrs, pos + 1
+
+
+def _exr_channels(value: bytes) -> list:
+    chans, pos = [], 0
+    while value[pos] != 0:
+        end = value.index(b"\0", pos)
+        ptype, _, xs, ys = struct.unpack("<iB3xii", value[end + 1:end + 17])
+        chans.append((value[pos:end].decode(), ptype, xs, ys))
+        pos = end + 17
+    return chans
+
+
+def read_exr(path: str) -> np.ndarray:
+    """A single-part scanline OpenEXR file's dataWindow: float32 (HALF
+    widened, FLOAT; uint32 where every channel is UINT), [H, W, 3] RGB,
+    [H, W, 4] RGBA or [H, W] for Y alone."""
+    with open(path, "rb") as f:
+        data = f.read()
+    attrs, pos = _exr_header(data, path)
+    kind = attrs.get("type", (None, b"scanlineimage\0"))[1].rstrip(b"\0")
+    if kind != b"scanlineimage":
+        raise ValueError(f"{path}: OpenEXR part type {kind.decode()}: the "
+                         "port reads single-part scanline files")
+    comp = attrs["compression"][1][0]
+    cname, lines = EXR_COMPRESSION.get(comp, (str(comp), None))
+    if lines is None:
+        raise ValueError(f"{path}: OpenEXR {cname} compression: the port "
+                         "reads NONE, RLE, ZIPS and ZIP")
+    x0, y0, x1, y1 = struct.unpack("<4i", attrs["dataWindow"][1])
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    chans = _exr_channels(attrs["channels"][1])
+    names = [c[0] for c in chans]
+    order = (["R", "G", "B", "A"] if set(names) == {"R", "G", "B", "A"}
+             else ["R", "G", "B"] if set(names) == {"R", "G", "B"}
+             else ["Y"] if names == ["Y"] else None)
+    if order is None or any(c[1] not in EXR_TYPES or c[2:] != (1, 1)
+                            for c in chans):
+        raise ValueError(f"{path}: OpenEXR channels {chans}: the port reads "
+                         "R, G, B (+ A) or Y, UINT / HALF / FLOAT, "
+                         "unsubsampled")
+    dtypes = [EXR_TYPES[c[1]] for c in chans]
+    line_bytes = w * sum(d.itemsize for d in dtypes)
+    n_chunks = -(-h // lines)
+    offsets = np.frombuffer(data, "<u8", n_chunks, pos)
+    planes = {n: np.empty((h, w), d) for n, d in zip(names, dtypes)}
+    for off in offsets.tolist():
+        y, size = struct.unpack("<ii", data[off:off + 8])
+        n_lines = min(lines, y1 + 1 - y)
+        raw_size = n_lines * line_bytes
+        buf = data[off + 8:off + 8 + size]
+        if size < raw_size:
+            if cname == "RLE":
+                buf = _rle_decode(buf, raw_size)
+            elif cname in ("ZIP", "ZIPS"):
+                buf = zlib.decompress(buf)
+            buf = _exr_unpredict(buf).tobytes()
+        if len(buf) != raw_size:
+            raise ValueError(f"{path}: OpenEXR chunk at line {y} holds "
+                             f"{len(buf)} bytes, expected {raw_size}")
+        rows = np.frombuffer(buf, np.uint8).reshape(n_lines, line_bytes)
+        col = 0
+        for n, d in zip(names, dtypes):
+            part = rows[:, col:col + w * d.itemsize]
+            planes[n][y - y0:y - y0 + n_lines] = np.ascontiguousarray(
+                part).view(d).reshape(n_lines, w)
+            col += w * d.itemsize
+    out_type = (np.uint32 if all(d.kind == "u" for d in dtypes)
+                else np.float32)
+    img = np.stack([planes[n].astype(out_type) for n in order], -1)
+    return img[..., 0] if order == ["Y"] else img
+
+
+def _exr_attr(name: str, typ: str, value: bytes) -> bytes:
+    return (name.encode() + b"\0" + typ.encode() + b"\0"
+            + struct.pack("<i", len(value)) + value)
+
+
+def write_exr(path: str, img: np.ndarray) -> None:
+    """Write float [H, W, 3] (RGB), [H, W, 4] (RGBA) or [H, W] (Y) as
+    cv2.imwrite writes a float32 image: a scanline OpenEXR file,
+    INCREASING_Y, the channels FLOAT in the sorted order the format
+    requires, ZIP-compressed in blocks of 16 lines (a block that does not
+    shrink stored raw, as OpenEXR does)."""
+    a = np.asarray(img, np.float32)
+    if a.ndim == 2:
+        a = a[..., None]
+    names = {1: ["Y"], 3: ["R", "G", "B"], 4: ["R", "G", "B", "A"]}[
+        a.shape[2]]
+    h, w = a.shape[:2]
+    order = sorted(names)
+    chans = b"".join(n.encode() + b"\0" + struct.pack("<iB3xii", 2, 0, 1, 1)
+                     for n in order)
+    box = struct.pack("<4i", 0, 0, w - 1, h - 1)
+    header = (struct.pack("<iI", EXR_MAGIC, 2)
+              + _exr_attr("channels", "chlist", chans + b"\0")
+              + _exr_attr("compression", "compression", bytes([3]))
+              + _exr_attr("dataWindow", "box2i", box)
+              + _exr_attr("displayWindow", "box2i", box)
+              + _exr_attr("lineOrder", "lineOrder", b"\0")
+              + _exr_attr("pixelAspectRatio", "float", struct.pack("<f", 1))
+              + _exr_attr("screenWindowCenter", "v2f",
+                          struct.pack("<2f", 0, 0))
+              + _exr_attr("screenWindowWidth", "float", struct.pack("<f", 1))
+              + b"\0")
+    planes = a[..., [names.index(n) for n in order]].astype("<f4")
+    rows = np.ascontiguousarray(planes.transpose(0, 2, 1)).view(
+        np.uint8).reshape(h, -1)             # per line: each channel's row
+    chunks = []
+    for y in range(0, h, 16):
+        raw = rows[y:y + 16].reshape(-1)
+        body = zlib.compress(_exr_predict(raw), 6)
+        if len(body) >= raw.size:
+            body = raw.tobytes()
+        chunks.append(struct.pack("<ii", y, len(body)) + body)
+    pos = len(header) + 8 * len(chunks)
+    offsets = []
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c)
+    with open(path, "wb") as f:
+        f.write(header + struct.pack(f"<{len(offsets)}Q", *offsets)
+                + b"".join(chunks))
+
+
 # ------------------------------------------------------------- dispatch
 
 
-def read_image(path: str) -> np.ndarray:
-    """PNG (uint8 / uint16, file order), HDR (float32 RGB) or a .mat image
-    (its `img` variable, as stored); any other format raises."""
+def _as_color(img: np.ndarray, orientation: int = 1) -> np.ndarray:
+    """cv2's IMREAD_COLOR of an image read unchanged: the EXIF
+    orientation applied, 16 bits to their high byte, float to
+    round(255 x) saturated, gray to three channels, alpha dropped:
+    uint8 [H, W, 3]."""
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    elif img.dtype.kind == "f":
+        img = np.clip(np.rint(img.astype(np.float32) * np.float32(255)),
+                      0, 255).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    img = np.repeat(img, 3, -1) if img.shape[2] == 1 else img[..., :3]
+    return _orient(img, orientation)
+
+
+def read_image(path: str, flags: int = IMREAD_UNCHANGED) -> np.ndarray:
+    """An image file as cv2.imread(path, flags) reads it, in file channel
+    order.  IMREAD_UNCHANGED: PNG uint8 / uint16 (gray + alpha as RGBA,
+    the gray in each colour), JPEG and BMP uint8 (gray [H, W]), HDR
+    float32 RGB, EXR float32 (uint32 for UINT channels),
+    a .mat image's `img` variable as stored.  IMREAD_COLOR: uint8
+    [H, W, 3] (`_as_color`) of PNG, JPEG, BMP and HDR (cv2's rule for a
+    float image checked on .hdr); an EXR or .mat raises, as does any
+    other format or flag."""
     ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
-        return read_png(path)
-    if ext == ".hdr":
-        return read_hdr(path)
-    if ext == ".mat":
-        return scipy.io.loadmat(path)["img"]
-    _refuse(path)
+    if flags not in (IMREAD_UNCHANGED, IMREAD_COLOR):
+        raise ValueError(f"read_image: flags {flags}: the port reads with "
+                         "IMREAD_UNCHANGED or IMREAD_COLOR")
+    if ext in (".jpg", ".jpeg"):
+        return read_jpeg(path, flags)
+    readers = {".png": read_png, ".hdr": read_hdr, ".bmp": read_bmp,
+               ".exr": read_exr,
+               ".mat": lambda p: scipy.io.loadmat(p)["img"]}
+    if ext not in readers:
+        _refuse(path)
+    img = readers[ext](path)
+    if ext == ".png" and img.ndim == 3 and img.shape[2] == 2:
+        img = img[..., [0, 0, 0, 1]]     # cv2: gray + alpha as BGRA
+    if flags == IMREAD_UNCHANGED:
+        return img
+    if ext in (".exr", ".mat"):
+        raise ValueError(f"{path}: the port reads {ext} files with "
+                         "IMREAD_UNCHANGED only")
+    return _as_color(img)
 
 
 def bgr_to_rgb(img: np.ndarray) -> np.ndarray:

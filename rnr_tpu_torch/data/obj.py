@@ -8,8 +8,8 @@ normalization, and the global rigid transform with span statistics;
 `load_mtl`, per-face texture volumes from the materials
 (`load_obj(load_texture=True)`, through `ops/texture_atlas.py`), and
 `save_obj`, with the per-face volumes baked into an atlas PNG.  Texture
-images are read by `data/imageio.py` (PNG, HDR, `.mat`): a JPEG or EXR
-texture raises a ValueError that names the format.  `use_native` parses
+images are read by `data/imageio.py` (PNG, JPEG, BMP, OpenEXR, HDR,
+`.mat`) as cv2's IMREAD_UNCHANGED reads them.  `use_native` parses
 with the C++ runtime (data/native.py, the port's own build and binding
 of native/rnr_native.cpp) where it builds, else with the Python parser;
 `MeshData.parser` says which ran.
@@ -23,7 +23,7 @@ import os
 import numpy as np
 import torch
 
-from rnr_tpu_torch.data.imageio import read_image, write_png
+from rnr_tpu_torch.data.imageio import IMREAD_UNCHANGED, read_image, write_png
 from rnr_tpu_torch.data.native import parse_obj_native
 from rnr_tpu_torch.ops import texture_atlas
 
@@ -74,11 +74,9 @@ def _read_texture(path: str) -> np.ndarray:
     """A material's texture image as rnr_tpu reads it (cv2's unchanged
     read, its BGR flipped): RGB float32 of the stored values / 255, gray
     to three channels, alpha dropped, rows flipped (v from the bottom)."""
-    img = read_image(path)
+    img = read_image(path, IMREAD_UNCHANGED)
     if img.ndim == 2:
         img = np.stack([img] * 3, -1)
-    elif img.shape[2] == 2:   # gray + alpha
-        img = np.stack([img[..., 0]] * 3, -1)
     img = img[:, :, :3].astype(np.float32) / 255.0
     return img[::-1].copy()
 

@@ -1,6 +1,6 @@
 """Shared driver utilities (port of rnr_tpu/drivers/common.py): path
-resolution, the device choice, sphere samples, PNG output and the
-training loops' timing."""
+resolution, the device choice, sphere samples, the `--tex_fp` texture,
+PNG output and the training loops' timing."""
 
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import numpy as np
 import scipy.io
 import torch
 
-from rnr_tpu_torch.data.imageio import write_png
+from rnr_tpu_torch.data.imageio import (IMREAD_COLOR, read_image, resize,
+                                        write_png)
 from rnr_tpu_torch.ops.backend import resolve_device
 
 PLATFORMS = ("cuda", "cpu")
@@ -58,6 +59,15 @@ def load_sphere_samples(path: str) -> np.ndarray:
     return np.stack([np.sin(phi) * np.cos(theta),
                      np.sin(phi) * np.sin(theta),
                      np.cos(phi)]).astype(np.float32)
+
+
+def read_texture_init(path: str, size: int) -> np.ndarray:
+    """rnr_tpu's `--tex_fp` of train_rnr and train_dnr: cv2.imread's
+    default IMREAD_COLOR read (EXIF orientation applied, 16 bits to their
+    high byte, gray to three channels, alpha dropped) as RGB, resized to
+    size x size with INTER_AREA, / 255 -> float32 [size, size, 3]."""
+    tex = read_image(path, IMREAD_COLOR)
+    return resize(tex, (size, size), "area").astype(np.float32) / 255.0
 
 
 def save_png(path: str, img) -> None:

@@ -5,10 +5,12 @@ For each sampled view: mask out the projected object (its faces filled,
 dilated by 17 pixels at 512^2, resized back), map every background
 pixel's camera ray to equirect coordinates and average the pixels'
 colours into a light probe.  Writes
-`light_probe_stitch_<pattern>/{idx}.png`, `{idx}.hdr` (the float probe;
-rnr_tpu writes `.exr` where its cv2 can, else `.hdr`), `mask/{idx}.png`
-(coverage) and `count/{idx}.png|.mat`, the inputs of train_rnr.  Host
-NumPy throughout (`data/imageio.py` for the image operations).
+`light_probe_stitch_<pattern>/{idx}.png`, `{idx}.exr` (the float probe,
+FLOAT and ZIP, as rnr_tpu writes it where its cv2 has OpenEXR),
+`mask/{idx}.png` (coverage) and `count/{idx}.png|.mat`, the inputs of
+train_rnr.  The views are `rgb<idx>/%03d.exr` at the default suffix,
+else `rgb<idx>/%06d<suffix>` over 255.  Host NumPy throughout
+(`data/imageio.py` for the image files and operations).
 
 Usage:
   python -m rnr_tpu_torch.drivers.stitch_lp --data_root DATA
@@ -25,8 +27,9 @@ import scipy.io
 
 from rnr_tpu_torch.data import load_obj
 from rnr_tpu_torch.data.dataset import apply_sampling_pattern
-from rnr_tpu_torch.data.imageio import (dilate, fill_poly, read_image,
-                                        resize, write_hdr, write_png)
+from rnr_tpu_torch.data.imageio import (IMREAD_UNCHANGED, dilate,
+                                        fill_poly, read_image, resize,
+                                        write_exr, write_png)
 from rnr_tpu_torch.drivers.common import cond_mkdir, resolve
 
 
@@ -110,7 +113,7 @@ def main(argv=None) -> None:
         if not os.path.isfile(fp):
             print(f"view {i}: missing image {fp}, skipped")
             continue
-        img = read_image(fp)
+        img = read_image(fp, IMREAD_UNCHANGED)
         if opt.img_suffix != ".exr":
             img = img.astype(np.float32)[:, :, :3] / 255.0
 
@@ -141,7 +144,7 @@ def main(argv=None) -> None:
     idx = str(opt.lighting_idx)
     write_png(os.path.join(save_dir, idx + ".png"),
               (np.clip(env, 0, 1) * 255).astype(np.uint8))
-    write_hdr(os.path.join(save_dir, idx + ".hdr"), env.astype(np.float32))
+    write_exr(os.path.join(save_dir, idx + ".exr"), env.astype(np.float32))
     write_png(os.path.join(save_mask, idx + ".png"),
               (covered[:, :, None].repeat(3, 2) * 255).astype(np.uint8))
     write_png(os.path.join(save_count, idx + ".png"),

@@ -7,9 +7,9 @@ log, validation and checkpoint cadence, its output directories,
 `params.json`, `model_final.ckpt` and `summary.json`.  One training step
 and one Adam over both (`train/steps.py`), on the card unless
 `--platform cpu`.  `--synthetic` trains on random G-buffers, with no
-data; `--tex_fp` starts the texture's level 0 from an image (an 8- or
-16-bit PNG or `.mat` through `data/imageio.py`, resized with INTER_AREA's
-rule; a JPEG raises a ValueError that names the format).
+data; `--tex_fp` starts the texture's level 0 from an image
+(`drivers/common.read_texture_init`: cv2's colour read of PNG, JPEG, BMP
+or HDR, resized with INTER_AREA's rule).
 
 Randomness: the initial weights come from `init_dnr_params(--seed)` (a
 CPU generator, so the card and the CPU start alike), dropout from one
@@ -37,8 +37,8 @@ import torch
 from rnr_tpu_torch.config import (DNRConfig, LossConfig, RenderNetConfig,
                                   TextureConfig, TrainConfig, save_config)
 from rnr_tpu_torch.data import ViewDataset
-from rnr_tpu_torch.data.imageio import read_image, resize
-from rnr_tpu_torch.drivers.common import (cond_mkdir, loop_time, resolve,
+from rnr_tpu_torch.drivers.common import (cond_mkdir, loop_time,
+                                          read_texture_init, resolve,
                                           save_png, setup_device, str2bool,
                                           sync)
 from rnr_tpu_torch.ops.metrics import masked_err_metrics
@@ -116,24 +116,6 @@ def make_batch(views: list[dict], device) -> dict:
     batch["alpha_map"] = dev(np.stack([np.asarray(v["alpha_map"])
                                        for v in views]))[..., None]
     return batch
-
-
-def read_texture_init(path: str, size: int) -> np.ndarray:
-    """rnr_tpu's --tex_fp, cv2.imread's 8-bit colour read: the image's RGB
-    (a 16-bit PNG taken to its high byte, gray to three channels, alpha
-    dropped), resized to size x size with INTER_AREA, / 255 -> float32
-    [size, size, 3].  A float image (HDR) raises: only 8- and 16-bit
-    images are read here."""
-    tex = read_image(path)
-    if tex.dtype == np.uint16:
-        tex = (tex >> 8).astype(np.uint8)
-    if tex.dtype != np.uint8:
-        raise ValueError(f"{path}: --tex_fp reads an 8- or 16-bit image, "
-                         f"not {tex.dtype}")
-    if tex.ndim == 2:
-        tex = np.stack([tex] * 3, -1)
-    tex = np.ascontiguousarray(tex[:, :, :3])
-    return resize(tex, (size, size), "area").astype(np.float32) / 255.0
 
 
 def main(argv=None):

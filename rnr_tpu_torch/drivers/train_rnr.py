@@ -54,8 +54,9 @@ from rnr_tpu_torch.data import LightProbeDataset, ViewDataset, load_obj
 from rnr_tpu_torch.data.imageio import read_image, resize
 from rnr_tpu_torch.data.prefetch import prefetch
 from rnr_tpu_torch.drivers.common import (cond_mkdir, load_sphere_samples,
-                                          loop_time, resolve, save_png,
-                                          setup_device, str2bool, sync)
+                                          loop_time, read_texture_init,
+                                          resolve, save_png, setup_device,
+                                          str2bool, sync)
 from rnr_tpu_torch.models.lighting import LightingLP
 from rnr_tpu_torch.models.rnr import RNRModel
 from rnr_tpu_torch.ops.interpolate import interpolate_bilinear
@@ -239,7 +240,7 @@ def _read_stitch(lp_stitch_dir: str, lighting_idx: int, img_gamma: float):
     hdr = os.path.join(lp_stitch_dir, f"{lighting_idx}.hdr")
     png = os.path.join(lp_stitch_dir, f"{lighting_idx}.png")
     if os.path.isfile(exr) or os.path.isfile(hdr):
-        lp_stitch = read_image(exr if os.path.isfile(exr) else hdr)
+        lp_stitch = read_image(exr if os.path.isfile(exr) else hdr)[:, :, :3]
     else:
         lp_stitch = read_image(png)[:, :, :3].astype(np.float32) / 255.0
     lp_stitch = np.nan_to_num(lp_stitch) ** img_gamma
@@ -430,9 +431,7 @@ def _train(opt, dev: torch.device, mesh):
 
         texture_init = None
         if opt.init_tex and os.path.isfile(opt.tex_fp):
-            tex = read_image(opt.tex_fp)[:, :, :3]
-            texture_init = resize(tex, (opt.texture_size, opt.texture_size),
-                                  "area").astype(np.float32) / 255.0
+            texture_init = read_texture_init(opt.tex_fp, opt.texture_size)
         log_root = opt.logging_root or os.path.join(opt.data_root, "logs",
                                                     "rnr")
 

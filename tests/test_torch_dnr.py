@@ -38,7 +38,8 @@ import rnr_tpu.config as jax_config
 import rnr_tpu_torch.config as port_config
 from rnr_tpu.train import steps as jsteps
 from rnr_tpu_torch.convert import jax_grads_to_torch, load_jax_variables
-from rnr_tpu_torch.data.imageio import read_png, write_png
+from rnr_tpu_torch.data.imageio import (IMREAD_COLOR, read_image, read_png,
+                                        write_png)
 from rnr_tpu_torch.train import steps as psteps
 from rnr_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from test_torch_drivers import FORBIDDEN, ROOT, _run_dir, make_scene
@@ -432,18 +433,30 @@ def test_train_dnr_resumes_from_a_checkpoint(dnr_scenes, capsys):
 
 
 def test_tex_fp_reads_as_rnr_tpu(tmp_path):
-    """train_dnr's --tex_fp: an 8-bit RGB PNG, a 16-bit RGBA PNG and a
-    gray PNG read and INTER_AREA-resized as rnr_tpu's cv2 path does (to
-    float32 rounding); a JPEG raises a ValueError naming the format."""
+    """train_dnr's --tex_fp: an 8-bit RGB PNG, a 16-bit RGBA PNG, a gray
+    PNG, an RGB JPEG, a gray JPEG and a JPEG with EXIF orientation 6 read
+    and INTER_AREA-resized as rnr_tpu's cv2 path does (to float32
+    rounding); the JPEGs read bit-equal to cv2's default read."""
     import cv2
     from rnr_tpu_torch.drivers.train_dnr import read_texture_init
     rng = np.random.default_rng(0)
     imgs = {"rgb8": rng.integers(0, 256, (40, 52, 3)).astype(np.uint8),
             "rgba16": rng.integers(0, 65536, (33, 30, 4)).astype(np.uint16),
             "gray": rng.integers(0, 256, (20, 24)).astype(np.uint8)}
+    paths = []
     for name, img in imgs.items():
-        path = str(tmp_path / f"{name}.png")
-        write_png(path, img)
+        paths.append(str(tmp_path / f"{name}.png"))
+        write_png(paths[-1], img)
+    for name in ("rgb8", "gray"):
+        paths.append(str(tmp_path / f"{name}.jpg"))
+        cv2.imwrite(paths[-1], imgs[name])
+    from PIL import Image
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    paths.append(str(tmp_path / "exif6.jpg"))
+    Image.fromarray(imgs["rgb8"]).save(paths[-1], exif=exif.tobytes())
+    for path in paths:
+        name = os.path.basename(path)
         tex = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
         want = cv2.resize(tex, (16, 16), interpolation=cv2.INTER_AREA
                           ).astype(np.float32) / 255.0
@@ -451,10 +464,8 @@ def test_tex_fp_reads_as_rnr_tpu(tmp_path):
         assert got.shape == (16, 16, 3) and got.dtype == np.float32
         np.testing.assert_allclose(got, want, rtol=0, atol=1.5 / 255, )
         assert np.mean(np.abs(got - want) > 1e-6) <= 0.05, name
-    jpg = str(tmp_path / "t.jpg")
-    cv2.imwrite(jpg, imgs["rgb8"])
-    with pytest.raises(ValueError, match="JPEG"):
-        read_texture_init(jpg, 16)
+        if path.endswith(".jpg"):
+            assert np.array_equal(read_image(path, IMREAD_COLOR), tex)
 
 
 def test_train_dnr_synthetic_runs_as_a_module_without_jax(tmp_path):

@@ -8,10 +8,12 @@ another order), uint8 INTER_AREA off by 1 on at most 1e-5 of the pixels,
 uint8 INTER_LINEAR off by at most 1 on at most 6% of the pixels (cv2's vector path rounds its fixed-point sums differently from
 its scalar formula, which the port follows).  `fill_poly` is cv2's
 fillPoly (lines, then an even-odd fill) on at most 0.2% of the pixels
-differing, `dilate` is exact.  `.exr` and `.jpg` raise, naming the
-format."""
+differing, `dilate` is exact.  What the JPEG and EXR readers do not
+decode raises, naming the feature (the formats themselves are held to
+cv2 in test_torch_image_formats.py)."""
 
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -165,11 +167,51 @@ def test_fill_poly_mesh_silhouette_matches_cv2():
         assert (got != (ref == 0)).mean() <= 0.005, k
 
 
-@pytest.mark.parametrize("name", ["a.exr", "b.jpg", "c.JPEG", "d.bmp"])
-def test_unsupported_formats_raise_naming_the_format(tmp_path, name):
+def _exr_attr(name, typ, value):
+    return (name.encode() + b"\0" + typ.encode() + b"\0"
+            + struct.pack("<i", len(value)) + value)
+
+
+def _exr_head(compression, flags):
+    """An OpenEXR header from the spec: magic, version 2 with `flags`,
+    the required attributes, one HALF channel per R, G, B."""
+    chans = b"".join(c + b"\0" + struct.pack("<iB3xii", 1, 0, 1, 1)
+                     for c in (b"B", b"G", b"R")) + b"\0"
+    box = struct.pack("<4i", 0, 0, 15, 15)
+    return (struct.pack("<iI", 20000630, 2 | flags)
+            + _exr_attr("channels", "chlist", chans)
+            + _exr_attr("compression", "compression", bytes([compression]))
+            + _exr_attr("dataWindow", "box2i", box)
+            + _exr_attr("displayWindow", "box2i", box)
+            + _exr_attr("lineOrder", "lineOrder", b"\0")
+            + _exr_attr("pixelAspectRatio", "float", struct.pack("<f", 1))
+            + _exr_attr("screenWindowCenter", "v2f", bytes(8))
+            + _exr_attr("screenWindowWidth", "float", struct.pack("<f", 1))
+            + b"\0" + bytes(16 * 8))
+
+
+def _jpeg_head(sof, precision):
+    """SOI, then a frame header from the spec: marker 0xFF `sof`, 8 x 8,
+    one component; and EOI."""
+    body = struct.pack(">BHHB", precision, 8, 8, 1) + b"\x01\x11\x00"
+    return (b"\xff\xd8" + bytes([0xFF, sof]) + struct.pack(">H", 2 + len(body))
+            + body + b"\xff\xd9")
+
+
+@pytest.mark.parametrize("name,data,what", [
+    ("piz.exr", _exr_head(4, 0), "PIZ compression"),
+    ("tiled.exr", _exr_head(0, 0x200), "tiled"),
+    ("sof9.jpg", _jpeg_head(0xC9, 8), r"arithmetic coding \(SOF9\)"),
+    ("twelve.JPEG", _jpeg_head(0xC1, 12), "12-bit precision")])
+def test_unsupported_formats_raise_naming_the_format(tmp_path, name, data,
+                                                     what):
+    """Files the readers do not decode, built from the specs' header
+    bytes: a PIZ and a tiled EXR, an arithmetic-coded and a 12-bit
+    JPEG."""
     path = str(tmp_path / name)
-    open(path, "wb").close()
-    with pytest.raises(ValueError, match="reads PNG, Radiance HDR"):
+    with open(path, "wb") as f:
+        f.write(data)
+    with pytest.raises(ValueError, match=what):
         io.read_image(path)
 
 

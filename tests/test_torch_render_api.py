@@ -459,14 +459,26 @@ def test_load_obj_no_mtllib_raises(tmp_path):
 
 
 def test_load_obj_jpeg_texture_raises(tmp_path):
-    """A map_Kd JPEG: rnr_tpu reads it through cv2; the port has no JPEG
-    reader and raises a ValueError naming the format."""
-    img = np.zeros((8, 8, 3), np.uint8)
-    cv2.imwrite(str(tmp_path / "t.jpg"), img)
-    path = _textured_obj(tmp_path, "t.jpg")
-    assert jobj.load_obj(path, load_texture=True).textures is not None
-    with pytest.raises(ValueError, match="JPEG"):
-        pobj.load_obj(path, load_texture=True)
+    """A map_Kd JPEG (4:2:0, odd size, smooth colours) and a gray one:
+    the texture image bit-equal to rnr_tpu's cv2 read, and the port's
+    load_obj(load_texture=True) to rnr_tpu's as in
+    test_load_obj_textures_match_rnr_tpu; nothing raises."""
+    yy, xx = np.mgrid[0:13, 0:11] / 13.0
+    img = np.stack([200 * xx, 150 * yy, 90 + 60 * xx * yy], -1)
+    cv2.imwrite(str(tmp_path / "t.jpg"), img.astype(np.uint8))
+    cv2.imwrite(str(tmp_path / "g.jpg"), (250 * yy).astype(np.uint8))
+    for name in ("t.jpg", "g.jpg"):
+        raw = cv2.imread(str(tmp_path / name), cv2.IMREAD_UNCHANGED)
+        raw = np.stack([raw] * 3, -1) if raw.ndim == 2 else raw[..., ::-1]
+        np.testing.assert_array_equal(
+            pobj._read_texture(str(tmp_path / name)),
+            raw[::-1].astype(np.float32) / 255.0)
+        path = _textured_obj(tmp_path, name)
+        kw = dict(load_texture=True, texture_size=4)
+        got = pobj.load_obj(path, **kw)
+        want = jobj.load_obj(path, use_native=False, **kw)
+        assert got.textures.shape == want.textures.shape == (5, 4, 4, 4, 3)
+        _close(got.textures, want.textures)
 
 
 def test_save_obj_writes_rnr_tpus_files(tmp_path):
