@@ -3,8 +3,8 @@ training step, inference from a mesh (G-buffer, then the frame),
 relighting under novel light probes, the U-Net's conv routes "pallas"
 (K6), "p3s4" (K8's 4x4 pair), "slab3" (K8's 3x3 slab conv, K8a and K8b)
 and "slab" (the 3x3 slab conv and K8's 4x4 pair), the offline drivers,
-Deferred Neural Rendering, the differentiable rasterizer, and remat and
-data parallelism over ranks.
+Deferred Neural Rendering, the differentiable rasterizer, remat and
+data parallelism over ranks, and the quality gate's shipped arm.
 
     python3 chip_smoke.py            # every phase (one H100, a few minutes)
     python3 chip_smoke.py --phases device,build,kernels
@@ -16,6 +16,7 @@ data parallelism over ranks.
     python3 chip_smoke.py --phases device,build,drivers,dnr,edge_grad
     python3 chip_smoke.py --phases device,build,parallel
     python3 chip_smoke.py --phases device,build,sp
+    python3 chip_smoke.py --phases device,build,gate
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
@@ -218,10 +219,10 @@ Phases (each failure raises, so the script exits non-zero):
            reading and the control's: the sound run within, the control
            outside; at bf16 the cosines and elementwise errors are
            reported.  The ranks' parameters equal by digest after two
-           steps (dropout on).  Last, which parser
-           load_obj ran (the build error where the C++ one did not
-           build) and, where the native one ran, its arrays against the
-           Python parser's on the gbuffer phase's sphere.
+           steps (dropout on).  Last, the native OBJ parser
+           (csrc/obj_parse.cpp; fails where it did not run) and its
+           arrays against the Python parser's on the gbuffer phase's
+           sphere.
   sp       image rows across ranks (rnr_tpu's sp axis) at full width:
            Gloo ranks on cuda:0 (spawned by parallel.run_ranks), dropout
            off, against one process on the same global batch.  Two ranks:
@@ -236,6 +237,18 @@ Phases (each failure raises, so the script exits non-zero):
            readings.  Each rank's launches (sp_launches in the kernels
            line) must equal the others' and the route's own counts: an
            eval frame K4 17, K3 14, K1 1, K2 1 on each rank.
+  gate     the quality gate (rnr_tpu_torch/tools/quality_gate.py) at
+           canonical width: its "ship" arm (tools/out/best_config.json's
+           knobs) in this process through the module's main (--one_arm
+           ship --canonical --img 512 --iters GATE_ITERS): the 24-view
+           scene of 72 x 104 sphere segments, precompute, stitch_lp,
+           GATE_ITERS train_rnr iterations and one validation with
+           relighting.  Checks the loss falls, every validation figure
+           finite, the launches of K1, K1b, K2, K2b, K3, K3b, K4 and K7
+           on that path (gate_launches), and that every load_obj call ran
+           the native parser (csrc/obj_parse.cpp); reports iterations/s,
+           peak device MiB and host RSS.  Then the native parser against
+           the Python one on a 1,001,112-face sphere, both timed.
 The slice phase also holds K4 to its plain version (compare_picks) on
 the canonical GCN's own block features, and the parity phase runs the
 canonical model with group norm at 128^2 on the card against the CPU.
@@ -3165,13 +3178,15 @@ DRIVER_KERNELS = ("sh_shade_fan", "sh_shade_fan_bwd", "mipmap_gather",
 
 
 def write_obj(path: str, mesh) -> None:
-    """A mesh of synthetic.sphere_mesh (uv and normal per vertex) as OBJ."""
+    """A mesh of synthetic.sphere_mesh (uv and normal per vertex) as OBJ,
+    formatted row by row from Python lists (a million faces in seconds)."""
+    rows = [("v %.7f %.7f %.7f\n", mesh.v), ("vt %.7f %.7f\n", mesh.vt),
+            ("vn %.7f %.7f %.7f\n", mesh.vn),
+            ("f %d/%d/%d %d/%d/%d %d/%d/%d\n",
+             np.repeat(mesh.f_v_idx + 1, 3, axis=1))]
     with open(path, "w") as f:
-        f.write("".join("v %.7f %.7f %.7f\n" % tuple(v) for v in mesh.v))
-        f.write("".join("vt %.7f %.7f\n" % tuple(t) for t in mesh.vt))
-        f.write("".join("vn %.7f %.7f %.7f\n" % tuple(n) for n in mesh.vn))
-        f.write("".join("f %d/%d/%d %d/%d/%d %d/%d/%d\n" % tuple(
-            np.repeat(tri + 1, 3)) for tri in mesh.f_v_idx))
+        for fmt, a in rows:
+            f.writelines(map(fmt.__mod__, map(tuple, a.tolist())))
 
 
 def write_scene(root: str) -> None:
@@ -4760,14 +4775,19 @@ def dp_two_ranks() -> dict:
     return r0
 
 
-def native_parser() -> str:
-    """Which parser load_obj ran; where the C++ one ran, its arrays
-    against the Python parser's on the G-buffer phase's sphere."""
+def native_parser(lat_lon: tuple, tag: str) -> dict:
+    """load_obj's native parser (csrc/obj_parse.cpp) on a UV sphere of
+    lat_lon, against the Python parser: both timed (host clock), the
+    arrays equal (indices exactly, floats to 1e-6 relative).  Fails
+    where the native parser did not run."""
+    from rnr_tpu_torch.data import native
     from rnr_tpu_torch.data.obj import load_obj
     from rnr_tpu_torch.synthetic import sphere_mesh
-    path = os.path.join(ROOT, "build", "parallel_sphere.obj")
+    path = os.path.join(ROOT, "build", f"{tag}_sphere.obj")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    write_obj(path, sphere_mesh(*MESH_LAT_LON))
+    t0 = time.perf_counter()
+    write_obj(path, sphere_mesh(*lat_lon))
+    t_write = time.perf_counter() - t0
     t0 = time.perf_counter()
     load_obj(path, use_native=True)      # builds the library at first use
     t_first = time.perf_counter() - t0
@@ -4777,25 +4797,27 @@ def native_parser() -> str:
     t0 = time.perf_counter()
     py = load_obj(path, use_native=False)
     t_py = time.perf_counter() - t0
-    log(f"[parallel] load_obj(use_native=True) ran the {nat.parser} parser "
+    os.remove(path)
+    if nat.parser != "native":
+        raise AssertionError(f"[{tag}] load_obj(use_native=True) ran the "
+                             f"{nat.parser} parser: "
+                             f"{native.build_error.get('obj_parse')}")
+    log(f"[{tag}] load_obj(use_native=True) ran the native parser "
         f"({t_nat * 1e3:.1f} ms, host clock; its first call, the build "
         f"included, {t_first:.2f} s; the Python parser "
         f"{t_py * 1e3:.1f} ms) on {len(py.v)} vertices, "
-        f"{len(py.f_v_idx)} faces")
-    if nat.parser == "native":
-        for f in ("v", "vt", "vn", "f_v_idx", "f_vt_idx", "f_vn_idx"):
-            a, c = getattr(nat, f), getattr(py, f)
-            if a.shape != c.shape or (
-                    not np.array_equal(a, c) if f.startswith("f_")
-                    else not np.allclose(a, c, rtol=1e-6, atol=0)):
-                raise AssertionError(f"native parser: {f} differs")
-        log("[parallel] the native parser's arrays equal the Python "
-            "parser's (indices exactly, floats to 1e-6 relative)")
-    else:
-        from rnr_tpu_torch.data import native
-        log(f"[parallel] the native library did not build here: "
-            f"{native.build_error}")
-    return nat.parser
+        f"{len(py.f_v_idx)} faces ({os.cpu_count()} cores; the file "
+        f"written in {t_write:.2f} s)")
+    for f in ("v", "vt", "vn", "f_v_idx", "f_vt_idx", "f_vn_idx"):
+        a, c = getattr(nat, f), getattr(py, f)
+        if a.shape != c.shape or (
+                not np.array_equal(a, c) if f.startswith("f_")
+                else not np.allclose(a, c, rtol=1e-6, atol=0)):
+            raise AssertionError(f"[{tag}] native parser: {f} differs")
+    log(f"[{tag}] the native parser's arrays equal the Python parser's "
+        "(indices exactly, floats to 1e-6 relative)")
+    return dict(parser=nat.parser, faces=len(py.f_v_idx), native_ms=t_nat *
+                1e3, python_ms=t_py * 1e3, first_call_s=t_first)
 
 
 def phase_parallel(remat_launches: dict, rec: dict) -> None:
@@ -4827,7 +4849,8 @@ def phase_parallel(remat_launches: dict, rec: dict) -> None:
     remat_driver_run()
     one_rank_nccl()
     dp = dp_two_ranks()
-    rec["parallel"] = dict(remat=remat, dp=dp, parser=native_parser())
+    rec["parallel"] = dict(remat=remat, dp=dp,
+                           parser=native_parser(MESH_LAT_LON, "parallel"))
 
 
 # ------------------------------------------------------------ sp phase
@@ -5129,12 +5152,196 @@ def phase_sp(sp_launches: dict, rec: dict) -> None:
                                      f"the halo passes {passed}")
 
 
+# ------------------------------------------------------------------ gate
+
+# the albedo prior lifts the loss after the first step (the texture starts
+# at ones); it falls below the first step's by iteration 140 where the
+# prior's term decays fast, and only by 520 where it decays slowly, as in
+# the runs that end in the gate's second basin (PERF.md, section 6)
+GATE_ITERS = 700
+# kernels the gate's ship arm must launch: precompute's G-buffers (K7),
+# the training steps and the validation (K1, K1b, K2, K2b, K3, K3b, K4)
+GATE_KERNELS = ("sh_shade_fan", "sh_shade_fan_bwd", "mipmap_gather",
+                "mipmap_scatter", "conv3x3", "conv3x3_wgrad",
+                "stratified_knn", "rasterize_tiles")
+# the native OBJ parser's large mesh: 1,001,112 faces, 502,681 vertices
+BIG_LAT_LON = (708, 708)
+
+
+# relative to the plain f32 version's largest value: the bf16 output's one
+# rounding (2^-8 of its value) twice; the f32 gradients as the kernels
+# phase holds them
+SLAB_PARITY_TOL = {"fwd": 2.0 ** -7, "dgrad": 1e-4, "wgrad": 1e-4}
+
+
+def slab_conv_parity(step) -> dict:
+    """K8a's forward and data gradient and K8b at the inputs one slab3
+    train step gives them, captured from the step (as dnr_conv_parity
+    captures K3's), beside K3 / K3b on the same inputs, each against the
+    plain f32 version: the largest error over the plain version's
+    largest value per kind, for both formulations; fails where K8's
+    exceeds SLAB_PARITY_TOL."""
+    from rnr_tpu_torch.ops import conv_cuda as cc
+    real_fwd, real_vjp = cc.conv3x3s_fwd, cc._vjp
+    seen = {"fwd": [], "dgrad": [], "wgrad": []}
+
+    def fwd(x, w, b, pad_mode, out_dtype=None):
+        seen["fwd"].append([x.detach().clone(), w.detach().clone(),
+                            b.detach().clone(), pad_mode])
+        return real_fwd(x, w, b, pad_mode, out_dtype)
+
+    def vjp(ctx, g, dgrad, wgrad):
+        x, w = ctx.saved_tensors
+        if dgrad is cc.conv3x3s_dgrad:
+            gx = g.to(x.dtype).detach().clone()
+            seen["dgrad"].append([gx, w.detach().clone(), ctx.pad_mode])
+            seen["wgrad"].append([x.detach().clone(), gx, ctx.pad_mode])
+        return real_vjp(ctx, g, dgrad, wgrad)
+
+    cc.conv3x3s_fwd, cc._vjp = fwd, vjp
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        cc.conv3x3s_fwd, cc._vjp = real_fwd, real_vjp
+    runs = {  # (K8, K3, the plain f32 version)
+        "fwd": lambda x, w, b, p: (
+            real_fwd(x, w, b, p), cc.conv3x3_fwd(x, w, b, p),
+            cc.conv3x3_torch(x.float(), w.to(x.dtype).float(), b, p)),
+        "dgrad": lambda g, w, p: (
+            cc.conv3x3s_dgrad(g, w, p), cc.conv3x3_dgrad(g, w, p),
+            cc.conv3x3_dgrad_torch(g, w, p)),
+        "wgrad": lambda x, g, p: (
+            cc.conv3x3s_wgrad(x, g, p), cc.conv3x3_wgrad(x, g, p),
+            cc.conv3x3_wgrad_torch(x, g, p))}
+    out = {}
+    for kind, calls in seen.items():
+        if len(calls) != 14:
+            raise AssertionError(f"slab parity: {len(calls)} {kind} calls "
+                                 "captured, want 14")
+        e8, e3 = [], []
+        for a in calls:
+            k8, k3, plain = runs[kind](*a)
+            scale = float(plain.abs().max())
+            e8.append(float((k8.float() - plain).abs().max()) / scale)
+            e3.append(float((k3.float() - plain).abs().max()) / scale)
+        out[kind] = dict(k8_max_rel=max(e8), k3_max_rel=max(e3),
+                         k8_per_call=[float(f"{v:.3g}") for v in e8])
+        del calls[:]
+    log("[gate] slab3 step at its own conv inputs, error over the plain f32 "
+        "version's largest value (K8a / K8b, then K3 / K3b on the same "
+        "inputs): " + json.dumps(out))
+    for kind, r in out.items():
+        check(f"slab parity {kind}", r["k8_max_rel"], SLAB_PARITY_TOL[kind])
+    return out
+
+
+def slab_step_parity(root: str, run: str) -> dict:
+    """The gate arm's trained model (`run`'s params.json and
+    model_final.ckpt) on the slab3 route: one train step on the scene's
+    view 1 (a training view) held by slab_conv_parity."""
+    from rnr_tpu_torch.config import RNRConfig, load_config
+    from rnr_tpu_torch.data import ViewDataset, load_obj
+    from rnr_tpu_torch.drivers.common import load_sphere_samples
+    from rnr_tpu_torch.drivers.train_rnr import make_rnr_batch
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.synthetic import build_statics
+    from rnr_tpu_torch.train.checkpoint import load_checkpoint
+    from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
+                                           make_generator,
+                                           make_rnr_train_step)
+    cfg = override(load_config(RNRConfig, os.path.join(run, "params.json")),
+                   render_net=dict(conv_backend="slab3"))
+    gcn_pos = load_obj(os.path.join(root, "mesh.obj")).v
+    model = RNRModel(cfg, len(gcn_pos),
+                     l_dir=load_sphere_samples("nonexistent.mat"))
+    load_checkpoint(os.path.join(run, "model_final.ckpt"), model)
+    pre = os.path.join(root, "precomp_mesh")
+    ds = ViewDataset(root, os.path.join(root, "calib.mat"), (IMG, IMG),
+                     sampling_pattern="only_1", load_precompute=True,
+                     img_dir=os.path.join(root, "rgb0"),
+                     precomp_high_dir=pre, precomp_low_dir=pre)
+    ds.buffer_all()
+    b = make_rnr_batch(ds.views_all, gcn_pos, DEV)
+    step = make_rnr_train_step(model, create_rnr_optimizer(model, 1e-3))
+    statics, gen = build_statics(model, 4096), make_generator(0)
+    out = slab_conv_parity(lambda: step(b, statics, gen))
+    del model, step, b
+    return out
+
+
+def phase_gate(gate_launches: dict, rec: dict, smi: str,
+               iters: int = GATE_ITERS) -> None:
+    """The quality gate's ship arm through its module
+    (rnr_tpu_torch.tools.quality_gate, --one_arm in this process) at
+    canonical width: the 24-view scene, precompute, stitch_lp, `iters`
+    train_rnr iterations and one validation with relighting.  Checks the
+    loss falls, every validation figure finite, the launches of
+    GATE_KERNELS, and that every load_obj call ran the native parser;
+    reports iterations/s, peak MiB and RSS.  Then the trained model's
+    slab3 step at its own conv inputs (slab_step_parity) and the native
+    parser against the Python one on BIG_LAT_LON's sphere."""
+    import shutil
+    from rnr_tpu_torch.data import obj
+    from rnr_tpu_torch.tools import quality_gate as gate
+    root = os.path.join(ROOT, "build", "gate_scene")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--canonical", "--img", str(IMG), "--iters", str(iters),
+            "--root", root, "--one_arm", "ship"]
+    reset_launches()
+    obj.parser_counts.clear()
+    t0 = time.perf_counter()
+    gate.main(argv)
+    t_gate = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    gate_launches.update(read_launches())
+    log(f"[gate] launches on the gate's path: {gate_launches}")
+    missing = [k for k in GATE_KERNELS if not gate_launches[k]]
+    if missing:
+        raise AssertionError(f"gate: {missing} never launched")
+    parsers = dict(obj.parser_counts)
+    if not parsers.get("native") or parsers.get("python"):
+        raise AssertionError(f"gate: load_obj's parsers {parsers}: the "
+                             "native parser did not run every time")
+    args = gate.build_argparser().parse_args(argv)
+    log_root = gate._arm_log_root(root, "ship", gate.arm_cfg(args, "ship"))
+    entry = gate.arm_entry(log_root)
+    vals = [entry.get("first_loss"), entry.get("last_loss"),
+            *entry.get("val", {}).values()]
+    if (entry.get("iters") != iters or len(vals) < 10
+            or not np.isfinite(np.asarray(vals, float)).all()
+            or "final_relight_psnr" not in entry["val"]):
+        raise AssertionError(f"gate: entry {entry}")
+    if not entry["last_loss"] < entry["first_loss"]:
+        raise AssertionError(f"gate: the loss did not fall: "
+                             f"{entry['first_loss']} -> {entry['last_loss']}")
+    rss = max(r[1] for r in entry["memory"]["samples"])
+    log(f"[gate] ship arm at canonical width, {iters} iterations in "
+        f"{t_gate:.1f} s (main(), scene and precompute included): "
+        f"{entry['iters_per_s']:.3f} iterations/s (summary.json timing, "
+        f"{entry['timing']['iters_timed']} after the first); peak device "
+        f"{entry['peak_device_mib']:.1f} MiB; host RSS {rss:.1f} MiB at "
+        f"most over the arm (this process's peak "
+        f"{entry['peak_rss_mib']:.1f}); on {entry['device']}")
+    log(f"[gate] loss {entry['first_loss']:.6g} -> {entry['last_loss']:.6g}; "
+        + ", ".join(f"{k} {entry['val'][k]:.4f}" for k in (
+            "final_psnr", "final_ssim", "final_relight_psnr",
+            "final_relight_ssim")) + f"; load_obj parsers {parsers}")
+    rec["gate"] = dict(entry={k: entry[k] for k in (
+        "first_loss", "last_loss", "iters", "iters_per_s",
+        "peak_device_mib", "peak_rss_mib", "device")}, parsers=parsers,
+        slab_parity=slab_step_parity(root, gate._latest_run(log_root)[0]),
+        big_mesh=native_parser(BIG_LAT_LON, "gate"), smi=smi)
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="device,build,kernels,slice,"
                                         "gbuffer,relight,parity,train,"
                                         "train_parity,drivers,dnr,edge_grad,"
-                                        "parallel,sp")
+                                        "parallel,sp,gate")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     smi = phase_device()
@@ -5151,6 +5358,8 @@ def main() -> None:
     edge_launches: dict = {}
     remat_launches: dict = {}
     sp_launches: dict = {}
+    gate_launches: dict = {}
+    gate_rec: dict = {}
     parallel: dict = {}
     sp: dict = {}
 
@@ -5206,6 +5415,10 @@ def main() -> None:
         phase_sp(sp_launches, sp)
         done("sp")
         log(f"[sp] {json.dumps(sp)}")
+    if "gate" in phases:
+        phase_gate(gate_launches, gate_rec, smi)
+        done("gate")
+        log(f"[gate] {json.dumps(gate_rec)}")
     # launches: the count on the kernel's main path, the training step
     # (one step at b1), or for K7 the G-buffer path (N_VIEWS views), for
     # K5 the relight path (N_VIEWS views x N_PROBES probes x the routes),
@@ -5237,6 +5450,7 @@ def main() -> None:
                     remat_launches={m: c.get(n) for m, c in
                                     remat_launches.items()},
                     sp_launches=sp_launches.get(n),
+                    gate_launches=gate_launches.get(n),
                     **rec.get(n, {}))
                for n, s in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))

@@ -1,17 +1,22 @@
-"""The port's ctypes binding of the native host runtime,
-native/rnr_native.cpp (port of rnr_tpu/data/native.py): a memory-mapped
-OBJ parser (`rnr_obj_count`, `rnr_obj_parse`) and a multithreaded PNG /
-JPEG decoder (`rnr_image_info`, `rnr_image_decode`,
-`rnr_image_decode_batch`).
+"""The port's ctypes bindings of its native host runtime (port of
+rnr_tpu/data/native.py): a memory-mapped OBJ parser (`rnr_obj_count`,
+`rnr_obj_parse`) and a multithreaded PNG / JPEG decoder
+(`rnr_image_info`, `rnr_image_decode`, `rnr_image_decode_batch`).
 
-A host-side speed path, not a kernel.  The library is built at first use
-from the checkout's source with the Makefile's libraries (libpng,
-libjpeg, zlib, pthreads) but for any x86-64 host, not `-march=native`,
-into `build/rnr_tpu_torch/librnr_native-<hash>.so`; the checked-in
-native/librnr_native.so (built with `-march=native` elsewhere) is never
-loaded.  Where the library cannot be built or loaded, every function
-here returns None and its callers take their Python paths, as rnr_tpu's
-do.
+Host-side speed paths, not kernels.  Each library is built at first use
+from the checkout's source by g++ for any x86-64 host (not
+`-march=native`) into `build/rnr_tpu_torch/lib<name>-<hash>.so`, the hash
+over the source and the flags:
+- `obj_parse`, from the port's `rnr_tpu_torch/csrc/obj_parse.cpp` (the OBJ
+  part of native/rnr_native.cpp), needs no library but libc, so it
+  builds wherever g++ runs, hosts without libjpeg or libpng included;
+- `rnr_native`, the decoder, from native/rnr_native.cpp with the
+  Makefile's libraries (libpng, libjpeg, zlib, pthreads), where they
+  are installed.
+The checked-in native/librnr_native.so (built with `-march=native`
+elsewhere) is never loaded.  Where a library cannot be built or loaded,
+its functions here return None and their callers take their Python
+paths, as rnr_tpu's do; `build_error` says why.
 """
 
 from __future__ import annotations
@@ -25,15 +30,20 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
-SOURCE = ROOT / "native" / "rnr_native.cpp"
 BUILD_DIR = ROOT / "build" / "rnr_tpu_torch"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
-LIBS = ("-lpng", "-ljpeg", "-lz", "-lpthread")
+# name: (source, libraries to link)
+SOURCES = {
+    "obj_parse": (Path(__file__).resolve().parents[1] / "csrc"
+                  / "obj_parse.cpp", ()),
+    "rnr_native": (ROOT / "native" / "rnr_native.cpp",
+                   ("-lpng", "-ljpeg", "-lz", "-lpthread")),
+}
 
-_lib = None
-_failed = False
-# why the library is unavailable in this process (None while it is)
-build_error: str | None = None
+# name -> the loaded library, or None once it failed in this process
+_loaded: dict = {}
+# name -> why the library is unavailable in this process
+build_error: dict = {}
 
 
 class _ObjCounts(ctypes.Structure):
@@ -41,59 +51,71 @@ class _ObjCounts(ctypes.Structure):
                 ("nvn", ctypes.c_int64), ("nf", ctypes.c_int64)]
 
 
-def _build() -> Path:
-    """The library built from SOURCE (once per source and flags); raises
-    OSError or CalledProcessError where it cannot be."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
-    h.update(SOURCE.read_bytes())
-    out = BUILD_DIR / f"librnr_native-{h.hexdigest()[:16]}.so"
+def _build(name: str) -> Path:
+    """The library `name` built from its source (once per source and
+    flags); raises OSError or CalledProcessError where it cannot be."""
+    source, libs = SOURCES[name]
+    h = hashlib.sha256(" ".join(CXX_FLAGS + libs).encode())
+    h.update(source.read_bytes())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o",
-                        str(tmp), str(SOURCE), *LIBS], check=True,
+                        str(tmp), str(source), *libs], check=True,
                        capture_output=True, timeout=300)
         os.replace(tmp, out)
     return out
 
 
-def get_lib():
-    """The loaded library (built if needed), or None where it cannot be
-    built or loaded; a failure is not retried in this process."""
-    global _lib, _failed, build_error
-    if _lib is not None or _failed:
-        return _lib
+def _load(name: str):
+    """The loaded library `name` (built if needed), or None where it
+    cannot be built or loaded; a failure is not retried in this
+    process."""
+    if name in _loaded:
+        return _loaded[name]
+    _loaded[name] = None
     try:
-        lib = ctypes.CDLL(str(_build()))
+        lib = ctypes.CDLL(str(_build(name)))
     except subprocess.CalledProcessError as e:
-        _failed = True
-        build_error = e.stderr.decode(errors="replace").strip()[-2000:]
+        build_error[name] = e.stderr.decode(errors="replace").strip()[-2000:]
         return None
     except (OSError, subprocess.SubprocessError) as e:
-        _failed = True
-        build_error = repr(e)
+        build_error[name] = repr(e)
         return None
     fp = ctypes.POINTER(ctypes.c_float)
-    ip = ctypes.POINTER(ctypes.c_int32)
-    cip = ctypes.POINTER(ctypes.c_int)
-    lib.rnr_obj_count.argtypes = [ctypes.c_char_p, ctypes.POINTER(_ObjCounts)]
-    lib.rnr_obj_count.restype = ctypes.c_int
-    lib.rnr_obj_parse.argtypes = [ctypes.c_char_p, fp, fp, fp, ip, ip, ip]
-    lib.rnr_obj_parse.restype = ctypes.c_int
-    lib.rnr_image_info.argtypes = [ctypes.c_char_p, cip, cip, cip]
-    lib.rnr_image_info.restype = ctypes.c_int
-    lib.rnr_image_decode.argtypes = [ctypes.c_char_p, fp, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int]
-    lib.rnr_image_decode.restype = ctypes.c_int
-    lib.rnr_image_decode_batch.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(fp), cip, cip,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.rnr_image_decode_batch.restype = ctypes.c_int
-    _lib = lib
-    return _lib
+    if name == "obj_parse":
+        ip = ctypes.POINTER(ctypes.c_int32)
+        lib.rnr_obj_count.argtypes = [ctypes.c_char_p,
+                                      ctypes.POINTER(_ObjCounts)]
+        lib.rnr_obj_count.restype = ctypes.c_int
+        lib.rnr_obj_parse.argtypes = [ctypes.c_char_p, fp, fp, fp, ip, ip,
+                                      ip]
+        lib.rnr_obj_parse.restype = ctypes.c_int
+    else:
+        cip = ctypes.POINTER(ctypes.c_int)
+        lib.rnr_image_info.argtypes = [ctypes.c_char_p, cip, cip, cip]
+        lib.rnr_image_info.restype = ctypes.c_int
+        lib.rnr_image_decode.argtypes = [ctypes.c_char_p, fp, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int]
+        lib.rnr_image_decode.restype = ctypes.c_int
+        lib.rnr_image_decode_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(fp), cip, cip,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.rnr_image_decode_batch.restype = ctypes.c_int
+    _loaded[name] = lib
+    return lib
+
+
+def get_lib():
+    """The OBJ parser's library, or None where it cannot be built or
+    loaded."""
+    return _load("obj_parse")
 
 
 def native_available() -> bool:
+    """Whether load_obj(use_native=True) parses natively in this
+    process."""
     return get_lib() is not None
 
 
@@ -127,7 +149,7 @@ def decode_images_native(paths: list[str], n_threads: int = 0):
     """PNG / JPEG files as float32 RGB [H, W, 3] arrays in [0, 1], decoded
     on `n_threads` threads (min(cores, 8) when 0), or None where the
     library is unavailable or an image cannot be read."""
-    lib = get_lib()
+    lib = _load("rnr_native")
     if lib is None:
         return None
     n = len(paths)

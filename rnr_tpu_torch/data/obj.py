@@ -10,13 +10,14 @@ normalization, and the global rigid transform with span statistics;
 `save_obj`, with the per-face volumes baked into an atlas PNG.  Texture
 images are read by `data/imageio.py` (PNG, JPEG, BMP, OpenEXR, HDR,
 `.mat`) as cv2's IMREAD_UNCHANGED reads them.  `use_native` parses
-with the C++ runtime (data/native.py, the port's own build and binding
-of native/rnr_native.cpp) where it builds, else with the Python parser;
+with the C++ parser (data/native.py's build and binding of the port's
+csrc/obj_parse.cpp) where it builds, else with the Python parser;
 `MeshData.parser` says which ran.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 
@@ -26,6 +27,10 @@ import torch
 from rnr_tpu_torch.data.imageio import IMREAD_UNCHANGED, read_image, write_png
 from rnr_tpu_torch.data.native import parse_obj_native
 from rnr_tpu_torch.ops import texture_atlas
+
+# load_obj calls by the parser that ran ("native", "python"): where a
+# caller asked for the native parser and got the Python one, it fell back
+parser_counts: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass
@@ -155,7 +160,7 @@ def load_obj(path: str, normalization: bool = False,
     load_texture: fill MeshData.textures [F, ts, ts, ts, 3] from the
     materials of the OBJ's `mtllib` (texture_size ts, texture_wrapping
     one of WRAP_MODES, bilinear or nearest); an OBJ without one raises.
-    use_native: parse with the C++ runtime where it is available
+    use_native: parse with the C++ parser where it is available
     (`parser` "native" in the result), else with the Python parser.
     """
     textures = None
@@ -171,6 +176,7 @@ def load_obj(path: str, normalization: bool = False,
         textures = _load_obj_textures(path, mtl_path, texture_size,
                                       texture_wrapping, use_bilinear)
     res = parse_obj_native(path) if use_native else None
+    parser_counts["native" if res is not None else "python"] += 1
     if res is not None:
         v, vt, vn, fv, fvt, fvn = res
         if normalization and len(v):

@@ -1,0 +1,11 @@
+#!/bin/bash
+# rnr_tpu_torch's copy of scripts/test_rnr.sh: the same flags, run by the
+# PyTorch + CUDA port on the card.
+# Free-viewpoint relighting inference (counterpart of reference test_rnr.sh).
+DATA_ROOT=${1:-./data/material_sphere/test_seq/spiral_step720}
+CKPT_DIR=${2:?usage: test_rnr_torch.sh DATA_ROOT CHECKPOINT_DIR}
+python -m rnr_tpu_torch.drivers.test_rnr \
+    --data_root $DATA_ROOT \
+    --checkpoint_dir $CKPT_DIR \
+    --img_size 512 \
+    --save_lp_background true

@@ -40,9 +40,10 @@ from rnr_tpu.train import steps as jsteps
 from rnr_tpu_torch.convert import jax_grads_to_torch, load_jax_variables
 from rnr_tpu_torch.data.imageio import (IMREAD_COLOR, read_image, read_png,
                                         write_png)
+from rnr_tpu_torch.data.scene import make_scene
 from rnr_tpu_torch.train import steps as psteps
 from rnr_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from test_torch_drivers import FORBIDDEN, ROOT, _run_dir, make_scene
+from test_torch_drivers import FORBIDDEN, ROOT, _run_dir
 
 torch.set_num_threads(2)
 KEY = jax.random.PRNGKey(0)

@@ -1,5 +1,6 @@
 """The port's offline workflow against rnr_tpu's, end to end on the 64^2
-scene of tests/test_pipeline_e2e.py (its make_scene copied here):
+scene of tests/test_pipeline_e2e.py (the port's copy of its make_scene,
+rnr_tpu_torch/data/scene.py):
 
   precompute -> stitch_lp -> train_rnr (4 iterations) -> test_rnr.main
 
@@ -37,8 +38,8 @@ import pytest
 import scipy.io
 import torch
 
-from rnr_tpu.ops.cameras import rt_from_pos_lookat
-from rnr_tpu_torch.data.imageio import read_image, read_png, write_png
+from rnr_tpu_torch.data.imageio import read_image, read_png
+from rnr_tpu_torch.data.scene import make_scene
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,84 +47,6 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rnr_tpu", "cv2", "msgpack")
 # no module of the port imports an image package either (tensorboardX,
 # which the drivers use where it is installed, imports PIL itself)
 FORBIDDEN_IMPORTS = FORBIDDEN + ("PIL", "imageio")
-
-
-# ---------------------------------------------- the scene (a copy of the
-# make_scene of tests/test_pipeline_e2e.py, images written by the port)
-
-
-def make_uv_sphere(path, n_lat=8, n_lon=12, radius=0.5):
-    vs, vts, vns, faces = [], [], [], []
-    for i in range(n_lat + 1):
-        theta = np.pi * i / n_lat
-        for j in range(n_lon + 1):
-            phi = 2 * np.pi * j / n_lon
-            x = radius * np.sin(theta) * np.cos(phi)
-            y = radius * np.cos(theta)
-            z = radius * np.sin(theta) * np.sin(phi)
-            vs.append((x, y, z))
-            vns.append((x / radius, y / radius, z / radius))
-            vts.append((j / n_lon, 1 - i / n_lat))
-
-    def vid(i, j):
-        return i * (n_lon + 1) + j
-    for i in range(n_lat):
-        for j in range(n_lon):
-            a, b, c, d = vid(i, j), vid(i, j + 1), vid(i + 1, j + 1), vid(
-                i + 1, j)
-            if i > 0:
-                faces.append((a, b, c))
-            if i < n_lat - 1:
-                faces.append((a, c, d))
-    with open(path, "w") as f:
-        for v in vs:
-            f.write("v %f %f %f\n" % v)
-        for vt in vts:
-            f.write("vt %f %f\n" % vt)
-        for vn in vns:
-            f.write("vn %f %f %f\n" % vn)
-        for tri in faces:
-            f.write("f " + " ".join(f"{i+1}/{i+1}/{i+1}" for i in tri)
-                    + "\n")
-
-
-def make_scene(root, num_view=6, hw=64, n_lat=8, n_lon=12):
-    for d in ("rgb0", "rgb1", "lp"):
-        os.makedirs(os.path.join(root, d), exist_ok=True)
-    for li in range(2):
-        yy = np.linspace(0, 1, 32)[:, None, None]
-        probe = (np.stack([yy * (li + 1) % 1.0] * 3, -1)[..., 0, :]
-                 * np.ones((32, 64, 3)))
-        write_png(os.path.join(root, "lp", f"{li}.png"),
-                  (probe * 255).astype(np.uint8))
-    make_uv_sphere(os.path.join(root, "mesh.obj"), n_lat=n_lat, n_lon=n_lon)
-    poses = np.zeros((num_view, 4, 4))
-    projs = np.zeros((num_view, 3, 3))
-    for i in range(num_view):
-        ang = 2 * np.pi * i / num_view
-        pos = np.array([2.0 * np.cos(ang), 0.4, 2.0 * np.sin(ang)])
-        poses[i] = rt_from_pos_lookat(pos)
-        projs[i] = np.array([[hw * 1.2, 0, hw / 2], [0, hw * 1.2, hw / 2],
-                             [0, 0, 1]])
-        for lighting in (0, 1):
-            img = np.zeros((hw, hw, 3), np.uint8)
-            yy, xx = np.mgrid[0:hw, 0:hw]
-            r = np.hypot(yy - hw / 2, xx - hw / 2)
-            disc = (r < hw * 0.3).astype(np.float32)
-            shade = (0.4 + 0.6 * (xx / hw) if lighting == 0
-                     else 1.0 - 0.5 * (yy / hw))
-            img[..., 0] = np.uint8(200 * disc * shade)
-            img[..., 1] = np.uint8(150 * disc * shade)
-            img[..., 2] = np.uint8(100 * disc)
-            # cv2 wrote these BGR arrays; the file holds them as RGB
-            write_png(os.path.join(root, f"rgb{lighting}", "%06d.png" % i),
-                      img[..., ::-1].copy())
-    scipy.io.savemat(os.path.join(root, "calib.mat"), {
-        "poses": poses, "projs": projs,
-        "dist_coeffs": np.zeros((num_view, 5)),
-        "img_hws": np.tile([hw, hw], (num_view, 1)),
-        "global_RT": np.eye(4)})
-    return root
 
 
 TRAIN_ARGS = [

@@ -1,11 +1,16 @@
-"""The port's binding of the native host runtime (rnr_tpu_torch/data/
+"""The port's binding of its native host runtime (rnr_tpu_torch/data/
 native.py) and `load_obj(use_native=True)`: parity with the port's
-Python parser and with rnr_tpu's (tests/test_native.py's cases), which
-parser ran, the fall-back where the library is unavailable, and the
-image decoder against the port's PNG reader.  The library is built from
-native/rnr_native.cpp into build/rnr_tpu_torch/ at first use; where it
-cannot be built here, the tests that need it fail (this container has
-g++, libpng and libjpeg)."""
+Python parser and with rnr_tpu's (tests/test_native.py's cases, and a
+sphere of over a million faces), which parser ran, the fall-back where
+the library is unavailable, the parser's source free of the image
+libraries, and the image decoder against the port's PNG reader.  The
+OBJ parser is built from rnr_tpu_torch/csrc/obj_parse.cpp, the decoder
+from native/rnr_native.cpp, into build/rnr_tpu_torch/ at first use;
+where they cannot be built, the tests that need them fail (they need
+g++, libpng and libjpeg on the host)."""
+
+import re
+import time
 
 import numpy as np
 import pytest
@@ -71,26 +76,88 @@ def test_parse_obj_native_arrays(tmp_path):
 
 
 def test_library_is_built_from_the_source_not_the_checked_in_copy():
+    """The OBJ parser is the port's csrc/obj_parse.cpp built into
+    build/rnr_tpu_torch/, linked against no library: not the checked-in
+    native/librnr_native.so, and not native/rnr_native.cpp."""
     lib = native.get_lib()
-    assert lib is not None and native.build_error is None
+    assert lib is not None and "obj_parse" not in native.build_error
     assert native.native_available()
     path = lib._name
     assert path.startswith(str(native.BUILD_DIR))
-    assert "librnr_native-" in path and "-march" not in native.CXX_FLAGS
+    assert "libobj_parse-" in path and "-march" not in native.CXX_FLAGS
+    source, libs = native.SOURCES["obj_parse"]
+    assert source == native.ROOT / "rnr_tpu_torch" / "csrc" / "obj_parse.cpp"
+    assert libs == ()
+
+
+def test_obj_parser_source_needs_no_image_library():
+    """csrc/obj_parse.cpp includes only libc / POSIX headers (the card
+    machine has no libjpeg or libpng) and defines the two entry points
+    that data/native.py binds."""
+    source, _ = native.SOURCES["obj_parse"]
+    text = source.read_text()
+    includes = re.findall(r"#include\s*<([^>]+)>", text)
+    assert includes and not {"jpeglib.h", "png.h", "zlib.h"} & set(includes)
+    assert set(includes) <= {"cctype", "cstdint", "cstdlib", "fcntl.h",
+                             "sys/mman.h", "sys/stat.h", "unistd.h"}
+    for entry in ("int rnr_obj_count(", "int rnr_obj_parse("):
+        assert entry in text
 
 
 def test_python_parser_where_the_library_is_unavailable(tmp_path,
                                                         monkeypatch):
     p = tmp_path / "m.obj"
     p.write_text(SMALL_OBJ)
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_failed", True)
+    monkeypatch.setitem(native._loaded, "obj_parse", None)
+    monkeypatch.setitem(native._loaded, "rnr_native", None)
     m = load_obj(str(p), use_native=True)
     assert m.parser == "python"
     np.testing.assert_array_equal(m.f_v_idx, [[0, 1, 2], [0, 2, 3],
                                               [2, 3, 4]])
     assert native.parse_obj_native(str(p)) is None
     assert native.decode_images_native([str(p)]) is None
+
+
+def write_sphere_obj(path: str, n_lat: int, n_lon: int):
+    """synthetic.sphere_mesh(n_lat, n_lon) as an OBJ of v / vt / vn
+    triplets (chip_smoke.py's write_obj, formatted row by row with one
+    % each); returns the mesh."""
+    from rnr_tpu_torch.synthetic import sphere_mesh
+    m = sphere_mesh(n_lat, n_lon)
+    rows = [map("v %.7f %.7f %.7f\n".__mod__, map(tuple, m.v.tolist())),
+            map("vt %.7f %.7f\n".__mod__, map(tuple, m.vt.tolist())),
+            map("vn %.7f %.7f %.7f\n".__mod__, map(tuple, m.vn.tolist())),
+            map("f %d/%d/%d %d/%d/%d %d/%d/%d\n".__mod__, map(
+                tuple, np.repeat(m.f_v_idx + 1, 3, axis=1).tolist()))]
+    with open(path, "w") as f:
+        for r in rows:
+            f.writelines(r)
+    return m
+
+
+def test_native_parser_on_a_million_faces(tmp_path):
+    """A 708 x 708 UV sphere (1,001,112 faces, 502,681 vertices): the
+    native parser's arrays equal the Python parser's (indices exactly,
+    floats bit for bit: both round the same decimal to float32) and the
+    mesh's; both parsers' times printed."""
+    path = str(tmp_path / "big.obj")
+    mesh = write_sphere_obj(path, 708, 708)
+    t0 = time.perf_counter()
+    nat = load_obj(path, use_native=True)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = load_obj(path, use_native=False)
+    t_py = time.perf_counter() - t0
+    print(f"native {t_nat:.3f} s, Python {t_py:.3f} s, "
+          f"{len(py.f_v_idx)} faces")
+    assert (nat.parser, py.parser) == ("native", "python")
+    assert len(nat.f_v_idx) == 1001112 and len(nat.v) == 502681
+    for name in FIELDS:
+        np.testing.assert_array_equal(getattr(nat, name), getattr(py, name),
+                                      err_msg=name)
+    np.testing.assert_array_equal(nat.f_v_idx, mesh.f_v_idx)
+    np.testing.assert_array_equal(nat.f_vt_idx, mesh.f_v_idx)
+    np.testing.assert_allclose(nat.v, mesh.v, rtol=0, atol=6e-8)
 
 
 def test_image_decode_matches_the_png_reader(tmp_path):

@@ -434,7 +434,7 @@ def test_test_rnr_over_two_row_shards_renders_the_single_device_frames(
     from rnr_tpu_torch.synthetic import build_config
     from rnr_tpu_torch.train.checkpoint import save_checkpoint
     from rnr_tpu_torch.train.steps import init_rnr_params
-    from test_torch_drivers import make_scene
+    from rnr_tpu_torch.data.scene import make_scene
 
     root = make_scene(str(tmp_path / "scene"), num_view=2, hw=32)
     cfg = build_config(img_size=32, tex_size=32, lmax=2, nf0=4, num_down=2,
