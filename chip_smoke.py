@@ -17,6 +17,7 @@ data parallelism over ranks, and the quality gate's shipped arm.
     python3 chip_smoke.py --phases device,build,parallel
     python3 chip_smoke.py --phases device,build,sp
     python3 chip_smoke.py --phases device,build,gate
+    python3 chip_smoke.py --phases device,build,determinism
 
 Phases (each failure raises, so the script exits non-zero):
   device   CUDA present, capability (9, 0), the card's name and power limit.
@@ -40,9 +41,10 @@ Phases (each failure raises, so the script exits non-zero):
            queued, host and C-entry times and a bound from the texels its
            taps touch (the every-texel figure beside it), the wrapper's
            host time with and without the autograd Function, four
-           F.grid_sample calls timed beside it as a yardstick; K2b (f32
-           atomics) reports its run-to-run difference and also runs at
-           batch 2, with every pixel on the corner texel and
+           F.grid_sample calls timed beside it as a yardstick; K2b (64-bit
+           fixed-point sums) must be bit-equal to its arithmetic in plain
+           torch (mipmap_scatter_fixed_torch) and run to run, and also runs
+           at batch 2, with every pixel on the corner texel and
            with a uv seam inside its pixel tiles, and on uv and g views
            off their alignment, behind MipmapSampleFn and through its
            wrapper (copied there), its C entry refusing such bases.  K4 runs at V 7500 and C
@@ -182,13 +184,15 @@ Phases (each failure raises, so the script exits non-zero):
            the bound), also on views off their alignment; one step under
            "pallas" (K6a, K6b).
   edge_grad  silhouette and rasterize_opt (ops/edge_grad.py) on the UV
-           sphere of the G-buffer phase from a ring view at 224^2 (32 x
-           112 tiles), 256^2 and 512^2: K7 once a call, overflow 0, the
+           sphere of the G-buffer phase from a ring view at 480^2 (32 x
+           128 tiles, the last column cut to 96 by the frame), 256^2 and
+           512^2: K7 once a call, overflow 0, the
            oracle never taken;
            K7's face index, weights and alpha and both Functions' forward
            outputs bit-equal to rasterize_face_index's; the gradients of
            a random weighting against the same Functions on the oracle's
-           maps; times.  At 320^2 (32 x 80 tiles) the overflow rule: K7
+           maps; times.  At 320^2 (the last column of tiles cut to 64)
+           the overflow rule: K7
            once, its overflow reported, the oracle's maps.  Then a
            20-step Adam silhouette fit at 256^2 whose loss must fall (K7
            once a step).
@@ -196,17 +200,13 @@ Phases (each failure raises, so the script exits non-zero):
            width (512^2, the canonical config, the shipped knobs).  The
            shipped train step at batch 4 under remat "none", "wide" and
            "all": peak memory (MiB), step ms by CUDA events (median and
-           range of 5), K3's launches; each mode's loss bit-equal to
-           "none"'s and its gradients within 10x the difference between
-           two runs of "none" (the adjoint of the 4x4 down convs' reflect
-           pad adds with atomics), and with DETERMINISTIC_NET ("pallas",
-           zero padding) the loss, the dropout generator's end state and
-           every gradient but K2b's texture ones bit for bit; then
+           range of 5), K3's launches; a rerun of "none" and each mode
+           against "none": the loss, the dropout generator's end state
+           and every gradient bit for bit; then
            train_rnr --unet_remat wide for 3 synthetic iterations.  A
            one-rank NCCL group on cuda:0: the dp = 1 step, its
            collectives over NCCL, bit-equal to the step run with no
-           process group (DETERMINISTIC_NET; K2b's texture gradients to
-           1e-5).  Two ranks on the one card over Gloo with CUDA tensors
+           process group (the shipped route, every gradient).  Two ranks on the one card over Gloo with CUDA tensors
            (spawned by parallel.run_ranks; NCCL refuses two ranks on one
            device), global batch 2 of two distinct views, dropout off,
            against one process's b2 step and frame: the sharded RNR step
@@ -229,7 +229,9 @@ Phases (each failure raises, so the script exits non-zero):
            (a) sp 2 with the shipped route at b1, its train step and eval
            frame; (d) the eval frame under every other conv route
            ("xla", "pallas", "p3s4", "slab3", "slab") and under
-           norm="group".  Four ranks: (b) sp 4, the shipped eval frame;
+           norm="group"; (e) sp 2 at 480 rows (15 units of 32 rows: 256
+           and 224 rows a rank), the shipped train step and eval frame.
+           Four ranks: (b) sp 4, the shipped eval frame;
            (c) (dp 2, sp 2) at b2 of two distinct views, one f32 train
            step and its eval frame (DETERMINISTIC_NET).  Each case also
            runs as a control without the halo (each rank's convs padding
@@ -237,6 +239,18 @@ Phases (each failure raises, so the script exits non-zero):
            readings.  Each rank's launches (sp_launches in the kernels
            line) must equal the others' and the route's own counts: an
            eval frame K4 17, K3 14, K1 1, K2 1 on each rank.
+  determinism  every training and eval path from the same weights,
+           batch and generator four times, twice under
+           torch.use_deterministic_algorithms(True) and twice as the
+           entry points leave it: the shipped b1 train step (5 steps) under
+           every conv route ("pallas3", "pallas", "p3s4", "slab3", "slab",
+           "xla"), the unfused step (5), one probe step, 3 DNR steps and
+           the DNR frame, the shipped eval frame with its v_feature, the
+           drivers' fresh weights (init_rnr_params under another global
+           RNG seed each run) and rasterize_opt forward and backward at
+           512^2.  Parameters,
+           buffers, Adam state, losses, frames and gradients must be
+           bit-equal by digest within each pair.
   gate     the quality gate (rnr_tpu_torch/tools/quality_gate.py) at
            canonical width: its "ship" arm (tools/out/best_config.json's
            knobs) in this process through the module's main (--one_arm
@@ -303,7 +317,8 @@ from rnr_tpu_torch.ops.rasterize_cuda import (BLOCK,  # noqa: E402
                                               bin_faces, cull_keep,
                                               rasterize_tiles,
                                               rasterize_tiles_torch,
-                                              tile_pixels)
+                                              tile_extent, tile_grid,
+                                              tile_in_frame, tile_pixels)
 from rnr_tpu_torch.ops.sh_cuda import (sh_shade, sh_shade_bwd,  # noqa: E402
                                        sh_shade_bwd_torch, sh_shade_fan,
                                        sh_shade_fan_bwd,
@@ -314,7 +329,9 @@ from rnr_tpu_torch.ops.texture_cuda import (MipmapSampleFn,  # noqa: E402
                                             mipmap_sample,
                                             mipmap_sample_torch,
                                             mipmap_scatter,
+                                            mipmap_scatter_fixed_torch,
                                             mipmap_scatter_torch,
+                                            scatter_rounding_bound,
                                             touched_texels)
 
 KERNELS = {
@@ -640,7 +657,8 @@ def digest(*ts: torch.Tensor) -> str:
     """sha256 of the tensors' bytes, in order."""
     h = hashlib.sha256()
     for t in ts:
-        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
     return h.hexdigest()
 
 
@@ -708,6 +726,7 @@ def inside_pairs(table: torch.Tensor, ids: torch.Tensor,
     n, dev = ids.shape[0], table.device
     _, _, xp, yp = (a[None, :, None, :]
                     for a in tile_pixels(s, tile_h, tile_w, table.dtype, dev))
+    frame = tile_in_frame(s, tile_h, tile_w, dev)[None, :, None, :]
     rows = torch.arange(n, device=dev).reshape(n, 1, 1)
     total = torch.zeros((), dtype=torch.int64, device=dev)
     for k0 in range(0, int(counts.max()) if counts.numel() else 0, chunk):
@@ -719,7 +738,7 @@ def inside_pairs(table: torch.Tensor, ids: torch.Tensor,
         ins = (((yp - y0) * (x1 - x0) >= (xp - x0) * (y1 - y0))
                & ((yp - y1) * (x2 - x1) >= (xp - x1) * (y2 - y1))
                & ((yp - y2) * (x0 - x2) >= (xp - x2) * (y0 - y2)))
-        total += (ins & live[..., None]).sum()
+        total += (ins & live[..., None] & frame).sum()
     return int(total)
 
 
@@ -761,12 +780,13 @@ def cull_counts(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
     dev = table.device
     wy = torch.arange(-(-tile_h // wh), device=dev)
     wx = torch.arange(-(-tile_w // WARP_W), device=dev)
-    # each warp's block, and its pixels in the tile
+    eh, ew = tile_extent(s, tile_h, tile_w, dev)
+    # each warp's block, and its pixels in the tile (and the frame)
     blk = ((wy * wh // bh)[:, None] * -(-tile_w // bw)
            + (wx * WARP_W // bw)[None, :]).reshape(-1)
-    pix = ((torch.clamp(tile_h - wy * wh, max=wh))[:, None]
-           * torch.clamp(tile_w - wx * WARP_W, max=WARP_W)[None, :]
-           ).reshape(-1)
+    pix = ((torch.clamp(eh[:, None] - wy * wh, 0, wh))[:, :, None]
+           * torch.clamp(ew[:, None] - wx * WARP_W, 0, WARP_W)[:, None, :]
+           ).reshape(len(eh), -1)                            # [T, Rw]
     walked = (kw & kb[:, :, blk]).sum(3)                     # [N, T, Rw]
     return dict(candidates=int(counts.sum()), block_pairs=int(kb.sum()),
                 warp_pairs=int(walked.sum()),
@@ -1143,12 +1163,15 @@ def scatter_misaligned_case(texs, uv: torch.Tensor) -> None:
     channels), `misaligned_views`; then K2b's C entry refusing each such
     base (cudaErrorInvalidValue, nothing written)."""
     misaligned_views(texs, uv, 2)
-    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 9)
+    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 8, 9)
     d = torch.full((8, 8, 4), 7.0, device=DEV)
+    acc = torch.empty(8 * 8 * 4, dtype=torch.int64, device=DEV)
+    mbits = torch.empty(1, dtype=torch.int32, device=DEV)
     base_uv = torch.zeros(2 * 4 * 4 * 2 + 4, device=DEV)
     base_g = torch.ones(2 * 4 * 4 * 4 + 4, device=DEV)
     for uv_off, g_off in ((1, 0), (0, 1), (0, 2)):
-        rc = f(d.data_ptr(), 0, 0, 0, base_uv.data_ptr() + 4 * uv_off,
+        rc = f(d.data_ptr(), 0, 0, 0, acc.data_ptr(), mbits.data_ptr(),
+               base_uv.data_ptr() + 4 * uv_off,
                base_g.data_ptr() + 4 * g_off, 8, 0, 0, 0, 1, 2, 4, 4, 4,
                torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
@@ -1162,10 +1185,10 @@ def scatter_misaligned_case(texs, uv: torch.Tensor) -> None:
 def misaligned_views(texs, uv: torch.Tensor, g_off: int) -> None:
     """K2 and K2b on the uv view one float off and a g view `g_off` floats
     off their alignment, C = texs' channels, behind MipmapSampleFn
-    (forward and backward, against the aligned run: the forward
-    bit-equal, each level's gradient within 1e-5 x the sum of its terms'
-    magnitudes, K2b's atomics landing in no fixed order) and through
-    mipmap_scatter against its plain version.  Its own seed."""
+    (forward and backward, against the aligned run: both bit-equal) and
+    through mipmap_scatter against its plain version (each level within
+    1e-5 x the sum of its terms' magnitudes + K2b's fixed-point rounding).
+    Its own seed."""
     ch = texs[0].shape[-1]
     g = torch.from_numpy(np.random.default_rng(216).standard_normal(
         (1, IMG, IMG, ch)).astype(np.float32)).to(DEV)
@@ -1184,20 +1207,26 @@ def misaligned_views(texs, uv: torch.Tensor, g_off: int) -> None:
     direct = mipmap_scatter(uv_m, g_m, TEX_SIZES)
     plain = mipmap_scatter_torch(uv, g, TEX_SIZES)
     mag = mipmap_scatter_torch(uv, g.abs(), TEX_SIZES)
+    grid = scatter_rounding_bound(uv, g, TEX_SIZES)
     torch.cuda.synchronize()
     if not torch.equal(out_m, out_a):
         raise AssertionError("mipmap_gather on a misaligned uv differs from "
                              "the aligned run")
+    for a, r in zip(grads_m, grads_a):
+        if not torch.equal(a, r):
+            raise AssertionError("mipmap_scatter on misaligned views differs "
+                                 "from the aligned run")
     err = 0.0
-    for got, ref in ((grads_m, grads_a), (direct, plain)):
-        for a, r, m in zip(got, ref, mag):
-            check(f"mipmap_scatter misaligned uv and g, C {ch}",
-                  float(((a - r).abs() - 1e-5 * m).max()), 0.0)
-            err = max(err, float((a - r).abs().max()))
+    for a, r, m, q in zip(direct, plain, mag, grid):
+        check(f"mipmap_scatter misaligned uv and g, C {ch}",
+              float(((a - r).abs().double() - 1e-5 * m.double() - q).max()),
+              0.0)
+        err = max(err, float((a - r).abs().max()))
     log(f"[kernels] mipmap_gather / mipmap_scatter at C {ch} on uv 1 and g "
-        f"{g_off} floats off their alignment: forward bit-equal, gradients "
-        f"max abs err {err:.3g} (tol 1e-5 x the sum of each texel's "
-        "|terms|) through MipmapSampleFn and mipmap_scatter")
+        f"{g_off} floats off their alignment: forward and backward "
+        f"bit-equal to the aligned run's through MipmapSampleFn; "
+        f"mipmap_scatter's max abs err {err:.3g} (tol 1e-5 x the sum of each "
+        "texel's |terms| + its taps x half a grid step)")
 
 
 def gather_case(texs, uv: torch.Tensor, tag: str):
@@ -1284,31 +1313,44 @@ def seam_uv(uv: torch.Tensor) -> torch.Tensor:
 
 def scatter_case(uv: torch.Tensor, g: torch.Tensor, tag: str):
     """K2b against its plain version on (uv, g), every level per texel
-    within 1e-5 x the sum of its terms' magnitudes (f32 atomics on both
-    sides: the same products added in another order, so each texel may
-    differ by a rounding of its partial sums; the corner texel of the
-    uncovered pixels sums 131,072 terms), and the run-to-run difference.
-    Returns the max abs error, the run-to-run max difference and the
-    count of taps of nonzero weight (the kernel skips the others)."""
+    within 1e-5 x the sum of its terms' magnitudes (the plain version's f32
+    sums and K2b's in another order, so each texel may differ by a
+    rounding of its partial sums; the corner texel of the uncovered pixels
+    sums 131,072 terms) plus K2b's fixed-point rounding, (its taps) x half
+    a grid step (scatter_rounding_bound); bit-equal to its fixed-point
+    arithmetic in plain torch (mipmap_scatter_fixed_torch), and the
+    run-to-run difference 0.  Returns the max abs error, the run-to-run
+    max difference and the count of taps of nonzero weight (the kernel
+    skips the others)."""
     kg = mipmap_scatter(uv, g, TEX_SIZES)
     kg2 = mipmap_scatter(uv, g, TEX_SIZES)
     tg = mipmap_scatter_torch(uv, g, TEX_SIZES)
     mag = mipmap_scatter_torch(uv, g.abs(), TEX_SIZES)
+    fixed = mipmap_scatter_fixed_torch(uv, g, TEX_SIZES)
+    grid = scatter_rounding_bound(uv, g, TEX_SIZES)
     torch.cuda.synchronize()
     err = rerun = 0.0
-    for a, a2, r, m, s in zip(kg, kg2, tg, mag, TEX_SIZES):
-        excess = float(((a - r).abs() - 1e-5 * m).max())
+    for a, a2, r, m, f, q, s in zip(kg, kg2, tg, mag, fixed, grid,
+                                    TEX_SIZES):
+        excess = float(((a - r).abs().double() - 1e-5 * m.double()
+                        - q).max())
         check(f"mipmap_scatter {tag} level {s}", excess, 0.0)
+        if not torch.equal(a, f):
+            raise AssertionError(f"mipmap_scatter {tag} level {s}: differs "
+                                 "from mipmap_scatter_fixed_torch by "
+                                 f"{float((a - f).abs().max()):.3g}")
         err = max(err, float((a - r).abs().max()))
         rerun = max(rerun, float((a - a2).abs().max()))
+    check(f"mipmap_scatter {tag} run to run", rerun, 0.0)
     taps = 0
     for s in TEX_SIZES:
         x, y = level_coords(uv, s)
         taps += sum(int((w != 0).sum()) for _, w in bilinear_taps(x, y, s, s))
     log(f"[kernels] mipmap_scatter {tag} -> 4 levels x {g.shape[-1]}: max "
         f"abs err "
-        f"{err:.3g} (tol 1e-5 x the sum of each texel's |terms|); "
-        f"run-to-run max difference {rerun:.3g} (f32 atomics); {taps} "
+        f"{err:.3g} (tol 1e-5 x the sum of each texel's |terms| + its "
+        f"taps x half a grid step); bit-equal to its fixed-point arithmetic "
+        f"in plain torch; run-to-run max difference {rerun:.3g}; {taps} "
         f"nonzero taps of {uv.shape[0] * IMG * IMG * 4 * len(TEX_SIZES)}")
     return err, rerun, taps
 
@@ -2114,6 +2156,13 @@ def kernels_raster(rec: dict) -> None:
         ("8 faces over 32^2, cap 4", overflow_faces(), 32, 4, 4),
         ("degenerate and random faces at the edge of the cull's "
          "exactness", degenerate_faces_512(), IMG, 2048, "zero"),
+        # tiles cut by the frame: 16 x 4 tiles at 509^2, 7 x 2 at 200^2
+        # (there the sphere's tiles overflow the cap: K7 and its plain
+        # version drop the same candidates)
+        (f"{2 * lon * (lat - 1)} faces, 30 deg, 509^2",
+         ring_faces(lat, lon, 30.0, [0], 509), 509, 2048, "zero"),
+        (f"{2 * lon * (lat - 1)} faces, 30 deg, 200^2",
+         ring_faces(lat, lon, 30.0, [3], 200), 200, 2048, None),
     ]
     for i, (name, faces, s, cap, want_ov) in enumerate(cases):
         th, tw = min(32, s), min(128, s)
@@ -2151,6 +2200,7 @@ def kernels_raster(rec: dict) -> None:
         work = raster_work(table, ids, counts, ki, th, tw, s)
         cull = cull_counts(table, ids, counts, s, th, tw)
         log(f"[kernels] rasterize_tiles {name}: {s}^2, N {faces.shape[0]}, "
+            f"{ids.shape[1]} tiles of {th} x {tw}, "
             f"{cull['candidates']} candidates (largest tile "
             f"{cull['largest_list']}), overflow {ovl}; bitwise equal to the "
             f"plain version, binning equal to the CPU's; kernel {ms:.4f} ms "
@@ -3848,14 +3898,10 @@ def phase_dnr(dnr_launches: dict, rec: dict) -> None:
     t_train = time.perf_counter() - t0
     tr = ["--data_root", root, "--checkpoint_dir", log_dir, "--img_size",
           str(IMG)]
-    # cuDNN's deterministic algorithms for the comparison with the eval
-    # step below (the plain f32 4x4 convs of "auto"; measured there)
-    torch.backends.cudnn.deterministic = True
     t0 = time.perf_counter()
     res = test_dnr.main([*tr, "--out_dir", os.path.join(log_dir, "test")],
                         keep_frames=True)
     t_test = time.perf_counter() - t0
-    torch.backends.cudnn.deterministic = False
     make_spiral.main(["--data_root", root, "--num_step", str(DNR_SPIRAL),
                       "--out_dir", "_/test_seq/spiral"])
     spiral = test_dnr.main([*tr, "--calib_dir", "_/test_seq/spiral",
@@ -3910,10 +3956,10 @@ def phase_dnr(dnr_launches: dict, rec: dict) -> None:
     gbatch = test_dnr.gbuffer_batch(_gbuffer(render_gbuffer, mesh_buf, view,
                                              IMG))
     reruns = [eval_step(gbatch) for _ in range(2)]
-    rerun = float((reruns[0] - reruns[1]).abs().max())
-    torch.backends.cudnn.deterministic = True
-    img = eval_step(gbatch)[0] * gbatch["alpha_map"][0]
-    torch.backends.cudnn.deterministic = False
+    if not torch.equal(reruns[0], reruns[1]):
+        raise AssertionError("dnr: two eval frames differ by "
+                             f"{float((reruns[0] - reruns[1]).abs().max()):.3g}")
+    img = reruns[0][0] * gbatch["alpha_map"][0]
     got = res["frames"][view["img_fn"].split(".")[0]]
     if not torch.equal(img, got) or not bool(torch.isfinite(img).all()):
         raise AssertionError("dnr: test_dnr.main's frame differs from the "
@@ -3921,8 +3967,7 @@ def phase_dnr(dnr_launches: dict, rec: dict) -> None:
                              f"{float((img - got).abs().max()):.3g}")
     log(f"[dnr] test_dnr.main's frame of view {view['img_fn']} bit-equal to "
         f"the eval step's on the trained model (mean {float(img.mean()):.6g};"
-        f" both under cudnn.deterministic; without it two eval frames "
-        f"differ by up to {rerun:.3g})")
+        f" two eval frames bit-equal)")
 
     # one step and one frame: launches, times, the step's share in kernels
     tds = ViewDataset(root, os.path.join(root, "calib.mat"), (IMG, IMG),
@@ -4028,15 +4073,23 @@ def phase_dnr(dnr_launches: dict, rec: dict) -> None:
 
 # ------------------------------------------------------------- edge_grad
 
-# 224^2: K7 on 32 x 112 tiles, where the TPU kernel's 32 x 128 does not
-# divide the frame
-EDGE_SIZES = (224, 256, 512)
-# 32 x 80 tiles, where the sphere's pole puts more than K7's 2048
-# candidates in a tile: the overflow rule's case
+# 480^2: K7's 32 x 128 tiles do not divide the frame, so the last column
+# of tiles is cut to 96 pixels (at 224^2 on 32 x 128 tiles the sphere's
+# pole overflows a tile's 2048 candidates, and the oracle is taken)
+EDGE_SIZES = (480, 256, 512)
+# the sphere's pole puts more than K7's 2048 candidates in a tile (the
+# last column of tiles cut to 64): the overflow rule's case
 EDGE_OVERFLOW_SIZE = 320
 EDGE_FIT_STEPS = 20
 EDGE_FIT_SIZE = 256
 EDGE_ELEVATION = 30.0
+
+
+def k7_tiles(s: int) -> tuple[int, int, int, int]:
+    """K7's tiles at an s^2 frame on the differentiable paths: tile rows
+    and columns (min 32 x 128 with s), then tiles down and across."""
+    th, tw = min(32, s), min(128, s)
+    return (th, tw, *tile_grid(s, th, tw))
 
 
 def edge_case(faces: torch.Tensor, s: int, rng) -> dict:
@@ -4046,8 +4099,8 @@ def edge_case(faces: torch.Tensor, s: int, rng) -> dict:
     bit-equal to rasterize_face_index's (its depth within one f32 rounding)
     and both Functions' forward outputs too; the gradients of a random
     weighting
-    within 1e-5 of the largest (index_add's atomics sum in another order);
-    times of the forward and of forward + backward."""
+    within 1e-5 of the largest; times of the forward and of forward +
+    backward."""
     from rnr_tpu_torch.ops import edge_grad as eg
     from rnr_tpu_torch.ops.rasterize import rasterize_face_index
     tag = f"{faces.shape[1]} faces at {s}^2"
@@ -4120,7 +4173,7 @@ def edge_case(faces: torch.Tensor, s: int, rng) -> dict:
         rasterize_opt_ms=cuda_ms(lambda: opt("auto")),
         oracle_fwd_ms=cuda_ms(lambda: rasterize_face_index(
             faces, s, near=0.0, far=100.0), iters=3, warmup=1))
-    log(f"[edge_grad] {tag}: tiles {eg.winner_tiles(s)}, overflow "
+    log(f"[edge_grad] {tag}: tiles {k7_tiles(s)}, overflow "
         f"{overflow}, K7 {k7} times in 2 calls, oracle taken 0 times; "
         "face index, weights, alpha and both forwards "
         f"bit-equal to the oracle's, {int((dd > 0).sum())} depth pixels off "
@@ -4129,7 +4182,7 @@ def edge_case(faces: torch.Tensor, s: int, rng) -> dict:
         + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
         + "; ms (CUDA events) "
         + json.dumps({k: round(v, 4) for k, v in times.items()}))
-    return dict(tiles=list(eg.winner_tiles(s)), overflow=overflow, calls=2,
+    return dict(tiles=list(k7_tiles(s)), overflow=overflow, calls=2,
                 k7_launches=k7, **times)
 
 
@@ -4165,10 +4218,10 @@ def phase_edge_grad(edge_launches: dict, rec: dict) -> None:
                              f"{overflow}, oracle {eg.ORACLE_TAKEN}, or maps "
                              "differ from rasterize_face_index's")
     log(f"[edge_grad] {faces.shape[1]} faces at {s}^2 on tiles "
-        f"{eg.winner_tiles(s)}: K7 {k7} time, overflow {overflow} dropped "
+        f"{k7_tiles(s)}: K7 {k7} time, overflow {overflow} dropped "
         f"candidates, the oracle taken {eg.ORACLE_TAKEN['overflow']} time; "
         "face index and alpha equal to rasterize_face_index's")
-    overflow_case = dict(size=s, tiles=list(eg.winner_tiles(s)),
+    overflow_case = dict(size=s, tiles=list(k7_tiles(s)),
                          k7_launches=k7, overflow=overflow,
                          oracle_taken=eg.ORACLE_TAKEN["overflow"])
     s = EDGE_FIT_SIZE
@@ -4217,17 +4270,6 @@ REMAT_ITERS = 3
 # train_rnr's flags besides the remat run's own: the synthetic views at
 # the canonical width (train_rnr's defaults)
 REMAT_RUN_ARGS = ["--synthetic", "--sphere_samples_fp", "nonexistent.mat"]
-# a remat mode against "none" at the same weights, masks and batch, with
-# cuDNN deterministic: the loss bit for bit (the forward is the same
-# code).  With DETERMINISTIC_NET every gradient but the texture's bit for
-# bit, the texture's (K2b's f32 atomics) within REMAT_TEX_TOL of its
-# largest.  On the shipped route the adjoint of the 4x4 down convs'
-# reflect pad adds with atomics too, and the bf16 backward amplifies any
-# rounding: there the largest gradient error outside the GCN (whose
-# gradient batch norm blocks) is held to REMAT_SPREAD_FACTOR x that of a
-# rerun of "none"
-REMAT_TEX_TOL = 1e-5
-REMAT_SPREAD_FACTOR = 10.0
 # two ranks at dp 2 against one process at b2, the same weights, dropout
 # off.  Cases: "float32" f32 rays and U-Net with DETERMINISTIC_NET (the
 # function), run also under U-Net remat "wide" ("remat_wide": its
@@ -4295,23 +4337,22 @@ def model_grads(model) -> dict:
             for n, p in model.named_parameters() if p.grad is not None}
 
 
-# a U-Net whose backward adds nothing with atomics: K6 for the 4x4 convs
-# and zero padding (the 4x4 down convs' reflect pad has an adjoint that
-# adds with atomics, under every route: aten's reflection_pad2d_backward)
+# the U-Net of the f32 dp and sp cases and of DNR's dp case: K6 for the
+# 4x4 convs and zero padding (the cases' limits, DP_LIMITS and SP_LIMITS,
+# were read on it; every route repeats bit for bit now, the determinism
+# phase)
 DETERMINISTIC_NET = dict(conv_backend="pallas", pad_mode="same")
 
 
 def remat_grads(mode: str, net: dict, b: dict, statics: dict) -> dict:
     """One loss and backward of the canonical model under remat `mode`
     and the `net` overrides of render_net, dropout on (generator seed
-    3), cuDNN deterministic: the loss, every gradient, the generator's
-    end state."""
+    3): the loss, every gradient, the generator's end state."""
     from rnr_tpu_torch.models.rnr import RNRModel
     from rnr_tpu_torch.synthetic import init_weights
     from rnr_tpu_torch.train.steps import make_generator, make_rnr_loss_fn
     model = init_weights(RNRModel(canonical_config(render_net=dict(
         net, remat=mode)), GCN_V), seed=0)
-    torch.backends.cudnn.deterministic = True
     try:
         gen = make_generator(3)
         loss, aux = make_rnr_loss_fn(model)(b, statics, gen)
@@ -4320,7 +4361,6 @@ def remat_grads(mode: str, net: dict, b: dict, statics: dict) -> dict:
         return dict(loss=aux["loss"].detach().clone(),
                     grads=model_grads(model), gen=gen.get_state().cpu())
     finally:
-        torch.backends.cudnn.deterministic = False
         del model
         torch.cuda.empty_cache()
 
@@ -4331,66 +4371,40 @@ def worst_outside_gcn(got: dict, want: dict) -> tuple[float, str]:
     return max((e, n) for n, e in err.items() if not blocked_by_batch_norm(n))
 
 
-def remat_exact(b: dict, statics: dict) -> dict:
-    """Each remat mode against "none" with DETERMINISTIC_NET: the loss,
-    the generator's end state and every gradient but the texture's (K2b's
-    atomics) bit for bit, the texture's within REMAT_TEX_TOL of its
-    largest."""
-    ref = remat_grads("none", DETERMINISTIC_NET, b, statics)
-    out = {}
-    for mode in REMAT_MODES[1:]:
-        got = remat_grads(mode, DETERMINISTIC_NET, b, statics)
+def remat_exact(b: dict, statics: dict) -> None:
+    """A rerun of "none" and each other remat mode against "none" on the
+    shipped route: the loss, the generator's end state and every gradient
+    bit for bit."""
+    ref = remat_grads("none", {}, b, statics)
+    for mode in REMAT_MODES:
+        got = remat_grads(mode, {}, b, statics)
+        tag = "none, again," if mode == "none" else mode
         if not torch.equal(got["loss"], ref["loss"]):
-            raise AssertionError(f"remat {mode}: loss {float(got['loss'])} "
+            raise AssertionError(f"remat {tag} loss {float(got['loss'])} "
                                  f"!= none's {float(ref['loss'])}")
         if not torch.equal(got["gen"], ref["gen"]):
-            raise AssertionError(f"remat {mode}: the dropout generator ends "
+            raise AssertionError(f"remat {tag} the dropout generator ends "
                                  "elsewhere than without remat")
-        tex = [n for n in ref["grads"] if n.startswith("texture_mapper.")]
-        differ = [n for n in ref["grads"] if n not in tex
-                  and not torch.equal(got["grads"][n], ref["grads"][n])]
+        differ = [n for n in ref["grads"]
+                  if not torch.equal(got["grads"][n], ref["grads"][n])]
         if differ:
-            raise AssertionError(f"remat {mode} ({DETERMINISTIC_NET}): "
-                                 f"gradients differ from none's: "
-                                 f"{differ[:8]}")
-        err = max(grad_errors({n: got["grads"][n] for n in tex},
-                              {n: ref["grads"][n] for n in tex}).values())
-        check(f"remat {mode} texture gradients", err, REMAT_TEX_TOL)
-        log(f"[parallel] remat {mode} against none, {DETERMINISTIC_NET}, batch "
-            f"{REMAT_BATCH} at {IMG}^2: loss and the dropout generator's end "
-            f"state bit-equal, {len(ref['grads']) - len(tex)} gradients "
-            f"bit-equal, the {len(tex)} texture gradients (K2b's atomics) "
-            f"within {err:.3g} of their largest")
-        out[mode] = dict(texture_grad_err=err)
-    return out
+            raise AssertionError(f"remat {tag} gradients differ from "
+                                 f"none's: {differ[:8]}")
+        log(f"[parallel] remat {tag} against none, shipped route, batch "
+            f"{REMAT_BATCH} at {IMG}^2: loss, the dropout generator's end "
+            f"state and all {len(ref['grads'])} gradients bit-equal")
 
 
-def remat_shipped(mode: str, b: dict, statics: dict, ref: dict | None,
-                  spread: float | None, launches: dict) -> dict:
-    """The shipped train step at batch REMAT_BATCH under remat `mode`:
-    one loss and backward against `ref` ("none"'s; its largest gradient
-    error outside the GCN at most REMAT_SPREAD_FACTOR x `spread`, that
-    of a rerun of "none"), one counted step, the peak memory of a step,
-    REMAT_STEPS steps by CUDA events."""
+def remat_shipped(mode: str, b: dict, statics: dict, launches: dict) -> dict:
+    """The shipped train step at batch REMAT_BATCH under remat `mode`: one
+    counted step, the peak memory of a step, REMAT_STEPS steps by CUDA
+    events."""
     from rnr_tpu_torch.models.rnr import RNRModel
     from rnr_tpu_torch.synthetic import init_weights
     from rnr_tpu_torch.train.steps import (create_rnr_optimizer,
                                            make_generator,
                                            make_rnr_train_step)
     out = {}
-    if ref is not None:
-        got = remat_grads(mode, {}, b, statics)
-        if not torch.equal(got["loss"], ref["loss"]):
-            raise AssertionError(f"remat {mode}: loss {float(got['loss'])} "
-                                 f"!= none's {float(ref['loss'])}")
-        err, worst = worst_outside_gcn(got["grads"], ref["grads"])
-        cos = grad_cosine(got["grads"], ref["grads"])
-        log(f"[parallel] remat {mode} against none, shipped route: loss "
-            f"bit-equal; largest gradient error outside the GCN {err:.3g} "
-            f"({worst}), a rerun of none's {spread:.3g}; cosine {cos:.8f}")
-        check(f"remat {mode} gradient {worst}", err,
-              REMAT_SPREAD_FACTOR * max(spread, 1e-6))
-        out.update(max_grad_err=err, cosine=cos)
     model = init_weights(RNRModel(canonical_config(
         render_net=dict(remat=mode)), GCN_V), seed=0)
     step = make_rnr_train_step(model, create_rnr_optimizer(model, 1e-3))
@@ -4452,8 +4466,7 @@ def remat_driver_run() -> None:
 def one_rank_nccl() -> None:
     """A one-rank NCCL group on cuda:0: the dp = 1 step, its collectives
     over the group, equals the step run with no process group bit for
-    bit (loss terms, metrics, every gradient but the texture's, which
-    K2b's atomics give in no fixed order), with DETERMINISTIC_NET."""
+    bit (loss terms, metrics, every gradient), on the shipped route."""
     from rnr_tpu_torch.models.rnr import RNRModel
     from rnr_tpu_torch.parallel import (init_distributed, make_mesh,
                                         make_sharded_rnr_train_step)
@@ -4466,8 +4479,7 @@ def one_rank_nccl() -> None:
     b = _gbuffer(IMG, 1)
 
     def run(mesh):
-        model = init_weights(RNRModel(canonical_config(
-            render_net=DETERMINISTIC_NET), GCN_V), 0)
+        model = init_weights(RNRModel(canonical_config(), GCN_V), 0)
         opt = create_rnr_optimizer(model, 1e-3)
         step = (make_rnr_train_step(model, opt) if mesh is None
                 else make_sharded_rnr_train_step(model, opt, mesh))
@@ -4475,7 +4487,6 @@ def one_rank_nccl() -> None:
         torch.cuda.synchronize()
         return {k: v.clone() for k, v in met.items()}, model_grads(model)
 
-    torch.backends.cudnn.deterministic = True
     try:
         m0, g0 = run(None)
         init_distributed(f"127.0.0.1:{free_port()}", 1, 0, 1)
@@ -4490,20 +4501,14 @@ def one_rank_nccl() -> None:
         for k in m0:
             if not torch.equal(m0[k], m1[k]):
                 raise AssertionError(f"dp=1 NCCL step: {k} differs")
-        tex = [n for n in g0 if n.startswith("texture_mapper.")]
         for n in g0:
-            if n not in tex and not torch.equal(g0[n], g1[n]):
+            if not torch.equal(g0[n], g1[n]):
                 raise AssertionError(f"dp=1 NCCL step: gradient {n} differs")
-        err = max(grad_errors({n: g1[n] for n in tex},
-                              {n: g0[n] for n in tex}).values())
-        check("dp=1 NCCL step texture gradients", err, 1e-5)
         log(f"[parallel] one-rank NCCL group on cuda:0: the dp=1 step (its "
             f"collectives over NCCL) equals the step with no process group "
-            f"bit for bit ({len(m0)} metrics, {len(g0) - len(tex)} "
-            f"gradients); the {len(tex)} texture gradients (K2b's atomics) "
-            f"within {err:.3g} of their largest")
+            f"bit for bit ({len(m0)} metrics, all {len(g0)} gradients), "
+            "shipped route")
     finally:
-        torch.backends.cudnn.deterministic = False
         torch.cuda.empty_cache()
 
 
@@ -4513,7 +4518,8 @@ def local_batch_norm():
     global batch's (the control: dp without the cross-rank norm)."""
     from rnr_tpu_torch.parallel import sharding
     keep = sharding.global_batch_norm
-    sharding.global_batch_norm = lambda model, mesh: contextlib.nullcontext()
+    sharding.global_batch_norm = lambda model, mesh, rows=None: (
+        contextlib.nullcontext())
     try:
         yield
     finally:
@@ -4828,23 +4834,10 @@ def phase_parallel(remat_launches: dict, rec: dict) -> None:
     b = _gbuffer(IMG, REMAT_BATCH)
     statics = build_statics(init_weights(RNRModel(canonical_config(), GCN_V),
                                          0), 4096)
-    exact = remat_exact(b, statics)
-    ref = remat_grads("none", {}, b, statics)
-    rerun = remat_grads("none", {}, b, statics)
-    spread, where = worst_outside_gcn(rerun["grads"], ref["grads"])
-    log(f"[parallel] two runs of none, shipped route: loss bit-equal "
-        f"{torch.equal(rerun['loss'], ref['loss'])}; largest gradient "
-        f"difference outside the GCN {spread:.3g} ({where}), cosine "
-        f"{grad_cosine(rerun['grads'], ref['grads']):.8f}")
-    del rerun
-    remat = {}
-    for mode in REMAT_MODES:
-        remat[mode] = remat_shipped(mode, b, statics,
-                                    None if mode == "none" else ref, spread,
-                                    remat_launches)
-        remat[mode].update(exact.get(mode, {}))
-    remat["none_rerun_grad_err"] = spread
-    del b, statics, ref
+    remat_exact(b, statics)
+    remat = {mode: remat_shipped(mode, b, statics, remat_launches)
+             for mode in REMAT_MODES}
+    del b, statics
     torch.cuda.empty_cache()
     remat_driver_run()
     one_rank_nccl()
@@ -4864,7 +4857,8 @@ def phase_parallel(remat_launches: dict, rec: dict) -> None:
 # "sp2_group": the eval frame under each other conv route and under
 # norm="group"; (b) "sp4": the shipped eval frame over 4 row shards;
 # (c) "dp2sp2": one f32 train step (f32 rays and U-Net,
-# DETERMINISTIC_NET) and its eval frame over (dp 2, sp 2) at b2.  Each
+# DETERMINISTIC_NET) and its eval frame over (dp 2, sp 2) at b2; (e)
+# "sp2_480": as (a) on a 480^2 frame, its rows in uneven shards.  Each
 # case also runs as a control without the halo: each rank's convs pad
 # its own rows as a frame (`sharding.row_shards(halo=False)`).
 # Readings: "loss" the global loss's relative error, "cosine" 1 - the
@@ -4883,7 +4877,11 @@ SP_CASES = {  # name: (ranks, dp, batch, runs, render_net overrides, dtype)
     "sp2_group": (2, 1, 1, ("frame",), dict(norm="group"), "bfloat16"),
     "sp4": (4, 1, 1, ("frame",), {}, "bfloat16"),
     "dp2sp2": (4, 2, 2, ("frame", "step"), DETERMINISTIC_NET, "float32"),
+    # rows in uneven shards: 480 = 15 units of 32 (5 downs), 8 and 7 units
+    "sp2_480": (2, 1, 1, ("frame", "step"), {}, "bfloat16"),
 }
+# a case's frame side where it is not IMG
+SP_IMG = {"sp2_480": 480}
 # The readings on an H100 (sound / control): sp2 frame 0.0135 / 0.126,
 # loss 2.71e-6 / 8.30e-6, and not set apart: cosine 6.42e-4 / 2.77e-3
 # (the bf16 backward is chaotic), grad 0.564 / 0.992; the routes' frames
@@ -4896,6 +4894,7 @@ SP_LIMITS = {
     "sp2_group": dict(frame=0.01),
     "sp4": dict(frame=0.04),
     "dp2sp2": dict(loss=4e-7, cosine=1e-5, grad=0.22, frame=4e-4),
+    "sp2_480": dict(loss=5e-6, frame=0.04),
 }
 # launches per rank of one eval frame of the shipped route (cached
 # nothing: the GCN runs too) and of each case's route
@@ -4948,12 +4947,12 @@ def no_halo():
         sharding.row_shards = keep
 
 
-def _sp_builder(net: dict, dtype: str):
+def _sp_builder(net: dict, dtype: str, img: int = IMG):
     """A builder of a case's model, dropout off: one model, its seeded
     weights and buffers restored at each call (a step moves them)."""
     from rnr_tpu_torch.models.rnr import RNRModel
     from rnr_tpu_torch.synthetic import init_weights
-    cfg = canonical_config(rays=dict(rays_dtype=dtype),
+    cfg = canonical_config(img=img, rays=dict(rays_dtype=dtype),
                            render_net=dict(net, compute_dtype=dtype))
     model = init_weights(RNRModel(cfg, GCN_V), 0)
     model.render_net.Unet_0.use_dropout = False
@@ -5063,8 +5062,9 @@ def _sp_rank(local_rank: int, port: int, n: int) -> dict:
                 continue
             t_case = time.perf_counter()
             mesh = make_mesh(n, dp=dp)
-            b = two_views(IMG, DEV) if bsz == 2 else _gbuffer(IMG, 1)
-            build = _sp_builder(net, dtype)
+            img = SP_IMG.get(case, IMG)
+            b = two_views(img, DEV) if bsz == 2 else _gbuffer(img, 1)
+            build = _sp_builder(net, dtype, img)
             res = {}
             for run in runs:
                 sound = _sp_run(run, build, mesh, b, control=False)
@@ -5336,13 +5336,195 @@ def phase_gate(gate_launches: dict, rec: dict, smi: str,
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- determinism
+#
+# Every training and eval path run four times from the same weights,
+# batch and generator: twice under torch.use_deterministic_algorithms(True)
+# (an aten op with no deterministic form raises there) and twice as the
+# entry points leave it, the run a user makes (an op deterministic only
+# under the flag would part those two).  Each pair's digests (parameters,
+# buffers, Adam state, losses; frames; gradients) must be equal.  The two
+# modes may take different, each fixed, algorithms: whether their digests
+# agree is logged.
+DETERMINISM_ROUTES = ("pallas3", "pallas", "p3s4", "slab3", "slab", "xla")
+DETERMINISM_STEPS = 5
+DETERMINISM_DNR_STEPS = 3
+
+
+def _step_digest(model, opt, mets) -> str:
+    """Parameters, buffers, Adam state (in parameter order) and every
+    step's metrics, as one sha256; every metric finite."""
+    for m in mets:
+        if not all(bool(torch.isfinite(v).all()) for v in m.values()):
+            raise AssertionError(f"determinism: a non-finite metric in "
+                                 f"{sorted(m)}")
+    ts = [p.detach() for _, p in model.named_parameters()]
+    ts += [b for _, b in model.named_buffers()]
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state.get(p, {})
+            ts += [st[k] for k in sorted(st) if torch.is_tensor(st[k])]
+    ts += [m[k].detach().float().reshape(-1) for m in mets
+           for k in sorted(m)]
+    return digest(*ts)
+
+
+def repeat_runs(tag: str, run, out: dict) -> None:
+    """run() -> digest, four times (twice under the deterministic flag,
+    twice without); each pair equal, else AssertionError."""
+    was = torch.are_deterministic_algorithms_enabled()
+    got = []
+    t0 = time.perf_counter()
+    try:
+        for flag in (True, True, False, False):
+            torch.use_deterministic_algorithms(flag)
+            got.append(run())
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    out[tag] = dict(flag_on=got[0], flag_off=got[2])
+    log(f"[determinism] {tag}: digests {[d[:16] for d in got]} (flag on "
+        f"twice, off twice; the two modes {'agree' if got[0] == got[2] else 'differ'}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if got[0] != got[1] or got[2] != got[3]:
+        raise AssertionError(f"determinism {tag}: the runs differ "
+                             f"(flag on, on, off, off): {got}")
+
+
+def phase_determinism(out: dict) -> None:
+    """The shipped b1 train step (DETERMINISM_STEPS steps) under every
+    conv route, the unfused step, one probe step, DETERMINISM_DNR_STEPS
+    DNR steps ("auto", f32), the shipped eval frame (v_feature included)
+    and the DNR frame, the drivers' fresh weights (init_rnr_params, the
+    global RNG seeded anew each time) and rasterize_opt forward and
+    backward at 512^2,
+    each run twice under the deterministic flag and twice without from
+    the same start (repeat_runs): each pair bit-equal by digest.  CUBLAS_WORKSPACE_CONFIG is set in main() before the first
+    CUDA call; the deterministic flag is restored after each run."""
+    from rnr_tpu_torch.models.rnr import RNRModel
+    from rnr_tpu_torch.ops import edge_grad as eg
+    from rnr_tpu_torch.synthetic import build_statics, init_weights
+    from rnr_tpu_torch.train import steps as st
+    b = _gbuffer(IMG, 1)
+
+    def restorer(model):
+        """The model at its seeded start again at each call (the runs
+        build it once)."""
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def restore():
+            model.load_state_dict(state)
+            model.zero_grad(set_to_none=True)
+            return model
+
+        return restore
+
+    def rnr_steps(sections: dict, n: int):
+        model = init_weights(RNRModel(canonical_config(**sections), GCN_V),
+                             seed=0)
+        statics = build_statics(model, 4096)
+        restore = restorer(model)
+
+        def run():
+            restore()
+            opt = st.create_rnr_optimizer(model, 1e-3)
+            step = st.make_rnr_train_step(model, opt)
+            gen = st.make_generator(0)
+            mets = [step(b, statics, gen) for _ in range(n)]
+            return _step_digest(model, opt, mets)
+        return run
+
+    for route in DETERMINISM_ROUTES:
+        sections = ({} if route == "pallas3"
+                    else dict(render_net=dict(conv_backend=route)))
+        repeat_runs(f"train step {route}, {DETERMINISM_STEPS} steps",
+                    rnr_steps(sections, DETERMINISM_STEPS), out)
+    repeat_runs(f"unfused train step, {DETERMINISM_STEPS} steps",
+                rnr_steps(TRAIN_VARIANTS["unfused"][0], DETERMINISM_STEPS),
+                out)
+    repeat_runs("probe train step, 1 step",
+                rnr_steps(TRAIN_VARIANTS["probe"][0], 1), out)
+
+    restore = restorer(init_weights(RNRModel(canonical_config(), GCN_V),
+                                    seed=0))
+
+    def eval_frame():
+        model = restore()
+        with torch.inference_mode():
+            vf = model.compute_v_feature(b["gcn_pos"])
+        img = st.make_rnr_eval_step(model)(b, v_feature=vf)["img"]
+        return digest(vf, img)
+
+    repeat_runs("shipped eval frame (v_feature and image)", eval_frame, out)
+
+    from rnr_tpu_torch.config import (DNRConfig, LossConfig,
+                                      RenderNetConfig, TextureConfig,
+                                      TrainConfig)
+    dcfg = DNRConfig(
+        texture=TextureConfig(texture_size=512, texture_num_ch=DNR_CH,
+                              mipmap_level=4),
+        render_net=RenderNetConfig(nf0=64, num_down_unet=5),
+        loss=LossConfig(), train=TrainConfig(img_size=IMG))
+    db = {k: v[:1] for k, v in dnr_batch(DEV).items()}
+
+    restore = restorer(st.init_dnr_params(st.build_dnr_modules(dcfg), 0))
+
+    def dnr_steps():
+        mods = restore()
+        opt = st.create_rnr_optimizer(mods, 1e-3)
+        step = st.make_dnr_train_step(dcfg, mods, opt)
+        gen = st.make_generator(0)
+        mets = [step(db, gen) for _ in range(DETERMINISM_DNR_STEPS)]
+        return _step_digest(mods, opt, mets) + digest(
+            st.make_dnr_eval_step(dcfg, mods)(db))
+
+    repeat_runs(f"DNR train step ({DETERMINISM_DNR_STEPS} steps) and frame",
+                dnr_steps, out)
+
+    global_seeds = iter(range(1, 5))
+
+    def fresh_weights():
+        # the drivers' fresh weights (init_rnr_params), the global RNG
+        # seeded anew for each call as another process would have it
+        torch.manual_seed(next(global_seeds))
+        return digest(*st.init_rnr_params(
+            RNRModel(canonical_config(), GCN_V), 0).state_dict().values())
+
+    repeat_runs("init_rnr_params, the drivers' fresh weights", fresh_weights,
+                out)
+
+    faces = ring_faces(*MESH_LAT_LON, EDGE_ELEVATION, [0], IMG)
+    rng = np.random.default_rng(22)
+    w1 = torch.from_numpy(rng.uniform(0.2, 1, (1, IMG, IMG)).astype(
+        np.float32)).to(DEV)
+    w3 = torch.from_numpy(rng.uniform(0.2, 1, (1, 3, IMG, IMG)).astype(
+        np.float32)).to(DEV)
+    tex = torch.from_numpy(rng.uniform(0, 1, (1, faces.shape[1], 2, 2, 2, 3))
+                           .astype(np.float32)).to(DEV)
+
+    def raster_opt():
+        f = faces.detach().clone().requires_grad_(True)
+        t = tex.clone().requires_grad_(True)
+        o = eg.rasterize_opt(f, t, IMG, near=0.0, far=100.0)
+        ((o["rgb"] * w3).sum() + (o["alpha"] * w1).sum()
+         + (o["depth"] * w1).sum() * 1e-3).backward()
+        return digest(o["rgb"], o["alpha"], o["depth"], f.grad, t.grad)
+
+    repeat_runs(f"rasterize_opt forward and backward at {IMG}^2",
+                raster_opt, out)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="device,build,kernels,slice,"
                                         "gbuffer,relight,parity,train,"
                                         "train_parity,drivers,dnr,edge_grad,"
-                                        "parallel,sp,gate")
+                                        "parallel,sp,gate,determinism")
     phases = ap.parse_args().phases.split(",")
+    # cuBLAS's fixed workspace, which torch.use_deterministic_algorithms
+    # asks for: set before the first CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     smi = phase_device()
     rec: dict = {}
@@ -5362,6 +5544,7 @@ def main() -> None:
     gate_rec: dict = {}
     parallel: dict = {}
     sp: dict = {}
+    determinism: dict = {}
 
     def done(name):
         torch.cuda.synchronize()
@@ -5419,6 +5602,10 @@ def main() -> None:
         phase_gate(gate_launches, gate_rec, smi)
         done("gate")
         log(f"[gate] {json.dumps(gate_rec)}")
+    if "determinism" in phases:
+        phase_determinism(determinism)
+        done("determinism")
+        log(f"[determinism] {json.dumps(determinism)}")
     # launches: the count on the kernel's main path, the training step
     # (one step at b1), or for K7 the G-buffer path (N_VIEWS views), for
     # K5 the relight path (N_VIEWS views x N_PROBES probes x the routes),

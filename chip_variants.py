@@ -173,9 +173,8 @@ K4_VARIANTS = {
 K2B_VARIANTS = {
     "real": [],
     "no_atomics": [
-        ("  atomicAdd(dst, a[0]);", "  if (a[0] == 1.2345e-30f) atomicAdd(dst, a[0]);"),
-        ('  asm volatile("red.global.add.v4.f32',
-         '  if (a[0] == 1.2345e-30f) asm volatile("red.global.add.v4.f32')],
+        ("  atomicAdd(reinterpret_cast<unsigned long long*>(dst),",
+         "  if (a == 0x12345678912345LL) atomicAdd(reinterpret_cast<unsigned long long*>(dst),")],
     "no_peel": [("      for (int r = 0; r < 2; ++r) {",
                  "      for (int r = 0; r < 0; ++r) {")],
     "no_sums": [
@@ -1438,10 +1437,14 @@ def time_k2b(dev, stream) -> None:
         (1, 512, 512, 24)).astype(np.float32)).to(dev)
     sizes = (512, 256, 128, 64)
     grads = [torch.zeros((s, s, 24), device=dev) for s in sizes]
+    acc = torch.empty(sum(s * s for s in sizes) * 24, dtype=torch.int64,
+                      device=dev)
+    mbits = torch.empty(1, dtype=torch.int32, device=dev)
     for name, lib in libs.items():
-        f = entry(lib, "rnr_mipmap_scatter", 6, 9)
+        f = entry(lib, "rnr_mipmap_scatter", 8, 9)
         for tag, u in cases.items():
             us = device_us(lambda: f(*[t.data_ptr() for t in grads],
+                                     acc.data_ptr(), mbits.data_ptr(),
                                      u.data_ptr(), g.data_ptr(), *sizes, 4,
                                      1, 512, 512, 24, stream))
             print(f"K2b 512^2 x 4 levels x 24, {tag}, {name}: {us:.2f} us "

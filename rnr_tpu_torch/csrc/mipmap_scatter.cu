@@ -12,8 +12,8 @@
 //   The TPU form bins pixel chunks to 128^2 texture tiles and scatters
 //   with one-hot bf16 matmuls (a TPU scatter is a serialized loop),
 //   falling back to an XLA scatter on overflow.  None of that is needed
-//   here: this is the original renderer's f32 atomic scatter, with no
-//   bf16 rounding of w * g.
+//   here: w * g is not rounded to bf16, and the sum is one whose result
+//   does not depend on the order in which blocks run (below).
 //
 // Bound on the H100: bytes, if the atomics were free.  At 512^2 with 24
 //   channels and four levels the kernel reads about 27 MB (uv and g) and
@@ -54,17 +54,36 @@
 //   match.any (on the H100 it cost more than the atomics it saved), a
 //   walk of the taps one by one with the lanes across channels
 //   (latency-bound), and one reduction per tap (bound by the atomics).
-//   The order of the atomics across warps is not fixed, so the f32 sums
-//   may differ in the last bits from run to run.
+//
+// Fixed point, so that every run gives the same bits: each w * g is
+//   formed exactly in double (24 x 24 bits), multiplied by 2^k and
+//   rounded once to the nearest integer (ties to even), and the sums run
+//   in int64, in shared-memory slots, across lanes and through
+//   red.global.add.u64 into an int64 copy of each level.  Integer
+//   addition is associative, so neither the order of the warps' atomics
+//   nor the slot order of the tile's counting sort reaches the result.
+//   A last pass writes each sum, taken to double (a rounding at 2^-53),
+//   scaled by 2^-k and rounded to f32, into the f32 level gradients.  k is chosen on the card, per call, from M =
+//   max|g| and the pixel count P (grid_exponent): a pixel's four taps of
+//   a level weigh at most 1 together, so a texel's sum is at most P * M;
+//   with M < 2^(E+1) and P < 2^p, k = 61 - p - E keeps P * M * 2^k below
+//   2^62, and the roundings (half a unit a tap, 4 P taps) cannot reach
+//   2^63.  Each texel then differs from the exact sum of its f32-exact
+//   products by at most (its taps) * 2^-(k+1) before the last rounding:
+//   2^-42 M a tap at 512^2, b1 (P = 2^18, p = 19).  A non-finite g
+//   (M inf or NaN) makes every texel of every level NaN.  The cost: the
+//   int64 levels are zeroed, max|g| read and the levels converted, each
+//   a pass over memory (67 MB of int64 at 512^2 x 24 x 4 levels), and
+//   the reductions carry 8-byte scalars where they carried float4s.
 //
 // What the hot and ragged cases cost: a tile wholly outside the object
-//   sorts its 32 taps into one texel and sends one vector reduction per
-//   float4 per level (about 4,200 tiles of a 512^2 frame, so about 4,200
+//   sorts its 32 taps into one texel and sends one reduction per channel
+//   per level (about 4,200 tiles of a 512^2 frame, so about 4,200
 //   same-address reductions where the pixel-per-thread scatter had
 //   131,072 atomics per channel); a silhouette tile sends the object's
 //   taps one by one and the corner's as one group; C % 4 != 0 takes the
-//   scalar path (scalar loads and atomics); a tile past the frame's edge
-//   masks its missing pixels.
+//   scalar path (scalar loads of g); a tile past the frame's edge masks
+//   its missing pixels.
 
 #include <cuda_runtime.h>
 
@@ -77,6 +96,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int TW = 8, TH = 4;          // a warp's pixel tile
 constexpr int WARPS = 8;
 constexpr int WIN = 128;               // texels of a warp's box, at most
+constexpr unsigned NONFINITE = 0x7f800000u;   // |g|'s bits at or above: inf, NaN
 
 // a warp's shared memory: its pixels' g rows, each padded so that the
 // lanes' float4 (or float) reads of 32 rows fall in distinct banks; the
@@ -88,25 +108,47 @@ __host__ __device__ constexpr int warp_floats(int ch, int vec) {
   return 32 * g_stride(ch, vec) + WIN + 2 * 4 * 32;
 }
 
-template <int VEC>
-__device__ __forceinline__ void red_add(float* dst, const float* a);
-template <>
-__device__ __forceinline__ void red_add<1>(float* dst, const float* a) {
-  atomicAdd(dst, a[0]);
+// the grid exponent k of one call: with M = max|g| < 2^(E+1) (its bits
+// `mbits`) and P < 2^p pixels, P * M * 2^k < 2^62
+__device__ __forceinline__ int grid_exponent(unsigned mbits, long long pix) {
+  const int e = max((int)(mbits >> 23), 1) - 127;
+  const int p = 64 - __clzll(pix);
+  return 61 - p - e;
 }
-template <>
-__device__ __forceinline__ void red_add<4>(float* dst, const float* a) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n"
-               :: "l"(dst), "f"(a[0]), "f"(a[1]), "f"(a[2]), "f"(a[3])
-               : "memory");
+
+// w * g on the grid 2^-k: the product is exact in double, the scaling by
+// a power of two too, so the one rounding is the conversion's
+__device__ __forceinline__ long long fix(float w, float g, double scale) {
+  return __double2ll_rn((double)w * (double)g * scale);
+}
+
+__device__ __forceinline__ void red_add(long long* dst, long long a) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(dst),
+            (unsigned long long)a);
+}
+
+// max |g| as float bits (order-free: an integer max)
+__global__ void absmax_kernel(const float* __restrict__ g, long long count,
+                              unsigned* __restrict__ mbits) {
+  unsigned m = 0;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < count; i += (long long)gridDim.x * blockDim.x)
+    m = max(m, __float_as_uint(__ldg(g + i)) & 0x7fffffffu);
+  m = __reduce_max_sync(FULL, m);
+  if (threadIdx.x % 32 == 0 && m) atomicMax(mbits, m);
 }
 
 template <int VEC>
 __global__ void __launch_bounds__(32 * WARPS)
-mipmap_scatter_kernel(Levels<float*> lv, const float* __restrict__ uv,
-                      const float* __restrict__ g, int n, int h, int w,
-                      int ch) {
+mipmap_scatter_kernel(Levels<long long*> lv, const float* __restrict__ uv,
+                      const float* __restrict__ g,
+                      const unsigned* __restrict__ mbits, int n, int h,
+                      int w, int ch) {
   extern __shared__ float smem[];
+  const unsigned mb = *mbits;
+  if (mb == 0 || mb >= NONFINITE) return;   // nothing to add, or NaN out
+  const double scale =
+      ldexp(1.0, grid_exponent(mb, (long long)n * h * w));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tiles_x = (w + TW - 1) / TW, tiles_y = (h + TH - 1) / TH;
   const long long tile = (long long)blockIdx.x * WARPS + warp;
@@ -154,7 +196,7 @@ mipmap_scatter_kernel(Levels<float*> lv, const float* __restrict__ uv,
     const int tx[4] = {tp.x0, tp.x0, tp.x1, tp.x1};
     const int ty[4] = {tp.y0, tp.y1, tp.y0, tp.y1};
 
-    float* dt = lv.ptr[l];
+    long long* dt = lv.ptr[l];
 
     // the bounding box of the warp's taps of nonzero weight
     unsigned lo_x = 0xffffffffu, lo_y = 0xffffffffu, hi_x = 0, hi_y = 0;
@@ -176,7 +218,8 @@ mipmap_scatter_kernel(Levels<float*> lv, const float* __restrict__ uv,
 
     if (ww <= WIN && wh <= WIN && ww * wh <= WIN) {
       // the taps sorted by texel of the box (a counting sort), then one
-      // lane per (texel, float4) sums its texel's taps and sends them
+      // lane per (texel, VEC channels) sums its texel's taps and sends
+      // them
       const int area = ww * wh;
       for (int e = lane; e < WIN; e += 32) cnt[e] = 0;
       __syncwarp();
@@ -209,7 +252,8 @@ mipmap_scatter_kernel(Levels<float*> lv, const float* __restrict__ uv,
         run += local[k];
       }
       __syncwarp();
-      // each tap to its place; cnt[b] then ends bin b
+      // each tap to its place (in no fixed order within its bin: the
+      // integer sums below do not see it); cnt[b] then ends bin b
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         if (bin[t] >= 0) {
@@ -224,32 +268,35 @@ mipmap_scatter_kernel(Levels<float*> lv, const float* __restrict__ uv,
         const int b = it / nv, c0 = (it % nv) * VEC;
         const int beg = b ? cnt[b - 1] : 0, end = cnt[b];
         if (beg == end) continue;
-        float a[VEC];
+        long long a[VEC];
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) a[k] = 0.f;
+        for (int k = 0; k < VEC; ++k) a[k] = 0;
         for (int e = beg; e < end; ++e) {
           const float wp = ent_w[e];
           const float* gp = gs + ent_p[e] * gs_stride + c0;
           if constexpr (VEC == 4) {
             const float4 gv = *reinterpret_cast<const float4*>(gp);
-            a[0] = fmaf(wp, gv.x, a[0]);
-            a[1] = fmaf(wp, gv.y, a[1]);
-            a[2] = fmaf(wp, gv.z, a[2]);
-            a[3] = fmaf(wp, gv.w, a[3]);
+            a[0] += fix(wp, gv.x, scale);
+            a[1] += fix(wp, gv.y, scale);
+            a[2] += fix(wp, gv.z, scale);
+            a[3] += fix(wp, gv.w, scale);
           } else {
-            a[0] = fmaf(wp, gp[0], a[0]);
+            a[0] += fix(wp, gp[0], scale);
           }
         }
         const int texel = ((int)lo_y + b / ww) * s + (int)lo_x + b % ww;
-        red_add<VEC>(dt + (size_t)texel * ch + c0, a);
+        long long* dst = dt + (size_t)texel * ch + c0;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) red_add(dst + k, a[k]);
       }
       __syncwarp();
       continue;
     }
 
     // the box overflows the window: per tap, the lanes on the texel of the
-    // first, then of the last, lane left are summed across lanes and sent
-    // once; every other lane sends its own tap
+    // first, then of the last, lane left are summed across lanes (the
+    // lanes across channels) and sent once; every other lane sends its
+    // own tap
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       const bool nz = wt[t] != 0.f;
@@ -264,51 +311,52 @@ mipmap_scatter_kernel(Levels<float*> lv, const float* __restrict__ uv,
         const unsigned grp = __ballot_sync(FULL, key == k0);
         if (__popc(grp) < 2) continue;
         rest &= ~grp;
-        float* dst = dt + (size_t)k0 * ch;
+        long long* dst = dt + (size_t)k0 * ch;
         for (int c0 = 0; c0 < ch; c0 += 32) {
           const int c = c0 + lane;
-          float a = 0.f;
+          long long a = 0;
           for (unsigned m = grp; m; m &= m - 1) {
             const int p = __ffs(m) - 1;
             const float wp = __shfl_sync(FULL, wt[t], p);
-            if (c < ch) a = fmaf(wp, gs[p * gs_stride + c], a);
+            if (c < ch) a += fix(wp, gs[p * gs_stride + c], scale);
           }
-          if constexpr (VEC == 4) {
-            // lane j sends channels c0 + 4 j .. + 3
-            float v4[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              v4[k] = __shfl_sync(FULL, a, (4 * lane + k) & 31);
-            if (4 * lane < min(32, ch - c0)) red_add<4>(dst + c0 + 4 * lane, v4);
-          } else {
-            if (c < ch) red_add<1>(dst + c, &a);
-          }
+          if (c < ch) red_add(dst + c, a);
         }
       }
       if (rest & (1u << lane)) {
-        float* dst = dt + (size_t)key * ch;
-        for (int c0 = 0; c0 < ch; c0 += VEC) {
-          float a[VEC];
-          if constexpr (VEC == 4) {
-            const float4 gv =
-                *reinterpret_cast<const float4*>(gs + lane * gs_stride + c0);
-            a[0] = wt[t] * gv.x;
-            a[1] = wt[t] * gv.y;
-            a[2] = wt[t] * gv.z;
-            a[3] = wt[t] * gv.w;
-          } else {
-            a[0] = wt[t] * gs[lane * gs_stride + c0];
-          }
-          red_add<VEC>(dst + c0, a);
-        }
+        long long* dst = dt + (size_t)key * ch;
+        for (int c = 0; c < ch; ++c)
+          red_add(dst + c, fix(wt[t], gs[lane * gs_stride + c], scale));
       }
     }
   }
 }
 
+// the int64 levels to f32: the sum to double, times 2^-k (exact), to
+// f32; NaN everywhere for a non-finite g
+__global__ void to_float_kernel(Levels<float*> out,
+                                const long long* __restrict__ acc,
+                                const unsigned* __restrict__ mbits,
+                                long long pix, int ch) {
+  const unsigned mb = *mbits;
+  const double inv = ldexp(1.0, mb ? -grid_exponent(mb, pix) : 0);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int l = 0; l < out.n; ++l) {
+    const long long count = (long long)out.size[l] * out.size[l] * ch;
+    float* o = out.ptr[l];
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < count; i += stride)
+      o[i] = mb >= NONFINITE ? __int_as_float(0x7fc00000)
+                             : __double2float_rn(
+                                   __ll2double_rn(__ldg(acc + i)) * inv);
+    acc += count;
+  }
+}
+
 template <int VEC>
-int launch(const Levels<float*>& lv, const float* uv, const float* g, int n, int h,
-           int w, int ch, cudaStream_t stream) {
+int launch(const Levels<long long*>& lv, const float* uv, const float* g,
+           const unsigned* mbits, int n, int h, int w, int ch,
+           cudaStream_t stream) {
   const int smem = WARPS * warp_floats(ch, VEC) * (int)sizeof(float);
   static bool attr = false;
   if (!attr) {
@@ -324,41 +372,59 @@ int launch(const Levels<float*>& lv, const float* uv, const float* g, int n, int
   const long long blocks = (tiles + WARPS - 1) / WARPS;
   if (blocks == 0) return 0;
   mipmap_scatter_kernel<VEC><<<(unsigned)blocks, 32 * WARPS, smem, stream>>>(
-      lv, uv, g, n, h, w, ch);
+      lv, uv, g, mbits, n, h, w, ch);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Up to MAX_LEVELS level gradients per launch (each [S_l, S_l, ch] f32,
-// zeroed by the caller: the kernel adds into them); a caller with more
-// levels launches again.  uv [n, h, w, 2], g [n, h, w, ch] f32, ch <=
-// MAX_CH.  uv is read as float2, so its base must be 8-byte aligned; where
-// ch % 4 == 0, g is read and the level gradients are added to as float4,
-// so their bases must be 16-byte aligned.  Anything else returns
-// cudaErrorInvalidValue and launches nothing.
+// Up to MAX_LEVELS level gradients per launch, each [S_l, S_l, ch] f32,
+// written (not added to); a caller with more levels launches again.
+// `acc` is int64 scratch of sum_l S_l^2 ch elements and `mbits` one
+// 4-byte word, both on the card (zeroed here).  uv [n, h, w, 2], g [n,
+// h, w, ch] f32, ch <= MAX_CH.  uv is read as float2, so its base must be
+// 8-byte aligned; where ch % 4 == 0, g is read as float4, so its base
+// must be 16-byte aligned; acc must be 8-byte aligned.  Anything else
+// returns cudaErrorInvalidValue and launches nothing.
 extern "C" int rnr_mipmap_scatter(void* d0, void* d1, void* d2, void* d3,
-                                  const void* uv, const void* g, int s0,
-                                  int s1, int s2, int s3, int n_levels,
-                                  int n, int h, int w, int ch,
-                                  cudaStream_t stream) {
+                                  void* acc, void* mbits, const void* uv,
+                                  const void* g, int s0, int s1, int s2,
+                                  int s3, int n_levels, int n, int h, int w,
+                                  int ch, cudaStream_t stream) {
   if (n_levels < 1 || n_levels > MAX_LEVELS || ch < 1 || ch > MAX_CH ||
-      n < 0 || h < 0 || w < 0 || (reinterpret_cast<size_t>(uv) & 7) != 0)
+      n < 0 || h < 0 || w < 0 || (reinterpret_cast<size_t>(uv) & 7) != 0 ||
+      (reinterpret_cast<size_t>(acc) & 7) != 0 ||
+      (reinterpret_cast<size_t>(mbits) & 3) != 0 ||
+      (ch % 4 == 0 && (reinterpret_cast<size_t>(g) & 15) != 0))
     return (int)cudaErrorInvalidValue;
   float* const ds[MAX_LEVELS] = {static_cast<float*>(d0),
                                  static_cast<float*>(d1),
                                  static_cast<float*>(d2),
                                  static_cast<float*>(d3)};
-  if (ch % 4 == 0) {
-    bool aligned = (reinterpret_cast<size_t>(g) & 15) == 0;
-    for (int i = 0; i < n_levels; ++i)
-      aligned = aligned && (reinterpret_cast<size_t>(ds[i]) & 15) == 0;
-    if (!aligned) return (int)cudaErrorInvalidValue;
-  }
   const int ss[MAX_LEVELS] = {s0, s1, s2, s3};
-  const Levels<float*> lv = make_levels(ds, ss, n_levels);
-  const float* u = static_cast<const float*>(uv);
+  long long* as[MAX_LEVELS] = {};
+  size_t total = 0;
+  for (int i = 0; i < n_levels; ++i) {
+    as[i] = static_cast<long long*>(acc) + total;
+    total += (size_t)ss[i] * ss[i] * ch;
+  }
+  unsigned* mb = static_cast<unsigned*>(mbits);
+  cudaError_t e = cudaMemsetAsync(acc, 0, total * sizeof(long long), stream);
+  if (e == cudaSuccess) e = cudaMemsetAsync(mb, 0, sizeof(unsigned), stream);
+  if (e != cudaSuccess) return (int)e;
+  const long long count = (long long)n * h * w * ch;
   const float* gp = static_cast<const float*>(g);
-  return ch % 4 == 0 ? launch<4>(lv, u, gp, n, h, w, ch, stream)
-                     : launch<1>(lv, u, gp, n, h, w, ch, stream);
+  if (count > 0) {
+    const long long want = (count + 255) / 256;
+    const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
+    absmax_kernel<<<blocks, 256, 0, stream>>>(gp, count, mb);
+    const int rc = (ch % 4 == 0 ? launch<4> : launch<1>)(
+        make_levels(as, ss, n_levels), static_cast<const float*>(uv), gp, mb,
+        n, h, w, ch, stream);
+    if (rc != 0) return rc;
+  }
+  to_float_kernel<<<132 * 8, 256, 0, stream>>>(
+      make_levels(ds, ss, n_levels), static_cast<const long long*>(acc), mb,
+      (long long)n * h * w, ch);
+  return (int)cudaGetLastError();
 }

@@ -8,7 +8,11 @@
 // pixel coordinates, clamped to [0, 1] and renormalised, 1/zp = sum w/z.
 // The z-test is strict, so the first candidate wins a tie.  Output:
 // depth [N, S, S] f32 (`far` where empty) and idx [N, S, S] int32 (-1), in
-// raster orientation (row = pixel y).
+// raster orientation (row = pixel y).  The tiles cover the frame from its
+// top-left corner, ceil(S / tile_h) x ceil(S / tile_w) of them; those of
+// the last row and column are cut by the frame's edge (a partial tile: its
+// pixels past S are neither walked nor written), so one tile shape serves
+// every S.
 //
 // Replaces: rnr_tpu/ops/rasterize_pallas.py  rasterize_pallas (:174) /
 //   _raster_kernel (:107), one grid step per 32 x 128 tile with the tile's
@@ -138,24 +142,26 @@ raster_tiles_kernel(const float* __restrict__ table,
 
   const int n = blockIdx.z;
   const int t = blockIdx.y;
-  const int n_tx = s / tile_w;
+  const int n_tx = (s + tile_w - 1) / tile_w;
   const int ty = t / n_tx, tx = t % n_tx;
   const int sx = blockIdx.x % sub_x, sy = blockIdx.x / sub_x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wy = warp / WX, wx = warp % WX;
   const float sf = static_cast<float>(s);
 
-  // the block's and the warp's pixels that are in the tile, in image
+  // the tile's rows and columns inside the frame (fewer in an edge
+  // tile), then the block's and the warp's pixels among them, in image
   // coordinates
   const int y_t = ty * tile_h, x_t = tx * tile_w;
+  const int th = min(tile_h, s - y_t), tw = min(tile_w, s - x_t);
   const int br = sy * BH, bc = sx * BW;
   const int wr = br + wy * WH, wc = bc + wx * 32;
   const Rect block_rect =
-      rect(y_t + br, y_t + min(br + BH, tile_h) - 1, x_t + bc,
-           x_t + min(bc + BW, tile_w) - 1, sf);
+      rect(y_t + br, y_t + min(br + BH, th) - 1, x_t + bc,
+           x_t + min(bc + BW, tw) - 1, sf);
   const Rect warp_rect =
-      rect(y_t + wr, y_t + min(wr + WH, tile_h) - 1, x_t + wc,
-           x_t + min(wc + 32, tile_w) - 1, sf);
+      rect(y_t + wr, y_t + min(wr + WH, th) - 1, x_t + wc,
+           x_t + min(wc + 32, tw) - 1, sf);
 
   const int col = wc + lane;
   const int xg = x_t + col;
@@ -167,7 +173,7 @@ raster_tiles_kernel(const float* __restrict__ table,
 #pragma unroll
   for (int j = 0; j < WH; ++j) {
     const int row = wr + j;
-    valid[j] = (col < tile_w) && (row < tile_h);
+    valid[j] = (col < tw) && (row < th);
     yg[j] = y_t + row;
     yi[j] = static_cast<float>(yg[j]);
     yp[j] = ndc(yg[j], sf);
@@ -281,7 +287,8 @@ raster_tiles_kernel(const float* __restrict__ table,
 
 // table [n, f, 18] f32, ids [n, n_tiles, k_cap] int32, counts [n, n_tiles]
 // int32 -> depth [n, s, s] f32, idx [n, s, s] int32.  Tiles are tile_h x
-// tile_w, row-major, s divisible by both.
+// tile_w, ceil(s / tile_h) x ceil(s / tile_w) of them, row-major; those of
+// the last row and column are cut by the frame.
 extern "C" int rnr_rasterize_tiles(const void* table, const void* ids,
                                    const void* counts, void* depth,
                                    void* idx, int n, int f, int n_tiles,

@@ -23,9 +23,11 @@ index i mod D, whose N / D sp ranks render its frame together at batch
 G-buffer (K7) and runs the network on its rows (halo exchanges and
 norms over its sp group), so each frame is the single-device frame;
 the first sp rank of each dp index writes the PNGs of its views'
-gathered frames.  The rows must split: img_size % (sp · 2**num_down)
-== 0, at least 2 innermost rows a rank, checked before any rank starts;
-`--per_stage_timing` times whole frames on one rank only.
+gathered frames.  The rows must split: img_size % 2**num_down == 0, at
+least 2 innermost rows a rank (sharding.check_rows), checked before any
+rank starts.  With `--per_stage_timing` over sp ranks each rank times
+each bucket between barriers of its sp group, on its rows, and the first
+sp rank's times are reported, as rnr_tpu's driver does on a mesh.
 
 Usage:
   python -m rnr_tpu_torch.drivers.test_rnr --data_root DATA \
@@ -232,9 +234,6 @@ def main(argv=None, keep_frames: bool = False) -> dict:
     n = opt.mesh_devices or 1
     _, sp = sharding.mesh_shape(n, opt.mesh_dp)
     if sp > 1:
-        if opt.per_stage_timing:
-            raise ValueError("--per_stage_timing times whole frames: it "
-                             "takes --mesh_dp equal to --mesh_devices")
         cfg = load_config(RNRConfig,
                           os.path.join(opt.checkpoint_dir, "params.json"))
         sharding.check_rows(opt.img_size, sp, cfg.render_net.num_down_unet)
@@ -345,13 +344,16 @@ def _render(opt, dev: torch.device, keep_frames: bool,
         cond_mkdir(os.path.join(out_dir, name))
 
     timer = StepTimer(dev)
+    sp_ranks = sp_mesh if ranks is not None and ranks.sp > 1 else None
 
     def timed(fn):
+        _barrier(sp_ranks)
         timer.start()
         out = fn()
         return out, timer.stop()
 
-    staged = _make_staged(model, dev) if opt.per_stage_timing else None
+    staged = (_make_staged(model, dev, sp_ranks) if opt.per_stage_timing
+              else None)
     frames = {}
     buckets: dict = {}
     mine = range(part, len(ds), parts)
@@ -425,16 +427,27 @@ def _gathered(step, mesh: sharding.Mesh):
     return run
 
 
-def _make_staged(model, dev):
+def _barrier(mesh: sharding.Mesh | None) -> None:
+    """Wait for the other ranks of the mesh's group (none without one)."""
+    if mesh is not None:
+        torch.distributed.barrier(group=mesh.group)
+
+
+def _make_staged(model, dev, mesh: sharding.Mesh | None = None):
     """The eval frame split into stages, each timed by CUDA events on the
     card (the host clock on the CPU) that it waits for: texture sampling
     (K2), the ray fans, the U-Net (the GCN feature cached) and the SH
     shading of the materialised rays (K5) or the probe gather, as
-    rnr_tpu's reference-granularity buckets.  Slower than the fused step;
-    for diagnostics.  run(batch, lp, sh_coeff, v_feature,
-    save_lp_background) -> (frame [H, W, C] as relit_frame's, times)."""
+    rnr_tpu's reference-granularity buckets.  Over the row shards of
+    `mesh` (dp 1) each rank runs every stage on its rows (the U-Net's
+    norms and halos over the mesh), each stage starting after a barrier
+    of the mesh's group, and the frame is gathered whole on every rank.
+    Slower than the fused step; for diagnostics.  run(batch, lp,
+    sh_coeff, v_feature, save_lp_background) -> (frame [H, W, C] as
+    relit_frame's, this rank's times)."""
     c = model.cfg
     timer = StepTimer(dev)
+    unit = 2 ** model.render_net.Unet_0.num_down
     num_ray_diffuse = c.rays.num_azi * c.rays.num_polar + 1
 
     def rays(batch):
@@ -470,8 +483,12 @@ def _make_staged(model, dev):
     @torch.inference_mode()
     def run(batch, lp, sh_coeff, v_feature, save_lp_background=False):
         times = {}
+        mesh_ = mesh or sharding.ONE_RANK
+        h = batch["alpha_map"].shape[1]
+        batch = sharding.shard_rnr_batch(batch, mesh_, unit)
 
         def stage(name, fn):
+            _barrier(mesh)
             timer.start()
             out = fn()
             times[name] = timer.stop()
@@ -480,8 +497,11 @@ def _make_staged(model, dev):
         neural_img = stage("t_texture", lambda: model.texture_mapper(
             batch["uv_map"], batch["sh_basis_map"], sh_start_ch=6))
         rays_dir, rays_uv = stage("t_rays", lambda: rays(batch))
-        rays_lt = stage("t_network", lambda: network(
-            batch, neural_img, rays_dir, v_feature))
+        with sharding.global_batch_norm(
+                model, mesh_, (batch["alpha_map"].shape[1], h)), \
+                sharding.row_shards(model, mesh_):
+            rays_lt = stage("t_network", lambda: network(
+                batch, neural_img, rays_dir, v_feature))
         out = stage("t_render", lambda: render(
             batch, neural_img, rays_dir, rays_uv, rays_lt, lp, sh_coeff))
         alpha = batch["alpha_map"][0]
@@ -489,6 +509,9 @@ def _make_staged(model, dev):
         if save_lp_background:
             img = img + lp_background(lp[0], batch["view_dir_map"][0]) * (
                 1.0 - alpha)
+        if mesh is not None:
+            img = torch.from_numpy(fetch_global(img[None], mesh.sp,
+                                                mesh.group)[0]).to(img.device)
         return img, times
 
     return run

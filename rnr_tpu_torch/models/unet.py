@@ -52,7 +52,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from rnr_tpu_torch.ops.conv4_cuda import convt4, convt4s, down4, down4s
-from rnr_tpu_torch.ops.conv_cuda import conv3x3, conv3x3s
+from rnr_tpu_torch.ops.conv_cuda import conv3x3, conv3x3s, reflect_pad1
 
 DROPOUT_P = 0.1   # rnr_tpu's RenderingNet fixes the U-Net's dropout rate
 GROUP_SIZE = 16   # rnr_tpu's GroupNorm(num_groups=None, group_size=16)
@@ -188,7 +188,7 @@ class Conv(nn.Module):
         else:
             xn = x.permute(0, 3, 1, 2)
             if self.pad_mode == "reflect":
-                xn = F.pad(xn, (1, 1, 1, 1), mode="reflect")
+                xn = reflect_pad1(xn)
             else:   # XLA "SAME": total pad (out-1)*s + k - in, low half first
                 pads = []
                 for size in (xn.shape[3], xn.shape[2]):

@@ -25,13 +25,19 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point builds on: the current CUDA device when
     `device` is None (raising when there is no card: nothing falls back
-    to the CPU), else `device` as given (`"cpu"` for the plain versions)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port runs on the GPU unless "
-                           "device='cpu' is passed")
-    return torch.device("cuda", torch.cuda.current_device())
+    to the CPU), else `device` as given (`"cpu"` for the plain versions).
+    On a CUDA device cuDNN is set to its deterministic algorithms, with no
+    autotuning, so that the port's steps and frames repeat bit for bit."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the GPU "
+                               "unless device='cpu' is passed")
+        device = torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    return dev
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -42,7 +42,8 @@ from rnr_tpu_torch.ops import _build
 from rnr_tpu_torch.ops.backend import (check_launch, require, stream_of,
                                        use_kernel)
 from rnr_tpu_torch.ops.conv_cuda import (f32_by_three, k3_weights,
-                                         pad_channels, round8)
+                                         pad_channels, reflect_ring_adjoint,
+                                         round8)
 
 # K8's tiling (csrc/conv4x4_slab.cu): input channels per reduction unit,
 # the blocks of one wave on the H100 (132 SMs), the fewest units a split
@@ -294,10 +295,9 @@ def _down4_plain_grads(x, w, g, pad_mode, need_x, need_w):
                             [0, 0], 1, [need_x, need_w, False])
     dx = dw = None
     if need_x:
-        if reflect:
-            dxp = torch.ops.aten.reflection_pad2d_backward(dxp, xn,
-                                                           [1, 1, 1, 1])
         dx = dxp.permute(0, 2, 3, 1)
+        if reflect:
+            dx = reflect_ring_adjoint(dx)
     if need_w:
         dw = dwk.permute(2, 3, 1, 0).to(w.dtype)
     return dx, dw

@@ -343,7 +343,16 @@ def _dgrad(g: torch.Tensor, w: torch.Tensor, pad_mode: str, conv):
     w_rot = w.flip(0, 1).transpose(2, 3)                  # [3, 3, O, C]
     if pad_mode == "same":
         return conv(g, w_rot)
-    dxp = conv(F.pad(g, (0, 0, 1, 1, 1, 1)), w_rot)       # [N, H+2, W+2, C]
+    # [N, H+2, W+2, C]
+    return reflect_ring_adjoint(conv(F.pad(g, (0, 0, 1, 1, 1, 1)), w_rot))
+
+
+def reflect_ring_adjoint(dxp: torch.Tensor) -> torch.Tensor:
+    """dx [N, H, W, C] from dxp [N, H+2, W+2, C], the gradient of x padded
+    by one reflected ring (x_pad[0] = x[1], so dx[1] += dx_pad[0], and so
+    on; the corners compose): the interior, then the four edges, then the
+    four corners, each a fixed slice add.  No atomics, so the same bits
+    every run, where torch's reflection_pad2d_backward adds with them."""
     dx = dxp[:, 1:-1, 1:-1].clone()
     dx[:, 1, :] += dxp[:, 0, 1:-1]
     dx[:, -2, :] += dxp[:, -1, 1:-1]
@@ -354,6 +363,24 @@ def _dgrad(g: torch.Tensor, w: torch.Tensor, pad_mode: str, conv):
     dx[:, -2, 1] += dxp[:, -1, 0]
     dx[:, -2, -2] += dxp[:, -1, -1]
     return dx
+
+
+class ReflectPad1Fn(torch.autograd.Function):
+    """NCHW x reflect-padded by 1 (F.pad's), with reflect_ring_adjoint as
+    its backward."""
+
+    @staticmethod
+    def forward(ctx, xn):
+        return F.pad(xn, (1, 1, 1, 1), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        return reflect_ring_adjoint(g.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def reflect_pad1(xn: torch.Tensor) -> torch.Tensor:
+    """NCHW x reflect-padded by 1, with a fixed-order backward."""
+    return ReflectPad1Fn.apply(xn)
 
 
 def conv3x3_dgrad_torch(g: torch.Tensor, w: torch.Tensor,

@@ -8,15 +8,15 @@ and the port keeps its form: every boundary pixel gathers its own
 contribution from its four neighbours (the crossing edge is the
 barycentric that reaches zero first toward the neighbour, its rate a
 finite difference between same-face neighbours, the distance at least one
-pixel), and one index_add per image sums the contributions into the
-faces' corners.
+pixel), and one accumulating index_put_ per image sums the contributions
+into the faces' corners in pixel order.
 
 `silhouette` and `rasterize_opt` are torch.autograd.Functions.  Their
 forward takes the winner maps from `_rasterize_winner`: K7
 (`rasterize_tiled`: the kernel on CUDA tensors, its plain version on CPU
-tensors) on every call, its tiles the largest that divide the frame
-within 32 x 128 (the TPU kernel's tile, which rnr_tpu can only take at
-sizes it divides: the oracle draws the rest there), and, as rnr_tpu's
+tensors) on every call, on the TPU kernel's 32 x 128 tiles at any frame
+size (edge tiles cut by the frame; rnr_tpu can only take them at sizes
+they divide, and draws the rest with its oracle), and, as rnr_tpu's
 overflow rule, the oracle `rasterize_face_index` again whenever K7
 reports that its tile lists dropped candidates; ORACLE_TAKEN counts
 those runs.  Their backward is the edge terms in
@@ -39,23 +39,14 @@ BACKENDS = ("auto", "pallas", "pallas_interpret", "xla")
 ORACLE_TAKEN = {"overflow": 0}
 
 
-def winner_tiles(image_size: int) -> tuple[int, int]:
-    """K7's tile for an S x S frame: the largest divisors of S within 32
-    rows and 128 columns (32 x 128 wherever those divide S; a prime S
-    above 128 gets 1 x 1 tiles, S^2 tile lists)."""
-    def largest_divisor(cap):
-        return max(d for d in range(1, min(cap, image_size) + 1)
-                   if image_size % d == 0)
-    return largest_divisor(32), largest_divisor(128)
-
-
 def _rasterize_winner(faces: torch.Tensor, image_size: int, near: float,
                       far: float, backend: str = "auto") -> RasterOutput:
     """The winner maps of the differentiable paths (no gradient).
 
     backend "xla": the oracle.  Otherwise ("auto", and rnr_tpu's "pallas"
-    / "pallas_interpret", which are the same here) K7 on `winner_tiles`;
-    when K7 reports overflow (read on the host: a synchronisation), the
+    / "pallas_interpret", which are the same here) K7 on 32 x 128 tiles
+    at any frame size (min with S; the last row and column of tiles cut
+    by the frame); when K7 reports overflow (read on the host: a synchronisation), the
     oracle's maps, with K7's overflow kept in the result."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
@@ -63,9 +54,7 @@ def _rasterize_winner(faces: torch.Tensor, image_size: int, near: float,
     s = image_size
     if backend == "xla":
         return rasterize_face_index(faces, s, near=near, far=far)
-    tile_h, tile_w = winner_tiles(s)
-    out = rasterize_tiled(faces, s, near=near, far=far, tile_h=tile_h,
-                          tile_w=tile_w)
+    out = rasterize_tiled(faces, s, near=near, far=far)
     if int(out.overflow.sum()) == 0:
         return out
     ORACLE_TAKEN["overflow"] += 1
@@ -173,10 +162,13 @@ def edge_gradients(faces: torch.Tensor, face_index_map: torch.Tensor,
                   + torch.where(k_min == (j + 1) % 3, c2, 0.0))
             slot_acc[..., j * 2 + ax] += cj
 
+    # per face, its pixels' terms summed in pixel order: index_put_'s
+    # accumulate sorts the indices stably and adds each run in turn (on
+    # the card too, where index_add_ adds with atomics in no fixed order)
     grad_faces = torch.zeros((n, f, 6), dtype=dtype, device=dev)
     for b in range(n):
-        grad_faces[b].index_add_(0, fidx[b].reshape(-1),
-                                 slot_acc[b].reshape(-1, 6))
+        grad_faces[b].index_put_((fidx[b].reshape(-1),),
+                                 slot_acc[b].reshape(-1, 6), accumulate=True)
     # pixel-coordinate gradients to NDC: p = (x_ndc S + S - 1) / 2
     grad_ndc = grad_faces.reshape(n, f, 3, 2) * (s / 2.0)
     return torch.cat([grad_ndc, torch.zeros((n, f, 3, 1), dtype=dtype,

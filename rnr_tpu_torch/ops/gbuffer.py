@@ -99,8 +99,7 @@ def _project_and_raster(mesh: MeshBuffers, proj, pose, dist_coeffs, offset,
     v_ndc, faces_ndc = project_faces(mesh, proj, pose, dist_coeffs, offset,
                                      scale, s)
     if backend == "auto":
-        raster = rasterize_tiled(faces_ndc, s, near=near, far=far,
-                                 tile_h=min(32, s), tile_w=min(128, s))
+        raster = rasterize_tiled(faces_ndc, s, near=near, far=far)
     else:
         raster = rasterize_face_index(faces_ndc, s, near=near, far=far,
                                       face_chunk=face_chunk)

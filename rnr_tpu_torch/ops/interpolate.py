@@ -63,10 +63,50 @@ def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """img [H, W, C] -> [out_h, out_w, C], bilinear with half-pixel
     centres and clamped edges: jax.image.resize(..., "bilinear") when
     upsampling, the only use here (mipmap flattening).  Downsampling would
-    differ (JAX antialiases)."""
-    y = F.interpolate(img.permute(2, 0, 1)[None], size=tuple(out_hw),
-                      mode="bilinear", align_corners=False)
-    return y[0].permute(1, 2, 0)
+    differ (JAX antialiases).  Its backward is a fixed-order product with
+    the interpolation matrices (`ResizeBilinearFn`), where F.interpolate's
+    own adds with atomics on the card."""
+    return ResizeBilinearFn.apply(img, tuple(out_hw))
+
+
+def _resize_matrix(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
+    """[n_out, n_in] in `dtype`: the weights of F.interpolate's bilinear,
+    half-pixel, align_corners=False along one axis (source index clamped
+    at 0, the upper tap at n_in - 1; where the two taps meet, their
+    weights add)."""
+    o = torch.arange(n_out, dtype=dtype, device=device)
+    src = torch.clamp((o + 0.5) * (n_in / n_out) - 0.5, min=0.0)
+    i0 = torch.floor(src).to(torch.int64).clamp(max=n_in - 1)
+    i1 = torch.clamp(i0 + 1, max=n_in - 1)
+    l1 = src - i0.to(src.dtype)
+    m = torch.zeros((n_out, n_in), dtype=dtype, device=device)
+    rows = torch.arange(n_out, device=device)
+    m.index_put_((rows, i0), 1.0 - l1, accumulate=True)
+    m.index_put_((rows, i1), l1, accumulate=True)
+    return m
+
+
+class ResizeBilinearFn(torch.autograd.Function):
+    """F.interpolate's bilinear resize of [H, W, C]; the backward
+    A_y^T G A_x with the per-axis interpolation matrices
+    (`_resize_matrix`): matrix products, the same bits every run."""
+
+    @staticmethod
+    def forward(ctx, img, out_hw):
+        ctx.in_hw = img.shape[:2]
+        y = F.interpolate(img.permute(2, 0, 1)[None], size=out_hw,
+                          mode="bilinear", align_corners=False)
+        return y[0].permute(1, 2, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h, w), (oh, ow) = ctx.in_hw, g.shape[:2]
+        ay = _resize_matrix(h, oh, g.dtype, g.device)       # [oh, h]
+        ax = _resize_matrix(w, ow, g.dtype, g.device)       # [ow, w]
+        c = g.shape[2]
+        t = (ay.t() @ g.reshape(oh, ow * c)).reshape(h, ow, c)
+        return (ax.t() @ t.permute(1, 0, 2).reshape(ow, h * c)).reshape(
+            w, h, c).permute(1, 0, 2), None
 
 
 def interpolate_bilinear_np(data: np.ndarray, sub_x, sub_y) -> np.ndarray:

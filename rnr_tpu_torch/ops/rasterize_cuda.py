@@ -65,8 +65,9 @@ def bin_faces(faces: torch.Tensor, image_size: int, tile_h: int,
     Returns (table [N, F, 18] f32: xyz of the vertices and face_inv per
     face; ids [N, T, K] int32, each tile's candidates in ascending face
     id, -1 past its count; counts [N, T] int32; overflow [N] int32, the
-    candidates beyond K that were dropped), with T = (S / tile_h) x
-    (S / tile_w) tiles in row-major order and K = max_faces_per_tile.
+    candidates beyond K that were dropped), with T = ceil(S / tile_h) x
+    ceil(S / tile_w) tiles in row-major order (`tile_grid`: those of the
+    last row and column cut by the frame) and K = max_faces_per_tile.
     """
     faces = faces.detach()
     s = image_size
@@ -81,7 +82,7 @@ def bin_faces(faces: torch.Tensor, image_size: int, tile_h: int,
     xmax = torch.amax(p[..., 0], dim=-1)
     ymin = torch.amin(p[..., 1], dim=-1)
     ymax = torch.amax(p[..., 1], dim=-1)
-    n_ty, n_tx = s // tile_h, s // tile_w
+    n_ty, n_tx = tile_grid(s, tile_h, tile_w)
     n_t = n_ty * n_tx
     tx0 = _tile_of(torch.floor(xmin), tile_w, n_tx)
     tx1 = _tile_of(torch.ceil(xmax), tile_w, n_tx)
@@ -123,20 +124,48 @@ def bin_faces(faces: torch.Tensor, image_size: int, tile_h: int,
     return table, ids, counts, overflow
 
 
+def tile_grid(image_size: int, tile_h: int, tile_w: int) -> tuple[int, int]:
+    """Tile rows and columns over an S x S frame: ceil(S / tile_h) x
+    ceil(S / tile_w), those of the last row and column cut by the frame
+    where the tile does not divide S."""
+    return -(-image_size // tile_h), -(-image_size // tile_w)
+
+
+def tile_extent(image_size: int, tile_h: int, tile_w: int, device):
+    """Per tile, its rows and columns inside the frame ([T], [T]): tile_h
+    and tile_w but in the last row and column of tiles."""
+    s = image_size
+    n_ty, n_tx = tile_grid(s, tile_h, tile_w)
+    t = torch.arange(n_ty * n_tx, device=device)
+    return (torch.clamp(s - (t // n_tx) * tile_h, max=tile_h),
+            torch.clamp(s - (t % n_tx) * tile_w, max=tile_w))
+
+
+def tile_in_frame(image_size: int, tile_h: int, tile_w: int, device):
+    """[T, tile_h * tile_w] bool: the tile's pixel (row-major) lies in the
+    frame."""
+    eh, ew = tile_extent(image_size, tile_h, tile_w, device)
+    r = torch.arange(tile_h, device=device)
+    c = torch.arange(tile_w, device=device)
+    return ((r[None, :, None] < eh[:, None, None])
+            & (c[None, None, :] < ew[:, None, None])).reshape(len(eh), -1)
+
+
 def tile_pixels(image_size: int, tile_h: int, tile_w: int, dtype, device):
     """Per tile t and pixel q of it (row-major in the tile): the integer
     pixel coordinates xi, yi and the pixel-centre NDC xp, yp, each
-    [T, tile_h * tile_w]."""
+    [T, tile_h * tile_w].  An edge tile's pixels past the frame take the
+    coordinates of its last row or column (`_untile` drops them)."""
     s = image_size
-    n_ty, n_tx = s // tile_h, s // tile_w
+    n_ty, n_tx = tile_grid(s, tile_h, tile_w)
     r = torch.arange(tile_h, device=device)
     c = torch.arange(tile_w, device=device)
     yi = (torch.arange(n_ty, device=device)[:, None, None, None] * tile_h
           + r[None, None, :, None]).expand(n_ty, n_tx, tile_h, tile_w)
     xi = (torch.arange(n_tx, device=device)[None, :, None, None] * tile_w
           + c[None, None, None, :]).expand(n_ty, n_tx, tile_h, tile_w)
-    yi = yi.reshape(n_ty * n_tx, -1)
-    xi = xi.reshape(n_ty * n_tx, -1)
+    yi = yi.reshape(n_ty * n_tx, -1).clamp(max=s - 1)
+    xi = xi.reshape(n_ty * n_tx, -1).clamp(max=s - 1)
     nd = pixel_ndc(s, dtype, device)
     return xi.to(dtype), yi.to(dtype), nd[xi], nd[yi]
 
@@ -196,22 +225,28 @@ def rasterize_tiles_torch(table: torch.Tensor, ids: torch.Tensor,
 
 
 def _untile(a: torch.Tensor, s: int, tile_h: int, tile_w: int):
-    """[N, T, tile_h * tile_w] -> [N, S, S]."""
+    """[N, T, tile_h * tile_w] -> [N, S, S], the edge tiles' pixels past
+    the frame dropped."""
     n = a.shape[0]
-    n_ty, n_tx = s // tile_h, s // tile_w
+    n_ty, n_tx = tile_grid(s, tile_h, tile_w)
     return (a.reshape(n, n_ty, n_tx, tile_h, tile_w).permute(0, 1, 3, 2, 4)
-            .reshape(n, s, s))
+            .reshape(n, n_ty * tile_h, n_tx * tile_w)[:, :s, :s])
 
 
 def _region_ndc(s: int, n0: int, size: int, reg: int, dtype, device):
     """pixel_ndc of the first and last pixel of each region of `reg`
     pixels along one side of the tiles (tile offsets n0 [T]), the regions
-    clipped to the tile's `size`: ([T, R], [T, R])."""
+    clipped to the tile's `size` and to the frame, and whether a region
+    holds no pixel (past the frame in an edge tile): ([T, R], [T, R],
+    [T, R])."""
     k = torch.arange(-(-size // reg), device=device)
-    first = k * reg
-    last = torch.clamp(first + reg, max=size) - 1
+    first = n0[:, None] + k * reg
+    end = torch.minimum(n0[:, None] + torch.clamp(k * reg + reg, max=size),
+                        torch.tensor(s, device=device))
+    empty = end <= first
     nd = pixel_ndc(s, dtype, device)
-    return nd[n0[:, None] + first], nd[n0[:, None] + last]
+    return (nd[first.clamp(max=s - 1)], nd[(end - 1).clamp(max=s - 1)],
+            empty)
 
 
 def cull_keep(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
@@ -221,9 +256,10 @@ def cull_keep(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
     reg_h x reg_w pixels of the tile (row-major, clipped to the tile): a
     block's or a warp's (BLOCK, WARP_W).  Returns keep
     [N, T, R, K] bool over the first max(counts) list slots: the
-    candidate is live and no edge fails at both end rows against both
-    end columns, the kernel's test in its f32 expressions; a dropped one
-    is inside at no pixel of the rectangle."""
+    candidate is live, the rectangle holds a pixel of the frame, and no
+    edge fails at both end rows against both end columns, the kernel's
+    test in its f32 expressions; a dropped one is inside at no pixel of
+    the rectangle."""
     s = image_size
     n, n_t, _ = ids.shape
     dev, dt = table.device, table.dtype
@@ -232,15 +268,17 @@ def cull_keep(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
     live = (torch.arange(k_run, device=dev) < counts[..., None]) & (cid >= 0)
     rows = torch.arange(n, device=dev).reshape(n, 1, 1)
     d = table[rows, torch.clamp(cid, min=0).long()][:, :, None]  # [N,T,1,K,18]
-    n_tx = s // tile_w
+    n_tx = tile_grid(s, tile_h, tile_w)[1]
     t = torch.arange(n_t, device=dev)
-    ya, yb = _region_ndc(s, (t // n_tx) * tile_h, tile_h, reg_h, dt, dev)
-    xa, xb = _region_ndc(s, (t % n_tx) * tile_w, tile_w, reg_w, dt, dev)
+    ya, yb, ey = _region_ndc(s, (t // n_tx) * tile_h, tile_h, reg_h, dt, dev)
+    xa, xb, ex = _region_ndc(s, (t % n_tx) * tile_w, tile_w, reg_w, dt, dev)
     n_rx = xa.shape[1]
     # [T, R, 1], regions row-major
-    ya, yb = (v.repeat_interleave(n_rx, dim=1)[..., None] for v in (ya, yb))
-    xa, xb = (v.repeat(1, ya.shape[1] // n_rx)[..., None] for v in (xa, xb))
-    keep = live[:, :, None]
+    ya, yb, ey = (v.repeat_interleave(n_rx, dim=1)[..., None]
+                  for v in (ya, yb, ey))
+    xa, xb, ex = (v.repeat(1, ya.shape[1] // n_rx)[..., None]
+                  for v in (xa, xb, ex))
+    keep = live[:, :, None] & ~(ey | ex)
     for a, b in ((0, 3), (3, 6), (6, 0)):
         xs, ys, xe, ye = d[..., a], d[..., a + 1], d[..., b], d[..., b + 1]
         la, lb = (ya - ys) * (xe - xs), (yb - ys) * (xe - xs)
@@ -261,9 +299,10 @@ def rasterize_tiles(table: torch.Tensor, ids: torch.Tensor,
     s = image_size
     n, f = table.shape[0], table.shape[1]
     n_t, k_cap = ids.shape[1], ids.shape[2]
-    if s % tile_h or s % tile_w or n_t != (s // tile_h) * (s // tile_w):
+    n_ty, n_tx = tile_grid(s, tile_h, tile_w)
+    if n_t != n_ty * n_tx:
         raise ValueError(f"rasterize_tiles: {n_t} tiles of {tile_h}x{tile_w}"
-                         f" do not cover {s}x{s}")
+                         f", the {s}x{s} frame takes {n_ty * n_tx}")
     require(table, "table", torch.float32, (n, f, FACE_FLOATS))
     require(ids, "ids", torch.int32, (n, n_t, k_cap))
     require(counts, "counts", torch.int32, (n, n_t))
@@ -289,11 +328,11 @@ def rasterize_tiled(faces: torch.Tensor, image_size: int, near: float = 0.0,
     depth), the counterpart of rnr_tpu's rasterize_pallas: the same
     RasterOutput as `rasterize_face_index`, plus `overflow` [N], the
     candidates the tile lists dropped (non-zero: the render is
-    incomplete and max_faces_per_tile must be raised)."""
+    incomplete and max_faces_per_tile must be raised).  Any S: the
+    tiles are at most tile_h x tile_w (min with S), those of the last row
+    and column cut by the frame."""
     s = image_size
-    if s % tile_h or s % tile_w:
-        raise ValueError(f"image_size {s} not divisible by tile "
-                         f"{tile_h}x{tile_w}")
+    tile_h, tile_w = min(tile_h, s), min(tile_w, s)
     n, f = faces.shape[0], faces.shape[1]
     table, ids, counts, overflow = bin_faces(faces, s, tile_h, tile_w,
                                              max_faces_per_tile)

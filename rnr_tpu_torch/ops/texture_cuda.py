@@ -11,6 +11,7 @@ and of w * g.  uv is G-buffer data and gets no gradient (:589).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rnr_tpu_torch.ops import _build
@@ -60,6 +61,64 @@ def mipmap_scatter_torch(uv_map: torch.Tensor, g: torch.Tensor, sizes):
         x, y = level_coords(uv_map, s)
         grads.append(scatter_taps_torch(x, y, g, s))
     return grads
+
+
+def grid_exponent(gmax: float, n_pixels: int) -> int:
+    """K2b's fixed-point grid 2^-k for one call, the rule of
+    `grid_exponent` in csrc/mipmap_scatter.cu: with M = max|g| < 2^(E+1)
+    (E from M's f32 exponent field, at least -126) and P < 2^p pixels,
+    k = 61 - p - E keeps P * M * 2^k, the most a texel's sum can reach,
+    below 2^62."""
+    bits = int(np.float32(abs(gmax)).view(np.uint32))
+    return 61 - int(n_pixels).bit_length() - (max(bits >> 23, 1) - 127)
+
+
+def mipmap_scatter_fixed_torch(uv_map: torch.Tensor, g: torch.Tensor,
+                               sizes):
+    """K2b's arithmetic in plain torch, bit for bit: each tap's w * g,
+    exact in float64, rounded onto the grid 2^-k (`grid_exponent`, ties
+    to even), summed as int64 (in any order: the sum is exact), then the
+    sum to float64, times 2^-k, to f32.  NaN everywhere for a non-finite
+    g.  Off the main path: it is what K2b is held to bit for bit, where
+    `mipmap_scatter_torch` is the f32 oracle."""
+    ch = g.shape[-1]
+    gd = g.reshape(-1, ch).to(torch.float64)
+    gmax = float(g.abs().max()) if g.numel() else 0.0
+    n_pix = g.numel() // ch if ch else 0
+    k = grid_exponent(gmax, n_pix) if gmax else 0
+    grads = []
+    for s in sizes:
+        if not np.isfinite(gmax):
+            grads.append(torch.full((s, s, ch), float("nan"),
+                                    device=g.device))
+            continue
+        x, y = level_coords(uv_map, s)
+        acc = torch.zeros((s * s, ch), dtype=torch.int64, device=g.device)
+        for idx, w in bilinear_taps(x.reshape(-1).to(torch.float32),
+                                    y.reshape(-1).to(torch.float32), s, s):
+            q = torch.round(w.to(torch.float64)[:, None] * gd * 2.0 ** k)
+            acc.index_add_(0, idx, q.to(torch.int64))
+        grads.append((acc.to(torch.float64) * 2.0 ** -k).to(
+            torch.float32).reshape(s, s, ch))
+    return grads
+
+
+def scatter_rounding_bound(uv_map: torch.Tensor, g: torch.Tensor,
+                           sizes) -> list[torch.Tensor]:
+    """Per level and texel, the most K2b's grid can move a texel's sum
+    before its last rounding: (its taps of nonzero weight) x 2^-(k+1)."""
+    ch = g.shape[-1]
+    gmax = float(g.abs().max())
+    k = grid_exponent(gmax, g.numel() // ch)
+    out = []
+    for s in sizes:
+        x, y = level_coords(uv_map, s)
+        taps = torch.zeros(s * s, dtype=torch.float64, device=g.device)
+        for idx, w in bilinear_taps(x.reshape(-1).to(torch.float32),
+                                    y.reshape(-1).to(torch.float32), s, s):
+            taps.index_add_(0, idx, (w != 0).to(torch.float64))
+        out.append((taps * 2.0 ** -(k + 1)).reshape(s, s, 1))
+    return out
 
 
 def touched_texels(uv_map: torch.Tensor, sizes) -> list[int]:
@@ -128,11 +187,12 @@ def mipmap_scatter(uv_map: torch.Tensor, g: torch.Tensor, sizes):
     """K2b: uv_map [N, H, W, 2] f32, g [N, H, W, Ch] -> the gradient
     [S_l, S_l, Ch] f32 of every level of side `sizes[l]`; the plain
     version on CPU tensors.  The kernel pre-reduces each warp's 8 x 4
-    pixel tile per texel in shared memory before its f32 vector atomics
-    (csrc/mipmap_scatter.cu): not bitwise reproducible.  Ch <= 128.
-    The kernel reads uv as float2 and, where Ch % 4 == 0, g as float4: a
-    view at an offset off those alignments is copied here (the C entry
-    refuses it)."""
+    pixel tile per texel in shared memory and sums in 64-bit fixed point
+    (csrc/mipmap_scatter.cu), so its result does not depend on the order
+    blocks run in: bit-equal run to run, and to
+    `mipmap_scatter_fixed_torch`.  Ch <= 128.  The kernel reads uv as
+    float2 and, where Ch % 4 == 0, g as float4: a view at an offset off
+    those alignments is copied here (the C entry refuses it)."""
     if not use_kernel(uv_map, g):
         return mipmap_scatter_torch(uv_map, g, sizes)
     n, h, w, ch = g.shape
@@ -146,18 +206,24 @@ def mipmap_scatter(uv_map: torch.Tensor, g: torch.Tensor, sizes):
         gf = gf.clone()
     require(uv, "uv_map", torch.float32, (n, h, w, 2))
     require(gf, "g", torch.float32, (n, h, w, ch))
-    grads = [torch.zeros((s, s, ch), dtype=torch.float32, device=uv.device)
+    grads = [torch.empty((s, s, ch), dtype=torch.float32, device=uv.device)
              for s in sizes]
-    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 9)
+    # the int64 copy of each level of a launch, and max|g|'s bits
+    acc = torch.empty(max(sum(s * s for s in sizes[k:k + LEVELS_PER_LAUNCH])
+                          for k in range(0, len(sizes), LEVELS_PER_LAUNCH))
+                      * ch, dtype=torch.int64, device=uv.device)
+    mbits = torch.empty(1, dtype=torch.int32, device=uv.device)
+    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 8, 9)
     stream = stream_of(uv)
     for k in range(0, len(grads), LEVELS_PER_LAUNCH):
         grp = grads[k:k + LEVELS_PER_LAUNCH]
         pad = LEVELS_PER_LAUNCH - len(grp)
         mipmap_scatter.launches += 1
         check_launch(f(*[t.data_ptr() for t in grp], *[0] * pad,
-                       uv.data_ptr(), gf.data_ptr(),
-                       *[t.shape[0] for t in grp], *[0] * pad, len(grp),
-                       n, h, w, ch, stream), "mipmap_scatter")
+                       acc.data_ptr(), mbits.data_ptr(), uv.data_ptr(),
+                       gf.data_ptr(), *[t.shape[0] for t in grp],
+                       *[0] * pad, len(grp), n, h, w, ch, stream),
+                     "mipmap_scatter")
     return grads
 
 

@@ -90,10 +90,12 @@ def is_main_process() -> bool:
 def fetch_global(x: torch.Tensor, sp: int = 1, group=None) -> np.ndarray:
     """A tensor sharded over the ranks of `group` (the world when None)
     as one host array, a collective that every rank of the group calls.
-    The group's ranks are laid out as (dp, sp): rank r holds rows
-    [s·H/sp, (s+1)·H/sp) (dim 1) of samples shard d (dim 0), d = r // sp,
-    s = r % sp; the frames come back whole, rows over sp, then samples
-    over dp.  Gloo gathers from host memory."""
+    The group's ranks are laid out as (dp, sp): rank r holds sp share s
+    of the rows (dim 1, shares of any size: sharding.row_split) of
+    samples shard d (dim 0), d = r // sp, s = r % sp; the frames come
+    back whole, rows over sp, then samples over dp.  Each rank's rows are
+    padded to the largest share for the gather, then cropped.  Gloo
+    gathers from host memory."""
     x = x.detach()
     if x.dtype == torch.bfloat16:
         x = x.float()
@@ -101,8 +103,17 @@ def fetch_global(x: torch.Tensor, sp: int = 1, group=None) -> np.ndarray:
     if n > 1:
         if dist.get_backend(group) == "gloo":
             x = x.cpu()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
+        rows = torch.tensor([x.shape[1]], device=x.device)
+        counts = [torch.empty_like(rows) for _ in range(n)]
+        dist.all_gather(counts, rows, group=group)
+        counts = [int(c) for c in counts]
+        pad = torch.zeros((x.shape[0], max(counts) - x.shape[1],
+                           *x.shape[2:]), dtype=x.dtype, device=x.device)
+        parts = [torch.empty((x.shape[0], max(counts), *x.shape[2:]),
+                             dtype=x.dtype, device=x.device)
+                 for _ in range(n)]
+        dist.all_gather(parts, torch.cat([x, pad], dim=1), group=group)
+        parts = [p[:, :c] for p, c in zip(parts, counts)]
         x = torch.cat([torch.cat(parts[d:d + sp], dim=1)
                        for d in range(0, n, sp)])
     return x.cpu().numpy()

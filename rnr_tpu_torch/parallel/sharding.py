@@ -6,8 +6,11 @@ views, sp the image rows, and XLA's SPMD partitioner inserts the U-Net's
 halo exchanges and turns the norms' and the loss's reductions into
 collectives.  PyTorch has no such partitioner, so the port writes them.
 A mesh is laid out as rnr_tpu's: rank r has dp index r // sp and sp
-index r % sp, and holds rows [s·H/sp, (s+1)·H/sp) of its dp share of the
-global batch.  The steps of train/steps.py take a mesh (make_sharded_*
+index r % sp, and holds sp share s of the rows of its dp share of the
+global batch: the frame's H rows in units of 2**num_down (the U-Net's
+innermost row), ceil(u / sp) units to the first u % sp indices and
+floor(u / sp) to the rest (`row_split`), so that every level's rows split
+at the same places.  The steps of train/steps.py take a mesh (make_sharded_*
 are rnr_tpu's names for them): each rank runs the single-device step on
 its rows of the global batch, with
 
@@ -32,10 +35,11 @@ its rows of the global batch, with
   `xla` convs under a mesh because a Pallas conv would need a
   hand-written halo exchange; the port has one).
 
-A frame of H rows runs over sp ranks only where H % (sp · 2**num_down)
-== 0 and H / (sp · 2**num_down) >= 2 (`check_rows`): the innermost
-level then has at least 2 rows a rank, which a reflect halo needs
-(rnr_tpu's partitioner pads uneven shards).  On one rank (`ONE_RANK`, a
+A frame of H rows runs over sp ranks only where H % 2**num_down == 0
+and H / 2**num_down >= 2 sp (`check_rows`): the innermost level then has
+at least 2 rows a rank, which a reflect halo needs.  rnr_tpu shards any H
+that sp divides (GSPMD carries the levels that sp does not divide; its
+device_put refuses the rest).  On one rank (`ONE_RANK`, a
 mesh of None) the norms are the module's own, dropout draws from the
 caller's generator and the collectives sum one term.
 """
@@ -127,14 +131,28 @@ def mesh_shape(n: int, dp: int | None = None) -> tuple[int, int]:
 
 def check_rows(h: int, sp: int, num_down: int) -> None:
     """Raises ValueError unless a frame of h rows splits over sp ranks
-    through a U-Net of num_down levels: h % (sp · 2**num_down) == 0 and
-    h / (sp · 2**num_down) >= 2."""
-    unit = sp * 2 ** num_down
-    if sp > 1 and (h % unit or h // unit < 2):
+    through a U-Net of num_down levels: h % 2**num_down == 0 and
+    h / 2**num_down >= 2 sp (2 innermost rows a rank)."""
+    unit = 2 ** num_down
+    if sp > 1 and (h % unit or h // unit < 2 * sp):
         raise ValueError(
             f"{h} rows over sp={sp} with {num_down} U-Net downs: the rows "
-            f"must be a multiple of sp * 2**num_down = {unit}, at least "
-            f"{2 * unit} (2 innermost rows a rank)")
+            f"must be a multiple of 2**num_down = {unit}, at least 2 * sp * "
+            f"2**num_down = {2 * sp * unit} (2 innermost rows a rank)")
+
+
+def row_split(h: int, sp: int, unit: int = 1) -> list[tuple[int, int]]:
+    """(rows, first row) of each sp index for a frame of h rows: its
+    h // unit units of `unit` rows, ceil(u / sp) to the first u % sp
+    indices and floor(u / sp) to the rest; equal shards where sp divides
+    u."""
+    q, r = divmod(h // unit, sp)
+    out, first = [], 0
+    for i in range(sp):
+        rows = (q + (i < r)) * unit
+        out.append((rows, first))
+        first += rows
+    return out
 
 
 def make_mesh(n_devices: int | None = None, dp: int | None = None) -> Mesh:
@@ -162,31 +180,31 @@ def batch_sharding(mesh: Mesh, n: int) -> slice:
     return slice(off, off + local)
 
 
-def row_sharding(mesh: Mesh, h: int) -> slice:
-    """This rank's image rows of a frame of h (dim 1, over sp); raises
-    where sp does not divide h."""
-    local, off = local_rows(h, mesh.sp, mesh.sp_index)
+def row_sharding(mesh: Mesh, h: int, unit: int = 1) -> slice:
+    """This rank's image rows of a frame of h (dim 1, over sp), in units
+    of `unit` rows (`row_split`)."""
+    local, off = row_split(h, mesh.sp, unit)[mesh.sp_index]
     return slice(off, off + local)
 
 
-def _shard(v: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _shard(v: torch.Tensor, mesh: Mesh, unit: int) -> torch.Tensor:
     """This rank's samples and rows of a map [N, H, ...], contiguous (the
     kernels read their inputs densely)."""
     return v[batch_sharding(mesh, v.shape[0]),
-             row_sharding(mesh, v.shape[1])].contiguous()
+             row_sharding(mesh, v.shape[1], unit)].contiguous()
 
 
-def shard_batch(batch: dict, mesh: Mesh) -> dict:
-    """The rank's samples and rows of every map of a global batch
-    ([N, H, ...], DNR's)."""
-    return {k: _shard(v, mesh) for k, v in batch.items()}
+def shard_batch(batch: dict, mesh: Mesh, unit: int = 1) -> dict:
+    """The rank's samples and rows (in units of `unit`) of every map of a
+    global batch ([N, H, ...], DNR's)."""
+    return {k: _shard(v, mesh, unit) for k, v in batch.items()}
 
 
-def shard_rnr_batch(batch: dict, mesh: Mesh) -> dict:
-    """The rank's samples and rows of a global G-buffer batch: [N, H, ...]
-    maps sliced over (dp, sp); gcn_pos and arrays of fewer than 3 dims
-    whole."""
-    return {k: v if k == "gcn_pos" or v.ndim < 3 else _shard(v, mesh)
+def shard_rnr_batch(batch: dict, mesh: Mesh, unit: int = 1) -> dict:
+    """The rank's samples and rows (in units of `unit`) of a global
+    G-buffer batch: [N, H, ...] maps sliced over (dp, sp); gcn_pos and
+    arrays of fewer than 3 dims whole."""
+    return {k: v if k == "gcn_pos" or v.ndim < 3 else _shard(v, mesh, unit)
             for k, v in batch.items()}
 
 
@@ -218,13 +236,16 @@ class _AllSum(torch.autograd.Function):
         return g, None
 
 
-def _global_var_mean(x32: torch.Tensor, mesh: Mesh):
+def _global_var_mean(x32: torch.Tensor, mesh: Mesh, rows: tuple[int, int]):
     """(var, mean) over (N, H, W) of every rank's rows, as torch.var_mean
     (unbiased=False) of the global batch: the mean from the all-reduced
     sum, then the variance from the all-reduced centred squares;
     differentiable (the all-reduce's backward sums the ranks'
-    gradients).  Every rank holds as many rows as the others."""
-    count = x32.shape[0] * x32.shape[1] * x32.shape[2] * mesh.world
+    gradients).  `rows`: (this rank's, the frame's) rows at full
+    resolution; every level's rows split in the same ratio (units of the
+    innermost row), so the level's global rows are x's times theirs."""
+    count = (x32.shape[0] * mesh.dp * x32.shape[2]
+             * (x32.shape[1] * rows[1] // rows[0]))
     mean = _AllSum.apply(x32.sum(dim=(0, 1, 2), keepdim=True),
                          mesh.group) / count
     d = x32 - mean
@@ -245,16 +266,18 @@ def _set(mods: list, attr: str, value):
 
 
 @contextlib.contextmanager
-def global_batch_norm(model: torch.nn.Module, mesh: Mesh):
+def global_batch_norm(model: torch.nn.Module, mesh: Mesh,
+                      rows: tuple[int, int] | None = None):
     """Inside: every BatchActNorm of `model` normalises by the global
     batch's moments (a forward, and the backward that recomputes remat'd
-    blocks, both run inside).  On one rank nothing changes."""
+    blocks, both run inside).  `rows`: (this rank's, the frame's) rows,
+    (1, sp) when None (equal shards).  On one rank nothing changes."""
     if mesh.world == 1:
         yield
         return
     norms = [m for m in model.modules() if isinstance(m, BatchActNorm)]
-    with _set(norms, "moments", functools.partial(_global_var_mean,
-                                                  mesh=mesh)):
+    with _set(norms, "moments", functools.partial(
+            _global_var_mean, mesh=mesh, rows=rows or (1, mesh.sp))):
         yield
 
 
@@ -308,8 +331,10 @@ def dropout_generator(mesh: Mesh, seed: int, device) -> torch.Generator | None:
 
 
 def global_metrics(mesh: Mesh, means: dict, shares: dict) -> dict:
-    """The global batch's metrics from one all-reduce: `means` (equal rows
-    on every rank) averaged, `shares` (of the loss) summed; detached."""
+    """The global batch's metrics from one all-reduce: `means` averaged
+    over the ranks (each rank's samples' whole-frame values: the same on
+    every sp index of a dp index, however its rows split), `shares` (of
+    the loss) summed; detached."""
     keys = list(means) + list(shares)
     vals = torch.stack([means[k] / mesh.world for k in means]
                        + [shares[k].detach() for k in shares])

@@ -60,15 +60,20 @@ def init_rnr_params(model: nn.Module, seed: int) -> nn.Module:
     the card and one on the CPU start from the same weights: every
     kernel (conv HWIO, Dense [in, out], nn.Linear [out, in]) lecun-normal,
     a normal truncated at two deviations with variance 1 / fan-in; the
-    SNDense vectors `u` standard normal.  Biases, norm scales, textures,
-    the PReLU slope and the SH coefficients keep their constructed
-    values."""
+    SNDense vectors `u` standard normal; nn.Linear's biases zero (flax
+    Dense's, where torch's own init would draw them from the global RNG,
+    another draw in every process).  The other biases, norm scales,
+    textures, the PReLU slope and the SH coefficients keep their
+    constructed values."""
     gen = torch.Generator().manual_seed(seed)
     modules = dict(model.named_modules())
     for name, p in model.named_parameters():
         *path, leaf = name.split(".")
-        linear = (isinstance(modules[".".join(path)], torch.nn.Linear)
-                  and leaf == "weight")
+        in_linear = isinstance(modules[".".join(path)], torch.nn.Linear)
+        if in_linear and leaf == "bias":
+            p.zero_()
+            continue
+        linear = in_linear and leaf == "weight"
         if leaf != "kernel" and not linear:
             continue
         fan_in = p.shape[-1] if linear else int(np.prod(p.shape[:-1]))
@@ -107,10 +112,11 @@ def make_rnr_loss_fn(model: RNRModel, lighting_idx: int = 0,
     image.  Dropout draws from `dropout_generator` where one is given,
     else from `generator`.
 
-    With `mesh`, `batch` holds this rank's samples and rows and the
-    terms are its shares of the global batch's loss, which sum over the
-    ranks to that loss: the image L1's sum over the global batch's
-    cropped element count (`image_l1_share`), the priors on parameters
+    With `mesh`, `batch` holds this rank's samples and rows (of a frame
+    of `frame_rows`) and the terms are its shares of the global batch's
+    loss, which sum over the ranks to that loss: the image L1's sum over
+    the global batch's cropped element count (`image_l1_share`), the
+    priors on parameters
     alone divided by the world size, the chroma prior's masked sum over
     the global batch's alpha sum.
     """
@@ -119,13 +125,14 @@ def make_rnr_loss_fn(model: RNRModel, lighting_idx: int = 0,
     world = mesh.world
 
     def loss_fn(batch: dict, statics: dict, generator: torch.Generator,
-                dropout_generator: torch.Generator | None = None):
+                dropout_generator: torch.Generator | None = None,
+                frame_rows: int | None = None):
         out = model(batch, lighting_idx=lighting_idx, train=True,
                     generator=generator, dropout_generator=dropout_generator)
         alpha = batch["alpha_map"]
         img_gt = batch["img_gt"]
         loss_rn = image_l1_share(out["img"], img_gt, alpha,
-                                 cfg.loss.border_crop, mesh)
+                                 cfg.loss.border_crop, mesh, frame_rows)
         if cfg.lighting.fix_lighting:
             loss_light = torch.zeros((), device=alpha.device)
         else:
@@ -153,14 +160,16 @@ def make_rnr_loss_fn(model: RNRModel, lighting_idx: int = 0,
 
 
 def image_l1_share(out: torch.Tensor, img_gt: torch.Tensor,
-                   alpha: torch.Tensor, b: int,
-                   mesh: sharding.Mesh) -> torch.Tensor:
+                   alpha: torch.Tensor, b: int, mesh: sharding.Mesh,
+                   frame_rows: int | None = None) -> torch.Tensor:
     """This rank's share of the global batch's image_l1_loss: its rows
     cropped by b at the frame's global edges only (`sharding.crop_rows`),
-    summed over the global batch's cropped element count; the whole loss
-    on one rank."""
+    summed over the global batch's cropped element count (a frame of
+    `frame_rows`, sp equal shares of this rank's when None); the whole
+    loss on one rank."""
     n, h, w, c = out.shape
-    count = n * mesh.dp * (h * mesh.sp - 2 * b) * (w - 2 * b) * c
+    rows = frame_rows if frame_rows is not None else h * mesh.sp
+    count = n * mesh.dp * (rows - 2 * b) * (w - 2 * b) * c
     return image_l1_loss(out, img_gt, alpha, b, sharding.crop_rows(mesh, b),
                          count)
 
@@ -208,13 +217,14 @@ def make_rnr_train_step(model: RNRModel, optimizer: torch.optim.Optimizer,
     b = model.cfg.loss.border_crop
 
     def step(batch: dict, statics: dict, generator: torch.Generator) -> dict:
-        sharding.check_rows(batch["alpha_map"].shape[1], mesh.sp,
-                            _num_down(model))
-        local = sharding.shard_rnr_batch(batch, mesh)
+        h = batch["alpha_map"].shape[1]
+        sharding.check_rows(h, mesh.sp, _num_down(model))
+        local = sharding.shard_rnr_batch(batch, mesh, 2 ** _num_down(model))
         optimizer.zero_grad(set_to_none=True)
-        with sharding.global_batch_norm(model, mesh), \
+        with sharding.global_batch_norm(
+                model, mesh, (local["alpha_map"].shape[1], h)), \
                 sharding.row_shards(model, mesh):
-            loss, aux = loss_fn(local, statics, generator, drop)
+            loss, aux = loss_fn(local, statics, generator, drop, h)
             loss.backward()
         sharding.all_reduce_grads(model, mesh)
         optimizer.step()
@@ -263,12 +273,14 @@ def make_rnr_eval_step(model: RNRModel, lighting_idx: int = 0,
              lp_override: torch.Tensor | None = None,
              sh_override: torch.Tensor | None = None,
              relight: bool = False) -> dict:
-        sharding.check_rows(batch["alpha_map"].shape[1], mesh.sp,
-                            _num_down(model))
+        h = batch["alpha_map"].shape[1]
+        sharding.check_rows(h, mesh.sp, _num_down(model))
+        local = sharding.shard_rnr_batch(batch, mesh, 2 ** _num_down(model))
         with torch.inference_mode(), \
-                sharding.global_batch_norm(model, mesh), \
+                sharding.global_batch_norm(
+                    model, mesh, (local["alpha_map"].shape[1], h)), \
                 sharding.row_shards(model, mesh):
-            out = model(sharding.shard_rnr_batch(batch, mesh),
+            out = model(local,
                         lighting_idx=lighting_idx,
                         lp_override=lp_override if relight else None,
                         v_feature_override=v_feature,
@@ -370,17 +382,18 @@ def make_dnr_train_step(cfg: DNRConfig, mods: DNRModules,
     b = cfg.loss.border_crop
 
     def step(batch: dict, generator: torch.Generator) -> dict:
-        sharding.check_rows(batch["alpha_map"].shape[1], mesh.sp,
-                            _num_down(mods))
-        local = sharding.shard_batch(batch, mesh)
+        h = batch["alpha_map"].shape[1]
+        sharding.check_rows(h, mesh.sp, _num_down(mods))
+        local = sharding.shard_batch(batch, mesh, 2 ** _num_down(mods))
         optimizer.zero_grad(set_to_none=True)
-        with sharding.global_batch_norm(mods, mesh), \
+        with sharding.global_batch_norm(
+                mods, mesh, (local["alpha_map"].shape[1], h)), \
                 sharding.row_shards(mods, mesh):
             out, _ = dnr_forward(mods, local, train=True,
                                  generator=drop or generator,
                                  sh_start_ch=cfg.sh_start_ch)
             loss = image_l1_share(out, local["img_gt"], local["alpha_map"],
-                                  b, mesh)
+                                  b, mesh, h)
             loss.backward()
         sharding.all_reduce_grads(mods, mesh)
         optimizer.step()

@@ -66,6 +66,7 @@ from rnr_tpu_torch.ops.sh_cuda import (fan_bwd_partials, sh_shade,
                                        sh_shade_fan_torch, sh_shade_torch)
 from rnr_tpu_torch.ops.texture_cuda import (mipmap_sample, mipmap_sample_torch,
                                             mipmap_scatter,
+                                            mipmap_scatter_fixed_torch,
                                             mipmap_scatter_torch)
 from rnr_tpu_torch.synthetic import (build_batch, degenerate_faces,
                                      random_faces)
@@ -332,13 +333,15 @@ def test_mipmap_scatter_entry_refuses_misaligned_bases(dev, uv_off, g_off):
     """K2b's C entry returns cudaErrorInvalidValue for a uv base that is
     not 8-byte aligned or, at C % 4 == 0, a g base that is not 16-byte
     aligned, and launches nothing."""
-    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 6, 9)
+    f = _build.fn("mipmap_scatter", "rnr_mipmap_scatter", 8, 9)
     d = torch.full((8, 8, 4), 7.0, device=dev)
+    acc = torch.empty(8 * 8 * 4, dtype=torch.int64, device=dev)
+    mbits = torch.empty(1, dtype=torch.int32, device=dev)
     uv = torch.zeros(2 * 4 * 4 * 2 + 4, device=dev)
     g = torch.ones(2 * 4 * 4 * 4 + 4, device=dev)
-    rc = f(d.data_ptr(), 0, 0, 0, uv.data_ptr() + 4 * uv_off,
-           g.data_ptr() + 4 * g_off, 8, 0, 0, 0, 1, 2, 4, 4, 4,
-           torch.cuda.current_stream().cuda_stream)
+    rc = f(d.data_ptr(), 0, 0, 0, acc.data_ptr(), mbits.data_ptr(),
+           uv.data_ptr() + 4 * uv_off, g.data_ptr() + 4 * g_off, 8, 0, 0, 0,
+           1, 2, 4, 4, 4, torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 1   # cudaErrorInvalidValue
     assert bool((d == 7.0).all())
@@ -722,8 +725,36 @@ def test_mipmap_scatter_kernel(dev, ch, sizes, one_texel):
     t = mipmap_scatter_torch(uv, g, sizes)
     torch.cuda.synchronize()
     for a, b in zip(k, t):
-        # f32 atomics in another order
+        # the f32 sums in another order
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("ch", [24, 30, 5])
+@pytest.mark.parametrize("case", ["gbuffer", "corner", "nonfinite", "zero"])
+def test_mipmap_scatter_kernel_is_its_fixed_point_arithmetic(dev, ch, case):
+    """K2b bit-equal to mipmap_scatter_fixed_torch and to itself run to
+    run (its 64-bit fixed-point sums do not depend on the order blocks
+    run in), on the G-buffer's uv at 96^2, b2, every pixel on the corner
+    texel, a g holding one NaN (every texel NaN) and g = 0."""
+    uv = _t(build_batch(96, 16, 2)["uv_map"], dev)
+    if case == "corner":
+        uv = torch.zeros_like(uv)
+    g = _t(np.random.default_rng(ch).standard_normal((2, 96, 96, ch))
+           .astype(np.float32), dev)
+    if case == "nonfinite":
+        g[1, 40, 40, 0] = float("nan")
+    if case == "zero":
+        g.zero_()
+    sizes = (128, 64, 32, 16)
+    k = mipmap_scatter(uv, g, sizes)
+    k2 = mipmap_scatter(uv, g, sizes)
+    f = mipmap_scatter_fixed_torch(uv, g, sizes)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(k, k2, f):
+        assert torch.equal(a, a2) or (case == "nonfinite"
+                                      and bool(a.isnan().all()))
+        assert torch.equal(a, b) or (case == "nonfinite"
+                                     and bool(a.isnan().all() & b.isnan().all()))
 
 
 def _scatter_check(uv, g, sizes):
@@ -917,11 +948,15 @@ def test_autograd_functions_launch_the_backward_kernels(dev):
 
 
 @pytest.mark.parametrize("s,n,f", [(96, 3, 300), (24, 1, 60), (64, 2, 700),
-                                   (128, 1, 2000)])
+                                   (128, 1, 2000), (37, 1, 60),
+                                   (131, 1, 400), (200, 2, 800),
+                                   (509, 1, 300)])
 def test_rasterize_tiles_kernel(dev, s, n, f):
     """K7 against its plain version on the card, bitwise, at sides that
-    are not multiples of 128 (tiles min(32, S) x min(128, S)), N up to 3;
-    the card's binning equals the CPU's."""
+    are not multiples of 128 (tiles min(32, S) x min(128, S)) and at
+    sides the tiles do not divide (37, 131, 200, 509: the last row and
+    column of tiles cut by the frame), N up to 3; the card's binning
+    equals the CPU's."""
     faces = random_faces(np.random.default_rng(s + n), n, f)
     th, tw = min(32, s), min(128, s)
     table, ids, counts, overflow = bin_faces(_t(faces, dev), s, th, tw, 2048)

@@ -699,12 +699,13 @@ def test_drivers_take_rnr_tpu_flags(name):
                                   ["--mesh_devices", "4", "--mesh_dp", "2"]])
 def test_train_rnr_refuses_what_is_not_ported(flag, tmp_path):
     """Image rows across devices (rnr_tpu's sp: --mesh_dp below the
-    ranks' count, 1 by default) run where the frame's rows split over
-    sp * 2**num_down (test_torch_sp.py); 96 rows do not split over sp 2
+    ranks' count, 1 by default) run where the frame's rows are a multiple
+    of 2**num_down with at least 2 innermost rows a rank
+    (test_torch_sp.py); 96 rows (3 units of 32) do not split over sp 2
     with train_rnr's 5 downs, which raises before any rank starts, and
     so before the coordinator's rendezvous."""
     from rnr_tpu_torch.drivers import train_rnr
-    with pytest.raises(ValueError, match=r"multiple of sp \* 2\*\*num_down"):
+    with pytest.raises(ValueError, match=r"at least 2 \* sp \* 2\*\*num_down"):
         train_rnr.main(["--synthetic", "--platform", "cpu", "--img_size",
                         "96", "--logging_root", str(tmp_path), *flag])
 

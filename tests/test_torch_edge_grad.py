@@ -28,6 +28,7 @@ from rnr_tpu_torch.ops import edge_grad
 from rnr_tpu_torch.ops.edge_grad import (ORACLE_TAKEN, edge_gradients,
                                          rasterize_opt, silhouette)
 from rnr_tpu_torch.ops.rasterize import rasterize_face_index
+from rnr_tpu_torch.ops.rasterize_cuda import _untile, tile_grid
 from rnr_tpu_torch.ops.render_api import rasterize_rgbad
 
 torch.set_num_threads(2)
@@ -162,8 +163,9 @@ def test_edge_gradients_match_rnr_tpu_on_given_maps():
 
 
 def test_oracle_taken_where_k7_does_not_tile_or_overflows(monkeypatch):
-    """At 48^2, which 32 x 128 does not tile, K7 runs on 24 x 48 tiles and
-    the oracle is not taken: the alpha map equals rnr_tpu's oracle's.  On
+    """At 48^2, which 32 x 128 does not divide, K7 runs on 32 x 48 tiles
+    (the second row cut to 16 by the frame) and the oracle is not taken:
+    the alpha map equals rnr_tpu's oracle's.  On
     rnr_tpu's overflow case (8 faces over the 32^2 screen, a cap of 4
     candidates a tile) K7 reports overflow, the oracle's maps are returned
     with K7's overflow kept, and the count rises; backend "xla" takes the
@@ -172,14 +174,15 @@ def test_oracle_taken_where_k7_does_not_tile_or_overflows(monkeypatch):
     tiled = edge_grad.rasterize_tiled
     tiles = []
 
-    def counted(*a, **k):
-        tiles.append((k["tile_h"], k["tile_w"]))
-        return tiled(*a, **k)
+    def counted(faces, s, **k):
+        tiles.append((min(k.get("tile_h", 32), s),
+                      min(k.get("tile_w", 128), s)))
+        return tiled(faces, s, **k)
 
     monkeypatch.setattr(edge_grad, "rasterize_tiled", counted)
     ORACLE_TAKEN.update(overflow=0)
     a = silhouette(torch.from_numpy(_mesh()), 48, 0.0, 100.0)
-    assert tiles == [(24, 48)] and ORACLE_TAKEN == {"overflow": 0}
+    assert tiles == [(32, 48)] and ORACLE_TAKEN == {"overflow": 0}
     np.testing.assert_array_equal(a.numpy(), np.asarray(j_raster(
         jnp.asarray(_mesh()), 48, far=100.0).alpha_map))
 
@@ -197,20 +200,31 @@ def test_oracle_taken_where_k7_does_not_tile_or_overflows(monkeypatch):
     assert ORACLE_TAKEN == {"overflow": 1} and len(tiles) == 2
 
 
-@pytest.mark.parametrize("s,tile", [(32, (32, 32)), (48, (24, 48)),
-                                    (200, (25, 100)), (224, (32, 112)),
-                                    (320, (32, 80)), (512, (32, 128)),
-                                    (37, (1, 37)), (131, (1, 1))])
-def test_winner_tiles_divide_every_size(s, tile):
-    """K7's tile at any frame size: the largest divisors of S within
-    32 x 128, so K7 runs where the TPU kernel's fixed tile would not."""
-    assert edge_grad.winner_tiles(s) == tile
+@pytest.mark.parametrize("s,grid", [(32, (1, 1)), (48, (2, 1)),
+                                    (200, (7, 2)), (224, (7, 2)),
+                                    (320, (10, 3)), (512, (16, 4)),
+                                    (37, (2, 1)), (509, (16, 4))])
+def test_k7_tiles_cover_every_size(s, grid):
+    """K7's tiles at any frame size: 32 x 128 (min with S), ceil(S / 32)
+    x ceil(S / 128) of them, the last row and column cut by the frame (64
+    tiles at 509^2, where the largest divisors within 32 x 128 gave 1 x 1
+    tiles); the plain version's maps cover every pixel once."""
+    assert tile_grid(s, min(32, s), min(128, s)) == grid
+    th, tw = min(32, s), min(128, s)
+    n_t = grid[0] * grid[1]
+    fill = torch.arange(n_t, dtype=torch.float32)[None, :, None].expand(
+        1, n_t, th * tw)
+    seen = _untile(fill, s, th, tw)
+    assert seen.shape == (1, s, s)
+    assert torch.equal(seen[0, 0, 0], torch.tensor(0.0))
+    assert torch.equal(seen[0, -1, -1], torch.tensor(float(n_t - 1)))
 
 
 @pytest.mark.parametrize("s", [40, 72])
 def test_untiled_sizes_match_the_oracle(s):
-    """At sizes 32 x 128 does not divide (tiles 20 x 40, 24 x 72), the
-    silhouette on K7's plain version equals rnr_tpu's (its oracle there),
+    """At sizes 32 x 128 does not divide (tiles 32 x 40, 32 x 72, the
+    last row cut by the frame), the silhouette on K7's plain version
+    equals rnr_tpu's (its oracle there),
     and the faces' gradient is within 1e-4 of the largest of its custom
     VJP's."""
     f = _mesh(3, 40)

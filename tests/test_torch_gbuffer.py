@@ -251,18 +251,35 @@ def test_render_gbuffer_matches_jax():
 
 @pytest.mark.parametrize("backend", ["auto", "xla"])
 def test_render_raster_matches_jax(backend):
-    s = 64
+    _raster_check(64, backend, "pallas_interpret" if backend == "auto"
+                  else "xla")
+
+
+@pytest.mark.parametrize("s", [37, 131, 200])
+def test_render_raster_at_any_size_matches_the_oracle(s):
+    """At frame sizes 32 x 128 does not divide (37: one tile cut to 37 x
+    37; 131: 5 x 2 tiles, the last row and column 3 pixels; 200: 7 x 2
+    tiles), the G-buffer path on K7's plain version with partial edge
+    tiles against rnr_tpu's render_raster on its exact oracle: face
+    index equal, depth and weights as in test_render_raster_matches_jax."""
+    _raster_check(s, "auto", "xla")
+
+
+def _raster_check(s, backend, jax_backend):
     mesh = sphere_mesh(12, 16)
     view = camera_ring(s)[7]
     want = jdrv._gbuffer(jg.render_raster, _jax_mesh(mesh), view, s,
-                         backend="pallas_interpret" if backend == "auto"
-                         else "xla")
+                         backend=jax_backend)
     got = _gbuffer(tg.render_raster, tg.make_mesh_buffers(mesh, "cpu"), view,
                    s, backend=backend)
     fim = got.face_index_map.numpy()
     np.testing.assert_array_equal(fim, np.asarray(want.face_index_map))
+    # against rnr_tpu's oracle K7's depth is another expression's, a few
+    # f32 roundings off (ROADMAP.md's documented deltas; no map reads it)
     np.testing.assert_allclose(got.depth_map.numpy(),
-                               np.asarray(want.depth_map), rtol=1e-5)
+                               np.asarray(want.depth_map),
+                               rtol=1e-5 if backend == "xla"
+                               or jax_backend != "xla" else 1e-4)
 
     cam = [view[k][None] for k in ("proj", "pose", "dist_coeffs")]
     faces_got = tg.project_faces(tg.make_mesh_buffers(mesh, "cpu"),
@@ -277,10 +294,12 @@ def test_render_raster_matches_jax(backend):
     d = np.abs(got_w - want_w).max(-1)
     limit = np.minimum(np.maximum(MAP_TOL, WITNESS_K * u_m), WORST_TOL)
     assert (d <= limit).all(), float((d - limit).max())
-    if backend == "auto":
-        assert got.overflow.tolist() == np.asarray(want.overflow).tolist()
-    else:
+    if backend == "xla":
         assert got.overflow is None and want.overflow is None
+    elif want.overflow is None:    # rnr_tpu's oracle: K7 dropped nothing
+        assert int(got.overflow.sum()) == 0
+    else:
+        assert got.overflow.tolist() == np.asarray(want.overflow).tolist()
     with pytest.raises(ValueError):
         _gbuffer(tg.render_raster, tg.make_mesh_buffers(mesh, "cpu"), view,
                  s, backend="pallas")

@@ -435,7 +435,10 @@ def test_mesh_shapes_and_what_is_not_ported():
         make_mesh(2, dp=2)
     check_rows(32, 2, 2)
     check_rows(512, 8, 5)
-    for h, sp in ((36, 2), (32, 8), (8, 2)):
+    check_rows(36, 2, 2)                  # 9 units of 4 rows: 5 and 4
+    check_rows(480, 2, 5)
+    check_rows(480, 4, 5)
+    for h, sp in ((34, 2), (32, 8), (8, 2), (12, 2)):
         with pytest.raises(ValueError, match=r"sp \* 2\*\*num_down"):
             check_rows(h, sp, 2)
 

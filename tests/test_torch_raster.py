@@ -27,7 +27,7 @@ from rnr_tpu_torch.ops.rasterize_cuda import (BLOCK, WARP_W, _untile,
                                               bin_faces, cull_keep,
                                               rasterize_tiled,
                                               rasterize_tiles_torch,
-                                              tile_pixels)
+                                              tile_in_frame, tile_pixels)
 from rnr_tpu_torch.synthetic import degenerate_faces, random_faces
 from chip_variants import K7_SHAPES
 
@@ -245,9 +245,24 @@ def test_offscreen_and_out_of_int32_faces_bin_as_in_jax():
     assert 6 not in ids and 7 not in ids
 
 
-def test_tiled_rejects_a_size_the_tiles_do_not_divide():
-    with pytest.raises(ValueError):
-        rasterize_tiled(torch.zeros((1, 2, 3, 3)), 48, tile_h=32, tile_w=48)
+@pytest.mark.parametrize("s", [37, 131, 200])
+def test_tiled_at_any_size_matches_the_oracle(s):
+    """K7's plain version at frame sizes that 32 x 128 does not divide,
+    on tiles cut by the frame's edge, against rnr_tpu's
+    rasterize_face_index: face index and alpha equal, weights within
+    1e-5 (test_oracle_matches_jax's)."""
+    rng = np.random.default_rng(s)
+    faces = np.stack([_random_faces(rng, 40), _random_faces(rng, 40)])
+    want = jr.rasterize_face_index(jnp.asarray(faces), s, far=100.0)
+    got = rasterize_tiled(_t(faces), s, far=100.0)
+    assert int(got.overflow.sum()) == 0
+    np.testing.assert_array_equal(got.face_index_map.numpy(),
+                                  np.asarray(want.face_index_map))
+    np.testing.assert_array_equal(got.alpha_map.numpy(),
+                                  np.asarray(want.alpha_map))
+    np.testing.assert_allclose(got.weight_map.numpy(),
+                               np.asarray(want.weight_map), atol=1e-5)
+    assert bool((got.face_index_map >= 0).any())
 
 
 # ------------------------------------------------ K7's exact cull, emulated
@@ -321,6 +336,7 @@ def _inside_any(table, ids, counts, s, th, tw, rh, rw):
                     for a in tile_pixels(s, th, tw, table.dtype, "cpu"))
     rows = torch.arange(n).reshape(n, 1, 1)
     ny, nx = -(-th // rh), -(-tw // rw)
+    frame = tile_in_frame(s, th, tw, "cpu")[None, :, None, :]
     out = []
     for k0 in range(0, k_run, 64):
         cid = ids[:, :, k0:min(k0 + 64, k_run)]
@@ -328,7 +344,8 @@ def _inside_any(table, ids, counts, s, th, tw, rh, rw):
         x0, y0, x1, y1, x2, y2 = (d[..., i] for i in (0, 1, 3, 4, 6, 7))
         ins = (((yp - y0) * (x1 - x0) >= (xp - x0) * (y1 - y0))
                & ((yp - y1) * (x2 - x1) >= (xp - x1) * (y2 - y1))
-               & ((yp - y2) * (x0 - x2) >= (xp - x2) * (y0 - y2)))
+               & ((yp - y2) * (x0 - x2) >= (xp - x2) * (y0 - y2))
+               & frame)
         c = ins.shape[2]
         grid = torch.zeros((n, n_t, c, ny * rh, nx * rw), dtype=torch.bool)
         grid[..., :th, :tw] = ins.reshape(n, n_t, c, th, tw)
@@ -343,6 +360,10 @@ RASTER_CASES = {
     "random96": (96, lambda r: random_faces(r, 3, 300), 2048),
     "random128": (128, lambda r: random_faces(r, 1, 2000), 2048),
     "degenerate64": (64, lambda r: degenerate_faces(r, 64), 2048),
+    # tiles cut by the frame: 32 x 40 over 40^2 (the second row 8 pixels),
+    # 32 x 128 over 131^2 (the last row and column 3 pixels)
+    "random40": (40, lambda r: random_faces(r, 1, 150), 2048),
+    "random131": (131, lambda r: random_faces(r, 1, 400), 2048),
     "degenerate128": (128, lambda r: np.concatenate(
         [degenerate_faces(r, 128), random_faces(r, 1, 400)], 1), 2048),
     "overflow32": (32, lambda r: np.stack(

@@ -374,12 +374,128 @@ def test_halo_rows_against_the_padded_frame(sp2, pad, k):
     np.testing.assert_allclose(dx, x.grad.numpy(), rtol=1e-6, atol=1e-6)
 
 
+# ------------------------------------------------------------ sp 3, uneven
+
+# a frame of 10 units of 2**num_down = 4 rows over sp 3: 4, 3 and 3 units
+# (16, 12, 12 rows); DNR (num_down 3) at 7 units of 8: 24, 16, 16 rows
+SP3_ROWS, SP3_DNR_ROWS = 40, 56
+
+
+def _sp3_batches(payload) -> tuple[dict, dict]:
+    """The RNR global batch of 2 distinct views at SP3_ROWS x 32 (the
+    synthetic sphere's maps and its mirror image, another target) and a
+    DNR batch at SP3_DNR_ROWS x 32."""
+    from rnr_tpu_torch.synthetic import build_batch
+    b = build_batch(SP3_ROWS, TINY["gcn_v"], batch=2)
+    b = {k: (v[:, :, 4:36].copy() if v.ndim >= 3 else v)
+         for k, v in b.items()}
+    for k, v in b.items():
+        if v.ndim >= 3:
+            v[1] = np.flip(v[1], axis=1)
+    b["img_gt"][1] = 0.8 - 0.5 * b["img_gt"][1]
+    rng = np.random.default_rng(7)
+    d = {"uv_map": rng.uniform(0, 1, (2, SP3_DNR_ROWS, 32, 2)),
+         "sh_basis_map": rng.uniform(-1, 1, (2, SP3_DNR_ROWS, 32, 9)),
+         "alpha_map": rng.uniform(size=(2, SP3_DNR_ROWS, 32, 1)) > 0.2,
+         "img_gt": rng.uniform(0, 1, (2, SP3_DNR_ROWS, 32, 3))}
+    return ({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+             b.items()},
+            {k: torch.from_numpy(v.astype(np.float32)) for k, v in d.items()})
+
+
+def _sp3_run(payload, mesh) -> dict:
+    """The eval frame, one RNR train step and one DNR step over `mesh`
+    (one process when None), at the _sp3_batches."""
+    from rnr_tpu_torch.train.steps import (make_dnr_train_step,
+                                           make_rnr_eval_step,
+                                           make_rnr_train_step)
+    batch, dbatch = _sp3_batches(payload)
+    statics = {k: torch.from_numpy(v) for k, v in payload["statics"].items()}
+    model = _rnr_model(payload)
+    out = {}
+    img = make_rnr_eval_step(model, mesh=mesh)(batch)["img"]
+    out["frame"] = img.numpy() if mesh is None else fetch_global(img, mesh.sp)
+    met = make_rnr_train_step(model, create_rnr_optimizer(model, LR),
+                              mesh=mesh)(batch, statics,
+                                         make_generator(0, "cpu"))
+    out["metrics"], out["grads"] = _scalars(met), _grads(model)
+    out["img"] = (met["img"].numpy() if mesh is None
+                  else fetch_global(met["img"], mesh.sp))
+    out["rows"] = met["img"].shape[1]
+    mods = _dnr_modules()
+    dnr = make_dnr_train_step(DNR_CFG, mods, create_rnr_optimizer(mods, LR),
+                              mesh)
+    out["dnr_metrics"] = _scalars(dnr(dbatch, make_generator(0, "cpu")))
+    out["dnr_grads"] = _grads(mods)
+    return out
+
+
+def _rank_sp3(local_rank: int, port: int, payload_path: str) -> dict:
+    """One rank of sp 3 (rank-side)."""
+    torch.set_num_threads(1)
+    with open(payload_path, "rb") as f:
+        payload = pickle.load(f)
+    init_distributed(f"127.0.0.1:{port}", 1, 0, 3, local_rank=local_rank,
+                     platform="cpu")
+    try:
+        return _sp3_run(payload, make_mesh(3))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def sp3(reference):
+    with open(reference["path"], "rb") as f:
+        payload = pickle.load(f)
+    return {"ranks": run_ranks(_rank_sp3, 3, free_port(), reference["path"]),
+            "single": _sp3_run(payload, None)}
+
+
+def test_sp3_splits_ten_units_as_four_three_three(sp3):
+    assert sharding.row_split(SP3_ROWS, 3, 4) == [(16, 0), (12, 16),
+                                                   (12, 28)]
+    assert [r["rows"] for r in sp3["ranks"]] == [16, 12, 12]
+    assert sharding.row_split(SP3_DNR_ROWS, 3, 8) == [(24, 0), (16, 24),
+                                                       (16, 40)]
+
+
+def test_sp3_uneven_rnr_step_equals_the_single_process_step(sp3):
+    want = sp3["single"]
+    for got in sp3["ranks"]:
+        for k in LOSS_KEYS + ("psnr_valid", "mae_valid"):
+            np.testing.assert_allclose(got["metrics"][k], want["metrics"][k],
+                                       rtol=1e-5, err_msg=k)
+        err = _grad_errors(got["grads"], want["grads"])
+        assert _grads_hold(got["grads"], want["grads"]), err
+        np.testing.assert_allclose(got["img"], want["img"], rtol=0,
+                                   atol=1e-5 * np.abs(want["img"]).max())
+
+
+def test_sp3_uneven_eval_frame_equals_the_single_device_frame(sp3):
+    want = sp3["single"]["frame"]
+    assert float(np.std(want)) > 1e-3
+    for got in sp3["ranks"]:
+        np.testing.assert_allclose(got["frame"], want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_sp3_uneven_dnr_step_equals_the_single_process_step(sp3):
+    want = sp3["single"]
+    for got in sp3["ranks"]:
+        for k in ("loss", "psnr_valid", "mae"):
+            np.testing.assert_allclose(got["dnr_metrics"][k],
+                                       want["dnr_metrics"][k], rtol=1e-5,
+                                       err_msg=k)
+        err = _grad_errors(got["dnr_grads"], want["dnr_grads"])
+        assert max(err.values()) <= 1e-4, err
+
+
 # ------------------------------------------------------------ one process
 
 
 def test_rows_that_do_not_split_raise_before_any_collective():
-    """check_rows: a frame's rows split over sp * 2**num_down with at
-    least 2 innermost rows a rank; the steps check before their first
+    """check_rows: a frame's rows in units of 2**num_down, at least 2
+    innermost rows a rank; the steps check before their first
     collective (a one-rank mesh dressed as sp 2 has no group); the
     border crop keeps a shard's inner edges."""
     from rnr_tpu_torch.models.rnr import RNRModel
@@ -388,7 +504,7 @@ def test_rows_that_do_not_split_raise_before_any_collective():
                                   num_down=2, gcn_blocks=2, num_azi=2,
                                   num_polar=1), TINY["gcn_v"], device="cpu")
     mesh = dataclasses.replace(make_mesh(1), sp=2, world=2)
-    batch = {"alpha_map": torch.ones(1, 20, 32, 1)}
+    batch = {"alpha_map": torch.ones(1, 14, 32, 1)}
     with pytest.raises(ValueError, match="num_down"):
         make_sharded_rnr_eval_step(model, mesh)(batch)
     with pytest.raises(ValueError, match="num_down"):
@@ -422,11 +538,9 @@ def test_train_rnr_over_two_row_shards(tmp_path, capfd):
     assert len(losses) >= 3 and np.isfinite(losses).all()
 
 
-def test_test_rnr_over_two_row_shards_renders_the_single_device_frames(
-        tmp_path):
-    """Each view rendered over sp 2 (the whole G-buffer on each rank, its
-    rows through the network, the frame gathered) equals the
-    single-device frame; the first sp rank writes the PNGs."""
+def _test_rnr_args(tmp_path) -> list:
+    """test_rnr's flags on make_scene's 2-view 32^2 scene and a
+    checkpoint of fresh TINY-like weights."""
     from rnr_tpu_torch.config import save_config
     from rnr_tpu_torch.data import load_obj
     from rnr_tpu_torch.drivers import test_rnr
@@ -448,10 +562,19 @@ def test_test_rnr_over_two_row_shards_renders_the_single_device_frames(
     save_checkpoint(os.path.join(ckpt, "model_final.ckpt"),
                     init_rnr_params(RNRModel(cfg, nv, device="cpu"), 0), None,
                     0)
-    args = ["--data_root", root, "--checkpoint_dir", ckpt, "--platform",
+    return ["--data_root", root, "--checkpoint_dir", ckpt, "--platform",
             "cpu", "--obj_high_fp", "_/mesh.obj", "--obj_gcn_fp",
             "_/mesh.obj", "--img_size", "32", "--sphere_samples_fp",
             "nonexistent.mat"]
+
+
+def test_test_rnr_over_two_row_shards_renders_the_single_device_frames(
+        tmp_path):
+    """Each view rendered over sp 2 (the whole G-buffer on each rank, its
+    rows through the network, the frame gathered) equals the
+    single-device frame; the first sp rank writes the PNGs."""
+    from rnr_tpu_torch.drivers import test_rnr
+    args = _test_rnr_args(tmp_path)
     one = test_rnr.main(args + ["--out_dir", str(tmp_path / "one")],
                         keep_frames=True)
     two = test_rnr.main(args + ["--out_dir", str(tmp_path / "two"),
@@ -465,7 +588,27 @@ def test_test_rnr_over_two_row_shards_renders_the_single_device_frames(
                                    err_msg=str(k))
     assert _written(tmp_path / "two" / "learned0") == _written(
         tmp_path / "one" / "learned0")
-    with pytest.raises(ValueError, match="per_stage_timing"):
-        test_rnr.main(args + ["--mesh_devices", "2", "--per_stage_timing",
-                              "true"])
+
+
+def test_test_rnr_per_stage_timing_over_two_row_shards(tmp_path):
+    """--per_stage_timing over sp 2 (two Gloo ranks): every bucket of the
+    single-device run is timed on the first sp rank (each stage between
+    barriers of the sp group, on its rows), and the staged frames,
+    gathered, equal the single-device staged frames."""
+    from rnr_tpu_torch.drivers import test_rnr
+    args = _test_rnr_args(tmp_path) + ["--per_stage_timing", "true"]
+    one = test_rnr.main(args + ["--out_dir", str(tmp_path / "one")],
+                        keep_frames=True)
+    two = test_rnr.main(args + ["--out_dir", str(tmp_path / "two"),
+                                "--mesh_devices", "2"], keep_frames=True)
+    assert two["views"] == one["views"] == 2
+    assert set(two["buckets"]) == set(one["buckets"]) >= {
+        "t_raster", "t_preproc", "t_sh", "t_texture", "t_rays", "t_network",
+        "t_render"}
+    assert all(np.isfinite(v) and v >= 0 for v in two["buckets"].values())
+    for k, f in one["frames"].items():
+        f = f.numpy()
+        np.testing.assert_allclose(two["frames"][k].numpy(), f, rtol=0,
+                                   atol=1e-5 * np.abs(f).max(),
+                                   err_msg=str(k))
 
